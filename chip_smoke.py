@@ -8,25 +8,39 @@ Phases, each printed as one JSON object with its seconds:
 * ``device``: the card (``nvidia-smi`` name and power limit, SMs, shared
   memory per block, L2).
 * ``build``: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
-  with ``nvcc`` for ``sm_90a``, one compiler per source, all at once.
+  (cache_matmul, block_fused_ffn, flash_attention) with ``nvcc`` for
+  ``sm_90a``, one compiler per source, all at once.
 * ``kernels``: holds each kernel against its plain PyTorch version on the
-  card, in bf16 and fp32 (TF32 off), at full-width yi-9b decode shapes, a
-  256-row prefill-sized shape and a ragged one, with tiles and blocks
-  lowered from full-width plans under several grants; then times each at
-  the serving path's decode shape.
+  card, in bf16 and fp32 (TF32 off): the matmul and FFN kernels at
+  full-width yi-9b decode shapes, a 256-row prefill-sized shape and a
+  ragged one; flash attention native and quantized (int8, fp8) at the
+  prefill path's shape, non-causal, ragged and at hd 32, with the fp32
+  quantized kernel bitwise equal to the native one on dequantized K/V;
+  tiles and blocks lowered from full-width plans under several grants.
+  Then times each kernel at the shape of each path that runs it (the
+  FFN kernels at decode and at the prefill's 2048 rows), checked against
+  its plain version on the timed inputs.
 * ``e2e``: full-width yi-9b cut to 4 layers, random weights from one
   seed: prefill, then two teacher-forced decode epochs (an LBM plan and an
-  LWM plan) on the card with the kernels, against the same entry points
-  on the CPU with the same weights.
-* ``serve``: the main path.  ``MultiTenantServer`` serves two full-width,
+  LWM plan), and ``make_prefill`` under an LBM plan with native KV and an
+  LWM plan with int8 KV, on the card with the kernels, against the same
+  entry points on the CPU with the same weights.
+* ``serve``: slice 1's path.  ``MultiTenantServer`` serves two full-width,
   full-depth (48-layer) yi-9b tenants, one resident and one arriving with
-  a 256-token prompt, for 32 steps under a page pool tight enough that the
-  grants switch between LBM (block_fused_ffn) and LWM (cache_matmul).  The
+  a 256-token prompt, for 32 steps.  The plan kinds must be those the
+  scheduler (the reference's, copied) can grant at full width.  The
   kernels' launch counters are zeroed just before the run and read just
-  after it.  Then one decode epoch is profiled for where the time goes.
-* ``self``: serial against pipelined serving on the card (full width,
-  4 layers), token streams bitwise equal, under an LBM pool and an LWM
-  pool.
+  after it.  Then one LWM decode epoch is profiled for where the time
+  goes.
+* ``self``: serial against pipelined serving on the card, token streams
+  bitwise equal: full width (4 layers) in a starved pool, granted LWM,
+  and the reduced width in a pool where the scheduler grants LBM.
+* ``prefill``: slice 2's path.  ``make_prefill`` of full-width,
+  full-depth yi-9b (2 prompts of 1024 tokens) plain, under the smallest
+  LBM grant that lowers fused with native KV, and under 32-page LWM
+  grants with int8 and fp8 KV; counters zeroed just before and read just
+  after one pass of the four; gated against the plain path on the card;
+  timed, and profiled once per plan kind.
 
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -58,11 +72,24 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-3}     # tests/test_kernels.py::tol
 
-SERVE_PAGES = 1800     # LBM (324 pages) fits before the arrival's KV
-#                        reservation (1536 pages), not after it
+SERVE_PAGES = 1800     # an LBM grant (324 pages, where one exists) fits
+#                        before the arrival's KV reservation (1536 pages)
 SERVE_STEPS = 32
 ARRIVAL = dict(arrive_at=8.0, prompt_len=256, n_inferences=16)
-SELF_POOLS = ((1800, "LBM"), (64, "LWM"))   # serial vs pipelined pools
+# serial vs pipelined: (width, pages).  Full width is granted LWM only, so
+# the starved full-width pool holds cache_matmul; block_fused_ffn's
+# bitwise contract is held at the reduced width, where the scheduler
+# grants LBM.
+SELF_POOLS = (("full", 16), ("reduced", 64))
+PREFILL = dict(batch=2, prompt_len=1024, lwm_pages=32)
+# Cosine bars of the quantized-KV prefill against the plain path.  int8:
+# tests/test_quant_decode.py's 0.999.  fp8_e4m3 keeps 3 mantissa bits, a
+# per-element error about three times int8's at hd 128; over 48 layers
+# of random weights it reaches 0.9989 with the plain attention as well
+# as with the kernel (the control in prefill_main_path, PERF.md), so its
+# bar is 0.998.
+PREFILL_COSINE = {"int8": 0.999, "fp8_e4m3": 0.998}
+ATTN_GRANTS = (9, 32, 60)                   # pages; lower_attn -> blocks
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -189,6 +216,73 @@ def kernel_cases(cfg, dev):
     return rows
 
 
+def flash_cases(cfg, dev):
+    """flash_attention and flash_attention_quantized (int8, fp8) against
+    their plain versions: the prefill path's shape, a non-causal one, a
+    ragged one and hd 32, with the tiles that plans under several grants
+    legalize to; bf16 and fp32.  In fp32 the quantized kernel must equal
+    the native kernel on the dequantized K/V bitwise."""
+    import torch
+    from repro_torch.core.plan import lower_attn
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    B, S = PREFILL["batch"], PREFILL["prompt_len"]
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    shapes = (("path", B, H, Hkv, S, hd, True),
+              ("non-causal", 1, H, Hkv, 512, hd, False),
+              ("ragged", 1, 8, 2, 333, 64, True),
+              ("ragged non-causal", 1, 8, 2, 333, 64, False),
+              ("hd32", 1, 4, 2, 256, 32, True))
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = _dtype_name(dtype)
+        eb = torch.tensor([], dtype=dtype).element_size()
+        for label, b, h, hkv, s, d, causal in shapes:
+            q = _randn(gen, (b, h, s, d), dtype)
+            k = _randn(gen, (b, hkv, s, d), dtype)
+            v = _randn(gen, (b, hkv, s, d), dtype)
+            for kv in ("native", "int8", "fp8_e4m3"):
+                plans = {lower_attn(d, eb, p, kv, eb if kv == "native" else 1)
+                         for p in ATTN_GRANTS}
+                tiles = {ops.legalize_attn_tile(p.block_q, p.block_kv, d, s,
+                                                limit): p for p in plans}
+                for tile, plan in tiles.items():
+                    row = {"kernel": "flash_attention", "case": label,
+                           "dtype": dn, "kv": kv, "causal": causal,
+                           "shape": [b, h, hkv, s, d],
+                           "plan_block": [plan.block_q, plan.block_kv],
+                           "hopper_tile": [tile.bq, tile.bkv]}
+                    if kv == "native":
+                        got = kfa.flash_attention(q, k, v, causal, tile)
+                        want = kfa.flash_attention_plain(q, k, v, causal)
+                    else:
+                        row["kernel"] = "flash_attention_quantized"
+                        kq, ks = quant.quantize_rows(k, kv)
+                        vq, vs = quant.quantize_rows(v, kv)
+                        ks, vs = ks[..., 0], vs[..., 0]
+                        got = kfa.flash_attention_quantized(q, kq, vq, ks, vs,
+                                                            causal, tile)
+                        want = kfa.flash_attention_quantized_plain(
+                            q, kq, vq, ks, vs, causal)
+                        if dtype == torch.float32:
+                            native = kfa.flash_attention(
+                                q, quant.dequantize_rows(kq, ks[..., None]),
+                                quant.dequantize_rows(vq, vs[..., None]),
+                                causal, tile)
+                            row["bitwise_vs_native_on_dequantized"] = bool(
+                                torch.equal(got, native))
+                    err, ok = _close(got, want, dn)
+                    ok = ok and row.get("bitwise_vs_native_on_dequantized",
+                                        True)
+                    rows.append({**row, "max_abs_err": err, "tol": TOL[dn],
+                                 "ok": ok})
+    return rows
+
+
 def _median_ms(fn, reps: int = 30) -> float:
     """Median device time of one call: CUDA events around each call, the
     queue kept ahead of the host by a sleep kernel so that host overhead
@@ -255,7 +349,7 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
     bound, by = _bound(eb * (2 * batch * d + 3 * d * f), 6 * batch * d * f, dn)
     err, ok = _close(kffn.block_fused_ffn(x, wg, wu, wd, hop),
                      kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
-    out["block_fused_ffn"] = {
+    out["block_fused_ffn.decode"] = {
         "shape": [batch, d, f], "plan_block": [lbm.block_s, lbm.block_f],
         "hopper_tile": [hop.bs, hop.bf, hop.bk],
         "ms": _median_ms(lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop)),
@@ -266,13 +360,146 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
     return out
 
 
+def _plan(cfg, kind: str, pages: int, seq_block: int,
+          kv_dtype: str = "native"):
+    """The KernelPlan a ``kind`` grant of ``pages`` lowers to, as the
+    server lowers a Selection (core/plan.py::lower_selection)."""
+    import torch
+    from repro_torch.core.allocator import Selection
+    from repro_torch.core.mct import MappingCandidate
+    from repro_torch.core.plan import lower_selection
+    cand = MappingCandidate(kind=kind, p_need=pages, dram_bytes=0, flops=0,
+                            loops=(), cache_map=(), usage_limit_bytes=0)
+    eb = torch.tensor([], dtype=cfg.torch_dtype).element_size()
+    plan = lower_selection(Selection(cand, pages, 0.0), pages,
+                           seq_block=seq_block, d_model=cfg.d_model,
+                           d_ff=cfg.d_ff, dtype_bytes=eb, head_dim=cfg.hd,
+                           kv_dtype=kv_dtype)
+    if plan.kind != kind:
+        raise AssertionError(f"{kind}@{pages}p lowers to {plan.describe()}")
+    return plan
+
+
+def prefill_plans(cfg):
+    """The prefill phase's settings: plain, the smallest LBM grant that
+    lowers fused at seq_block = prompt_len (native KV), and LWM grants
+    with int8 and fp8 KV."""
+    from repro_torch.core.vmem import fused_ffn_pages
+    s, lwm = PREFILL["prompt_len"], PREFILL["lwm_pages"]
+    lbm = fused_ffn_pages(s, cfg.d_model, cfg.d_ff, 2)
+    return {"plain": None,
+            "LBM/native": _plan(cfg, "LBM", lbm, s),
+            "LWM/int8": _plan(cfg, "LWM", lwm, s, "int8"),
+            "LWM/fp8_e4m3": _plan(cfg, "LWM", lwm, s, "fp8_e4m3")}
+
+
+def prefill_timings(cfg, dev):
+    """block_fused_ffn (LBM plan), cache_matmul's up and down GEMMs (LWM
+    plan) and both flash kernels at the prefill path's shapes (bf16,
+    B x prompt_len rows), with the tiles the prefill phase's plans lower
+    to, each held against its plain version on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import block_fused_ffn as kffn
+    from repro_torch.kernels import cache_matmul as kmm
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant
+    dt, dn, eb = torch.bfloat16, "bfloat16", 2
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    plans = prefill_plans(cfg)
+    lbm, lwm = plans["LBM/native"], plans["LWM/int8"]
+    B, S = PREFILL["batch"], PREFILL["prompt_len"]
+    d, f = cfg.d_model, cfg.d_ff
+    out = {}
+    x = _randn(gen, (B * S, d), dt)
+    wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wd = _randn(gen, (f, d), dt, 1 / math.sqrt(f))
+    hop = ops.legalize_ffn_tile(lbm.ffn.block_s, lbm.ffn.block_f, B * S, limit)
+    bound, by = _bound(eb * (2 * B * S * d + 3 * d * f), 6 * B * S * d * f, dn)
+    err, ok = _close(kffn.block_fused_ffn(x, wg, wu, wd, hop),
+                     kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
+    out["block_fused_ffn.prefill"] = {
+        "shape": [B * S, d, f], "plan": lbm.describe(),
+        "hopper_tile": [hop.bs, hop.bf, hop.bk],
+        "ms": _median_ms(lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop), 10),
+        "plain_ms": _median_ms(
+            lambda: kffn.block_fused_ffn_plain(x, wg, wu, wd), 10),
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "partial_bytes": kffn.partial_bytes(hop, B * S, d, f),
+        "max_abs_err": err, "ok": ok}
+    h = _randn(gen, (B * S, f), dt)
+    for label, a, b, tile in (("up", x, wg, lwm.ffn.up_tile),
+                              ("down", h, wd, lwm.ffn.down_tile)):
+        hop = ops.legalize_matmul_tile(tile, a.shape[0], limit)
+        m, k = a.shape
+        n = b.shape[1]
+        bound, by = _bound(eb * (m * k + k * n + m * n), 2 * m * k * n, dn)
+        err, ok = _close(kmm.cache_matmul(a, b, hop),
+                         kmm.cache_matmul_plain(a, b), dn)
+        out[f"cache_matmul.prefill.{label}"] = {
+            "shape": [m, k, n], "plan": lwm.describe(),
+            "hopper_tile": [hop.bm, hop.bn, hop.bk],
+            "ms": _median_ms(lambda: kmm.cache_matmul(a, b, hop), 10),
+            "plain_ms": _median_ms(lambda: kmm.cache_matmul_plain(a, b), 10),
+            "library_ms": _median_ms(lambda: torch.matmul(a, b), 10),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "ok": ok}
+    del x, h, wg, wu, wd
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = _randn(gen, (B, H, S, hd), dt)
+    k = _randn(gen, (B, Hkv, S, hd), dt)
+    v = _randn(gen, (B, Hkv, S, hd), dt)
+    flops = 2 * B * H * S * S * hd               # causal: half of 4*B*H*S*Sk*hd
+    qo_bytes = 2 * eb * B * H * S * hd           # q read, O written
+    tile = ops.legalize_attn_tile(lbm.attn.block_q, lbm.attn.block_kv, hd, S,
+                                  limit)
+    bound, by = _bound(qo_bytes + 2 * eb * B * Hkv * S * hd, flops, dn)
+    err, ok = _close(kfa.flash_attention(q, k, v, True, tile),
+                     kfa.flash_attention_plain(q, k, v, True), dn)
+    ms = _median_ms(lambda: kfa.flash_attention(q, k, v, True, tile))
+    out["flash_attention"] = {
+        "shape": [B, H, Hkv, S, hd], "plan": [lbm.attn.block_q,
+                                               lbm.attn.block_kv],
+        "hopper_tile": [tile.bq, tile.bkv], "ms": ms,
+        "tflops": flops / ms / 1e9,
+        "plain_ms": _median_ms(lambda: kfa.flash_attention_plain(q, k, v, True)),
+        "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err, "ok": ok}
+    kq, ks = quant.quantize_rows(k, lwm.kv_dtype)
+    vq, vs = quant.quantize_rows(v, lwm.kv_dtype)
+    ks, vs = ks[..., 0], vs[..., 0]
+    tile = ops.legalize_attn_tile(lwm.attn.block_q, lwm.attn.block_kv, hd, S,
+                                  limit)
+    bound, by = _bound(qo_bytes + 2 * B * Hkv * S * (hd + 4), flops, dn)
+    err, ok = _close(kfa.flash_attention_quantized(q, kq, vq, ks, vs, True, tile),
+                     kfa.flash_attention_quantized_plain(q, kq, vq, ks, vs, True),
+                     dn)
+    ms = _median_ms(lambda: kfa.flash_attention_quantized(q, kq, vq, ks, vs,
+                                                          True, tile))
+    out["flash_attention_quantized"] = {
+        "shape": [B, H, Hkv, S, hd], "kv": lwm.kv_dtype,
+        "plan": [lwm.attn.block_q, lwm.attn.block_kv],
+        "hopper_tile": [tile.bq, tile.bkv], "ms": ms,
+        "tflops": flops / ms / 1e9,
+        "plain_ms": _median_ms(lambda: kfa.flash_attention_quantized_plain(
+            q, kq, vq, ks, vs, True)),
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "max_abs_err": err, "ok": ok}
+    return out
+
+
 def check_kernels(cfg, dev):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = kernel_cases(cfg, dev)
+    rows = kernel_cases(cfg, dev) + flash_cases(cfg, dev)
     bad = [r for r in rows if not r["ok"]]
     timings = kernel_timings(cfg, dev, batch=2, lwm_pages=32, lbm_pages=324)
+    timings.update(prefill_timings(cfg, dev))
     bad += [k for k, v in timings.items() if not v["ok"]]
     worst = {}
     for r in rows:
@@ -327,38 +554,11 @@ def _e2e_run(cfg, params, dev, prompt, forced, plans):
     return torch.stack(out, 1).cpu()
 
 
-def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
-              lwm_pages: int = 32):
-    """The card with kernels against the CPU with the plain versions,
-    same weights and tokens.  Tolerance (bf16 activations rounded at
-    different points over 4 layers): max |logit difference| <= 2e-2 of the
-    largest reference logit; a greedy token may differ only where the
-    reference's own margin is within twice that."""
+def _gate(got, want, label: str):
+    """Card against reference logits [..., V]: max |difference| <= 2e-2
+    of the largest reference logit; a greedy token may differ only where
+    the reference's own margin is within twice that."""
     import torch
-    from repro_torch.core.plan import KernelPlan, lower_ffn
-    from repro_torch.core.vmem import LANE
-    from repro_torch.kernels import block_fused_ffn as kffn
-    from repro_torch.kernels import cache_matmul as kmm
-    from repro_torch.models import model as M
-    cfg = dataclasses.replace(cfg, num_layers=layers)
-    eb = torch.tensor([], dtype=cfg.torch_dtype).element_size()
-    plans = [KernelPlan("LBM", lbm_pages, lower_ffn(LANE, cfg.d_model, cfg.d_ff,
-                                                    eb, lbm_pages, True)),
-             KernelPlan("LWM", lwm_pages, lower_ffn(LANE, cfg.d_model, cfg.d_ff,
-                                                    eb, lwm_pages, False))]
-    if [p.ffn.fused for p in plans] != [True, False]:
-        raise AssertionError(f"e2e plans {plans} are not LBM then LWM")
-    rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab_size, (2, 8))
-    forced = rng.integers(0, cfg.vocab_size, (2, 9))
-    params = M.init_params(cfg, seed=1, device=dev)
-    l0 = (kmm.launches, kffn.launches)
-    got = _e2e_run(cfg, params, dev, prompt, forced, plans)
-    launches = {"cache_matmul": kmm.launches - l0[0],
-                "block_fused_ffn": kffn.launches - l0[1]}
-    want = _e2e_run(cfg, _to(params, "cpu"), "cpu", prompt, forced, plans)
-    del params
-    got, want = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     tol = 2e-2 * scale
@@ -366,34 +566,85 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
     margin = want.max(-1).values - want.gather(-1, g_arg[..., None])[..., 0]
     agree = float((g_arg == w_arg).float().mean())
     bad_tokens = int(((g_arg != w_arg) & (margin > 2 * tol)).sum())
-    ok = (bool(torch.isfinite(got).all()) and err <= tol and bad_tokens == 0
-          and all(v > 0 for v in launches.values()))
-    if not ok:
-        raise AssertionError(f"e2e: err {err} tol {tol} agree {agree} "
-                             f"bad_tokens {bad_tokens} launches {launches}")
-    return {"layers": layers, "positions": int(got.shape[1]),
-            "max_abs_err": err, "max_abs_logit": scale, "tol": tol,
-            "greedy_agreement": agree, "launches": launches,
-            "plans": [p.describe() for p in plans]}
+    if not (bool(torch.isfinite(got).all()) and err <= tol and bad_tokens == 0):
+        raise AssertionError(f"{label}: err {err} tol {tol} agree {agree} "
+                             f"bad_tokens {bad_tokens}")
+    return {"max_abs_err": err, "max_abs_logit": scale, "tol": tol,
+            "greedy_agreement": agree}
+
+
+def _counters():
+    """The four kernels' launch counters, by kernel name."""
+    from repro_torch.kernels import block_fused_ffn as kffn
+    from repro_torch.kernels import cache_matmul as kmm
+    from repro_torch.kernels import flash_attention as kfa
+    return {"cache_matmul": kmm.launches, "block_fused_ffn": kffn.launches,
+            "flash_attention": kfa.launches,
+            "flash_attention_quantized": kfa.launches_quantized}
+
+
+def _zero_counters():
+    from repro_torch.kernels import block_fused_ffn as kffn
+    from repro_torch.kernels import cache_matmul as kmm
+    from repro_torch.kernels import flash_attention as kfa
+    kmm.launches = kffn.launches = 0
+    kfa.launches = kfa.launches_quantized = 0
+
+
+def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
+              lwm_pages: int = 32):
+    """The card with kernels against the CPU with the plain versions,
+    same weights and tokens: prefill and two teacher-forced decode epochs
+    (LBM, LWM), then make_prefill of a ragged prompt under an LBM plan
+    with native KV and an LWM plan with int8 KV.  Tolerance (bf16
+    activations rounded at different points over 4 layers): see
+    :func:`_gate`."""
+    import torch
+    from repro_torch.core.vmem import LANE
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    plans = [_plan(cfg, "LBM", lbm_pages, LANE),
+             _plan(cfg, "LWM", lwm_pages, LANE)]
+    pf_plans = [plans[0], _plan(cfg, "LWM", lwm_pages, LANE, "int8")]
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 8))
+    forced = rng.integers(0, cfg.vocab_size, (2, 9))
+    prompt_len = 40              # ragged against every flash tile
+    long_prompt = rng.integers(0, cfg.vocab_size, (2, prompt_len))
+    prefill = M.make_prefill(cfg)
+
+    def run(params, device):
+        toks = torch.from_numpy(long_prompt).long().to(device)
+        pf = [prefill(params, {"tokens": toks}, p).float().cpu()
+              for p in pf_plans]
+        return _e2e_run(cfg, params, device, prompt, forced, plans), pf
+
+    params = M.init_params(cfg, seed=1, device=dev)
+    l0 = _counters()
+    got, got_pf = run(params, dev)
+    launches = {k: v - l0[k] for k, v in _counters().items()}
+    want, want_pf = run(_to(params, "cpu"), "cpu")
+    del params
+    V = cfg.vocab_size
+    res = {"layers": layers, "positions": int(got.shape[1]),
+           "decode": _gate(got[..., :V], want[..., :V], "e2e decode"),
+           "prefill": {p.describe(): _gate(g[..., :V], w[..., :V],
+                                           f"e2e prefill {p.describe()}")
+                       for p, g, w in zip(pf_plans, got_pf, want_pf)},
+           "prompt_len": prompt_len, "launches": launches,
+           "plans": [p.describe() for p in plans]}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"e2e: a kernel never launched: {launches}")
+    return res
 
 
 # -------------------------------------------------------------- serve --
-def _profile_epoch(srv, t, plan, k: int = 4):
-    """Device time by kernel over one decode epoch of tenant ``t`` (its
-    caches and params as the run left them), plus the same epoch timed on
-    the host clock without the profiler for the device's idle share."""
+def _profile(run):
+    """Device time by kernel of one call of ``run`` (warm, synchronised),
+    under ``torch.profiler``, and the device's idle share against the
+    same call timed on the host clock without the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    epoch = srv._epoch_cores[t.cfg.name]
-
-    def run():
-        kv = srv._kv_len(t.index + k)
-        toks, t.caches = epoch(t.params, t.caches, t.token, t.index, plan=plan,
-                               k=k, kv_len=kv)
-        t.token = toks[:, -1:]
-        t.index += k
-        torch.cuda.synchronize()
-
     run()                                   # warm
     t0 = time.perf_counter()
     run()
@@ -408,37 +659,74 @@ def _profile_epoch(srv, t, plan, k: int = 4):
                 return float(v)
         return 0.0
 
-    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()]
+    rows = [(e.key, dev_us(e), e.count,
+             str(getattr(e, "device_type", "")).endswith("CUDA"))
+            for e in prof.key_averages()]
     rows = [r for r in rows if r[1] > 0]
+    # kernels only, where the profiler tags them: an op and its kernel
+    # would otherwise count twice
+    kernels_only = any(r[3] for r in rows)
+    if kernels_only:
+        rows = [r for r in rows if r[3]]
     total_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     top = [{"name": n[:80], "device_ms": us / 1e3, "calls": c,
-            "share": us / total_us} for n, us, c in rows[:12]]
-    return {"plan": plan.describe(), "steps": k, "wall_ms": wall_ms,
+            "share": us / total_us} for n, us, c, _ in rows[:12]]
+    return {"wall_ms": wall_ms, "kernels_only": kernels_only,
             "device_ms": total_us / 1e3 if total_us else "not measured",
             "idle_share": (1 - total_us / 1e3 / wall_ms) if total_us else
             "not measured", "top": top}
 
 
-def serve_main_path(dev, counters):
+def _profile_epoch(srv, t, plan, k: int = 4):
+    """:func:`_profile` of one decode epoch of tenant ``t`` (its caches and
+    params as the run left them)."""
+    import torch
+    epoch = srv._epoch_cores[t.cfg.name]
+
+    def run():
+        kv = srv._kv_len(t.index + k)
+        toks, t.caches = epoch(t.params, t.caches, t.token, t.index, plan=plan,
+                               k=k, kv_len=kv)
+        t.token = toks[:, -1:]
+        t.index += k
+        torch.cuda.synchronize()
+
+    return {"plan": plan.describe(), "steps": k, **_profile(run)}
+
+
+def grantable_kinds(cfg, batch: int, pages: int):
+    """Plan kinds the scheduler can grant a tenant of ``cfg`` in a pool of
+    ``pages``: LWM always, LBM where the server's mapping of its decode
+    FFN graph carries an LBM candidate that fits the pool.  The mapping
+    is the port's copied core, so these are the reference's kinds (at
+    full width its 2 ms LBM block cap leaves LWM only)."""
+    from repro_torch.launch import serve as S
+    tm = S._tenant_model(S._ffn_graph(cfg.name, cfg, seq_block=batch),
+                         S._vmem_mapper(pages))
+    lbm = any(m.lbm is not None and m.lbm.p_need <= pages
+              for m in tm.mapping.mcts)
+    return {"LBM", "LWM"} if lbm else {"LWM"}
+
+
+def serve_main_path(cfg, dev, counters):
     """Two full-width, full-depth yi-9b tenants through the port's
     MultiTenantServer.  ``counters`` receives the kernels' launch counts
     of this run: zeroed just before ``run``, read just after."""
     import torch
-    from repro_torch.kernels import block_fused_ffn as kffn
-    from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.launch.serve import MultiTenantServer
     from repro_torch.sim.driver import TenantSpec
     torch.cuda.reset_peak_memory_stats()
-    srv = MultiTenantServer(["yi-9b"], tenants=[TenantSpec("yi-9b", **ARRIVAL)],
+    srv = MultiTenantServer([cfg.name], tenants=[TenantSpec(cfg.name, **ARRIVAL)],
                             batch=2, max_len=512, total_pages=SERVE_PAGES,
                             epoch_len=4, device=dev, reduced=False)
-    kmm.launches = 0
-    kffn.launches = 0
+    _zero_counters()
     out = srv.run(steps=SERVE_STEPS)
-    counters.update({"cache_matmul": kmm.launches,
-                     "block_fused_ffn": kffn.launches})
-    if min(counters.values()) <= 0:
+    counters.update(_counters())
+    want_kinds = grantable_kinds(cfg, 2, SERVE_PAGES)
+    need = {"cache_matmul"} | ({"block_fused_ffn"} if "LBM" in want_kinds
+                               else set())
+    if min(counters[k] for k in need) <= 0:
         raise AssertionError(f"serve: a kernel never launched: {counters}")
     vocab = srv.tenants[0].cfg.vocab_size
     tenants = {}
@@ -457,54 +745,171 @@ def serve_main_path(dev, counters):
                           "lbm_frac": res["lbm_frac"], "plans": dict(plans),
                           "first_tokens": o[0, :8].tolist()}
     kinds = {p.kind for t in srv.tenants for p in t.plans}
-    if kinds != {"LBM", "LWM"}:
-        raise AssertionError(f"serve: plan kinds {kinds}, want LBM and LWM")
-    res = {"arch": "yi-9b", "layers": srv.tenants[0].cfg.num_layers,
+    if kinds != want_kinds:
+        raise AssertionError(f"serve: plan kinds {kinds}, the scheduler "
+                             f"grants {want_kinds}")
+    res = {"arch": cfg.name, "layers": srv.tenants[0].cfg.num_layers,
            "total_pages": SERVE_PAGES, "batch": 2, "max_len": 512,
-           "steps": SERVE_STEPS, "launches": dict(counters),
+           "steps": SERVE_STEPS, "plan_kinds": sorted(kinds),
+           "launches": dict(counters),
            "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
            "tokens_per_s": out["tokens_per_s"], "dram_total": out["dram_bytes"],
            "host": out["host"], "tenants": tenants,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     resident = srv.tenants[0]
-    plan_of = {p.kind: p for p in resident.plans}
-    res["profile"] = [_profile_epoch(srv, resident, plan_of[k])
-                      for k in ("LWM", "LBM")]
+    lwm = next(p for p in resident.plans if p.kind == "LWM")
+    res["profile"] = [_profile_epoch(srv, resident, lwm)]
     return res
 
 
 # --------------------------------------------------------------- self --
 def check_serial_pipelined(cfg, dev, layers: int = 4):
     """Serial (per-step) and pipelined (epoch) serving of two resident
-    full-width tenants: bitwise-equal token streams and equal choice
-    traces, under a pool that grants LBM and one that grants LWM."""
+    tenants: bitwise-equal token streams and equal choice traces, under
+    each pool of :data:`SELF_POOLS`: full width (4 layers) in a starved
+    pool (the zero-page LWM candidate, cache_matmul), and the reduced
+    width in a pool where the scheduler grants LBM (block_fused_ffn).
+    Each pool's plan kind is the one :func:`grantable_kinds` computes,
+    and some pool must be granted LBM."""
     from repro_torch.launch.serve import MultiTenantServer
     from repro_torch.models.base import register
-    arch = register(dataclasses.replace(cfg, name=f"{cfg.name}-{layers}layer",
+    full = register(dataclasses.replace(cfg, name=f"{cfg.name}-{layers}layer",
                                         num_layers=layers))
     res = {}
-    for pages, kind in SELF_POOLS:
+    for width, pages in SELF_POOLS:
+        arch = full if width == "full" else cfg
+        served = arch if width == "full" else arch.reduced()
+        kind = "LBM" if "LBM" in grantable_kinds(served, 2, pages) else "LWM"
+        kernel = "block_fused_ffn" if kind == "LBM" else "cache_matmul"
+        label = f"self {width}@{pages}p"
         outs = []
+        _zero_counters()
         for pipeline in (False, True):
             srv = MultiTenantServer([arch.name, arch.name], batch=2, max_len=64,
                                     total_pages=pages, epoch_len=4,
-                                    pipeline=pipeline, device=dev, reduced=False)
+                                    pipeline=pipeline, device=dev,
+                                    reduced=width != "full")
             outs.append(srv.run(steps=12))
             got = {p.kind for t in srv.tenants for p in t.plans}
             if got != {kind}:
-                raise AssertionError(f"self@{pages}p: plans {got}, want {kind}")
+                raise AssertionError(f"{label}: plans {got}, want {kind}")
+            plans = sorted({p.describe() for t in srv.tenants for p in t.plans})
             del srv
+        launches = _counters()[kernel]
+        if launches <= 0:
+            raise AssertionError(f"{label}: {kernel} never launched")
         for tid, s in outs[0]["tenants"].items():
             p = outs[1]["tenants"][tid]
             if not np.array_equal(s["output"], p["output"]):
-                raise AssertionError(f"self@{pages}p {tid}: serial and "
+                raise AssertionError(f"{label} {tid}: serial and "
                                      "pipelined tokens differ")
             if s["choices"] != p["choices"]:
-                raise AssertionError(f"self@{pages}p {tid}: choices differ")
-        res[kind] = {"pages": pages, "tokens": {
-            tid: v["tokens"] for tid, v in outs[1]["tenants"].items()},
+                raise AssertionError(f"{label} {tid}: choices differ")
+        res[f"{width}@{pages}p"] = {
+            "d_model": served.d_model, "layers": served.num_layers,
+            "dtype": served.dtype, "kind": kind, "plans": plans,
+            "launches": {kernel: launches}, "tokens": {
+                tid: v["tokens"] for tid, v in outs[1]["tenants"].items()},
             "bit_identical": True}
-    return {"layers": layers, **res}
+    if not any(r["kind"] == "LBM" for r in res.values()):
+        raise AssertionError("self: no pool was granted LBM")
+    return res
+
+
+# ------------------------------------------------------------ prefill --
+def _plain_quantized_attention(fn):
+    """``fn()`` with the quantized flash kernel's plain version in place
+    of the kernel (a control run: it launches no quantized kernel)."""
+    from repro_torch.kernels import flash_attention as kfa
+    kernel = kfa.flash_attention_quantized
+    kfa.flash_attention_quantized = (
+        lambda q, k, v, ks, vs, causal, tile:
+        kfa.flash_attention_quantized_plain(q, k, v, ks, vs, causal))
+    try:
+        return fn()
+    finally:
+        kfa.flash_attention_quantized = kernel
+
+
+def prefill_main_path(cfg, dev, counters):
+    """Slice 2's path: ``make_prefill`` of full-width, full-depth yi-9b,
+    2 prompts of 1024 tokens from numpy, random weights from one seed,
+    under the four settings of :func:`prefill_plans`.  ``counters``
+    receives the launch counts of one pass of the four (zeroed just
+    before, read just after).  Gates: finite logits; LBM/native within
+    :func:`_gate` of the plain path; int8 and fp8 KV at the cosine bars
+    of :data:`PREFILL_COSINE` against the plain path's last-position
+    logits, and within :func:`_gate` of a control run that puts the
+    plain attention in place of the quantized kernel.  Then each setting
+    is timed warm on the host clock, and each plan kind profiled once."""
+    import torch
+    from repro_torch.models import model as M
+    torch.cuda.reset_peak_memory_stats()
+    B, S = PREFILL["batch"], PREFILL["prompt_len"]
+    params = M.init_params(cfg, seed=2, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S))).long().to(dev)
+    prefill = M.make_prefill(cfg)
+    plans = prefill_plans(cfg)
+
+    def call(plan):
+        out = prefill(params, {"tokens": toks}, plan)
+        torch.cuda.synchronize()
+        return out
+
+    _zero_counters()
+    logits, first_s = {}, {}
+    for name, plan in plans.items():
+        t0 = time.perf_counter()
+        logits[name] = call(plan)[:, :cfg.vocab_size].float()
+        first_s[name] = time.perf_counter() - t0
+    counters.update(_counters())
+    if min(counters.values()) <= 0:
+        raise AssertionError(f"prefill: a kernel never launched: {counters}")
+    bad = [n for n, lg in logits.items() if not bool(torch.isfinite(lg).all())]
+    if bad:
+        raise AssertionError(f"prefill: non-finite logits under {bad}")
+    want = logits["plain"]
+
+    def cosine(lg):
+        return float(torch.nn.functional.cosine_similarity(lg, want,
+                                                           dim=-1).min())
+
+    gates = {"LBM/native": {**_gate(logits["LBM/native"], want, "prefill LBM"),
+                            "min_cosine": cosine(logits["LBM/native"])}}
+    for name in ("LWM/int8", "LWM/fp8_e4m3"):
+        kv = plans[name].kv_dtype
+        # control: the same plan and quantized K/V through the plain
+        # attention, so the kernel's share of the error shows apart from
+        # the quantization's
+        control = _plain_quantized_attention(lambda p=plans[name]: call(p))
+        control = control[:, :cfg.vocab_size].float()
+        gates[name] = {"min_cosine": cosine(logits[name]),
+                       "min_cosine_bar": PREFILL_COSINE[kv],
+                       "control_min_cosine": cosine(control),
+                       "vs_control": _gate(logits[name], control,
+                                           f"prefill {name} vs control"),
+                       "max_abs_err": float((logits[name] - want).abs().max()),
+                       "greedy_agreement": float(
+                           (logits[name].argmax(-1) == want.argmax(-1))
+                           .float().mean())}
+        if gates[name]["min_cosine"] < PREFILL_COSINE[kv]:
+            raise AssertionError(f"prefill {name}: {gates[name]}")
+    runs = {}
+    for name, plan in plans.items():
+        t0 = time.perf_counter()
+        call(plan)
+        wall = time.perf_counter() - t0
+        runs[name] = {"plan": plan.describe() if plan is not None else None,
+                      "first_wall_s": first_s[name], "wall_s": wall,
+                      "tokens_per_s": B * S / wall}
+    peak = torch.cuda.max_memory_allocated()
+    profiles = {name: {"plan": plans[name].describe(),
+                       **_profile(lambda p=plans[name]: call(p))}
+                for name in ("LBM/native", "LWM/int8")}
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+            "prompt_len": S, "launches": dict(counters), "gates": gates,
+            "runs": runs, "peak_memory_bytes": peak, "profile": profiles}
 
 
 # --------------------------------------------------------------- main --
@@ -530,24 +935,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["e2e"] = _phase("e2e", check_e2e, cfg, dev)
     torch.cuda.empty_cache()
-    counters = {}
-    report["serve"] = _phase("serve", serve_main_path, dev, counters)
+    serve_counts, prefill_counts = {}, {}
+    report["serve"] = _phase("serve", serve_main_path, cfg, dev, serve_counts)
     torch.cuda.empty_cache()
     report["self"] = _phase("self", check_serial_pipelined, cfg, dev)
+    torch.cuda.empty_cache()
+    report["prefill"] = _phase("prefill", prefill_main_path, cfg, dev,
+                               prefill_counts)
 
     timings = report["kernels"]["timings"]
-    source = {"cache_matmul": ("src/repro_torch/csrc/cache_matmul.cu",
-                               "src/repro/kernels/cache_matmul.py:99",
-                               timings["cache_matmul.up"]),
-              "block_fused_ffn": ("src/repro_torch/csrc/block_fused_ffn.cu",
-                                  "src/repro/kernels/block_fused_ffn.py:54",
-                                  timings["block_fused_ffn"])}
+    csrc = "src/repro_torch/csrc/"
+    source = {  # name: (source, TPU kernel replaced, timing, launches)
+        "cache_matmul": (csrc + "cache_matmul.cu",
+                         "src/repro/kernels/cache_matmul.py:99",
+                         timings["cache_matmul.up"], serve_counts),
+        "block_fused_ffn": (csrc + "block_fused_ffn.cu",
+                            "src/repro/kernels/block_fused_ffn.py:54",
+                            timings["block_fused_ffn.prefill"], prefill_counts),
+        "flash_attention": (csrc + "flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:111",
+                            timings["flash_attention"], prefill_counts),
+        "flash_attention_quantized": (
+            csrc + "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:173",
+            timings["flash_attention_quantized"], prefill_counts)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counters[name], "max_abs_err": t["max_abs_err"],
+                "launches": counts[name], "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]}
-               for name, (src, rep, t) in source.items()]
+               for name, (src, rep, t, counts) in source.items()]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(report["device"]["nvidia_smi"])

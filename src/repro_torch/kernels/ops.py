@@ -1,7 +1,7 @@
 """Public wrappers of the port's kernels: KernelPlan dispatch (the
 grant -> kernel link), budget-driven tile selection, and the Hopper tile
 legalization.  Port of src/repro/kernels/ops.py (``planned_matmul``,
-``budgeted_matmul``, ``planned_ffn``, ``fused_ffn``).
+``budgeted_matmul``, ``planned_ffn``, ``fused_ffn``, ``attention``).
 
 The plan stays the decision: LBM or LWM, the grant, and its tile.  The
 plan's tiles were sized for 96 MiB of TPU VMEM (core/vmem.py), with
@@ -24,6 +24,8 @@ from repro_torch.core.plan import FfnPlan
 from repro_torch.core.vmem import TileConfig, lower_matmul_tile
 from repro_torch.kernels import block_fused_ffn as kffn
 from repro_torch.kernels import cache_matmul as kmm
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import quant as kquant
 
 _T = TypeVar("_T")
 
@@ -78,6 +80,25 @@ def legalize_ffn_tile(block_s: int, block_f: int, s: int,
     return _pick(fits, s, "bs", lambda t: t.bf * t.bk)
 
 
+def legalize_attn_tile(block_q: int, block_kv: int, hd: int, s: int,
+                       limit: Optional[int]) -> kfa.AttnTile:
+    """The compiled flash-attention tile for a plan's blocks: head dim
+    ``hd``, [bq, bkv] no larger than the plan's [block_q, block_kv],
+    shared memory within ``limit``; the fewest wasted rows of the ``s``
+    query rows, then the largest score tile.  The smallest tile of the
+    head dim when none fits; raises for a head dim with no compiled
+    tile."""
+    own = [t for t in kfa.TILES if t.hd == hd]
+    if not own:
+        raise ValueError(f"flash_attention: head dim {hd} not compiled "
+                         f"(have {sorted({t.hd for t in kfa.TILES})})")
+    fits = [t for t in own if t.bq <= block_q and t.bkv <= block_kv
+            and (limit is None or t.smem_bytes <= limit)]
+    if not fits:
+        fits = [min(own, key=lambda t: (t.bq * t.bkv, t.smem_bytes))]
+    return _pick(fits, s, "bq", lambda t: t.bq * t.bkv)
+
+
 def planned_matmul(a: torch.Tensor, b: torch.Tensor,
                    tile: TileConfig) -> torch.Tensor:
     """Matmul through an explicit, already-lowered plan tile (legalized
@@ -126,3 +147,25 @@ def planned_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     u = planned_matmul(x, wu, plan.up_tile)
     h = (F.silu(g.float()) * u.float()).to(x.dtype)
     return planned_matmul(h, wd, plan.down_tile)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, block_q: int = 128, block_kv: int = 128,
+              kv_dtype: str = "native") -> torch.Tensor:
+    """Flash attention with the plan's blocks as the upper bound of the
+    kernel's tile.  ``kv_dtype`` != "native" quantizes K/V per row and
+    runs the dequant-fused kernel (the plan-lowered prefill path of a
+    precision-downgraded tenant).  q: [B, H, S, hd]; k, v:
+    [B, Hkv, Sk, hd].  Ragged S and Sk are masked in the kernel, where
+    the reference pads them (``_pad_to``); non-causal, the reference's
+    zero-padded keys take part in its softmax, the port's masked ones do
+    not."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    tile = legalize_attn_tile(block_q, block_kv, q.shape[3], q.shape[2],
+                              smem_limit(q.device))
+    if kv_dtype != "native":
+        kq, ks = kquant.quantize_rows(k, kv_dtype)
+        vq, vs = kquant.quantize_rows(v, kv_dtype)
+        return kfa.flash_attention_quantized(q, kq, vq, ks[..., 0], vs[..., 0],
+                                             causal, tile)
+    return kfa.flash_attention(q, k, v, causal, tile)

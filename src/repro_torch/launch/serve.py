@@ -14,8 +14,10 @@ decides which Hopper kernel each decode step's FFNs run:
 
 The scheduling side is the reference's, line for line, on the copied
 core: the grant, plan and NEC traces of a scenario equal the
-reference's.  The one difference, the LBM time cap, binds only at full
-width (``_LBM_CONFIG``).  What this port keeps: the serial
+reference's, at every width.  (At full width the reference's LBM
+segmentation, capped at 2 ms of modeled NPU time per block, leaves no
+LBM candidate, so full-width serving runs LWM grants only, as the
+reference's does.)  What this port keeps: the serial
 (``pipeline=False``) and epoch-pipelined loops, interleaved and sequential admission,
 grant-sized prefill chunks, the ``kv_len`` attention windows, KV page
 reservations and departures, QoS ordering, and the batched Algorithm 1
@@ -48,7 +50,6 @@ import torch
 
 from repro_torch.core.allocator import Selection
 from repro_torch.core.cache import CacheConfig
-from repro_torch.core.lbm import LbmConfig, build_model_mapping
 from repro_torch.core.mapping import MapperConfig
 from repro_torch.core.mct import MCT, ModelMapping
 from repro_torch.core.plan import KernelPlan, lower_prefill_chunk
@@ -98,20 +99,10 @@ def _vmem_mapper(total_pages: int) -> MapperConfig:
                         npu_subspace_bytes=total_pages * PAGE_BYTES)
 
 
-# The one scheduling difference from the reference.  LBM segmentation caps
-# a block's modeled time at 2 ms of the paper's NPU (25.6 GB/s per
-# stream).  At full width every FFN block models far above it (yi-9b:
-# 17 ms), so the cap would leave no LBM candidate, and no fused kernel,
-# on the full-width serving path.  The port keeps the page cap and lifts
-# the time cap.  At the reduced widths a block models at microseconds,
-# the cap never binds, and the trace equals the reference's
-# (tests/test_torch_serve.py).
-_LBM_CONFIG = LbmConfig(time_cap_s=math.inf)
-
-
 def _tenant_model(graph: ModelGraph, mapper: MapperConfig) -> TenantModel:
-    return TenantModel(graph, mapper,
-                       mapping=build_model_mapping(graph, mapper, _LBM_CONFIG))
+    """A tenant's mapped FFN graph, built as the reference's server
+    builds it (``TenantModel`` with the default ``LbmConfig``)."""
+    return TenantModel(graph, mapper)
 
 
 def _kv_reserve_pages(cfg: ArchConfig, batch: int, tokens: int) -> int:

@@ -1,11 +1,13 @@
-"""GQA self-attention with RoPE, causal / sliding-window masks and a
-native KV cache (port of src/repro/models/attention.py, the paths the
-dense serving slice uses).
+"""GQA self-attention with RoPE, causal / sliding-window masks, a
+native KV cache and the plan-lowered flash path (port of
+src/repro/models/attention.py, the paths the dense slices use).
 
-Plain PyTorch, as the reference's attention is plain ``jnp``.  Not yet
-ported, and raising ``NotImplementedError`` rather than computing
-something else: the plan-lowered flash-attention path, quantized KV
-caches and cross-attention.
+Plain PyTorch, as the reference's attention is plain ``jnp``, except
+under an attention plan: cache-free causal self-attention then runs
+through the flash-attention kernel with the plan's blocks and KV
+precision (``kernels/ops.py::attention``).  Not yet ported, and raising
+``NotImplementedError`` rather than computing something else: quantized
+KV caches and cross-attention.
 """
 from __future__ import annotations
 
@@ -68,6 +70,9 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     positions (positions past the index are masked anyway), so reads
     scale with the live prefix, not max_len.  Requires
     cache_index + S <= kv_len.
+    ``attn_plan`` (core.plan.AttnPlan) routes cache-free causal
+    self-attention through the flash kernel with the plan's block sizes
+    and KV precision.
     """
     if xattn_kv is not None:
         raise NotImplementedError("cross-attention not yet ported")
@@ -96,7 +101,14 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         new_cache = None
         if attn_plan is not None and causal and cfg.sliding_window == 0:
-            raise NotImplementedError("flash_attention not yet ported")
+            # plan-lowered flash path: block sizes from the grant
+            from repro_torch.kernels import ops as kops
+            ctx = kops.attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, block_q=attn_plan.block_q,
+                block_kv=attn_plan.block_kv, kv_dtype=attn_plan.kv_dtype)
+            ctx = ctx.transpose(1, 2).reshape(B, S, H * hd)
+            return linear(params["wo"], ctx.to(x.dtype)), None
         bias = _mask_bias(S, S, causal, cfg.sliding_window, device=x.device)
 
     # grouped heads: fold the group dim into the contractions; fp32

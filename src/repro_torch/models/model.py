@@ -1,8 +1,9 @@
-"""Public model API of the serving slice (port of the serving entry
-points of src/repro/models/model.py): params, logit masking, greedy
-feedback, and the decode-step / decode-epoch / prefill-chunk closures
-the server drives.  Eager PyTorch: the closures need no compilation and
-take their static arguments (plan, k, kv_len) per call."""
+"""Public model API of the ported slices (port of the serving and
+prefill entry points of src/repro/models/model.py): params, logit
+masking, greedy feedback, the one-shot prefill, and the decode-step /
+decode-epoch / prefill-chunk closures the server drives.  Eager
+PyTorch: the closures need no compilation and take their static
+arguments (plan, k, kv_len) per call."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -11,7 +12,8 @@ import torch
 
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import (decode_epoch, decode_step,
-                                            init_lm, prefill_chunk)
+                                            init_lm, lm_forward,
+                                            prefill_chunk)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda"):
@@ -36,6 +38,24 @@ def mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def _no_enc(enc_out) -> None:
     if enc_out is not None:
         raise NotImplementedError("encoder-decoder serving not yet ported")
+
+
+def make_prefill(cfg: ArchConfig, serve: bool = False):
+    """One-shot prefill: ``prefill(params, {"tokens": [B, S]}, plan)`` ->
+    the last position's logits [B, V] (fp32).  ``plan`` (a
+    core.plan.KernelPlan) runs attention and FFNs through the kernels
+    its grant lowered to.  ``serve`` changes nothing for the dense
+    archs: in the reference it selects drop-free MoE buckets and the
+    unrolled shallow-stack layer loop, and the port has no MoE yet and
+    one Python layer loop."""
+    del serve
+
+    def prefill(params, batch, plan=None):
+        logits, _ = lm_forward(params, batch["tokens"], cfg,
+                               embeds_prefix=batch.get("embeds_prefix"),
+                               plan=plan)
+        return logits[:, -1, :]
+    return prefill
 
 
 def _greedy_next_token(cfg: ArchConfig):

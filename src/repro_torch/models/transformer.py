@@ -73,11 +73,22 @@ def _dense_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
 # ------------------------------------------------------------ forward --
 def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+               embeds_prefix: Optional[torch.Tensor] = None,
+               remat: bool = False,
                plan=None) -> Tuple[torch.Tensor, float]:
     """Prefill forward without a cache.  tokens: [B, S] -> (logits
-    [B, S, V] fp32, aux loss 0.0).  A plan routes causal attention
-    through flash attention, which is not yet ported (raises)."""
+    [B, S, V] fp32, aux loss 0.0).  ``plan`` (a core.plan.KernelPlan)
+    runs every layer's causal self-attention through the flash kernel
+    with the plan's blocks and KV precision, and its FFN through the
+    kernel the grant lowered to (fused LBM or tiled LWM).  Patch/frame
+    prefixes (``embeds_prefix``) and rematerialisation (``remat``) are
+    not yet ported (raise)."""
     _require_dense(cfg)
+    if embeds_prefix is not None:
+        raise NotImplementedError("embeds_prefix (VLM / audio prefixes) "
+                                  "not yet ported")
+    if remat:
+        raise NotImplementedError("remat (training) not yet ported")
     x = embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params["layers"]:

@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+These tests need a CUDA device and the CUDA toolkit; without a card they
+skip.  They import neither JAX nor the JAX package, so they run on a GPU
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Tolerances are tests/test_kernels.py::tol for the matmul and FFN
+kernels (2e-2 bf16, 2e-3 fp32) and tests/test_kernels.py's flash
+tolerances for attention (3e-2 bf16, 2e-3 fp32).  Each wrapper counts
+one launch per call.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import block_fused_ffn as kffn
+from repro_torch.kernels import cache_matmul as kmm
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import quant as pquant
+
+MATMUL_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_match_plain_versions(dtype):
+    """Each CUDA kernel against its plain version on the card, ragged
+    shapes, every compiled tile.  Count one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    a, b = rand(37, 333), rand(333, 1000, scale=333 ** -0.5)
+    for tile in kmm.TILES:
+        before = kmm.launches
+        got = kmm.cache_matmul(a, b, tile)
+        assert kmm.launches == before + 1
+        torch.testing.assert_close(got.float(),
+                                   kmm.cache_matmul_plain(a, b).float(),
+                                   **MATMUL_TOL[dtype])
+    x = rand(37, 333)
+    wg, wu = rand(333, 1000, scale=333 ** -0.5), rand(333, 1000,
+                                                     scale=333 ** -0.5)
+    wd = rand(1000, 333, scale=1000 ** -0.5)
+    for tile in kffn.TILES:
+        before = kffn.launches
+        got = kffn.block_fused_ffn(x, wg, wu, wd, tile)
+        assert kffn.launches == before + 1
+        torch.testing.assert_close(
+            got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
+            **MATMUL_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_matches_plain_versions(dtype):
+    """The CUDA kernel against its plain versions on the card, ragged
+    shapes, every compiled tile, native and quantized K/V; the fp32
+    quantized path bitwise equal to the native one on dequantized K/V.
+    One launch per call on each counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for tile in kfa.TILES:
+        B, H, Hkv, S, hd = 2, 8, 2, 333, tile.hd
+        q = torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, Hkv, S, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, Hkv, S, hd), generator=gen, device="cuda").to(dt)
+        for causal in (True, False):
+            before = kfa.launches
+            got = kfa.flash_attention(q, k, v, causal, tile)
+            assert kfa.launches == before + 1
+            torch.testing.assert_close(
+                got.float(), kfa.flash_attention_plain(q, k, v, causal).float(),
+                **FLASH_TOL[dtype])
+            for kv_dtype in ("int8", "fp8_e4m3"):
+                kq, ks = pquant.quantize_rows(k, kv_dtype)
+                vq, vs = pquant.quantize_rows(v, kv_dtype)
+                before = kfa.launches_quantized
+                got = kfa.flash_attention_quantized(q, kq, vq, ks[..., 0],
+                                                    vs[..., 0], causal, tile)
+                assert kfa.launches_quantized == before + 1
+                torch.testing.assert_close(
+                    got.float(), kfa.flash_attention_quantized_plain(
+                        q, kq, vq, ks[..., 0], vs[..., 0], causal).float(),
+                    **FLASH_TOL[dtype])
+                if dtype == "float32":
+                    native = kfa.flash_attention(
+                        q, pquant.dequantize_rows(kq, ks),
+                        pquant.dequantize_rows(vq, vs), causal, tile)
+                    assert torch.equal(got, native)

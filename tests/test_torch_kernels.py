@@ -4,7 +4,7 @@ Inputs are made with numpy from a seed and handed to both sides.  The
 reference kernels run in Pallas interpret mode, as tests/test_kernels.py
 runs them; the port's wrappers take their plain PyTorch versions because
 the tensors lie on the CPU.  Tolerances are tests/test_kernels.py::tol.
-The CUDA kernels themselves run only on the card (the ``gpu`` test below,
+The CUDA kernels themselves run only on the card (tests/test_torch_gpu.py
 and ``chip_smoke.py``).
 """
 import dataclasses
@@ -220,40 +220,3 @@ def test_legalization_floor_when_no_tile_fits():
         min(kmm.TILES, key=lambda t: (t.bm * t.bn, t.smem_bytes))
     assert ops.legalize_ffn_tile(4, 4, 2, H100_SMEM_OPTIN) == \
         min(kffn.TILES, key=lambda t: (t.bs * t.bf, t.smem_bytes))
-
-
-# ------------------------------------------------------- on the card --
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernels_match_plain_versions(dtype):
-    """Each CUDA kernel against its plain version on the card, ragged
-    shapes, every compiled tile.  Count one launch per call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda")
-                * scale).to(dt)
-
-    a, b = rand(37, 333), rand(333, 1000, scale=333 ** -0.5)
-    for tile in kmm.TILES:
-        before = kmm.launches
-        got = kmm.cache_matmul(a, b, tile)
-        assert kmm.launches == before + 1
-        torch.testing.assert_close(got.float(),
-                                   kmm.cache_matmul_plain(a, b).float(),
-                                   **tol(dtype))
-    x = rand(37, 333)
-    wg, wu = rand(333, 1000, scale=333 ** -0.5), rand(333, 1000,
-                                                     scale=333 ** -0.5)
-    wd = rand(1000, 333, scale=1000 ** -0.5)
-    for tile in kffn.TILES:
-        before = kffn.launches
-        got = kffn.block_fused_ffn(x, wg, wu, wd, tile)
-        assert kffn.launches == before + 1
-        torch.testing.assert_close(
-            got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
-            **tol(dtype))

@@ -50,11 +50,11 @@ def ref_fns():
             jax.jit(RT.prefill_chunk, static_argnames=("cfg", "kv_len")))
 
 
-def _plans(kind, cfg):
+def _plans(kind, cfg, kv_dtype="native"):
     """The same grant lowered by both packages: (reference, port)."""
     pages = 4096 if kind == "LBM" else 2
     kw = dict(seq_block=128, d_model=cfg.d_model, d_ff=cfg.d_ff,
-              dtype_bytes=4, head_dim=cfg.hd)
+              dtype_bytes=4, head_dim=cfg.hd, kv_dtype=kv_dtype)
 
     def sel(Candidate, Selection):
         return Selection(Candidate(kind=kind, p_need=pages, dram_bytes=0,
@@ -227,12 +227,58 @@ def test_unported_attention_paths_raise(yi):
     _, pcfg, _, pparams = yi
     attn = pparams["layers"][0]["attn"]
     x = torch.zeros((1, 8, pcfg.d_model))
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        PA.mha(attn, x, pcfg, attn_plan=pplan.AttnPlan())
     with pytest.raises(NotImplementedError):
         PA.mha(attn, x, pcfg, xattn_kv=x)
     with pytest.raises(NotImplementedError):
         PA.init_kv_cache(pcfg, 1, 8, kv_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        PT.lm_forward(pparams, torch.zeros((1, 8), dtype=torch.long), pcfg,
-                      plan=_plans("LBM", pcfg)[1])
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="embeds_prefix"):
+        PT.lm_forward(pparams, toks, pcfg, embeds_prefix=x)
+    with pytest.raises(NotImplementedError, match="remat"):
+        PT.lm_forward(pparams, toks, pcfg, remat=True)
+
+
+# ------------------------------------------------ plan-lowered prefill --
+@pytest.fixture(scope="module")
+def yi_gqa():
+    """Reduced yi-9b with 2 KV heads for 4 query heads: the reduced
+    configs have H = Hkv, so only this variant exercises GQA grouping at
+    model level.  It is passed to both packages as a config object, so
+    neither registry changes."""
+    rcfg = dataclasses.replace(rbase.get_arch("yi-9b").reduced(),
+                               num_kv_heads=2)
+    pcfg = dataclasses.replace(pbase.get_arch("yi-9b").reduced(),
+                               num_kv_heads=2)
+    rparams = RM.init_params(rcfg, jax.random.PRNGKey(2))
+    pparams = bridge.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, rparams), pcfg, "cpu")
+    return rcfg, pcfg, rparams, pparams
+
+
+@pytest.mark.parametrize("arch", ["yi", "yi_gqa"])
+@pytest.mark.parametrize("kind,kv_dtype", [("LBM", "native"), ("LWM", "int8")])
+def test_make_prefill_with_plan_matches_reference(request, arch, kind,
+                                                  kv_dtype):
+    """One-shot prefill under a plan (flash attention with the plan's
+    blocks and KV precision, the FFN through the granted kernel) against
+    the reference's, whose Pallas kernels run in interpret mode.  A
+    48-token prompt leaves the flash tiles ragged.  The int8 plan is held
+    at 2e-3 (tests/test_plan.py's bar for plan-lowered prefill): K and V
+    are quantized from values computed in another summation order, and a
+    value a few ULP apart can round to the other int8 step."""
+    rcfg, pcfg, rparams, pparams = request.getfixturevalue(arch)
+    rp, pp = _plans(kind, rcfg, kv_dtype)
+    assert rp.attn.kv_dtype == pp.attn.kv_dtype == kv_dtype
+    toks = _prompt(rcfg, 48, seed=3)
+    want = RM.make_prefill(rcfg)(rparams, {"tokens": jnp.asarray(toks)}, rp)
+    got = PM.make_prefill(pcfg)(pparams, {"tokens": torch.from_numpy(toks).long()},
+                                pp)
+    assert got.shape == (B, pcfg.padded_vocab)
+    tol = ATOL if kv_dtype == "native" else 2e-3
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
+                               rtol=tol)
+    plain = PM.make_prefill(pcfg)(
+        pparams, {"tokens": torch.from_numpy(toks).long()})
+    if kv_dtype == "native":
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL,
+                                   rtol=RTOL)

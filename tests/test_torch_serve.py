@@ -18,12 +18,14 @@ import jax
 import numpy as np
 import pytest
 
+from repro.core.runtime import TenantModel as RTenantModel
 from repro.launch import serve as RS
 from repro.models import model as RM
 from repro.models.base import get_arch as ref_arch
 from repro.sim.driver import TenantSpec as RSpec
 from repro_torch.bridge import params_from_numpy
 from repro_torch.launch import serve as PS
+from repro_torch.models.base import get_arch as port_arch
 from repro_torch.sim.driver import TenantSpec as PSpec
 
 PAGES = 32
@@ -125,3 +127,31 @@ def test_unported_server_features_raise(option):
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         PS.MultiTenantServer(["olmoe-1b-7b"], device="cpu")
+
+
+def _candidates(tm):
+    return [[(c.kind, c.p_need, c.dram_bytes, c.usage_limit_bytes)
+             for c in mct.lwms + ([mct.lbm] if mct.lbm is not None else [])]
+            for mct in tm.mapping.mcts]
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "granite-3-8b"])
+@pytest.mark.parametrize("seq_block", [2, 256, 1024])
+@pytest.mark.parametrize("pages", [64, 1800])
+def test_full_width_mapping_equals_reference(arch, seq_block, pages):
+    """At full width the port's server maps a tenant's FFN graph as the
+    reference's server does (``TenantModel`` with the default
+    ``LbmConfig``): the same candidates per layer (kind, p_need, DRAM
+    bytes, usage limit) and the same LBM blocks, for the decode graph
+    (seq_block = batch) and prompt graphs.  Under the reference's 2 ms
+    block cap a full-width FFN block gets no LBM candidate."""
+    rcfg, pcfg = ref_arch(arch), port_arch(arch)
+    assert rcfg.num_layers == pcfg.num_layers > 4          # full width
+    ref = RTenantModel(RS._ffn_graph(arch, rcfg, seq_block),
+                       RS._vmem_mapper(pages))
+    port = PS._tenant_model(PS._ffn_graph(arch, pcfg, seq_block),
+                            PS._vmem_mapper(pages))
+    assert _candidates(port) == _candidates(ref)
+    assert port.mapping.blocks == ref.mapping.blocks
+    assert port.layer_t_est == ref.layer_t_est
+    assert {k for layer in _candidates(port) for k, *_ in layer} == {"LWM"}
