@@ -8,23 +8,26 @@ Phases, each printed as one JSON object with its seconds:
 * ``device``: the card (``nvidia-smi`` name and power limit, SMs, shared
   memory per block, L2).
 * ``build``: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
-  (cache_matmul, block_fused_ffn, flash_attention) with ``nvcc`` for
-  ``sm_90a``, one compiler per source, all at once.
+  (cache_matmul, cache_matmul_quant, block_fused_ffn, flash_attention)
+  with ``nvcc`` for ``sm_90a``, one compiler per source, all at once.
 * ``kernels``: holds each kernel against its plain PyTorch version on the
   card, in bf16 and fp32 (TF32 off): the matmul and FFN kernels at
   full-width yi-9b decode shapes, a 256-row prefill-sized shape and a
   ragged one; flash attention native and quantized (int8, fp8) at the
   prefill path's shape, non-causal, ragged and at hd 32, with the fp32
   quantized kernel bitwise equal to the native one on dequantized K/V;
-  tiles and blocks lowered from full-width plans under several grants.
-  Then times each kernel at the shape of each path that runs it (the
-  FFN kernels at decode and at the prefill's 2048 rows), checked against
-  its plain version on the timed inputs.
+  tiles and blocks lowered from full-width plans under several grants;
+  cache_matmul_quant with int8 and fp8 codes at every compiled tile, at
+  the decode shapes, 256 and 2048 rows and a ragged shape.  Then times
+  each kernel at the shape of each path that runs it (the FFN kernels at
+  decode and at the prefill's 2048 rows), checked against its plain
+  version on the timed inputs.
 * ``e2e``: full-width yi-9b cut to 4 layers, random weights from one
   seed: prefill, then two teacher-forced decode epochs (an LBM plan and an
-  LWM plan), and ``make_prefill`` under an LBM plan with native KV and an
-  LWM plan with int8 KV, on the card with the kernels, against the same
-  entry points on the CPU with the same weights.
+  LWM plan) with a native, an int8 and an fp8 KV cache, and
+  ``make_prefill`` under an LBM plan with native KV and an LWM plan with
+  int8 KV, on the card with the kernels, against the same entry points
+  on the CPU with the same weights.
 * ``serve``: slice 1's path.  ``MultiTenantServer`` serves two full-width,
   full-depth (48-layer) yi-9b tenants, one resident and one arriving with
   a 256-token prompt, for 32 steps.  The plan kinds must be those the
@@ -41,6 +44,19 @@ Phases, each printed as one JSON object with its seconds:
   grants with int8 and fp8 KV; counters zeroed just before and read just
   after one pass of the four; gated against the plain path on the card;
   timed, and profiled once per plan kind.
+* ``serve_kv``: slice 3's serving path.  ``MultiTenantServer(kv_dtype=
+  "auto")`` serves full-width, full-depth yi-9b: a resident tenant and
+  three 256-token prompt tenants arriving at distinct steps on one
+  weight set, in a pool where the precision ladder must place them on
+  native, fp8_e4m3 and (partially reserved) int8; rungs, reservations,
+  cache dtypes and page scales are gated.  One decode epoch is profiled
+  with a native and an int8 cache.
+* ``ffn_quant``: slice 3's kernel path.  ``ops.planned_ffn_quant`` over
+  the 48 layers' FFN weights quantized to int8 and to fp8, at 2 and 2048
+  rows, under the serve_kv decode plan, the LWM@32p prefill plan and a
+  fused plan (the fallback tile); gated against the plain chain and
+  against ``planned_ffn`` on the bf16 weights, timed per pass, and
+  cache_matmul_quant timed per GEMM.
 
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -82,6 +98,10 @@ ARRIVAL = dict(arrive_at=8.0, prompt_len=256, n_inferences=16)
 # grants LBM.
 SELF_POOLS = (("full", 16), ("reduced", 64))
 PREFILL = dict(batch=2, prompt_len=1024, lwm_pages=32)
+# quantized-KV serving: batch 2, three 256-token arrivals with a 16-step
+# budget at distinct steps, beside a resident decoding for `steps` steps
+SERVE_KV = dict(batch=2, max_len=512, prompt_len=256, budget=16, steps=40,
+                arrive_at=(4.0, 8.0, 12.0))
 # Cosine bars of the quantized-KV prefill against the plain path.  int8:
 # tests/test_quant_decode.py's 0.999.  fp8_e4m3 keeps 3 mantissa bits, a
 # per-element error about three times int8's at hd 128; over 48 layers
@@ -89,6 +109,7 @@ PREFILL = dict(batch=2, prompt_len=1024, lwm_pages=32)
 # as with the kernel (the control in prefill_main_path, PERF.md), so its
 # bar is 0.998.
 PREFILL_COSINE = {"int8": 0.999, "fp8_e4m3": 0.998}
+KV_CACHES = ("int8", "fp8_e4m3")
 ATTN_GRANTS = (9, 32, 60)                   # pages; lower_attn -> blocks
 
 
@@ -280,6 +301,40 @@ def flash_cases(cfg, dev):
                                         True)
                     rows.append({**row, "max_abs_err": err, "tol": TOL[dn],
                                  "ok": ok})
+    return rows
+
+
+def quant_cases(cfg, dev):
+    """cache_matmul_quant against its plain version: int8 and fp8 codes,
+    bf16 and fp32 activations, every compiled tile, at the full-width
+    decode shapes (M = 2, gate/up and down), 256 and 2048 rows, and a
+    ragged shape."""
+    import torch
+    from repro_torch.kernels import cache_matmul as kmm
+    from repro_torch.kernels import quant
+    d, f = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    shapes = (("decode up", 2, d, f), ("decode down", 2, f, d),
+              ("256 up", 256, d, f), ("2048 up", 2048, d, f),
+              ("2048 down", 2048, f, d), ("ragged", 37, 333, 1000))
+    rows = []
+    for label, m, k, n in shapes:
+        w = _randn(gen, (k, n), torch.float32, 1 / math.sqrt(k))
+        for kv in KV_CACHES:
+            q, sc = quant.quantize_cols(w, kv)
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = _dtype_name(dtype)
+                a = _randn(gen, (m, k), dtype)
+                want = kmm.cache_matmul_quant_plain(a, q, sc)
+                for tile in kmm.QUANT_TILES:
+                    got = kmm.cache_matmul_quant(a, q, sc, tile)
+                    err, ok = _close(got, want, dn)
+                    rows.append({"kernel": "cache_matmul_quant", "case": label,
+                                 "dtype": dn, "kv": kv, "shape": [m, k, n],
+                                 "hopper_tile": [tile.bm, tile.bn, tile.bk],
+                                 "max_abs_err": err, "tol": TOL[dn], "ok": ok})
+            del q, sc
     return rows
 
 
@@ -496,7 +551,7 @@ def check_kernels(cfg, dev):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = kernel_cases(cfg, dev) + flash_cases(cfg, dev)
+    rows = kernel_cases(cfg, dev) + flash_cases(cfg, dev) + quant_cases(cfg, dev)
     bad = [r for r in rows if not r["ok"]]
     timings = kernel_timings(cfg, dev, batch=2, lwm_pages=32, lbm_pages=324)
     timings.update(prefill_timings(cfg, dev))
@@ -535,11 +590,12 @@ class _Forced:
         return self.tokens[:, self.i]
 
 
-def _e2e_run(cfg, params, dev, prompt, forced, plans):
+def _e2e_run(cfg, params, dev, prompt, forced, plans, kv_dtype="native"):
     import torch
     from repro_torch.models.transformer import (decode_epoch, init_caches,
                                                 prefill_chunk)
-    caches = init_caches(params, cfg, prompt.shape[0], 64, device=dev)
+    caches = init_caches(params, cfg, prompt.shape[0], 64, kv_dtype=kv_dtype,
+                         device=dev)
     toks = torch.from_numpy(prompt).long().to(dev)
     forced_t = torch.from_numpy(forced).long().to(dev)
     logits, caches = prefill_chunk(params, toks, caches, 0, cfg)
@@ -573,21 +629,27 @@ def _gate(got, want, label: str):
             "greedy_agreement": agree}
 
 
+# the kernels that the plan-lowered prefill (and the e2e phase) launch
+PREFILL_KERNELS = ("cache_matmul", "block_fused_ffn", "flash_attention",
+                   "flash_attention_quantized")
+
+
 def _counters():
-    """The four kernels' launch counters, by kernel name."""
+    """The five kernels' launch counters, by kernel name."""
     from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
     return {"cache_matmul": kmm.launches, "block_fused_ffn": kffn.launches,
             "flash_attention": kfa.launches,
-            "flash_attention_quantized": kfa.launches_quantized}
+            "flash_attention_quantized": kfa.launches_quantized,
+            "cache_matmul_quant": kmm.launches_quant}
 
 
 def _zero_counters():
     from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
-    kmm.launches = kffn.launches = 0
+    kmm.launches = kffn.launches = kmm.launches_quant = 0
     kfa.launches = kfa.launches_quantized = 0
 
 
@@ -595,10 +657,13 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
               lwm_pages: int = 32):
     """The card with kernels against the CPU with the plain versions,
     same weights and tokens: prefill and two teacher-forced decode epochs
-    (LBM, LWM), then make_prefill of a ragged prompt under an LBM plan
-    with native KV and an LWM plan with int8 KV.  Tolerance (bf16
-    activations rounded at different points over 4 layers): see
-    :func:`_gate`."""
+    (LBM, LWM) with a native cache, and again with an int8 and an fp8
+    cache; then make_prefill of a ragged prompt under an LBM plan with
+    native KV and an LWM plan with int8 KV.  Tolerance (bf16 activations
+    rounded at different points over 4 layers): see :func:`_gate`; with
+    a quantized cache the greedy tokens must also be equal, and its
+    logits on the card reach :data:`PREFILL_COSINE` against the native
+    cache's."""
     import torch
     from repro_torch.core.vmem import LANE
     from repro_torch.models import model as M
@@ -617,32 +682,51 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
         toks = torch.from_numpy(long_prompt).long().to(device)
         pf = [prefill(params, {"tokens": toks}, p).float().cpu()
               for p in pf_plans]
-        return _e2e_run(cfg, params, device, prompt, forced, plans), pf
+        kv = {name: _e2e_run(cfg, params, device, prompt, forced, plans, name)
+              for name in KV_CACHES}
+        return _e2e_run(cfg, params, device, prompt, forced, plans), pf, kv
 
     params = M.init_params(cfg, seed=1, device=dev)
     l0 = _counters()
-    got, got_pf = run(params, dev)
+    got, got_pf, got_kv = run(params, dev)
     launches = {k: v - l0[k] for k, v in _counters().items()}
-    want, want_pf = run(_to(params, "cpu"), "cpu")
+    want, want_pf, want_kv = run(_to(params, "cpu"), "cpu")
     del params
     V = cfg.vocab_size
+    quantized = {}
+    for name in KV_CACHES:
+        g, w = got_kv[name][..., :V], want_kv[name][..., :V]
+        gate = _gate(g, w, f"e2e decode {name} cache")
+        cos = float(torch.nn.functional.cosine_similarity(
+            g, got[..., :V], dim=-1).min())
+        if gate["greedy_agreement"] != 1.0 or cos < PREFILL_COSINE[name]:
+            raise AssertionError(f"e2e {name} cache: greedy "
+                                 f"{gate['greedy_agreement']}, cosine {cos}")
+        quantized[name] = {**gate, "min_cosine_vs_native": cos,
+                           "min_cosine_bar": PREFILL_COSINE[name]}
     res = {"layers": layers, "positions": int(got.shape[1]),
            "decode": _gate(got[..., :V], want[..., :V], "e2e decode"),
+           "decode_quantized_kv": quantized,
            "prefill": {p.describe(): _gate(g[..., :V], w[..., :V],
                                            f"e2e prefill {p.describe()}")
                        for p, g, w in zip(pf_plans, got_pf, want_pf)},
            "prompt_len": prompt_len, "launches": launches,
            "plans": [p.describe() for p in plans]}
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"e2e: a kernel never launched: {launches}")
     return res
 
 
 # -------------------------------------------------------------- serve --
-def _profile(run):
+def _profile(run, annotations=()):
     """Device time by kernel of one call of ``run`` (warm, synchronised),
     under ``torch.profiler``, and the device's idle share against the
-    same call timed on the host clock without the profiler."""
+    same call timed on the host clock without the profiler.  Each name in
+    ``annotations`` (a ``record_function`` range inside ``run``) gets the
+    device time of the kernels launched inside it (``kernel_ms``, from
+    the range's host-side row) and the device span of the range
+    (``span_ms``, which also holds the idle gaps while the host launches
+    its kernels); both are kept out of the kernel rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run()                                   # warm
@@ -659,9 +743,18 @@ def _profile(run):
                 return float(v)
         return 0.0
 
+    events = prof.key_averages()
+    annotated = {n: {} for n in annotations}
+    for e in events:
+        if e.key in annotations:
+            on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+            total = max(float(getattr(e, a, 0) or 0) for a in (
+                "device_time_total", "cuda_time_total"))
+            annotated[e.key]["span_ms" if on_device else "kernel_ms"] = \
+                total / 1e3
     rows = [(e.key, dev_us(e), e.count,
              str(getattr(e, "device_type", "")).endswith("CUDA"))
-            for e in prof.key_averages()]
+            for e in events if e.key not in annotations]
     rows = [r for r in rows if r[1] > 0]
     # kernels only, where the profiler tags them: an op and its kernel
     # would otherwise count twice
@@ -672,10 +765,16 @@ def _profile(run):
     rows.sort(key=lambda r: -r[1])
     top = [{"name": n[:80], "device_ms": us / 1e3, "calls": c,
             "share": us / total_us} for n, us, c, _ in rows[:12]]
-    return {"wall_ms": wall_ms, "kernels_only": kernels_only,
-            "device_ms": total_us / 1e3 if total_us else "not measured",
-            "idle_share": (1 - total_us / 1e3 / wall_ms) if total_us else
-            "not measured", "top": top}
+    out = {"wall_ms": wall_ms, "kernels_only": kernels_only,
+           "device_ms": total_us / 1e3 if total_us else "not measured",
+           "idle_share": (1 - total_us / 1e3 / wall_ms) if total_us else
+           "not measured", "top": top}
+    if annotations:
+        out["annotated"] = {
+            n: {**a, "kernel_share": a["kernel_ms"] * 1e3 / total_us}
+            if a.get("kernel_ms") and total_us else (a or "not measured")
+            for n, a in annotated.items()}
+    return out
 
 
 def _profile_epoch(srv, t, plan, k: int = 4):
@@ -864,7 +963,7 @@ def prefill_main_path(cfg, dev, counters):
         logits[name] = call(plan)[:, :cfg.vocab_size].float()
         first_s[name] = time.perf_counter() - t0
     counters.update(_counters())
-    if min(counters.values()) <= 0:
+    if min(counters[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"prefill: a kernel never launched: {counters}")
     bad = [n for n, lg in logits.items() if not bool(torch.isfinite(lg).all())]
     if bad:
@@ -912,6 +1011,389 @@ def prefill_main_path(cfg, dev, counters):
             "runs": runs, "peak_memory_bytes": peak, "profile": profiles}
 
 
+# ----------------------------------------------------------- serve_kv --
+def serve_kv_pool(cfg) -> int:
+    """The serve_kv pool: one native reservation, one fp8 reservation and
+    the serve phase's headroom above its native reservation."""
+    from repro_torch.launch.serve import _kv_reserve_pages
+    b, p = SERVE_KV["batch"], SERVE_KV["prompt_len"]
+    native = _kv_reserve_pages(cfg, b, p)
+    return native + _kv_reserve_pages(cfg, b, p, "fp8_e4m3") + (SERVE_PAGES
+                                                                 - native)
+
+
+def _profile_cache_epoch(cfg, params, dev, plan, kv_dtype, k: int = 4):
+    """:func:`_profile` of one decode epoch (batch and prompt of
+    :data:`SERVE_KV`) of a tenant with a ``kv_dtype`` cache, prefilled
+    from a seeded prompt; K/V (de)quantization annotated."""
+    import torch
+    from repro_torch.core.vmem import LANE
+    from repro_torch.kernels import quant
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_caches
+    B, P, L = SERVE_KV["batch"], SERVE_KV["prompt_len"], SERVE_KV["max_len"]
+    caches = init_caches(params, cfg, B, L, kv_dtype=kv_dtype, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, P))).long().to(dev)
+    token, caches = M.make_prefill_chunk(cfg)(params, caches, prompt, 0)
+    epoch = M.make_decode_epoch(cfg)
+    state = {"token": token, "index": P}
+
+    def run():
+        i = state["index"]                 # the server's 128-token windows
+        toks, _ = epoch(params, caches, state["token"], i, plan=plan, k=k,
+                        kv_len=min(L, -(-(i + k) // LANE) * LANE))
+        state["token"], state["index"] = toks[:, -1:], i + k
+        torch.cuda.synchronize()
+
+    names = ("quantize_rows", "dequantize_rows")
+    kept = {n: getattr(quant, n) for n in names}
+
+    def annotated(name):
+        def fn(*a, **kw):
+            with torch.profiler.record_function(name):
+                return kept[name](*a, **kw)
+        return fn
+
+    for n in names:
+        setattr(quant, n, annotated(n))
+    try:
+        return {"plan": plan.describe(), "kv_dtype": kv_dtype, "steps": k,
+                **_profile(run, annotations=names)}
+    finally:
+        for n, fn in kept.items():
+            setattr(quant, n, fn)
+
+
+def serve_kv_main_path(cfg, dev, counters, found):
+    """Quantized-KV serving: full-width, full-depth yi-9b under
+    ``kv_dtype="auto"``, one resident tenant and three prompt tenants
+    arriving at distinct steps, all on one weight set (``params_fn``
+    memo), in the :func:`serve_kv_pool`.  The rung each arrival must take
+    is computed from the reservation quotes and the free pages at its
+    admission (the pool less the reservations already held), and
+    asserted with the free pages the server saw.  ``counters`` receives
+    the kernels' launch counts of the run (zeroed just before, read just
+    after), ``found["decode_plan"]`` the int8 tenant's last decode plan.
+    Then one decode epoch under that plan is profiled with a native and
+    with an int8 cache."""
+    import torch
+    from repro_torch.core.policy import KV_PRECISION_LADDER, choose_kv_dtype
+    from repro_torch.kernels import quant
+    from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
+    from repro_torch.models import model as M
+    from repro_torch.sim.driver import TenantSpec
+    torch.cuda.reset_peak_memory_stats()
+    B, P = SERVE_KV["batch"], SERVE_KV["prompt_len"]
+    budget, steps = SERVE_KV["budget"], SERVE_KV["steps"]
+    pool = serve_kv_pool(cfg)
+    quotes = {kv: _kv_reserve_pages(cfg, B, P, kv) for kv in KV_PRECISION_LADDER}
+    free, want_free, want_rungs = pool, [], []
+    for _ in SERVE_KV["arrive_at"]:
+        rung = choose_kv_dtype(quotes, free)
+        want_free.append(free)
+        want_rungs.append(rung)
+        free -= min(quotes[rung], free)
+    if want_rungs != ["native", "fp8_e4m3", "int8"]:
+        raise AssertionError(f"serve_kv: pool {pool} gives rungs {want_rungs}")
+    memo = {}
+
+    def params_fn(c, pkey):
+        if pkey not in memo:
+            memo[pkey] = M.init_params(c, pkey, dev)
+        return memo[pkey]
+
+    specs = [TenantSpec(cfg.name, param_seed=0)] + [
+        TenantSpec(cfg.name, arrive_at=at, prompt_len=P, n_inferences=budget,
+                   param_seed=0) for at in SERVE_KV["arrive_at"]]
+    srv = MultiTenantServer([], tenants=specs, batch=B,
+                            max_len=SERVE_KV["max_len"], total_pages=pool,
+                            epoch_len=4, device=dev, reduced=False,
+                            kv_dtype="auto", params_fn=params_fn)
+    seen_free, stamped = [], {}
+    choose, record = srv._choose_kv_dtype, srv._record_page_scales
+
+    def spy_choose(c, spec):
+        seen_free.append(srv.cache.free_pages)
+        return choose(c, spec)
+
+    def spy_record(t):
+        record(t)
+        stamped[t.tid] = {
+            "leaves": {n: str(b.dtype) for n, b in t.caches[0].items()},
+            "page_scales": list(srv.cache.page_scales_of(t.tid + "#kv")
+                                .values()),
+            "pages": len(srv.cache.pages_of(t.tid + "#kv"))}
+
+    srv._choose_kv_dtype, srv._record_page_scales = spy_choose, spy_record
+    _zero_counters()
+    out = srv.run(steps=steps)
+    counters.update(_counters())
+    if counters["cache_matmul"] <= 0:
+        raise AssertionError(f"serve_kv: cache_matmul never launched: {counters}")
+    if seen_free != want_free:
+        raise AssertionError(f"serve_kv: free pages at admission {seen_free}, "
+                             f"predicted {want_free}")
+    want_kinds = grantable_kinds(cfg, B, pool)
+    kinds = {p.kind for t in srv.tenants for p in t.plans}
+    if kinds != want_kinds:
+        raise AssertionError(f"serve_kv: plan kinds {kinds}, the scheduler "
+                             f"grants {want_kinds}")
+    resident, arrivals = srv.tenants[0], srv.tenants[1:]
+    vocab, tenants = cfg.vocab_size, {}
+    for t, rung in [(resident, "native")] + list(zip(arrivals, want_rungs)):
+        res = out["tenants"][t.tid]
+        o = res["output"]
+        want_len = steps if t.prompt_len == 0 else 1 + budget
+        tags = {p.describe().partition("+kv:")[2] or "native" for p in t.plans}
+        leaves = (stamped[t.tid]["leaves"] if t.prompt_len else
+                  {n: str(b.dtype) for n, b in t.caches[0].items()})
+        want_leaves = ({"k": "torch.bfloat16", "v": "torch.bfloat16"}
+                       if rung == "native" else
+                       {"k": str(quant.kv_storage_dtype(rung)),
+                        "v": str(quant.kv_storage_dtype(rung)),
+                        "k_scale": "torch.float32", "v_scale": "torch.float32"})
+        problems = []
+        if t.kv_dtype != rung or res["kv_dtype"] != rung or tags != {rung}:
+            problems.append(f"rung {t.kv_dtype}/{res['kv_dtype']} tags {tags}")
+        if leaves != want_leaves:
+            problems.append(f"cache leaves {leaves}")
+        if t.prompt_len and t.kv_wanted != quotes[rung]:
+            problems.append(f"kv_wanted {t.kv_wanted} != {quotes[rung]}")
+        if rung != "native":
+            sc = stamped[t.tid]
+            if not sc["page_scales"] or sc["pages"] != len(sc["page_scales"]) \
+                    or min(sc["page_scales"]) <= 0:
+                problems.append(f"page scales {sc}")
+        if o.shape != (B, want_len) or o.min() < 0 or o.max() >= vocab:
+            problems.append(f"output {o.shape} range [{o.min()}, {o.max()}]")
+        if problems:
+            raise AssertionError(f"serve_kv {t.tid}: {problems}")
+        tenants[t.tid] = {
+            "kv_dtype": t.kv_dtype, "tokens": res["tokens"],
+            "ttft_s": res["ttft_s"], "kv_wanted": res["kv_wanted"],
+            "kv_reserved": res["kv_reserved"],
+            "prefill_chunks": res["prefill_chunks"],
+            "plans": dict(Counter(p.describe() for p in t.plans)),
+            "page_scales": ({"n": len(stamped[t.tid]["page_scales"]),
+                             "min": min(stamped[t.tid]["page_scales"]),
+                             "max": max(stamped[t.tid]["page_scales"])}
+                            if rung != "native" else None),
+            "first_tokens": o[0, :8].tolist()}
+    full = [t.kv_reserved == t.kv_wanted for t in arrivals]
+    if full != [True, True, False]:
+        raise AssertionError(f"serve_kv: full reservations {full}, want "
+                             "the first two full and the int8 one partial")
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "total_pages": pool,
+           "quotes": quotes, "free_at_admission": seen_free,
+           "rungs": [t.kv_dtype for t in arrivals], "batch": B,
+           "max_len": SERVE_KV["max_len"], "steps": steps,
+           "plan_kinds": sorted(kinds), "launches": dict(counters),
+           "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
+           "tokens_per_s": out["tokens_per_s"], "dram_total": out["dram_bytes"],
+           "host": out["host"], "tenants": tenants,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    int8 = arrivals[2]
+    plan = int8.plans[-1]                       # its last decode epoch's
+    params = memo[0]
+    del srv, resident, arrivals, int8
+    found["decode_plan"] = plan
+    res["decode_plan"] = plan.describe()
+    res["profile"] = {kv: _profile_cache_epoch(cfg, params, dev, plan, kv)
+                      for kv in ("native", "int8")}
+    prof = res["profile"]
+    if all(isinstance(prof[kv]["device_ms"], float) for kv in prof):
+        res["quantized_cache_overhead_share"] = (
+            1 - prof["native"]["device_ms"] / prof["int8"]["device_ms"])
+    return res
+
+
+# ---------------------------------------------------------- ffn_quant --
+def _plain_ffn_quant(x, wg, wg_s, wu, wu_s, wd, wd_s):
+    import torch.nn.functional as F
+    from repro_torch.kernels import cache_matmul as kmm
+    g = kmm.cache_matmul_quant_plain(x, wg, wg_s)
+    u = kmm.cache_matmul_quant_plain(x, wu, wu_s)
+    h = (F.silu(g.float()) * u.float()).to(x.dtype)
+    return kmm.cache_matmul_quant_plain(h, wd, wd_s)
+
+
+def _library_quant_ms(a, q, scale, want, dn):
+    """One PyTorch call computing the same function, timed on the same
+    inputs: ``torch._weight_int8pack_mm`` for int8 codes where this
+    build runs it on CUDA and it agrees with the plain version; else
+    None and the reason."""
+    import torch
+    if q.dtype != torch.int8:
+        return None, "no PyTorch call takes fp8 codes with per-column scales"
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, "torch._weight_int8pack_mm missing"
+    qt, st = q.t().contiguous(), scale[0].to(a.dtype).contiguous()
+    try:
+        got = fn(a, qt, st)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"torch._weight_int8pack_mm: {str(e).splitlines()[0][:160]}"
+    err, ok = _close(got, want, dn)
+    if not ok:
+        return None, f"torch._weight_int8pack_mm disagrees: max error {err}"
+    return _median_ms(lambda: fn(a, qt, st), 10), "torch._weight_int8pack_mm"
+
+
+def quant_timings(cfg, dev, plans):
+    """cache_matmul_quant at the ffn_quant path's GEMMs (bf16 A, int8 and
+    fp8 codes, M = 2 and 2048 rows, gate/up and down) with the tiles each
+    plan lowers to, against its plain version on the timed inputs: CUDA
+    event medians of the kernel, the plain version, a library call where
+    one computes the same function, and ``torch.matmul`` on a bf16 B
+    dequantized beforehand (a yardstick for another function)."""
+    import torch
+    from repro_torch.kernels import cache_matmul as kmm
+    from repro_torch.kernels import ops, quant
+    d, f = cfg.d_model, cfg.d_ff
+    dt, dn, eb = torch.bfloat16, "bfloat16", 2
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    out, timed = {}, {}
+    for rows in (2, 2048):
+        acts = {"up": _randn(gen, (rows, d), dt), "down": _randn(gen, (rows, f), dt)}
+        for kv in KV_CACHES:
+            for gemm, (k, n) in (("up", (d, f)), ("down", (f, d))):
+                w = _randn(gen, (k, n), torch.float32, 1 / math.sqrt(k))
+                q, sc = quant.quantize_cols(w, kv)
+                deq = (q.float() * sc).to(dt)
+                a = acts[gemm]
+                want = kmm.cache_matmul_quant_plain(a, q, sc)
+                lib_ms, lib = _library_quant_ms(a, q, sc, want, dn)
+                for pname, plan in plans.items():
+                    tiles = ops.ffn_quant_tiles(plan, rows, d, f)
+                    tile = tiles[0] if gemm == "up" else tiles[1]
+                    hop = ops.legalize_matmul_quant_tile(tile, rows, limit)
+                    if hop not in timed:        # plans that share a tile
+                        bound, by = _bound(
+                            eb * (rows * k + rows * n) + k * n + 4 * n,
+                            2 * rows * k * n, dn)
+                        err, ok = _close(kmm.cache_matmul_quant(a, q, sc, hop),
+                                         want, dn)
+                        reps = 30 if rows <= 8 else 10
+                        timed[hop] = {
+                            "kv": kv, "shape": [rows, k, n],
+                            "hopper_tile": [hop.bm, hop.bn, hop.bk],
+                            "ms": _median_ms(lambda: kmm.cache_matmul_quant(
+                                a, q, sc, hop), reps),
+                            "plain_ms": _median_ms(
+                                lambda: kmm.cache_matmul_quant_plain(a, q, sc),
+                                reps),
+                            "library_ms": lib_ms, "library": lib,
+                            "yardstick_matmul_dequantized_bf16_ms": _median_ms(
+                                lambda: torch.matmul(a, deq), reps),
+                            "bound_ms": bound, "bound_by": by,
+                            "max_abs_err": err, "ok": ok}
+                    out[f"{kv} {pname} m{rows} {gemm}"] = {
+                        "plan": pname, "plan_tile": [tile.bm, tile.bn, tile.bk],
+                        **timed[hop]}
+                timed.clear()
+                del w, q, sc, deq
+    return out
+
+
+def ffn_quant_plans(cfg, decode_plan):
+    """The FfnPlans the ffn_quant phase runs: the decode grant of the
+    serve_kv phase's int8 tenant, the LWM@32p prefill plan, and the
+    smallest fused (LBM) prefill grant, whose quantized FFN takes the
+    fallback tile."""
+    from repro_torch.core.vmem import fused_ffn_pages
+    s = PREFILL["prompt_len"]
+    lbm = _plan(cfg, "LBM", fused_ffn_pages(s, cfg.d_model, cfg.d_ff, 2), s)
+    lwm = _plan(cfg, "LWM", PREFILL["lwm_pages"], s)
+    return {f"decode {decode_plan.describe()}": decode_plan.ffn,
+            f"prefill {lwm.describe()}": lwm.ffn,
+            f"fallback {lbm.describe()}": lbm.ffn}
+
+
+def ffn_quant_main_path(cfg, dev, decode_plan, counters):
+    """``ops.planned_ffn_quant`` over every layer of full-width yi-9b,
+    FFN weights drawn in bf16 from one seed and quantized per column to
+    int8 and to fp8, on x of 2 and of 2048 rows, under the three plans of
+    :func:`ffn_quant_plans`.  ``counters`` receives the launch counts of
+    one pass of the twelve settings (zeroed just before, read just
+    after); each setting's 48-layer pass is timed on the host clock,
+    synchronised.  Gates per layer: within tolerance of the plain chain on
+    the same codes, and at :data:`PREFILL_COSINE` (per row) against
+    ``ops.planned_ffn`` on the bf16 weights under the same plan."""
+    import torch
+    from repro_torch.kernels import ops, quant
+    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    plans = ffn_quant_plans(cfg, decode_plan)
+    weights, qweights = [], {kv: [] for kv in KV_CACHES}
+    for _ in range(L):
+        w = tuple(_randn(gen, shape, torch.bfloat16, 1 / math.sqrt(shape[0]))
+                  for shape in ((d, f), (d, f), (f, d)))
+        weights.append(w)
+        for kv in KV_CACHES:
+            qweights[kv].append(tuple(t for wi in w
+                                      for t in quant.quantize_cols(wi, kv)))
+    xs = {rows: _randn(gen, (rows, d), torch.bfloat16) for rows in (2, 2048)}
+    settings = [(kv, pname, rows) for kv in KV_CACHES for pname in plans
+                for rows in xs]
+    for kv, pname, rows in settings:                        # warm
+        ops.planned_ffn_quant(xs[rows], *qweights[kv][0], plans[pname])
+    torch.cuda.synchronize()
+    _zero_counters()
+    outs, pass_ms = {}, {}
+    for key in settings:
+        kv, pname, rows = key
+        t0 = time.perf_counter()
+        outs[key] = [ops.planned_ffn_quant(xs[rows], *qweights[kv][l],
+                                           plans[pname]) for l in range(L)]
+        torch.cuda.synchronize()
+        pass_ms[key] = (time.perf_counter() - t0) * 1e3
+    counters.update(_counters())
+    if counters["cache_matmul_quant"] != len(settings) * L * 3:
+        raise AssertionError(f"ffn_quant: launches {counters}, want "
+                             f"{len(settings) * L * 3} cache_matmul_quant")
+    results = {}
+    for pname in plans:
+        for rows, x in xs.items():
+            ref = [ops.planned_ffn(x, *weights[l], plans[pname])
+                   for l in range(L)]
+            for kv in KV_CACHES:
+                key = (kv, pname, rows)
+                worst_err, min_cos, bad = 0.0, 1.0, []
+                for l, got in enumerate(outs.pop(key)):
+                    err, ok = _close(got, _plain_ffn_quant(x, *qweights[kv][l]),
+                                     "bfloat16")
+                    cos = float(torch.nn.functional.cosine_similarity(
+                        got.float(), ref[l].float(), dim=-1).min())
+                    worst_err, min_cos = max(worst_err, err), min(min_cos, cos)
+                    if not ok or not bool(torch.isfinite(got).all()):
+                        bad.append(l)
+                if bad or min_cos < PREFILL_COSINE[kv]:
+                    raise AssertionError(
+                        f"ffn_quant {key}: layers {bad} off the plain chain "
+                        f"(max error {worst_err}), min cosine {min_cos} "
+                        "against planned_ffn")
+                results[f"{kv} {pname} m{rows}"] = {
+                    "pass_ms": pass_ms[key], "max_abs_err_vs_plain": worst_err,
+                    "tol": TOL["bfloat16"],
+                    "min_cosine_vs_bf16_planned_ffn": min_cos,
+                    "min_cosine_bar": PREFILL_COSINE[kv]}
+            del ref
+    del weights, qweights, xs
+    torch.cuda.empty_cache()
+    timings = quant_timings(cfg, dev, plans)
+    bad = [k for k, v in timings.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"ffn_quant: kernel off its plain version: {bad}")
+    return {"arch": cfg.name, "layers": L, "plans": list(plans),
+            "launches": dict(counters), "settings": results,
+            "timings": timings}
+
+
 # --------------------------------------------------------------- main --
 def main() -> int:
     import torch
@@ -942,6 +1424,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["prefill"] = _phase("prefill", prefill_main_path, cfg, dev,
                                prefill_counts)
+    torch.cuda.empty_cache()
+    serve_kv_counts, ffn_quant_counts, found = {}, {}, {}
+    report["serve_kv"] = _phase("serve_kv", serve_kv_main_path, cfg, dev,
+                                serve_kv_counts, found)
+    decode_plan = found["decode_plan"]
+    torch.cuda.empty_cache()
+    report["ffn_quant"] = _phase("ffn_quant", ffn_quant_main_path, cfg, dev,
+                                 decode_plan, ffn_quant_counts)
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"
@@ -958,7 +1448,13 @@ def main() -> int:
         "flash_attention_quantized": (
             csrc + "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:173",
-            timings["flash_attention_quantized"], prefill_counts)}
+            timings["flash_attention_quantized"], prefill_counts),
+        "cache_matmul_quant": (
+            csrc + "cache_matmul_quant.cu",
+            "src/repro/kernels/cache_matmul.py:73",
+            report["ffn_quant"]["timings"][
+                f"int8 decode {decode_plan.describe()} m2 up"],
+            ffn_quant_counts)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],

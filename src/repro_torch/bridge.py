@@ -1,4 +1,4 @@
-"""Hand the JAX package's params to the port.
+"""Hand the JAX package's params and decode caches to the port.
 
 The reference's params are a nested dict whose leaves the caller has
 turned into numpy arrays (``np.asarray`` on each JAX leaf); per-layer
@@ -10,12 +10,13 @@ reinterpreted.  This module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch.models.base import ArchConfig
+from repro_torch.models.transformer import num_groups
 
 # ml_dtypes name -> (numpy carrier of the same width, torch dtype)
 _BIT_VIEWS = {
@@ -56,3 +57,24 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
         "layers": [_tree(tree["layers"], lambda a, g=g: leaf(np.asarray(a)[g]))
                    for g in range(n)],
     }
+
+
+def caches_from_numpy(tree: Any, cfg: ArchConfig,
+                      device: Any = "cuda") -> List[Dict[str, torch.Tensor]]:
+    """The port's decode caches (dense family: one KV dict per layer)
+    from the reference's, leaves turned into numpy arrays: a tuple of
+    per-layer dicts (shallow stacks) or one dict whose leaves stack the
+    layers on axis 0 (deep stacks).  Native K/V, int8 and fp8 codes (by
+    bit view) and fp32 scale leaves all carry over bit-exactly."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"bridge: family {cfg.family!r} not yet "
+                                  "ported (dense only)")
+    n = num_groups(cfg)
+    if isinstance(tree, dict):
+        tree = [{k: np.asarray(v)[g] for k, v in tree.items()}
+                for g in range(n)]
+    if len(tree) != n:
+        raise ValueError(f"bridge: {len(tree)} cache groups, {cfg.name} "
+                         f"has {n}")
+    return [{k: tensor_from_numpy(v, device) for k, v in layer.items()}
+            for layer in tree]

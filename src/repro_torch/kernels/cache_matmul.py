@@ -1,18 +1,24 @@
-"""cache_matmul: the LWM matmul as a hand-written Hopper kernel.
+"""cache_matmul and cache_matmul_quant: the LWM matmuls as hand-written
+Hopper kernels.
 
 Replaces ``src/repro/kernels/cache_matmul.py::cache_matmul`` (Pallas,
 body ``_matmul_kernel``): C[M,N] = A[M,K] @ B[K,N] with an fp32
-accumulator, cast to A's dtype at the end.  The CUDA source,
-``csrc/cache_matmul.cu``, says how the kernel is laid out and what bounds
-it on the H100 (at decode: the bytes of B).
+accumulator, cast to A's dtype at the end; and ``cache_matmul_quant``
+(body ``_matmul_quant_kernel``): the same with B stored as int8 or
+float8_e4m3 codes and one fp32 scale per column, dequantized on chip.
+The CUDA sources, ``csrc/cache_matmul.cu`` and
+``csrc/cache_matmul_quant.cu``, say how each kernel is laid out and what
+bounds it on the H100 (at decode: the bytes of B).
 
-* :func:`cache_matmul` is the wrapper.  For CPU tensors it computes the
-  plain version; for CUDA tensors it launches the kernel, or raises.  It
-  adds one to :data:`launches` per kernel launch.
-* :func:`cache_matmul_plain` is the plain PyTorch version, with the
-  reference's cast points.
-* :data:`TILES` is the menu of tile shapes the CUDA source compiles;
-  ``kernels/ops.py::legalize_matmul_tile`` picks one under a plan's tile.
+* :func:`cache_matmul` / :func:`cache_matmul_quant` are the wrappers.
+  For CPU tensors they compute the plain version; for CUDA tensors they
+  launch the kernel, or raise.  They add one to :data:`launches` /
+  :data:`launches_quant` per kernel launch.
+* :func:`cache_matmul_plain` / :func:`cache_matmul_quant_plain` are the
+  plain PyTorch versions, with the reference's cast points.
+* :data:`TILES` / :data:`QUANT_TILES` are the menus of tile shapes the
+  CUDA sources compile; ``kernels/ops.py::legalize_matmul_tile`` and
+  ``legalize_matmul_quant_tile`` pick one under a plan's tile.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)
+CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +56,24 @@ TILES = (HopperTile(8, 32, 256, 1, 1),
          HopperTile(128, 128, 32, 8, 8),
          HopperTile(8, 32, 32, 1, 1))
 
+
+class QuantTile(HopperTile):
+    """A compiled tile of the quantized kernel.  B lands in shared memory
+    dequantized, as fp32 like A, beside the block's [bn] fp32 scale
+    stripe (``QTile::smem`` in csrc/cache_matmul_quant.cu)."""
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * (self.bk * (self.bm + 1) + self.bk * self.bn + self.bn)
+
+
+# Index i is tile i of csrc/cache_matmul_quant.cu (checked when it loads).
+QUANT_TILES = tuple(QuantTile(*dataclasses.astuple(t)) for t in TILES)
+
 launches = 0
+launches_quant = 0
 _lib = None
+_qlib = None
 
 
 def _library() -> ctypes.CDLL:
@@ -112,4 +135,82 @@ def cache_matmul(a: torch.Tensor, b: torch.Tensor,
                            f" (M={m}, N={n}, K={k}, tile={tile})")
     global launches
     launches += 1
+    return c
+
+
+# ------------------------------------------------------------- quant --
+def _quant_library() -> ctypes.CDLL:
+    global _qlib
+    if _qlib is None:
+        lib = build.load("cache_matmul_quant")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.cache_matmul_quant_f32_i8, lib.cache_matmul_quant_f32_f8,
+                   lib.cache_matmul_quant_bf16_i8,
+                   lib.cache_matmul_quant_bf16_f8):
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            fn.restype = i32
+        lib.cache_matmul_quant_tile.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.cache_matmul_quant_tile.restype = i32
+        build.check_menu(lib.cache_matmul_quant_tile, QUANT_TILES,
+                         "cache_matmul_quant")
+        _qlib = lib
+    return _qlib
+
+
+def cache_matmul_quant_plain(a: torch.Tensor, b_q: torch.Tensor,
+                             b_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version: the codes dequantized in fp32 (``q.float() * s``),
+    fp32 products and sums, cast to A's dtype (the reference's
+    ``jnp.dot`` of A and the fp32 dequantized B)."""
+    return torch.matmul(a.float(), b_q.float() * b_scale).to(a.dtype)
+
+
+def _check_quant(a: torch.Tensor, b_q: torch.Tensor,
+                 b_scale: torch.Tensor) -> None:
+    if (a.dim() != 2 or b_q.dim() != 2 or a.shape[1] != b_q.shape[0]
+            or tuple(b_scale.shape) != (1, b_q.shape[1])):
+        raise ValueError(f"cache_matmul_quant: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b_q.shape)}, scale {tuple(b_scale.shape)}")
+    if (a.dtype not in DTYPES or b_q.dtype not in CODE_DTYPES
+            or b_scale.dtype != torch.float32):
+        raise TypeError(f"cache_matmul_quant: dtypes {a.dtype}, {b_q.dtype}, "
+                        f"{b_scale.dtype}; want A in {DTYPES}, B in "
+                        f"{CODE_DTYPES}, scale float32")
+    if not (a.device == b_q.device == b_scale.device):
+        raise ValueError(f"cache_matmul_quant: devices {a.device}, "
+                         f"{b_q.device}, {b_scale.device}")
+
+
+def cache_matmul_quant(a: torch.Tensor, b_q: torch.Tensor,
+                       b_scale: torch.Tensor, tile: QuantTile) -> torch.Tensor:
+    """C[M,N] = A[M,K] @ (B_q[K,N] * b_scale[1,N]) through the Hopper
+    kernel with ``tile`` (one of :data:`QUANT_TILES`; the plain version
+    ignores it).  B is read as 1-byte codes and dequantized on chip: no
+    fp copy of B is made.  Ragged edges are masked in the kernel."""
+    _check_quant(a, b_q, b_scale)
+    if a.device.type == "cpu":
+        return cache_matmul_quant_plain(a, b_q, b_scale)
+    if a.device.type != "cuda":
+        raise ValueError(f"cache_matmul_quant: unsupported device {a.device}")
+    if not (a.is_contiguous() and b_q.is_contiguous()
+            and b_scale.is_contiguous()):
+        raise ValueError("cache_matmul_quant: operands must be contiguous")
+    m, k = a.shape
+    n = b_q.shape[1]
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if m == 0 or n == 0:
+        return c
+    lib = _quant_library()
+    fn = getattr(lib, "cache_matmul_quant_{}_{}".format(
+        "f32" if a.dtype == torch.float32 else "bf16",
+        "i8" if b_q.dtype == torch.int8 else "f8"))
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(),
+                 c.data_ptr(), m, n, k, QUANT_TILES.index(tile),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cache_matmul_quant: launch failed with CUDA "
+                           f"error {err} (M={m}, N={n}, K={k}, tile={tile})")
+    global launches_quant
+    launches_quant += 1
     return c

@@ -1,7 +1,8 @@
 """Public wrappers of the port's kernels: KernelPlan dispatch (the
 grant -> kernel link), budget-driven tile selection, and the Hopper tile
 legalization.  Port of src/repro/kernels/ops.py (``planned_matmul``,
-``budgeted_matmul``, ``planned_ffn``, ``fused_ffn``, ``attention``).
+``budgeted_matmul``, ``planned_ffn``, ``fused_ffn``,
+``planned_matmul_quant``, ``planned_ffn_quant``, ``attention``).
 
 The plan stays the decision: LBM or LWM, the grant, and its tile.  The
 plan's tiles were sized for 96 MiB of TPU VMEM (core/vmem.py), with
@@ -15,7 +16,7 @@ ragged edges instead.  CPU tensors take the kernels' plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, TypeVar
+from typing import Optional, Sequence, Tuple, TypeVar
 
 import torch
 import torch.nn.functional as F
@@ -52,18 +53,26 @@ def _pick(fits: Sequence[_T], rows: int, row_dim: str, area) -> _T:
     return max((t for t in fits if size(t) == best), key=area)
 
 
-def legalize_matmul_tile(tile: TileConfig, m: int,
-                         limit: Optional[int]) -> kmm.HopperTile:
-    """The compiled cache_matmul tile for a plan tile: no dimension above
-    the plan's, shared memory within ``limit``.  When no compiled tile
-    fits under the plan's bound, the smallest one runs (the floor, as the
-    reference's tile selection falls back to its smallest candidate)."""
-    fits = [t for t in kmm.TILES
+def legalize_matmul_tile(tile: TileConfig, m: int, limit: Optional[int],
+                         menu: Sequence[kmm.HopperTile] = kmm.TILES
+                         ) -> kmm.HopperTile:
+    """The compiled tile of ``menu`` (cache_matmul's by default) for a
+    plan tile: no dimension above the plan's, shared memory within
+    ``limit``.  When no compiled tile fits under the plan's bound, the
+    smallest one runs (the floor, as the reference's tile selection falls
+    back to its smallest candidate)."""
+    fits = [t for t in menu
             if t.bm <= tile.bm and t.bn <= tile.bn and t.bk <= tile.bk
             and (limit is None or t.smem_bytes <= limit)]
     if not fits:
-        fits = [min(kmm.TILES, key=lambda t: (t.bm * t.bn, t.smem_bytes))]
+        fits = [min(menu, key=lambda t: (t.bm * t.bn, t.smem_bytes))]
     return _pick(fits, m, "bm", lambda t: t.bn * t.bk)
+
+
+def legalize_matmul_quant_tile(tile: TileConfig, m: int,
+                               limit: Optional[int]) -> kmm.QuantTile:
+    """:func:`legalize_matmul_tile` over cache_matmul_quant's menu."""
+    return legalize_matmul_tile(tile, m, limit, kmm.QUANT_TILES)
 
 
 def legalize_ffn_tile(block_s: int, block_f: int, s: int,
@@ -147,6 +156,43 @@ def planned_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     u = planned_matmul(x, wu, plan.up_tile)
     h = (F.silu(g.float()) * u.float()).to(x.dtype)
     return planned_matmul(h, wd, plan.down_tile)
+
+
+def planned_matmul_quant(a: torch.Tensor, b_q: torch.Tensor,
+                         b_scale: torch.Tensor,
+                         tile: TileConfig) -> torch.Tensor:
+    """Dequant-fused planned matmul: ``b_q`` pre-quantized (int8 / fp8)
+    with per-column scales ``b_scale`` [1, N]
+    (``kernels/quant.py::quantize_cols``).  B streams at quantized width
+    through the plan's tile, legalized for the quant kernel's menu."""
+    hopper = legalize_matmul_quant_tile(tile, a.shape[0], smem_limit(a.device))
+    return kmm.cache_matmul_quant(a, b_q, b_scale, hopper)
+
+
+def ffn_quant_tiles(plan: FfnPlan, s: int, d: int,
+                    f: int) -> Tuple[TileConfig, TileConfig]:
+    """The (gate/up, down) plan tiles :func:`planned_ffn_quant` runs for
+    x [s, d] and d_ff ``f``: the plan's own, or for a fused plan the
+    gate/up tile lowered from its pages at one byte an element, serving
+    the down GEMM too (the reference's fallback)."""
+    up = plan.up_tile if plan.up_tile is not None else \
+        lower_matmul_tile(s, f, d, 1, plan.vmem_pages)
+    return up, plan.down_tile if plan.down_tile is not None else up
+
+
+def planned_ffn_quant(x: torch.Tensor, wg: torch.Tensor, wg_s: torch.Tensor,
+                      wu: torch.Tensor, wu_s: torch.Tensor, wd: torch.Tensor,
+                      wd_s: torch.Tensor, plan: FfnPlan) -> torch.Tensor:
+    """SwiGLU FFN over pre-quantized weights (per-column scales), each
+    GEMM through the dequant-fused kernel with the plan's tiles.
+    Quantized weights always run tiled (LWM), as in the reference; a
+    fused plan's tiles come from :func:`ffn_quant_tiles`."""
+    tile_up, tile_dn = ffn_quant_tiles(plan, x.shape[0], x.shape[1],
+                                       wg.shape[1])
+    g = planned_matmul_quant(x, wg, wg_s, tile_up)
+    u = planned_matmul_quant(x, wu, wu_s, tile_up)
+    h = (F.silu(g.float()) * u.float()).to(x.dtype)
+    return planned_matmul_quant(h, wd, wd_s, tile_dn)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,9 +2,12 @@
 src/repro/kernels/quant.py, the whole module).
 
 One module owns every quantize/dequantize of the port: the per-tensor
-int8 pair, and the per-row KV quantization that the dequant-fused flash
-attention kernel consumes (one fp32 scale per token row per KV head, so
-a row's scale depends only on that row).
+int8 pair; the per-row KV quantization (one fp32 scale per token row
+per KV head, so a row's scale depends only on that row) that the
+dequant-fused flash attention kernel and the quantized KV caches of
+``models/attention.py::mha`` use; and the per-column weight
+quantization whose codes and scales ``kernels/ops.py::planned_ffn_quant``
+streams through the cache_matmul_quant kernel.
 
 All quantization here is symmetric (no zero point): ``q = round(x / s)``
 with ``s = amax / qmax`` and the ``amax == 0`` guard mapping all-zero

@@ -20,8 +20,12 @@ LBM candidate, so full-width serving runs LWM grants only, as the
 reference's does.)  What this port keeps: the serial
 (``pipeline=False``) and epoch-pipelined loops, interleaved and sequential admission,
 grant-sized prefill chunks, the ``kv_len`` attention windows, KV page
-reservations and departures, QoS ordering, and the batched Algorithm 1
-planner (``batch_sched``).
+reservations and departures, QoS ordering, the batched Algorithm 1
+planner (``batch_sched``), and quantized KV (``kv_dtype``: a pinned
+int8 / fp8_e4m3 rung, or ``"auto"``, the precision ladder that prices
+each arriving prompt tenant's reservation at every rung and takes the
+first that fits the free pool; per-page dequant scales recorded in the
+page table at the TTFT stamp).
 
 Execution is eager PyTorch.  Tokens and caches stay on the device
 through the loop, and nothing is read back to the host except at the
@@ -29,8 +33,8 @@ TTFT stamp of a tenant's first token (and once after the run).  The
 epoch's work list keeps the reference's "bucket" items; this slice runs
 a bucket's tenants one after another, each through its own epoch.
 Not ported here (raising ``NotImplementedError``): device meshes,
-prefix dedup, quantized KV, fault injection and preemption, overload
-admission, AOT warmup and grant lookahead.
+prefix dedup, fault injection and preemption, overload admission, AOT
+warmup and grant lookahead (each with its quantized-KV part).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU.  Without injected params / prompts the server draws params from a
@@ -53,7 +57,8 @@ from repro_torch.core.cache import CacheConfig
 from repro_torch.core.mapping import MapperConfig
 from repro_torch.core.mct import MCT, ModelMapping
 from repro_torch.core.plan import KernelPlan, lower_prefill_chunk
-from repro_torch.core.policy import (CamdnPolicy, ReplicaControl,
+from repro_torch.core.policy import (KV_PRECISION_LADDER, CamdnPolicy,
+                                     ReplicaControl, choose_kv_dtype,
                                      price_layer_batch)
 from repro_torch.core.runtime import (STATE_ADMITTED, STATE_RUNNING,
                                       TenantModel, TenantTask)
@@ -105,11 +110,15 @@ def _tenant_model(graph: ModelGraph, mapper: MapperConfig) -> TenantModel:
     return TenantModel(graph, mapper)
 
 
-def _kv_reserve_pages(cfg: ArchConfig, batch: int, tokens: int) -> int:
+def _kv_reserve_pages(cfg: ArchConfig, batch: int, tokens: int,
+                      kv_dtype: str = "native") -> int:
     """Pages an admitted prompt tenant reserves for its KV working set
-    (held until departure).  Dense archs, native KV only: every layer
-    caches K and V rows at the compute dtype."""
-    row = kv_row_bytes(cfg.num_kv_heads, cfg.hd, _elem_bytes(cfg))
+    (held until departure).  Dense archs: every layer caches K and V
+    rows, priced at the tenant's storage precision ``kv_dtype`` plus
+    the per-row fp32 scales a quantized cache carries."""
+    quantized = kv_dtype != "native"
+    kv_eb = elem_bytes(kv_dtype) if quantized else _elem_bytes(cfg)
+    row = kv_row_bytes(cfg.num_kv_heads, cfg.hd, kv_eb, scaled=quantized)
     kv = num_groups(cfg) * batch * tokens * row
     return ceil_div(kv, PAGE_BYTES) if tokens > 0 else 0
 
@@ -160,6 +169,11 @@ class Tenant:
     run_steps: int = 0                    # decode steps this run() call
     kv_wanted: int = 0                    # pages the working set asks for
     kv_reserved: int = 0                  # pages actually reserved
+    kv_dtype: str = "native"              # KV storage precision (plan axis)
+    # per live prompt row, the max dequant scale over layers, K/V, batch
+    # and KV heads; copied to the host before the first-token event and
+    # read at the TTFT stamp
+    scale_rows: Optional[torch.Tensor] = None
     pf_computed: int = 0                  # prompt tokens prefilled
     state: str = STATE_ADMITTED
 
@@ -213,8 +227,9 @@ class MultiTenantServer:
                 ("queue_deadline_s", queue_deadline_s, None)):
             if value != off:
                 raise NotImplementedError(f"{name} not yet ported")
-        if kv_dtype != "native":
-            raise NotImplementedError(f"kv_dtype {kv_dtype!r} not yet ported")
+        if kv_dtype not in KV_PRECISION_LADDER + ("auto",):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: want one of "
+                             f"{KV_PRECISION_LADDER + ('auto',)}")
         self.device = torch.device(device)
         self.reduced = bool(reduced)
         self._params_fn = params_fn
@@ -334,6 +349,7 @@ class MultiTenantServer:
             t.prompt = np.asarray(self._prompt_fn(spec, i, cfg, self.batch),
                                   np.int32)
             t.prompt_dev = self._to_device(t.prompt)
+            t.kv_dtype = self._choose_kv_dtype(cfg, spec)
             # whole-prompt MCT for the sequential baseline, chunk-block
             # MCT for interleaved chunked prefill
             pf_block = (spec.prompt_len
@@ -344,7 +360,8 @@ class MultiTenantServer:
             self._align_lbm_to_vmem(ptm, cfg, max(pf_block, LANE))
             t.ptask = TenantTask(tid + "/pf", ptm, self.cache, self.nec,
                                  self.policy)
-            want = _kv_reserve_pages(cfg, self.batch, spec.prompt_len)
+            want = _kv_reserve_pages(cfg, self.batch, spec.prompt_len,
+                                     t.kv_dtype)
             t.kv_wanted = want
             # best-effort reservation: degrade to what the pool can spare
             # now; kv_reserved < kv_wanted records the degradation
@@ -358,13 +375,25 @@ class MultiTenantServer:
             t.token = torch.full((self.batch, 1), i % cfg.vocab_size,
                                  dtype=torch.long, device=self.device)
         t.caches = init_caches(params, cfg, self.batch, self.max_len,
-                               device=self.device)
+                               kv_dtype=t.kv_dtype, device=self.device)
         t.admitted_wall = due_wall if due_wall is not None else time.time()
         self.tenants.append(t)
         self._groups.setdefault(cfg.name, []).append(t)
         self._epoch_cores.setdefault(cfg.name, M.make_decode_epoch(cfg))
         self._prefill_cores.setdefault(cfg.name, M.make_prefill_chunk(cfg))
         return t
+
+    def _choose_kv_dtype(self, cfg: ArchConfig, spec: TenantSpec) -> str:
+        """KV storage precision for an arriving prompt tenant.  A fixed
+        server policy pins the rung; ``auto`` prices the full reservation
+        at every rung of the precision ladder and takes the first that
+        fits the pool's free pages now (the ladder bottom when none
+        does).  Resident (no-prompt) tenants stay native."""
+        if self.kv_dtype != "auto":
+            return self.kv_dtype
+        want = {kv: _kv_reserve_pages(cfg, self.batch, spec.prompt_len, kv)
+                for kv in KV_PRECISION_LADDER}
+        return choose_kv_dtype(want, self.cache.free_pages)
 
     def _due(self, item: List) -> bool:
         return item[2] <= self._clock
@@ -480,7 +509,7 @@ class MultiTenantServer:
             d_model=cfg.d_model, d_ff=cfg.d_ff,
             dtype_bytes=_elem_bytes(cfg), head_dim=cfg.hd,
             ssm_chunk=cfg.ssm_chunk, down_pages=down_pages,
-            kv_dtype=self.kv_dtype)
+            kv_dtype=t.kv_dtype)
 
     def _schedule_epoch(self, t: Tenant, now: float, k: int) -> KernelPlan:
         """CaMDN selection + NEC charging for one tenant's epoch: the
@@ -514,22 +543,59 @@ class MultiTenantServer:
     def _finish_prefill(self, t: Tenant, token: torch.Tensor) -> None:
         """The final chunk's greedy token flips the tenant to decode.
         On the card a CUDA event marks the token for the TTFT stamp,
-        which the caller takes after the epoch's decode work is queued."""
+        which the caller takes after the epoch's decode work is queued;
+        a quantized tenant's per-row scale maxima are taken on the
+        device and copied to pinned host memory ahead of the event."""
         t.token = token
         t.outputs.append(token)
         t.tokens_served += self.batch
         t.index = t.prompt_len
         t.ptask.depart()
+        rows = self._scale_rows(t)
         if token.is_cuda:
+            if rows is not None:
+                t.scale_rows = torch.empty(rows.shape, dtype=rows.dtype,
+                                           pin_memory=True)
+                t.scale_rows.copy_(rows, non_blocking=True)
             t.first_token_event = torch.cuda.Event()
             t.first_token_event.record()
+        else:
+            t.scale_rows = rows
 
     def _stamp_ttft(self, t: Tenant) -> None:
         """The serving loop's one wait on the device: until the first
-        token exists."""
+        token exists.  Then the page scales are recorded."""
         if t.first_token_event is not None:
             t.first_token_event.synchronize()
         t.ttft = time.time() - t.admitted_wall
+        self._record_page_scales(t)
+
+    def _scale_rows(self, t: Tenant) -> Optional[torch.Tensor]:
+        """[pf_pos] fp32: each live prompt row's largest dequant scale
+        over every layer's K and V, batch rows and KV heads; None for a
+        native cache."""
+        if t.kv_dtype == "native" or t.caches is None or t.pf_pos <= 0:
+            return None
+        leaves = torch.stack([c[name][:, :t.pf_pos] for c in t.caches
+                              for name in ("k_scale", "v_scale")])
+        return leaves.amax(dim=(0, 1, 3, 4))
+
+    def _record_page_scales(self, t: Tenant) -> None:
+        """Per-page dequant scales for a quantized tenant, recorded at the
+        TTFT stamp (src/repro/launch/serve.py::_record_page_scales).  The
+        modeled page table has no row map, so the live prefix rows fold
+        onto the tenant's reserved pages by an even split; each page
+        stores the max per-row scale it covers."""
+        if t.scale_rows is None:
+            return
+        rows = t.scale_rows.numpy()
+        t.scale_rows = None
+        pages = sorted(self.cache.pages_of(t.tid + "#kv"))
+        live, n = len(rows), len(pages)
+        for j, p in enumerate(pages):
+            lo = j * live // n
+            hi = max(lo + 1, (j + 1) * live // n)
+            self.cache.set_page_scale(p, float(rows[lo:hi].max()))
 
     def _prefill_whole(self, t: Tenant, now: float) -> None:
         """Sequential-admission baseline (and the serial loop's prompt
@@ -742,7 +808,8 @@ class MultiTenantServer:
                     len(group) >= 2
                     and all(g.tid in dec_plans for g in group)
                     and all(dec_plans[g.tid] == (plan, k) for g in group)
-                    and len({g.index for g in group}) == 1)
+                    and len({g.index for g in group}) == 1
+                    and len({g.kv_dtype for g in group}) == 1)
                 if bucketable:
                     work.append(("bucket", group, plan, k))
                     seen.update(g.tid for g in group)
@@ -936,7 +1003,7 @@ class MultiTenantServer:
                         "departed": t.departed,
                         "kv_wanted": t.kv_wanted,
                         "kv_reserved": t.kv_reserved,
-                        "kv_dtype": self.kv_dtype,
+                        "kv_dtype": t.kv_dtype,
                         "prefill_computed": t.pf_computed,
                         "state": t.state,
                         "output": (torch.cat([o.cpu() for o in t.outputs],

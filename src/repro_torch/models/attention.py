@@ -1,13 +1,16 @@
-"""GQA self-attention with RoPE, causal / sliding-window masks, a
-native KV cache and the plan-lowered flash path (port of
-src/repro/models/attention.py, the paths the dense slices use).
+"""GQA self-attention with RoPE, causal / sliding-window masks, native
+and quantized (int8 / fp8_e4m3) KV caches and the plan-lowered flash
+path (port of src/repro/models/attention.py, the paths the dense slices
+use).
 
 Plain PyTorch, as the reference's attention is plain ``jnp``, except
 under an attention plan: cache-free causal self-attention then runs
 through the flash-attention kernel with the plan's blocks and KV
-precision (``kernels/ops.py::attention``).  Not yet ported, and raising
-``NotImplementedError`` rather than computing something else: quantized
-KV caches and cross-attention.
+precision (``kernels/ops.py::attention``).  A quantized cache stores
+per-row codes and fp32 scales; the cached path dequantizes the live
+window in plain ops, as the reference's does.  Not yet ported, and
+raising ``NotImplementedError`` rather than computing something else:
+cross-attention.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import quant as kquant
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import Params, apply_rope, init_linear, linear
 
@@ -66,10 +70,13 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     the absolute position of x's first token) the S new tokens are
     written into the cache IN PLACE at [cache_index, cache_index + S) and
     attend causally over the cache prefix; the same cache dict is
-    returned.  ``kv_len`` bounds the read to the cache's first kv_len
-    positions (positions past the index are masked anyway), so reads
-    scale with the live prefix, not max_len.  Requires
-    cache_index + S <= kv_len.
+    returned.  A quantized cache (it has "k_scale" / "v_scale"
+    [B, L, Hkv, 1] fp32 leaves) gets the new rows quantized per row and
+    their codes and scales written in place; its read is sliced to the
+    window first and only then dequantized to x's dtype.  ``kv_len``
+    bounds the read to the cache's first kv_len positions (positions
+    past the index are masked anyway), so reads scale with the live
+    prefix, not max_len.  Requires cache_index + S <= kv_len.
     ``attn_plan`` (core.plan.AttnPlan) routes cache-free causal
     self-attention through the flash kernel with the plan's block sizes
     and KV precision.
@@ -88,14 +95,21 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     if kv_cache is not None:
         if cache_index is None:
             raise ValueError("mha: a KV cache needs cache_index")
+        new = {"k": k, "v": v}
         if "k_scale" in kv_cache:
-            raise NotImplementedError("quantized KV cache not yet ported")
-        kv_cache["k"][:, cache_index:cache_index + S] = k
-        kv_cache["v"][:, cache_index:cache_index + S] = v
+            # row-local scales: chunked and one-shot prefill write the
+            # same codes, and a decode step never rescales history
+            kv_name = kquant.kv_dtype_of(kv_cache["k"].dtype)
+            new["k"], new["k_scale"] = kquant.quantize_rows(k, kv_name)
+            new["v"], new["v_scale"] = kquant.quantize_rows(v, kv_name)
+        for name, rows in new.items():
+            kv_cache[name][:, cache_index:cache_index + S] = rows
         new_cache = kv_cache
-        k, v = kv_cache["k"], kv_cache["v"]
-        if kv_len is not None and kv_len < k.shape[1]:
-            k, v = k[:, :kv_len], v[:, :kv_len]
+        window = {name: buf[:, :kv_len] for name, buf in kv_cache.items()}
+        k, v = window["k"], window["v"]
+        if "k_scale" in kv_cache:
+            k = kquant.dequantize_rows(k, window["k_scale"], x.dtype)
+            v = kquant.dequantize_rows(v, window["v_scale"], x.dtype)
         bias = _mask_bias(S, k.shape[1], True, cfg.sliding_window,
                           q_offset=cache_index, device=x.device)
     else:
@@ -128,10 +142,23 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype: Optional[torch.dtype] = None,
                   kv_dtype: Optional[str] = None,
                   device: Any = "cuda") -> Dict[str, torch.Tensor]:
-    """Native-precision KV cache buffers [B, max_len, Hkv, hd]."""
-    if kv_dtype is not None and kv_dtype != "native":
-        raise NotImplementedError(f"KV cache dtype {kv_dtype!r} not yet ported")
+    """KV cache buffers [B, max_len, Hkv, hd].  ``kv_dtype`` None /
+    "native" keeps the compute dtype; "int8" / "fp8_e4m3" stores K/V as
+    codes of that type with per-row fp32 scales [B, max_len, Hkv, 1],
+    initialised to ones (src/repro/models/attention.py::init_kv_cache)."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+    if kv_dtype is not None and kv_dtype not in kquant.KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r}: want one of "
+                         f"{kquant.KV_DTYPES}")
+    if kv_dtype is not None and kv_dtype != "native":
+        qdt = kquant.kv_storage_dtype(kv_dtype)
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=qdt, device=device),
+                "v": torch.zeros(shape, dtype=qdt, device=device),
+                "k_scale": torch.ones(sshape, dtype=torch.float32,
+                                      device=device),
+                "v_scale": torch.ones(sshape, dtype=torch.float32,
+                                      device=device)}
     dt = dtype or cfg.torch_dtype
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}

@@ -101,8 +101,11 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
 def init_caches(params: Optional[Params], cfg: ArchConfig, batch: int,
                 max_len: int, kv_dtype: Optional[str] = None,
                 device: Any = None) -> Caches:
-    """One native KV dict per layer.  The device defaults to the
-    params' device (``"cuda"`` without params)."""
+    """One KV dict per layer, at ``kv_dtype`` (None / "native": the
+    compute dtype; "int8" / "fp8_e4m3": codes plus per-row fp32 scale
+    leaves, see :func:`~repro_torch.models.attention.init_kv_cache`).
+    The device defaults to the params' device (``"cuda"`` without
+    params)."""
     _require_dense(cfg)
     if device is None:
         device = (params["embed"]["table"].device if params is not None

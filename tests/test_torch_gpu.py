@@ -6,8 +6,8 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances are tests/test_kernels.py::tol for the matmul and FFN
-kernels (2e-2 bf16, 2e-3 fp32) and tests/test_kernels.py's flash
+Tolerances are tests/test_kernels.py::tol for the matmul (native and
+quantized) and FFN kernels (2e-2 bf16, 2e-3 fp32) and tests/test_kernels.py's flash
 tolerances for attention (3e-2 bf16, 2e-3 fp32).  Each wrapper counts
 one launch per call.
 """
@@ -59,6 +59,31 @@ def test_cuda_kernels_match_plain_versions(dtype):
         torch.testing.assert_close(
             got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
             **MATMUL_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_cache_matmul_quant_matches_plain_version(dtype, kv):
+    """The dequant-fused matmul against its plain version on the card,
+    int8 and fp8 codes, ragged shapes, every compiled tile; one launch
+    per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for m, k, n in ((37, 333, 1000), (2, 4096, 300), (130, 64, 97)):
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        q, s = pquant.quantize_cols(w, kv)
+        want = kmm.cache_matmul_quant_plain(a, q, s).float()
+        for tile in kmm.QUANT_TILES:
+            before = kmm.launches_quant
+            got = kmm.cache_matmul_quant(a, q, s, tile)
+            assert kmm.launches_quant == before + 1
+            assert got.dtype == dt and got.shape == (m, n)
+            torch.testing.assert_close(got.float(), want, **MATMUL_TOL[dtype])
 
 
 @pytest.mark.gpu

@@ -229,8 +229,8 @@ def test_unported_attention_paths_raise(yi):
     x = torch.zeros((1, 8, pcfg.d_model))
     with pytest.raises(NotImplementedError):
         PA.mha(attn, x, pcfg, xattn_kv=x)
-    with pytest.raises(NotImplementedError):
-        PA.init_kv_cache(pcfg, 1, 8, kv_dtype="int8", device="cpu")
+    with pytest.raises(ValueError):
+        PA.init_kv_cache(pcfg, 1, 8, kv_dtype="int4", device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="embeds_prefix"):
         PT.lm_forward(pparams, toks, pcfg, embeds_prefix=x)
