@@ -8,8 +8,9 @@ Phases, each printed as one JSON object with its seconds:
 * ``device``: the card (``nvidia-smi`` name and power limit, SMs, shared
   memory per block, L2).
 * ``build``: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
-  (cache_matmul, cache_matmul_quant, block_fused_ffn, flash_attention)
-  with ``nvcc`` for ``sm_90a``, one compiler per source, all at once.
+  (cache_matmul, cache_matmul_quant, block_fused_ffn, flash_attention,
+  ssd_chunk) with ``nvcc`` for ``sm_90a``, one compiler per source, all
+  at once.
 * ``kernels``: holds each kernel against its plain PyTorch version on the
   card, in bf16 and fp32 (TF32 off): the matmul and FFN kernels at
   full-width yi-9b decode shapes, a 256-row prefill-sized shape and a
@@ -18,10 +19,13 @@ Phases, each printed as one JSON object with its seconds:
   quantized kernel bitwise equal to the native one on dequantized K/V;
   tiles and blocks lowered from full-width plans under several grants;
   cache_matmul_quant with int8 and fp8 codes at every compiled tile, at
-  the decode shapes, 256 and 2048 rows and a ragged shape.  Then times
-  each kernel at the shape of each path that runs it (the FFN kernels at
-  decode and at the prefill's 2048 rows), checked against its plain
-  version on the timed inputs.
+  the decode shapes, 256 and 2048 rows and a ragged shape; ssd_chunk at
+  full-width mamba2 heads (B/C per batch row) for chunks of 256, 128,
+  64, a 44-token tail and 1, and at the reduced shape.  Then times each
+  kernel at the shape of each path that runs it (the FFN kernels at
+  decode and at the prefill's 2048 rows, ssd_chunk at the prefill's and
+  a serving chunk's), checked against its plain version on the timed
+  inputs.
 * ``e2e``: full-width yi-9b cut to 4 layers, random weights from one
   seed: prefill, then two teacher-forced decode epochs (an LBM plan and an
   LWM plan) with a native, an int8 and an fp8 KV cache, and
@@ -57,6 +61,30 @@ Phases, each printed as one JSON object with its seconds:
   fused plan (the fallback tile); gated against the plain chain and
   against ``planned_ffn`` on the bf16 weights, timed per pass, and
   cache_matmul_quant timed per GEMM.
+* ``e2e_ssm``: slice 4.  Full-width mamba2-370m cut to 4 layers, random
+  weights from one seed: ``make_prefill`` of a 300-token prompt (a
+  256-token chunk and a 44-token tail segment) under grants of 32, 16
+  and 4 pages (SSD chunks 256, 128, 64), then a prefill and two
+  teacher-forced decode epochs, on the card with ssd_chunk against the
+  CPU with its plain version.  Records whether a chunked prefill
+  (256 + 44) equals the one-shot one bitwise on the card.
+* ``prefill_ssm``: ``make_prefill`` of full-depth (48-layer) mamba2 on 2
+  prompts of 1024 tokens under the three grants; counters zeroed just
+  before and read just after one pass of the three; the plans' logits
+  gated against each other on an fp32 copy of the weights (SSD is exact
+  under any chunking), and in bf16 relative to a plain-version control;
+  timed warm, and profiled once.
+* ``serve_ssm``: ``MultiTenantServer(["mamba2-370m"], reduced=False)``,
+  full depth, batch 2, max_len 1024, a 6500-page pool: a resident and
+  two arrivals at steps 4 and 8 with 512- and 300-token prompts and
+  16-step budgets, whose 3113-page state reservations both fit whole;
+  free pages at each admission, tokens/s, TTFT per arrival and peak
+  memory reported; counters zeroed just before the run and read just
+  after; one decode epoch and one prefill chunk profiled.
+* ``self_ssm``: serial against pipelined serving of full-width,
+  full-depth mamba2 on the card: two residents and a 300-token arrival
+  whose prompt chunks run ssd_chunk; token streams bitwise equal,
+  choices and prefill chunks equal, ssd_chunk launched.
 
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -111,13 +139,43 @@ SERVE_KV = dict(batch=2, max_len=512, prompt_len=256, budget=16, steps=40,
 PREFILL_COSINE = {"int8": 0.999, "fp8_e4m3": 0.998}
 KV_CACHES = ("int8", "fp8_e4m3")
 ATTN_GRANTS = (9, 32, 60)                   # pages; lower_attn -> blocks
+SSM_ARCH = "mamba2-370m"
+# ssd_chunk cases: the chunks the plans lower (256, 128, 64), a prompt's
+# tail segment (44) and one token, each over three chunks
+SSD_CHUNKS = (256, 128, 64, 44, 1)
+# grants whose SSD chunk lowers to 256, 128 and 64
+# (core/plan.py::lower_ssm_chunk: the thresholds are 24 and 6 pages)
+SSM_GRANTS = (32, 16, 4)
+SSM_E2E = dict(layers=4, batch=2, prompt_len=300)   # 256 + a 44-token tail
+SSM_PREFILL = dict(batch=2, prompt_len=1024)
+# two arrivals (step, prompt tokens) beside a resident; the pool holds
+# both 3113-page state reservations whole
+SERVE_SSM = dict(batch=2, max_len=1024, pages=6500, steps=32, budget=16,
+                 arrivals=((4.0, 512), (8.0, 300)))
+# serial == pipelined: two residents and an arrival (step, prompt tokens)
+SELF_SSM = dict(batch=2, max_len=512, steps=16, budget=8, arrival=(4.0, 300))
+# bf16 agreement of the chunk plans at full depth: each plan's 1 - cosine
+# against the 256-chunk plan within SSM_BF16_SPREAD times the control's
+# (the plain version vs the kernel at chunk 256; first readings on the
+# H100: 0.0065 and 0.0107 against 0.0057), or SSM_BF16_FLOOR where the
+# control agrees closer, and the control's cosine at least SSM_BF16_COSINE
+SSM_BF16_SPREAD = 3.0
+SSM_BF16_FLOOR = 1e-3
+SSM_BF16_COSINE = 0.98
 
 
 def _phase(name, fn, *args, **kwargs):
+    """Run one phase and print its record; the record is also appended
+    to ``phases.jsonl`` in :data:`OUT_DIR`, so a run that fails later
+    keeps the records of the phases before."""
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     rec = {"phase": name, **out, "seconds": round(time.perf_counter() - t0, 3)}
-    print(json.dumps(rec), flush=True)
+    line = json.dumps(rec)
+    print(line, flush=True)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    with open(OUT_DIR / "phases.jsonl", "a") as f:
+        f.write(line + "\n")
     return rec
 
 
@@ -423,12 +481,14 @@ def _plan(cfg, kind: str, pages: int, seq_block: int,
     from repro_torch.core.allocator import Selection
     from repro_torch.core.mct import MappingCandidate
     from repro_torch.core.plan import lower_selection
+    from repro_torch.launch.serve import _ffn_width
     cand = MappingCandidate(kind=kind, p_need=pages, dram_bytes=0, flops=0,
                             loops=(), cache_map=(), usage_limit_bytes=0)
     eb = torch.tensor([], dtype=cfg.torch_dtype).element_size()
     plan = lower_selection(Selection(cand, pages, 0.0), pages,
                            seq_block=seq_block, d_model=cfg.d_model,
-                           d_ff=cfg.d_ff, dtype_bytes=eb, head_dim=cfg.hd,
+                           d_ff=_ffn_width(cfg), dtype_bytes=eb,
+                           head_dim=cfg.hd, ssm_chunk=cfg.ssm_chunk,
                            kv_dtype=kv_dtype)
     if plan.kind != kind:
         raise AssertionError(f"{kind}@{pages}p lowers to {plan.describe()}")
@@ -547,14 +607,114 @@ def prefill_timings(cfg, dev):
     return out
 
 
-def check_kernels(cfg, dev):
+def _ssd_inputs(gen, b, h, s, p, n, dtype):
+    """ssd_chunk operands as tests/test_kernels.py::test_ssd_chunk draws
+    them (dt softplus of a normal, A = |normal| + 0.1), with B and C per
+    batch row [b, s, n], the model's layout."""
+    import torch
+    x = _randn(gen, (b * h, s, p), dtype)
+    dt = torch.nn.functional.softplus(_randn(gen, (b * h, s), torch.float32))
+    A = _randn(gen, (b * h,), torch.float32).abs() + 0.1
+    return (x, dt, A, _randn(gen, (b, s, n), dtype),
+            _randn(gen, (b, s, n), dtype))
+
+
+def _ssd_plain(x, dt, A, Bm, Cm, chunk):
+    """The plain version on the reference's broadcast [BH, S, N] B/C."""
+    from repro_torch.kernels import ssd_scan as kssd
+    h = x.shape[0] // Bm.shape[0]
+    return kssd.ssd_chunk_plain(x, dt, A, Bm.repeat_interleave(h, 0),
+                                Cm.repeat_interleave(h, 0), chunk)
+
+
+def ssd_cases(ssm_cfg, dev):
+    """ssd_chunk against its plain version: full-width mamba2 heads (B 2
+    x 32 heads, P 64, N 128, B/C per batch row) at each chunk of
+    :data:`SSD_CHUNKS` over three chunks, and the reduced shape (P 32,
+    N 16); bf16 and fp32 inputs, both at the fp32 tolerance (the
+    arithmetic and the outputs are fp32)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as kssd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    red = ssm_cfg.reduced()
+    b, h, p, n = 2, ssm_cfg.ssm_heads, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
+    shapes = [("full", b, h, p, n, q, 3 * q) for q in SSD_CHUNKS]
+    shapes.append(("reduced", b, red.ssm_heads, red.ssm_head_dim,
+                   red.ssm_state, red.ssm_chunk, 3 * red.ssm_chunk))
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, h, p, n, q, s in shapes:
+            ops_in = _ssd_inputs(gen, b, h, s, p, n, dtype)
+            y, st = kssd.ssd_chunk(*ops_in, q)
+            want_y, want_st = _ssd_plain(*ops_in, q)
+            ey, oky = _close(y, want_y, "float32")
+            es, oks = _close(st, want_st, "float32")
+            rows.append({"kernel": "ssd_chunk", "case": f"{label} Q{q}",
+                         "dtype": _dtype_name(dtype),
+                         "shape": [b * h, s, p, n], "chunk": q,
+                         "max_abs_err": max(ey, es), "tol": TOL["float32"],
+                         "ok": oky and oks})
+    return rows
+
+
+def ssd_work(b, h, s, p, n, q, eb):
+    """(bytes, operations) of one ssd_chunk call: x at ``eb`` bytes, dt
+    and A fp32, B and C once per batch row, y and the states fp32
+    written; the causal half of the [Q x Q] score and weight products,
+    and the states, at 2 operations a multiply-add."""
+    bh, n_c = b * h, s // q
+    nbytes = (bh * s * p * eb + bh * s * 4 + bh * 4 + 2 * b * s * n * eb
+              + bh * s * p * 4 + bh * n_c * n * p * 4)
+    flops = (2 * bh * n_c * (q * (q + 1) // 2) * (n + p)
+             + 2 * bh * n_c * q * n * p)
+    return nbytes, flops
+
+
+def ssd_timings(ssm_cfg, dev):
+    """ssd_chunk at the SSM paths' shapes (bf16, full-width mamba2, B/C
+    per batch row): the prefill phase's (B 2, S 1024) at each chunk its
+    grants lower, and a serving prompt chunk (B 2, S 256); kernel, plain
+    and bound, each checked against the plain version."""
+    import torch
+    from repro_torch.kernels import ssd_scan as kssd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b, h = SSM_PREFILL["batch"], ssm_cfg.ssm_heads
+    p, n = ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
+    out = {}
+    for label, s, q in (("prefill", SSM_PREFILL["prompt_len"], 256),
+                        ("prefill.q128", SSM_PREFILL["prompt_len"], 128),
+                        ("prefill.q64", SSM_PREFILL["prompt_len"], 64),
+                        ("serve_chunk", 256, 256)):
+        ops_in = _ssd_inputs(gen, b, h, s, p, n, torch.bfloat16)
+        y, st = kssd.ssd_chunk(*ops_in, q)
+        want_y, want_st = _ssd_plain(*ops_in, q)
+        ey, oky = _close(y, want_y, "float32")
+        es, oks = _close(st, want_st, "float32")
+        bound, by = _bound(*ssd_work(b, h, s, p, n, q, 2), "bfloat16")
+        x, dt, A, Bm, Cm = ops_in
+        Bw, Cw = Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0)
+        out[f"ssd_chunk.{label}"] = {
+            "shape": [b, h, s, p, n], "chunk": q,
+            "ms": _median_ms(lambda: kssd.ssd_chunk(*ops_in, q)),
+            "plain_ms": _median_ms(
+                lambda: kssd.ssd_chunk_plain(x, dt, A, Bw, Cw, q)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": max(ey, es), "ok": oky and oks}
+    return out
+
+
+def check_kernels(cfg, ssm_cfg, dev):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = kernel_cases(cfg, dev) + flash_cases(cfg, dev) + quant_cases(cfg, dev)
+    rows = (kernel_cases(cfg, dev) + flash_cases(cfg, dev)
+            + quant_cases(cfg, dev) + ssd_cases(ssm_cfg, dev))
     bad = [r for r in rows if not r["ok"]]
     timings = kernel_timings(cfg, dev, batch=2, lwm_pages=32, lbm_pages=324)
     timings.update(prefill_timings(cfg, dev))
+    timings.update(ssd_timings(ssm_cfg, dev))
     bad += [k for k, v in timings.items() if not v["ok"]]
     worst = {}
     for r in rows:
@@ -575,6 +735,15 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _to_dtype(tree, dtype):
+    """A copy of a params tree with every floating leaf in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _to_dtype(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_dtype(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 class _Forced:
@@ -635,22 +804,26 @@ PREFILL_KERNELS = ("cache_matmul", "block_fused_ffn", "flash_attention",
 
 
 def _counters():
-    """The five kernels' launch counters, by kernel name."""
+    """The six kernels' launch counters, by kernel name."""
     from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kssd
     return {"cache_matmul": kmm.launches, "block_fused_ffn": kffn.launches,
             "flash_attention": kfa.launches,
             "flash_attention_quantized": kfa.launches_quantized,
-            "cache_matmul_quant": kmm.launches_quant}
+            "cache_matmul_quant": kmm.launches_quant,
+            "ssd_chunk": kssd.launches}
 
 
 def _zero_counters():
     from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kssd
     kmm.launches = kffn.launches = kmm.launches_quant = 0
     kfa.launches = kfa.launches_quantized = 0
+    kssd.launches = 0
 
 
 def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
@@ -791,7 +964,8 @@ def _profile_epoch(srv, t, plan, k: int = 4):
         t.index += k
         torch.cuda.synchronize()
 
-    return {"plan": plan.describe(), "steps": k, **_profile(run)}
+    return {"plan": plan.describe() if plan is not None else None, "steps": k,
+            **_profile(run)}
 
 
 def grantable_kinds(cfg, batch: int, pages: int):
@@ -1395,6 +1569,375 @@ def ffn_quant_main_path(cfg, dev, decode_plan, counters):
 
 
 # --------------------------------------------------------------- main --
+# ---------------------------------------------------------------- ssm --
+def _ssm_plans(cfg):
+    """The plans of :data:`SSM_GRANTS` (LWM grants; an SSM layer reads
+    only their SSD chunk), keyed by the chunk each lowers to."""
+    from repro_torch.core.vmem import LANE
+    plans = {}
+    for pages in SSM_GRANTS:
+        plan = _plan(cfg, "LWM", pages, LANE)
+        plans[plan.ssm_chunk] = plan
+    if sorted(plans, reverse=True) != [256, 128, 64]:
+        raise AssertionError(f"SSM grants {SSM_GRANTS} lower to chunks "
+                             f"{sorted(plans)}")
+    return plans
+
+
+def _kernel_share(profile, name: str):
+    """Share of the profiled device time in kernels whose name holds
+    ``name`` (from the profile's top rows)."""
+    if not isinstance(profile.get("device_ms"), float):
+        return "not measured"
+    return sum(r["share"] for r in profile["top"] if name in r["name"])
+
+
+def check_e2e_ssm(cfg, dev):
+    """Full-width mamba2 cut to ``SSM_E2E["layers"]`` layers: the card
+    with ssd_chunk against the CPU with its plain version, same weights
+    and tokens.  ``make_prefill`` under the :func:`_ssm_plans` of a
+    300-token prompt (a 256-token chunk and a 44-token tail segment: the
+    plans' chunks do not divide 300, so each runs the architecture's
+    256, as the reference does) and of a 512-token prompt (which each
+    plan's chunk divides), then a prefill and two teacher-forced decode
+    epochs of 4 steps; gated by :func:`_gate`, greedy tokens of the
+    prefills equal.  Records, without gating, whether a chunked prefill
+    (256 + 44, the state carried) equals the one-shot prefill bitwise on
+    the card."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_caches, prefill_chunk
+    cfg = dataclasses.replace(cfg, num_layers=SSM_E2E["layers"])
+    B, P = SSM_E2E["batch"], SSM_E2E["prompt_len"]
+    plans = _ssm_plans(cfg)
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, cfg.vocab_size, (B, P))
+    forced = rng.integers(0, cfg.vocab_size, (B, 9))
+    aligned = rng.integers(0, cfg.vocab_size, (B, 512))
+    prefill = M.make_prefill(cfg)
+
+    def run(params, device):
+        pf = {}
+        for name in (P, 512):
+            toks = torch.from_numpy(prompt if name == P else aligned)
+            toks = toks.long().to(device)
+            for q, plan in plans.items():
+                pf[(name, q)] = prefill(params, {"tokens": toks},
+                                        plan).float().cpu()
+        return pf, _e2e_run(cfg, params, device, prompt, forced, [None, None])
+
+    params = M.init_params(cfg, seed=1, device=dev)
+    _zero_counters()
+    got_pf, got = run(params, dev)
+    launches = _counters()["ssd_chunk"]
+    if launches <= 0:
+        raise AssertionError("e2e_ssm: ssd_chunk never launched")
+    toks = torch.from_numpy(prompt).long().to(dev)
+    last, states = {}, {}
+    for name, cuts in (("one_shot", (P,)), ("chunked", (256, P))):
+        caches = init_caches(params, cfg, B, P, device=dev)
+        lo = 0
+        for hi in cuts:
+            logits, caches = prefill_chunk(params, toks[:, lo:hi], caches, lo,
+                                           cfg)
+            lo = hi
+        last[name], states[name] = logits, caches
+    chunked = {
+        "cuts": [256, P - 256],
+        "logits_bitwise": bool(torch.equal(last["one_shot"], last["chunked"])),
+        "states_bitwise": all(
+            torch.equal(a[k], b[k]) for a, b in zip(states["one_shot"],
+                                                    states["chunked"])
+            for k in ("conv", "ssm")),
+        "max_abs_logit_diff": float(
+            (last["one_shot"] - last["chunked"]).abs().max())}
+    want_pf, want = run(_to(params, "cpu"), "cpu")
+    del params
+    V = cfg.vocab_size
+    gates = {}
+    for (n, q), got_q in got_pf.items():
+        plan = plans[q]
+        label = f"{n} tokens, {plan.pages}p/chunk{q}"
+        gate = _gate(got_q[..., :V], want_pf[(n, q)][..., :V],
+                     f"e2e_ssm prefill {label}")
+        if gate["greedy_agreement"] != 1.0:
+            raise AssertionError(f"e2e_ssm prefill {label}: {gate}")
+        gates[label] = gate
+    return {"arch": cfg.name, "layers": cfg.num_layers, "prompt_lens": [P, 512],
+            "prefill": gates,
+            "decode": _gate(got[..., :V], want[..., :V], "e2e_ssm decode"),
+            "positions": int(got.shape[1]), "launches": launches,
+            "chunked_vs_one_shot_on_card": chunked}
+
+
+def _agreement(got, want):
+    """Max |difference|, min cosine and greedy agreement of logits."""
+    import torch
+    return {"max_abs_err": float((got - want).abs().max()),
+            "max_abs_logit": float(want.abs().max()),
+            "min_cosine": float(torch.nn.functional.cosine_similarity(
+                got, want, dim=-1).min()),
+            "greedy_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean())}
+
+
+def _plain_ssd_chunk(fn):
+    """``fn()`` with ssd_chunk's plain version in place of the kernel (a
+    control run: it launches no ssd_chunk)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    kernel = kssd.ssd_chunk
+    kssd.ssd_chunk = _ssd_plain
+    try:
+        return fn()
+    finally:
+        kssd.ssd_chunk = kernel
+
+
+def prefill_ssm_main_path(cfg, dev, counters):
+    """Slice 4's prefill path: ``make_prefill`` of full-width, full-depth
+    mamba2 (bf16), 2 prompts of 1024 tokens from numpy, random weights
+    from one seed, under the :func:`_ssm_plans` (SSD chunks 256, 128,
+    64).  ``counters`` receives the launch counts of one pass of the
+    three (zeroed just before, read just after).  Gates: finite logits;
+    SSD is exact under any chunking, held on an fp32 copy of the same
+    weights: the 128- and 64-chunk logits within :func:`_gate` of the
+    256-chunk ones, greedy tokens equal.  In bf16 the three plans'
+    agreement is held against a control: the 256-chunk plan with the
+    plain version in place of the kernel, which sums in another order
+    at the same chunk.  Over 48 random bf16 layers such differences grow
+    to the size of the chunk-to-chunk ones, so the bar is relative: each
+    plan's 1 - cosine within :data:`SSM_BF16_SPREAD` times the
+    control's (at least :data:`SSM_BF16_FLOOR`), and the control's
+    cosine at least
+    :data:`SSM_BF16_COSINE`.  Then each plan is timed warm on the host
+    clock, and the 256-chunk plan profiled once."""
+    import torch
+    from repro_torch.models import model as M
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    B, S = SSM_PREFILL["batch"], SSM_PREFILL["prompt_len"]
+    V = cfg.vocab_size
+    params = M.init_params(cfg, seed=2, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, V, (B, S))).long().to(dev)
+    plans = _ssm_plans(cfg)
+
+    def call(plan, c=cfg, p=params):
+        out = M.make_prefill(c)(p, {"tokens": toks}, plan)
+        torch.cuda.synchronize()
+        return out[:, :V].float()
+
+    _zero_counters()
+    logits, first_s = {}, {}
+    for q, plan in plans.items():
+        t0 = time.perf_counter()
+        logits[q] = call(plan)
+        first_s[q] = time.perf_counter() - t0
+    counters.update(_counters())
+    if counters["ssd_chunk"] <= 0:
+        raise AssertionError(f"prefill_ssm: ssd_chunk never launched: "
+                             f"{counters}")
+    bad = [q for q, lg in logits.items() if not bool(torch.isfinite(lg).all())]
+    if bad:
+        raise AssertionError(f"prefill_ssm: non-finite logits at chunks {bad}")
+    want = logits[256]
+    gates = {"bf16": {f"chunk{q}_vs_256": _agreement(logits[q], want)
+                      for q in (128, 64)}}
+    control = _agreement(_plain_ssd_chunk(lambda: call(plans[256])), want)
+    gates["bf16"]["control_plain_vs_kernel_chunk256"] = control
+    spread = max(SSM_BF16_SPREAD * (1.0 - control["min_cosine"]),
+                 SSM_BF16_FLOOR)
+    gates["bf16"]["limit_one_minus_cosine"] = spread
+    if control["min_cosine"] < SSM_BF16_COSINE or any(
+            1.0 - gates["bf16"][f"chunk{q}_vs_256"]["min_cosine"] > spread
+            for q in (128, 64)):
+        raise AssertionError(f"prefill_ssm bf16: {gates['bf16']}")
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _to_dtype(params, torch.float32)
+    l32 = {q: call(plan, c32, p32) for q, plan in plans.items()}
+    del p32
+    for q in (128, 64):
+        gates[f"fp32_chunk{q}_vs_256"] = {
+            **_gate(l32[q], l32[256], f"prefill_ssm fp32 chunk {q} vs 256"),
+            "min_cosine": _agreement(l32[q], l32[256])["min_cosine"]}
+        if gates[f"fp32_chunk{q}_vs_256"]["greedy_agreement"] != 1.0:
+            raise AssertionError(f"prefill_ssm fp32 chunk {q}: {gates}")
+    runs = {}
+    for q, plan in plans.items():
+        t0 = time.perf_counter()
+        call(plan)
+        wall = time.perf_counter() - t0
+        runs[f"chunk{q}"] = {"plan": plan.describe(), "pages": plan.pages,
+                             "first_wall_s": first_s[q], "wall_s": wall,
+                             "tokens_per_s": B * S / wall}
+    peak = torch.cuda.max_memory_allocated()
+    profile = _profile(lambda: call(plans[256]))
+    profile["ssd_chunk_share"] = _kernel_share(profile, "ssd_chunk")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+            "prompt_len": S, "launches": dict(counters), "gates": gates,
+            "runs": runs, "allocated_at_start_bytes": base,
+            "peak_memory_bytes": peak, "profile": profile}
+
+
+def _profile_ssm_prefill_chunk(cfg, params, dev, tokens: int = 256):
+    """:func:`_profile` of one serving prefill chunk of ``tokens`` prompt
+    tokens (batch of :data:`SERVE_SSM`) from a zero state."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_caches
+    B = SERVE_SSM["batch"]
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (B, tokens))).long().to(dev)
+    chunk = M.make_prefill_chunk(cfg)
+
+    def run():
+        chunk(params, init_caches(params, cfg, B, tokens, device=dev), prompt,
+              0)
+        torch.cuda.synchronize()
+
+    out = {"tokens": tokens, **_profile(run)}
+    out["ssd_chunk_share"] = _kernel_share(out, "ssd_chunk")
+    return out
+
+
+def serve_ssm_main_path(cfg, dev, counters):
+    """Slice 4's serving path: ``MultiTenantServer(["mamba2-370m"],
+    reduced=False)``, full depth, in the :data:`SERVE_SSM` pool: a
+    resident decoding for every step, and two prompt tenants arriving at
+    steps 4 and 8.  Their state reservations (``_kv_reserve_pages``) must
+    fit the pool together and be held whole; the free pages the server
+    saw at each admission are reported.  ``counters`` receives the
+    kernels' launch counts of the run (zeroed just before, read just
+    after); ssd_chunk must have launched.  Then one decode epoch of the
+    resident and one 256-token prefill chunk are profiled."""
+    import torch
+    from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
+    from repro_torch.sim.driver import TenantSpec
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    B, steps, budget = SERVE_SSM["batch"], SERVE_SSM["steps"], SERVE_SSM["budget"]
+    pool = SERVE_SSM["pages"]
+    quotes = [_kv_reserve_pages(cfg, B, p) for _, p in SERVE_SSM["arrivals"]]
+    if sum(quotes) > pool:
+        raise AssertionError(f"serve_ssm: reservations {quotes} exceed the "
+                             f"{pool}-page pool")
+    specs = [TenantSpec(cfg.name, arrive_at=at, prompt_len=p,
+                        n_inferences=budget)
+             for at, p in SERVE_SSM["arrivals"]]
+    srv = MultiTenantServer([cfg.name], tenants=specs, batch=B,
+                            max_len=SERVE_SSM["max_len"], total_pages=pool,
+                            epoch_len=4, device=dev, reduced=False)
+    seen_free = []
+    choose = srv._choose_kv_dtype
+
+    def spy_choose(c, spec):
+        seen_free.append(srv.cache.free_pages)
+        return choose(c, spec)
+
+    srv._choose_kv_dtype = spy_choose
+    _zero_counters()
+    out = srv.run(steps=steps)
+    counters.update(_counters())
+    if counters["ssd_chunk"] <= 0:
+        raise AssertionError(f"serve_ssm: ssd_chunk never launched: {counters}")
+    resident = srv.tenants[0]
+    vocab, tenants = cfg.vocab_size, {}
+    for t, quote in zip(srv.tenants, [0] + quotes):
+        res = out["tenants"][t.tid]
+        o = res["output"]
+        want_len = steps if t.prompt_len == 0 else 1 + budget
+        problems = []
+        if o.shape != (B, want_len) or o.min() < 0 or o.max() >= vocab:
+            problems.append(f"output {o.shape} range [{o.min()}, {o.max()}]")
+        if t.kv_dtype != "native":
+            problems.append(f"kv_dtype {t.kv_dtype}")
+        if not t.kv_wanted == t.kv_reserved == quote:
+            problems.append(f"reservation {t.kv_reserved} of {t.kv_wanted}, "
+                            f"quote {quote}")
+        if problems:
+            raise AssertionError(f"serve_ssm {t.tid}: {problems}")
+        tenants[t.tid] = {
+            "prompt_len": t.prompt_len, "tokens": res["tokens"],
+            "ttft_s": res["ttft_s"], "kv_wanted": res["kv_wanted"],
+            "kv_reserved": res["kv_reserved"],
+            "prefill_chunks": res["prefill_chunks"],
+            "plans": dict(Counter(f"{p.describe()}/chunk{p.ssm_chunk}"
+                                  for p in t.plans)),
+            "first_tokens": o[0, :8].tolist()}
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "total_pages": pool,
+           "quotes": quotes, "free_at_admission": seen_free, "batch": B,
+           "max_len": SERVE_SSM["max_len"], "steps": steps,
+           "plan_kinds": sorted({p.kind for t in srv.tenants
+                                 for p in t.plans}),
+           "launches": dict(counters), "tokens_served": out["tokens_served"],
+           "wall_s": out["wall_s"], "tokens_per_s": out["tokens_per_s"],
+           "dram_total": out["dram_bytes"], "host": out["host"],
+           "tenants": tenants, "allocated_at_start_bytes": base,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    params = resident.params
+    res["profile"] = {"decode_epoch": _profile_epoch(srv, resident, None),
+                      "prefill_chunk": _profile_ssm_prefill_chunk(cfg, params,
+                                                                  dev)}
+    return res
+
+
+def check_serial_pipelined_ssm(cfg, dev, counters):
+    """Serial (per-step) and pipelined (epoch) serving of full-width,
+    full-depth mamba2 on the card, in the :data:`SELF_SSM` pool: two
+    residents and a prompt tenant arriving mid-run, whose prompt chunks
+    run ssd_chunk (the residents' O(1) decode steps are plain torch, as
+    in the reference).  Bitwise-equal token streams, equal choice traces
+    and prefill chunks.  ``counters`` receives the launch counts of the
+    two runs (zeroed just before, read just after); ssd_chunk must have
+    launched."""
+    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.sim.driver import TenantSpec
+    at, prompt_len = SELF_SSM["arrival"]
+    spec = TenantSpec(cfg.name, arrive_at=at, prompt_len=prompt_len,
+                      n_inferences=SELF_SSM["budget"])
+    outs = []
+    _zero_counters()
+    for pipeline in (False, True):
+        srv = MultiTenantServer([cfg.name, cfg.name], tenants=[spec],
+                                batch=SELF_SSM["batch"],
+                                max_len=SELF_SSM["max_len"],
+                                total_pages=SERVE_SSM["pages"], epoch_len=4,
+                                pipeline=pipeline, device=dev, reduced=False)
+        outs.append((srv.run(steps=SELF_SSM["steps"]),
+                     {t.tid: list(t.chunks) for t in srv.tenants}))
+        del srv
+    counters.update(_counters())
+    if counters["ssd_chunk"] <= 0:
+        raise AssertionError(f"self_ssm: ssd_chunk never launched: {counters}")
+    (serial, serial_chunks), (piped, piped_chunks) = outs
+    if serial_chunks != piped_chunks:
+        raise AssertionError(f"self_ssm: prefill chunks differ: "
+                             f"{serial_chunks} vs {piped_chunks}")
+    for tid, s in serial["tenants"].items():
+        p = piped["tenants"][tid]
+        if not np.array_equal(s["output"], p["output"]):
+            raise AssertionError(f"self_ssm {tid}: serial and pipelined "
+                                 "tokens differ")
+        if s["choices"] != p["choices"]:
+            raise AssertionError(f"self_ssm {tid}: choices differ")
+    return {"arch": cfg.name, "layers": cfg.num_layers, **SELF_SSM,
+            "bit_identical": True, "launches": dict(counters),
+            "prefill_chunks": piped_chunks,
+            "tokens": {tid: v["tokens"] for tid, v in piped["tenants"].items()},
+            "first_tokens": {tid: v["output"][0, :8].tolist()
+                             for tid, v in piped["tenants"].items()}}
+
+
+def _release():
+    """Free what the last phase left before the next one starts: collect
+    its reference cycles (a server and its tenants refer to each other),
+    so that their device tensors go, then return the cached blocks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1405,33 +1948,46 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    (OUT_DIR / "phases.jsonl").unlink(missing_ok=True)
     from repro_torch.models.base import get_arch
-    cfg = get_arch("yi-9b")
+    cfg, ssm_cfg = get_arch("yi-9b"), get_arch(SSM_ARCH)
     dev = "cuda"
     report = {}
     report["device"] = _phase("device", device_info)
     report["build"] = _phase("build", build_kernels)
-    report["kernels"] = _phase("kernels", check_kernels, cfg, dev)
+    report["kernels"] = _phase("kernels", check_kernels, cfg, ssm_cfg, dev)
     if report["kernels"]["failed"]:
         raise AssertionError(f"kernels disagree: {report['kernels']['failed']}")
-    torch.cuda.empty_cache()
+    _release()
     report["e2e"] = _phase("e2e", check_e2e, cfg, dev)
-    torch.cuda.empty_cache()
+    _release()
     serve_counts, prefill_counts = {}, {}
     report["serve"] = _phase("serve", serve_main_path, cfg, dev, serve_counts)
-    torch.cuda.empty_cache()
+    _release()
     report["self"] = _phase("self", check_serial_pipelined, cfg, dev)
-    torch.cuda.empty_cache()
+    _release()
     report["prefill"] = _phase("prefill", prefill_main_path, cfg, dev,
                                prefill_counts)
-    torch.cuda.empty_cache()
+    _release()
     serve_kv_counts, ffn_quant_counts, found = {}, {}, {}
     report["serve_kv"] = _phase("serve_kv", serve_kv_main_path, cfg, dev,
                                 serve_kv_counts, found)
     decode_plan = found["decode_plan"]
-    torch.cuda.empty_cache()
+    _release()
     report["ffn_quant"] = _phase("ffn_quant", ffn_quant_main_path, cfg, dev,
                                  decode_plan, ffn_quant_counts)
+    _release()
+    report["e2e_ssm"] = _phase("e2e_ssm", check_e2e_ssm, ssm_cfg, dev)
+    _release()
+    prefill_ssm_counts, serve_ssm_counts = {}, {}
+    report["prefill_ssm"] = _phase("prefill_ssm", prefill_ssm_main_path,
+                                   ssm_cfg, dev, prefill_ssm_counts)
+    _release()
+    report["serve_ssm"] = _phase("serve_ssm", serve_ssm_main_path, ssm_cfg,
+                                 dev, serve_ssm_counts)
+    _release()
+    report["self_ssm"] = _phase("self_ssm", check_serial_pipelined_ssm,
+                                ssm_cfg, dev, {})
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"
@@ -1454,7 +2010,10 @@ def main() -> int:
             "src/repro/kernels/cache_matmul.py:73",
             report["ffn_quant"]["timings"][
                 f"int8 decode {decode_plan.describe()} m2 up"],
-            ffn_quant_counts)}
+            ffn_quant_counts),
+        "ssd_chunk": (csrc + "ssd_chunk.cu",
+                      "src/repro/kernels/ssd_scan.py:62",
+                      timings["ssd_chunk.prefill"], prefill_ssm_counts)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],

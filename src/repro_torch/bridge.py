@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.base import ArchConfig
-from repro_torch.models.transformer import num_groups
+from repro_torch.models.transformer import _require_ported, num_groups
 
 # ml_dtypes name -> (numpy carrier of the same width, torch dtype)
 _BIT_VIEWS = {
@@ -44,11 +44,11 @@ def _tree(x: Any, fn):
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                       device: Any = "cuda") -> Dict[str, Any]:
-    """The port's params (dense family) from the reference's numpy tree:
-    the stacked ``layers`` become a list of per-layer dicts."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"bridge: family {cfg.family!r} not yet "
-                                  "ported (dense only)")
+    """The port's params (dense and SSM families) from the reference's
+    numpy tree: the stacked ``layers`` (``ln1``/``attn``/``ln2``/``mlp``,
+    or ``ln1`` and ``mamba.{in_proj.w, conv_w, A_log, D, dt_bias,
+    out_proj.w}``) become a list of per-layer dicts."""
+    _require_ported(cfg)
     n = cfg.num_layers
     leaf = lambda a: tensor_from_numpy(a, device)  # noqa: E731
     return {
@@ -61,14 +61,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
 
 def caches_from_numpy(tree: Any, cfg: ArchConfig,
                       device: Any = "cuda") -> List[Dict[str, torch.Tensor]]:
-    """The port's decode caches (dense family: one KV dict per layer)
-    from the reference's, leaves turned into numpy arrays: a tuple of
-    per-layer dicts (shallow stacks) or one dict whose leaves stack the
-    layers on axis 0 (deep stacks).  Native K/V, int8 and fp8 codes (by
-    bit view) and fp32 scale leaves all carry over bit-exactly."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"bridge: family {cfg.family!r} not yet "
-                                  "ported (dense only)")
+    """The port's decode caches (one dict per layer: K/V for the dense
+    family, the recurrent state ``{conv, ssm}`` for the SSM family) from
+    the reference's, leaves turned into numpy arrays: a tuple of
+    per-layer dicts (stacks of at most ``_DECODE_UNROLL_MAX_GROUPS``
+    groups) or one dict whose leaves stack the layers on axis 0 (deeper
+    stacks).  Native K/V, int8 and fp8 codes (by bit view), fp32 scale
+    leaves and SSM states all carry over bit-exactly."""
+    _require_ported(cfg)
     n = num_groups(cfg)
     if isinstance(tree, dict):
         tree = [{k: np.asarray(v)[g] for k, v in tree.items()}

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("cache_matmul", "cache_matmul_quant", "block_fused_ffn",
-           "flash_attention")
+           "flash_attention", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,7 +2,8 @@
 grant -> kernel link), budget-driven tile selection, and the Hopper tile
 legalization.  Port of src/repro/kernels/ops.py (``planned_matmul``,
 ``budgeted_matmul``, ``planned_ffn``, ``fused_ffn``,
-``planned_matmul_quant``, ``planned_ffn_quant``, ``attention``).
+``planned_matmul_quant``, ``planned_ffn_quant``, ``attention``,
+``ssd_intra_chunk``).
 
 The plan stays the decision: LBM or LWM, the grant, and its tile.  The
 plan's tiles were sized for 96 MiB of TPU VMEM (core/vmem.py), with
@@ -27,6 +28,7 @@ from repro_torch.kernels import block_fused_ffn as kffn
 from repro_torch.kernels import cache_matmul as kmm
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import quant as kquant
+from repro_torch.kernels import ssd_scan as kssd
 
 _T = TypeVar("_T")
 
@@ -215,3 +217,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return kfa.flash_attention_quantized(q, kq, vq, ks[..., 0], vs[..., 0],
                                              causal, tile)
     return kfa.flash_attention(q, k, v, causal, tile)
+
+
+def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD (y_diag and the chunk states) through the
+    ssd_chunk kernel.  x [BH, S, P]; dt [BH, S]; A [BH]; B, C [BH, S, N]
+    or, shared by the heads of a batch row, [BH / heads, S, N], which is
+    how the model passes them: no broadcast copy is made."""
+    return kssd.ssd_chunk(x.contiguous(), dt.contiguous(), A.contiguous(),
+                          B.contiguous(), C.contiguous(), chunk)

@@ -1,7 +1,8 @@
-"""Multi-tenant serving driver, dense subset (port of
+"""Multi-tenant server, dense and SSM families (port of
 src/repro/launch/serve.py::MultiTenantServer).
 
-Several dense-LM tenants share one device.  Each tenant's FFN block is a
+Several LM tenants (dense decoders and Mamba2 stacks, mixed in one pool
+or not) share one device.  Each tenant's FFN block is a
 small :class:`~repro_torch.core.types.ModelGraph` mapped by the CaMDN
 core (LWM tile candidates per usage limit plus the fused-block LBM
 candidate), and every epoch the same :class:`TenantTask` /
@@ -11,6 +12,13 @@ decides which Hopper kernel each decode step's FFNs run:
 
   pages granted -> candidate (LBM block_fused_ffn vs LWM cache_matmul
   tiles) -> decode.
+
+A Mamba2 tenant is scheduled the same way; its O(1) recurrent decode
+step has no FFN, so its decode runs no plan (``_dec_plan``), and its
+grant reaches the device through its prefill: every prompt chunk scans
+through the ssd_chunk kernel, at chunk boundaries aligned to the SSD
+chunk (``_chunk_align``).  Its reservation prices the recurrent state,
+which is never quantized.
 
 The scheduling side is the reference's, line for line, on the copied
 core: the grant, plan and NEC traces of a scenario equal the
@@ -69,7 +77,9 @@ from repro_torch.core.vmem import (LANE, PAGE_BYTES, VMEM_PAGES,
                                    lower_selection)
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig, get_arch
-from repro_torch.models.transformer import init_caches, num_groups
+from repro_torch.models.ssm import CONV_K
+from repro_torch.models.transformer import (PORTED_FAMILIES, init_caches,
+                                            num_groups)
 from repro_torch.sim.driver import PoissonArrivals, TenantSpec
 
 ParamsFn = Callable[[ArchConfig, int], Any]
@@ -80,12 +90,22 @@ def _elem_bytes(cfg: ArchConfig) -> int:
     return elem_bytes(cfg.dtype)
 
 
+def _ffn_width(cfg: ArchConfig) -> int:
+    """The FFN width a tenant is scheduled and lowered at: d_ff, or
+    d_model for an arch with no FFN (full-width mamba2 has d_ff = 0; its
+    grant lowers only its SSD chunk and prefill chunk length).  The
+    reference builds its graph at this width but lowers grants and
+    quotes the fused working set at ``cfg.d_ff``: the same at every width
+    it serves, and a division by zero for d_ff = 0."""
+    return max(cfg.d_ff, cfg.d_model)
+
+
 def _ffn_graph(name: str, cfg: ArchConfig, seq_block: int) -> ModelGraph:
     """One transformer layer's FFN as a schedulable layer graph (gate/up
     -> down), padded to the 128-lane tile the plans are sized on."""
     eb = _elem_bytes(cfg)
     seq_block = max(seq_block, LANE)
-    d, f = cfg.d_model, max(cfg.d_ff, cfg.d_model)
+    d, f = cfg.d_model, _ffn_width(cfg)
     up = LayerSpec(
         "ffn.up", LayerKind.GEMM,
         (GemmDims(M=seq_block, N=f, K=d, reps=2, b_reused=False),),  # gate+up
@@ -112,15 +132,23 @@ def _tenant_model(graph: ModelGraph, mapper: MapperConfig) -> TenantModel:
 
 def _kv_reserve_pages(cfg: ArchConfig, batch: int, tokens: int,
                       kv_dtype: str = "native") -> int:
-    """Pages an admitted prompt tenant reserves for its KV working set
-    (held until departure).  Dense archs: every layer caches K and V
-    rows, priced at the tenant's storage precision ``kv_dtype`` plus
-    the per-row fp32 scales a quantized cache carries."""
+    """Pages an admitted prompt tenant reserves for its KV / state
+    working set (held until departure).  Attention layers cache K and V
+    rows, priced at the tenant's storage precision ``kv_dtype`` plus the
+    per-row fp32 scales a quantized cache carries; an SSM layer's state
+    (conv window in the compute dtype, fp32 recurrent state) is O(1) in
+    the prompt."""
+    eb = _elem_bytes(cfg)
     quantized = kv_dtype != "native"
-    kv_eb = elem_bytes(kv_dtype) if quantized else _elem_bytes(cfg)
+    kv_eb = elem_bytes(kv_dtype) if quantized else eb
+    G = num_groups(cfg)
+    kv_groups, ssm_groups = (0, G) if cfg.family == "ssm" else (G, 0)
     row = kv_row_bytes(cfg.num_kv_heads, cfg.hd, kv_eb, scaled=quantized)
-    kv = num_groups(cfg) * batch * tokens * row
-    return ceil_div(kv, PAGE_BYTES) if tokens > 0 else 0
+    kv = kv_groups * batch * tokens * row
+    state = ssm_groups * batch * (
+        (CONV_K - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * eb
+        + cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4)
+    return ceil_div(kv + state, PAGE_BYTES) if tokens > 0 else 0
 
 
 def _prompt_tokens(spec: TenantSpec, i: int, cfg: ArchConfig,
@@ -183,7 +211,7 @@ class Tenant:
 
 
 class MultiTenantServer:
-    """Decode across dense tenants with CaMDN page arbitration.
+    """Decode across dense and SSM tenants with CaMDN page arbitration.
 
     The reference's constructor arguments keep their meaning.  Added:
     ``device`` (default ``"cuda"``), ``reduced`` (the reference always
@@ -317,9 +345,9 @@ class MultiTenantServer:
         i = spec.seed if spec.seed is not None else self._n_admitted
         self._n_admitted += 1
         arch = get_arch(aid)
-        if arch.family != "dense":
+        if arch.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"{aid}: family {arch.family!r} not "
-                                      "yet ported (dense only)")
+                                      f"yet ported (have {PORTED_FAMILIES})")
         cfg = arch.reduced() if self.reduced else arch
         pkey = spec.param_seed if spec.param_seed is not None else i
         params = (self._params_fn(cfg, pkey) if self._params_fn is not None
@@ -388,7 +416,11 @@ class MultiTenantServer:
         server policy pins the rung; ``auto`` prices the full reservation
         at every rung of the precision ladder and takes the first that
         fits the pool's free pages now (the ladder bottom when none
-        does).  Resident (no-prompt) tenants stay native."""
+        does).  Resident (no-prompt) tenants stay native, and so does an
+        SSM tenant: its decode carries recurrent fp state, not
+        row-addressed KV."""
+        if cfg.family == "ssm":
+            return "native"
         if self.kv_dtype != "auto":
             return self.kv_dtype
         want = {kv: _kv_reserve_pages(cfg, self.batch, spec.prompt_len, kv)
@@ -447,11 +479,11 @@ class MultiTenantServer:
     def _align_lbm_to_vmem(self, tm: TenantModel, cfg: ArchConfig,
                            seq_block: int) -> None:
         """Make the LBM candidates quote the fused kernel's working set
-        for the real cfg.d_ff, so that an admitted LBM grant always
+        at the tenant's FFN width, so that an admitted LBM grant always
         lowers fused.  Copy-on-write: the mapping may be the process-wide
         memoized instance."""
         eb = _elem_bytes(cfg)
-        need = fused_ffn_pages(seq_block, cfg.d_model, cfg.d_ff, eb)
+        need = fused_ffn_pages(seq_block, cfg.d_model, _ffn_width(cfg), eb)
         mcts = []
         for mct in tm.mapping.mcts:
             if mct.lbm is not None and mct.lbm.p_need < need:
@@ -498,7 +530,7 @@ class MultiTenantServer:
     def _lower_plan(self, t: Tenant, sched: List[Tuple[Selection, int]],
                     seq_block: Optional[int] = None) -> KernelPlan:
         """Lower the block's granted selections into the KernelPlan the
-        decode step (or prefill chunk) executes, with the real d_ff."""
+        decode step (or prefill chunk) executes, at the FFN width."""
         cfg = t.cfg
         lbm = [(s, p) for s, p in sched if s.candidate.kind == "LBM"]
         sel, pages = lbm[0] if lbm else sched[0]
@@ -506,15 +538,17 @@ class MultiTenantServer:
                                        else None)
         return lower_selection(
             sel, pages, seq_block=seq_block or max(self.batch, LANE),
-            d_model=cfg.d_model, d_ff=cfg.d_ff,
+            d_model=cfg.d_model, d_ff=_ffn_width(cfg),
             dtype_bytes=_elem_bytes(cfg), head_dim=cfg.hd,
             ssm_chunk=cfg.ssm_chunk, down_pages=down_pages,
             kv_dtype=t.kv_dtype)
 
-    def _schedule_epoch(self, t: Tenant, now: float, k: int) -> KernelPlan:
+    def _schedule_epoch(self, t: Tenant, now: float,
+                        k: int) -> Optional[KernelPlan]:
         """CaMDN selection + NEC charging for one tenant's epoch: the
         grant covers the whole K-step window, charged once with
-        repeat=K."""
+        repeat=K.  Returns the plan the epoch executes (None for SSM
+        decode, see :meth:`_dec_plan`)."""
         t.task.charge_repeat = k
         try:
             sched = self._schedule_block(t, now)
@@ -522,7 +556,23 @@ class MultiTenantServer:
             t.task.charge_repeat = 1
         plan = self._lower_plan(t, sched)
         t.plans.append(plan)
+        return self._dec_plan(t, plan)
+
+    def _dec_plan(self, t: Tenant, plan: KernelPlan) -> Optional[KernelPlan]:
+        """The plan bound to the decode step: None for an SSM tenant,
+        whose O(1) recurrent step has no FFN.  The grant still governs its
+        prefill, the NEC charging and the recorded plan trace."""
+        if t.cfg.family == "ssm":
+            return None
         return plan
+
+    def _chunk_align(self, cfg: ArchConfig) -> int:
+        """Interior prefill-chunk boundaries stay on the LANE grid, and
+        for SSM archs also on SSD chunk boundaries: lcm(LANE, ssm_chunk),
+        the segmentation chunked == one-shot needs."""
+        if cfg.family == "ssm" and cfg.ssm_chunk > 0:
+            return LANE * cfg.ssm_chunk // math.gcd(LANE, cfg.ssm_chunk)
+        return LANE
 
     def _plan_prefill_chunk(self, t: Tenant, now: float) -> Tuple:
         """Schedule one cache-aware prefill chunk: renegotiate the grant
@@ -533,9 +583,9 @@ class MultiTenantServer:
         t.plans.append(plan)
         chunk = lower_prefill_chunk(
             plan, d_model=t.cfg.d_model,
-            d_ff=max(t.cfg.d_ff, t.cfg.d_model),
+            d_ff=_ffn_width(t.cfg),
             dtype_bytes=_elem_bytes(t.cfg),
-            align=LANE, max_tokens=self.prefill_block,
+            align=self._chunk_align(t.cfg), max_tokens=self.prefill_block,
             remaining=t.prompt_len - t.pf_pos)
         t.chunks.append(chunk)
         return ("prefill", t, plan, chunk)
@@ -730,7 +780,7 @@ class MultiTenantServer:
             pos += n_layers[i]
             plan = self._lower_plan(t, sched)
             t.plans.append(plan)
-            dec_plans[t.tid] = (plan, ks[i])
+            dec_plans[t.tid] = (self._dec_plan(t, plan), ks[i])
         return True
 
     def _plan_epoch(self, now: float, steps: int) -> List[Tuple]:
@@ -902,7 +952,7 @@ class MultiTenantServer:
         t.plans.append(plan)
         kv = self._kv_len(t.index + 1)
         nxt, t.caches = t.decode(t.params, t.caches, t.token, t.index,
-                                 plan=plan, kv_len=kv)
+                                 plan=self._dec_plan(t, plan), kv_len=kv)
         t.token = nxt[:, None]
         t.outputs.append(nxt[:, None])
         self._advance(t, 1)

@@ -44,10 +44,11 @@ def make_prefill(cfg: ArchConfig, serve: bool = False):
     """One-shot prefill: ``prefill(params, {"tokens": [B, S]}, plan)`` ->
     the last position's logits [B, V] (fp32).  ``plan`` (a
     core.plan.KernelPlan) runs attention and FFNs through the kernels
-    its grant lowered to.  ``serve`` changes nothing for the dense
-    archs: in the reference it selects drop-free MoE buckets and the
-    unrolled shallow-stack layer loop, and the port has no MoE yet and
-    one Python layer loop."""
+    its grant lowered to, and Mamba2 layers at its SSD chunk (through
+    the ssd_chunk kernel, as without a plan).  ``serve`` changes nothing
+    for the ported families: in the reference it selects drop-free MoE
+    buckets and the unrolled shallow-stack layer loop, and the port has
+    no MoE yet and one Python layer loop."""
     del serve
 
     def prefill(params, batch, plan=None):
@@ -99,8 +100,9 @@ def make_decode_epoch(cfg: ArchConfig):
 
 def make_decode_step(cfg: ArchConfig):
     """One-token serving step: (next token [B], caches).  ``plan``
-    decides which Hopper kernel the step's FFNs run; ``kv_len`` bounds
-    the attention read to the cache's live prefix."""
+    decides which Hopper kernel the step's FFNs run (an SSM step has
+    none); ``kv_len`` bounds the attention read to the cache's live
+    prefix."""
     next_token = _greedy_next_token(cfg)
 
     def serve_decode(params, caches, token, index: int, enc_out=None,

@@ -1,15 +1,18 @@
-"""Dense decoder LM: init, forward, KV-cached decode and chunked prefill
-(port of the dense-family paths of src/repro/models/transformer.py).
+"""Decoder LM stacks: init, forward, cached decode and chunked prefill
+(port of the dense- and SSM-family paths of
+src/repro/models/transformer.py).
 
 Layers are a Python list of per-layer param dicts, and the decode caches
-a list with one KV dict per layer; one plain Python loop over layers
-replaces both of the reference's unrolled and scanned variants.  Cache
-writes happen in place (slice assignment into the layer's buffers), so
+a list with one dict per layer: K/V for a dense layer, the recurrent
+state ``{conv, ssm}`` for a Mamba2 layer.  One plain Python loop over
+layers replaces both of the reference's unrolled and scanned variants.
+KV writes happen in place (slice assignment into the layer's buffers);
+a Mamba2 layer's new state replaces its entry.  Either way
 ``decode_step`` / ``decode_epoch`` / ``prefill_chunk`` return the very
 cache list they were given, updated.  Positions and cache indices are
 host ints: the serving loop knows them without reading the device.
 
-Other families (MoE, SSM, hybrid, encoder-decoder, VLM) raise
+Other families (MoE, hybrid, encoder-decoder, VLM) raise
 ``NotImplementedError`` until their slices are ported.
 """
 from __future__ import annotations
@@ -22,14 +25,17 @@ from repro_torch.models.attention import init_attention, init_kv_cache, mha
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, embed, ffn, init_embedding,
                                        init_ffn, init_norm, rms_norm, unembed)
+from repro_torch.models.ssm import (init_mamba2, init_ssm_state,
+                                    mamba2_forward, ssd_decode_step)
 
 Caches = List[dict]
+PORTED_FAMILIES = ("dense", "ssm")
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not "
-                                  "yet ported (dense only)")
+                                  f"yet ported (have {PORTED_FAMILIES})")
 
 
 # ---------------------------------------------------------------- init --
@@ -41,17 +47,22 @@ def init_dense_layer(gen: torch.Generator, cfg: ArchConfig) -> Params:
             "mlp": init_ffn(gen, cfg.d_model, cfg.d_ff, dt)}
 
 
+def init_ssm_layer(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    return {"ln1": init_norm(cfg.d_model, cfg.torch_dtype, gen.device),
+            "mamba": init_mamba2(gen, cfg)}
+
+
 def num_groups(cfg: ArchConfig) -> int:
     return cfg.num_layers
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random params on ``gen``'s device, drawn in a fixed order."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dt = cfg.torch_dtype
+    layer = init_ssm_layer if cfg.family == "ssm" else init_dense_layer
     return {"embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt),
-            "layers": [init_dense_layer(gen, cfg)
-                       for _ in range(num_groups(cfg))],
+            "layers": [layer(gen, cfg) for _ in range(num_groups(cfg))],
             "final_norm": init_norm(cfg.d_model, dt, gen.device)}
 
 
@@ -71,6 +82,21 @@ def _dense_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     return x + out, new_cache
 
 
+def _ssm_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state=None,
+               decode: bool = False, plan=None):
+    """A Mamba2 layer: the O(1) recurrent step when ``decode``, else the
+    chunked scan with the plan's SSD chunk (the architecture's without
+    a plan).  Returns (x, new state)."""
+    y = rms_norm(p["ln1"], x, cfg.norm_eps)
+    if decode:
+        out, new_state = ssd_decode_step(p["mamba"], y, cfg, state)
+    else:
+        chunk = plan.ssm_chunk if plan is not None else None
+        out, new_state = mamba2_forward(p["mamba"], y, cfg, state,
+                                        chunk=chunk)
+    return x + out, new_state
+
+
 # ------------------------------------------------------------ forward --
 def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                embeds_prefix: Optional[torch.Tensor] = None,
@@ -78,12 +104,13 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                plan=None) -> Tuple[torch.Tensor, float]:
     """Prefill forward without a cache.  tokens: [B, S] -> (logits
     [B, S, V] fp32, aux loss 0.0).  ``plan`` (a core.plan.KernelPlan)
-    runs every layer's causal self-attention through the flash kernel
-    with the plan's blocks and KV precision, and its FFN through the
-    kernel the grant lowered to (fused LBM or tiled LWM).  Patch/frame
-    prefixes (``embeds_prefix``) and rematerialisation (``remat``) are
-    not yet ported (raise)."""
-    _require_dense(cfg)
+    runs every dense layer's causal self-attention through the flash
+    kernel with the plan's blocks and KV precision, and its FFN through
+    the kernel the grant lowered to (fused LBM or tiled LWM); a Mamba2
+    layer runs its SSD scan at the plan's chunk.  Patch/frame prefixes
+    (``embeds_prefix``) and rematerialisation (``remat``) are not yet
+    ported (raise)."""
+    _require_ported(cfg)
     if embeds_prefix is not None:
         raise NotImplementedError("embeds_prefix (VLM / audio prefixes) "
                                   "not yet ported")
@@ -92,7 +119,10 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     x = embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params["layers"]:
-        x, _ = _dense_block(lp, x, cfg, positions=positions, plan=plan)
+        if cfg.family == "ssm":
+            x, _ = _ssm_block(lp, x, cfg, plan=plan)
+        else:
+            x, _ = _dense_block(lp, x, cfg, positions=positions, plan=plan)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), 0.0
 
@@ -101,15 +131,21 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
 def init_caches(params: Optional[Params], cfg: ArchConfig, batch: int,
                 max_len: int, kv_dtype: Optional[str] = None,
                 device: Any = None) -> Caches:
-    """One KV dict per layer, at ``kv_dtype`` (None / "native": the
-    compute dtype; "int8" / "fp8_e4m3": codes plus per-row fp32 scale
-    leaves, see :func:`~repro_torch.models.attention.init_kv_cache`).
-    The device defaults to the params' device (``"cuda"`` without
-    params)."""
-    _require_dense(cfg)
+    """One cache dict per layer.  Dense: K/V at ``kv_dtype`` (None /
+    "native": the compute dtype; "int8" / "fp8_e4m3": codes plus per-row
+    fp32 scale leaves, see
+    :func:`~repro_torch.models.attention.init_kv_cache`).  SSM: the zero
+    recurrent state ``{conv, ssm}`` (the conv window in the compute
+    dtype, the state in fp32), never quantized, whatever ``kv_dtype``
+    says, and independent of ``max_len``.  The device defaults to the
+    params' device (``"cuda"`` without params)."""
+    _require_ported(cfg)
     if device is None:
         device = (params["embed"]["table"].device if params is not None
                   else "cuda")
+    if cfg.family == "ssm":
+        return [init_ssm_state(cfg, batch, device)
+                for _ in range(num_groups(cfg))]
     return [init_kv_cache(cfg, batch, max_len, kv_dtype=kv_dtype,
                           device=device)
             for _ in range(num_groups(cfg))]
@@ -120,14 +156,19 @@ def decode_step(params: Params, token: torch.Tensor, caches: Caches,
                 kv_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step.  token: [B, 1] int; index: host int position.
-    ``plan`` (a core.plan.KernelPlan) runs each layer's FFN through the
-    Hopper kernel its grant lowered to; ``kv_len`` bounds the attention
-    read to the live cache prefix (index < kv_len).  Returns (logits
-    [B, 1, V] fp32, the caches, updated in place)."""
-    _require_dense(cfg)
+    ``plan`` (a core.plan.KernelPlan) runs each dense layer's FFN
+    through the Hopper kernel its grant lowered to (a Mamba2 layer's
+    O(1) step has no plan); ``kv_len`` bounds the attention read to the
+    live cache prefix (index < kv_len).  Returns (logits [B, 1, V] fp32,
+    the caches, updated in place)."""
+    _require_ported(cfg)
     x = embed(params["embed"], token)
     positions = torch.full((1, 1), index, dtype=torch.long, device=x.device)
     for g, lp in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            x, caches[g] = _ssm_block(lp, x, cfg, state=caches[g],
+                                      decode=True)
+            continue
         x, caches[g] = _dense_block(lp, x, cfg, kv_cache=caches[g],
                                     cache_index=index, kv_len=kv_len,
                                     positions=positions, plan=plan)
@@ -160,16 +201,22 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
                   index: int, cfg: ArchConfig, kv_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Caches]:
     """One cache-resuming prefill chunk: forward ``tokens`` [B, S] at
-    absolute positions [index, index + S), writing their KV into the
-    caches in place, and return the LAST position's logits [B, 1, V]
-    plus the caches.  As in the reference the chunk runs the plain path
-    (no plan): the grant decides the chunk's size and NEC charge, not
-    its numerics.  Requires index + S <= max_len (and <= kv_len)."""
-    _require_dense(cfg)
+    absolute positions [index, index + S), writing their KV (or carrying
+    the Mamba2 state) into the caches, and return the LAST position's
+    logits [B, 1, V] plus the caches.  As in the reference the chunk
+    runs the plain path (no plan; an SSM layer scans at the
+    architecture's chunk, whose segmentation a chunked prefill at
+    chunk-aligned boundaries preserves): the grant decides the chunk's
+    size and NEC charge, not its numerics.  Requires index + S <=
+    max_len (and <= kv_len)."""
+    _require_ported(cfg)
     x = embed(params["embed"], tokens)
     S = x.shape[1]
     positions = (torch.arange(S, device=x.device)[None, :] + index)
     for g, lp in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            x, caches[g] = _ssm_block(lp, x, cfg, state=caches[g])
+            continue
         x, caches[g] = _dense_block(lp, x, cfg, kv_cache=caches[g],
                                     cache_index=index, kv_len=kv_len,
                                     positions=positions)

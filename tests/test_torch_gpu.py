@@ -7,9 +7,10 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances are tests/test_kernels.py::tol for the matmul (native and
-quantized) and FFN kernels (2e-2 bf16, 2e-3 fp32) and tests/test_kernels.py's flash
-tolerances for attention (3e-2 bf16, 2e-3 fp32).  Each wrapper counts
-one launch per call.
+quantized) and FFN kernels (2e-2 bf16, 2e-3 fp32), tests/test_kernels.py's flash
+tolerances for attention (3e-2 bf16, 2e-3 fp32), and the fp32 one for
+ssd_chunk at both input types (its arithmetic and outputs are fp32).
+Each wrapper counts one launch per call.
 """
 import pytest
 import torch
@@ -18,6 +19,7 @@ from repro_torch.kernels import block_fused_ffn as kffn
 from repro_torch.kernels import cache_matmul as kmm
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import quant as pquant
+from repro_torch.kernels import ssd_scan as kssd
 
 MATMUL_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
               "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -125,3 +127,38 @@ def test_cuda_flash_attention_matches_plain_versions(dtype):
                         q, pquant.dequantize_rows(kq, ks),
                         pquant.dequantize_rows(vq, vs), causal, tile)
                     assert torch.equal(got, native)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_chunk_matches_plain_version(dtype):
+    """The SSD intra-chunk kernel against its plain version on the card:
+    B and C per batch row (32 heads of a row share them) at full width
+    (P 64, N 128) for chunks of 256, 128, 64, a tail of 44 and 1, each
+    with several chunks, and the reduced shape (P 32, N 16).  One launch
+    per call; a second launch is bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [(2, 32, 64, 128, q, 3 * q) for q in (256, 128, 64, 44, 1)]
+    shapes.append((2, 8, 32, 16, 32, 96))
+    for b, h, p, n, q, s in shapes:
+        x = torch.randn((b * h, s, p), generator=gen, device="cuda").to(dt)
+        dts = torch.nn.functional.softplus(
+            torch.randn((b * h, s), generator=gen, device="cuda"))
+        A = torch.randn((b * h,), generator=gen, device="cuda").abs() + 0.1
+        Bm = torch.randn((b, s, n), generator=gen, device="cuda").to(dt)
+        Cm = torch.randn((b, s, n), generator=gen, device="cuda").to(dt)
+        before = kssd.launches
+        y, st = kssd.ssd_chunk(x, dts, A, Bm, Cm, q)
+        assert kssd.launches == before + 1
+        assert y.dtype == st.dtype == torch.float32
+        want_y, want_st = kssd.ssd_chunk_plain(
+            x, dts, A, Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0),
+            q)
+        torch.testing.assert_close(y, want_y, **MATMUL_TOL["float32"])
+        torch.testing.assert_close(st, want_st, **MATMUL_TOL["float32"])
+        y2, st2 = kssd.ssd_chunk(x, dts, A, Bm, Cm, q)
+        assert torch.equal(y, y2) and torch.equal(st, st2)

@@ -2,6 +2,8 @@
 neither JAX nor the JAX package (``repro``), and ``chip_smoke.py`` prints
 no result without a card or without the port beside it."""
 import ast
+import importlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -32,6 +34,33 @@ def test_source_imports_neither_jax_nor_repro(path):
             if _forbidden(node.module or ""):
                 bad.append(node.module)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_kernel_and_the_ssm_slice_are_covered():
+    """The sources above include the SSM slice's modules, and every CUDA
+    source the build compiles sits beside them."""
+    from repro_torch.kernels import build
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES
+             if p.is_relative_to(PORT)}
+    assert {"models/ssm.py", "kernels/ssd_scan.py", "kernels/ops.py"} <= names
+    assert "ssd_chunk" in build.SOURCES
+    for name in build.SOURCES:
+        assert (PORT / "csrc" / f"{name}.cu").is_file(), name
+
+
+@pytest.mark.parametrize("module, name", [
+    ("repro_torch.models.model", "init_params"),
+    ("repro_torch.models.attention", "init_kv_cache"),
+    ("repro_torch.models.ssm", "init_ssm_state"),
+    ("repro_torch.bridge", "params_from_numpy"),
+    ("repro_torch.bridge", "caches_from_numpy"),
+    ("repro_torch.launch.serve", "MultiTenantServer"),
+])
+def test_entry_points_run_on_the_card_unless_told(module, name):
+    """Every entry point that places tensors defaults to ``"cuda"``: the
+    CPU is used only where the caller names it."""
+    fn = getattr(importlib.import_module(module), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def _env():
