@@ -10,7 +10,8 @@ Phases, each printed as one JSON object with its seconds:
 * ``build``: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
   (cache_matmul, cache_matmul_quant, block_fused_ffn, flash_attention,
   ssd_chunk) with ``nvcc`` for ``sm_90a``, one compiler per source, all
-  at once.
+  at once; records each gemv / wgmma kernel's registers and spills and
+  each library's wgmma (HGMMA) and TMA load instructions.
 * ``kernels``: holds each kernel against its plain PyTorch version on the
   card, in bf16 and fp32 (TF32 off): the matmul and FFN kernels at
   full-width yi-9b decode shapes, a 256-row prefill-sized shape and a
@@ -25,7 +26,12 @@ Phases, each printed as one JSON object with its seconds:
   kernel at the shape of each path that runs it (the FFN kernels at
   decode and at the prefill's 2048 rows, ssd_chunk at the prefill's and
   a serving chunk's), checked against its plain version on the timed
-  inputs.
+  inputs.  Every row names its tile's kind: bf16 ``cache_matmul`` runs
+  the gemv tile at up to 8 rows and a wgmma tile above (also at ragged
+  rows, N and K), bf16 native flash attention at hd 128 the wgmma
+  kernel, the rest the simt tiles; the gemv / wgmma tiles must repeat
+  bitwise and are timed in turns against the simt tile of the same
+  plan (``simt_ms``).
 * ``e2e``: full-width yi-9b cut to 4 layers, random weights from one
   seed: prefill, then two teacher-forced decode epochs (an LBM plan and an
   LWM plan) with a native, an int8 and an fp8 KV cache, and
@@ -37,8 +43,9 @@ Phases, each printed as one JSON object with its seconds:
   a 256-token prompt, for 32 steps.  The plan kinds must be those the
   scheduler (the reference's, copied) can grant at full width.  The
   kernels' launch counters are zeroed just before the run and read just
-  after it.  Then one LWM decode epoch is profiled for where the time
-  goes.
+  after it; every cache_matmul launch must be of the gemv kind (so for
+  e2e, self and prefill: no simt launch on the bf16 path).  Then one LWM
+  decode epoch is profiled for where the time goes.
 * ``self``: serial against pipelined serving on the card, token streams
   bitwise equal: full width (4 layers) in a starved pool, granted LWM,
   and the reduced width in a pool where the scheduler grants LBM.
@@ -139,6 +146,11 @@ SERVE_KV = dict(batch=2, max_len=512, prompt_len=256, budget=16, steps=40,
 PREFILL_COSINE = {"int8": 0.999, "fp8_e4m3": 0.998}
 KV_CACHES = ("int8", "fp8_e4m3")
 ATTN_GRANTS = (9, 32, 60)                   # pages; lower_attn -> blocks
+# cache_matmul parity at ragged rows (gemv at 1, 2, 7; wgmma above), N and
+# K not multiples of the tiles; K = 333 sends bf16 at 37 rows to simt
+MM_RAGGED = ((1, 333, 1000), (2, 520, 1000), (7, 333, 1000), (37, 333, 1000),
+             (37, 520, 1000), (65, 4096, 1000), (300, 520, 1000),
+             (300, 1000, 4104))
 SSM_ARCH = "mamba2-370m"
 # ssd_chunk cases: the chunks the plans lower (256, 128, 64), a prompt's
 # tail segment (44) and one token, each over three chunks
@@ -211,8 +223,40 @@ def build_kernels():
                                              rep["log"])]
         out[name] = {"seconds": round(rep["seconds"], 3),
                      "max_registers": max(regs, default=None),
-                     "max_spill_store_bytes": max(spills, default=None)}
+                     "max_spill_store_bytes": max(spills, default=None),
+                     "tensor_core_kernels": _ptxas_entries(rep["log"]),
+                     "sass": _sass_counts(build.library_path(name))}
     return {"nvcc": build.nvcc(), "sources": out}
+
+
+def _sass_counts(lib):
+    """How many wgmma (HGMMA) and TMA load (UTMALDG) instructions the
+    library's machine code holds, by ``cuobjdump -sass`` (the toolkit's,
+    beside ``nvcc``)."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return "cuobjdump not found"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+
+
+def _ptxas_entries(log: str):
+    """Registers, spill bytes and static shared memory that ``-Xptxas -v``
+    reports for each gemv / wgmma kernel of one library (their dynamic
+    shared memory is the menu's ``smem_bytes``)."""
+    out = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if not re.search(r"gemv|wgmma", name):
+            continue
+        num = lambda pat: int(m.group(1)) if (m := re.search(pat, block)) else 0  # noqa: E731
+        out[name] = {"registers": num(r"Used (\d+) registers"),
+                     "spill_store_bytes": num(r"(\d+) bytes spill stores"),
+                     "spill_load_bytes": num(r"(\d+) bytes spill loads"),
+                     "static_smem_bytes": num(r"(\d+) bytes smem")}
+    return out
 
 
 # ------------------------------------------------------------ kernels --
@@ -256,17 +300,23 @@ def kernel_cases(cfg, dev):
                 mm.append((f"lwm@{pages}p down", m, f, d, plan.down_tile))
         ragged = lower_ffn(LANE, 333, 1000, eb, 64, want_fused=False)
         mm.append(("ragged", 37, 333, 1000, ragged.up_tile))
+        # ragged rows, N and K under the path's smallest plan tile
+        path_tile = lower_ffn(LANE, d, f, eb, 32, want_fused=False).up_tile
+        mm += [(f"ragged m{m}", m, k, n, path_tile) for m, k, n in MM_RAGGED]
         for label, m, k, n, tile in mm:
             a = _randn(gen, (m, k), dtype)
             b = _randn(gen, (k, n), dtype, 1 / math.sqrt(k))
             got = ops.planned_matmul(a, b, tile)
             err, ok = _close(got, kmm.cache_matmul_plain(a, b), dn)
-            hop = ops.legalize_matmul_tile(tile, m, limit)
-            rows.append({"kernel": "cache_matmul", "case": label, "dtype": dn,
-                         "shape": [m, k, n],
-                         "plan_tile": [tile.bm, tile.bn, tile.bk],
-                         "hopper_tile": [hop.bm, hop.bn, hop.bk],
-                         "max_abs_err": err, "tol": TOL[dn], "ok": ok})
+            hop = ops.legalize_matmul_tile(tile, m, limit, dtype, k, n)
+            row = {"kernel": "cache_matmul", "case": label, "dtype": dn,
+                   "shape": [m, k, n], "plan_tile": [tile.bm, tile.bn, tile.bk],
+                   "kind": hop.kind, "hopper_tile": [hop.bm, hop.bn, hop.bk]}
+            if hop.kind != "simt":       # two launches are bit-identical
+                row["bitwise_repeat"] = bool(torch.equal(
+                    got, ops.planned_matmul(a, b, tile)))
+                ok = ok and row["bitwise_repeat"]
+            rows.append({**row, "max_abs_err": err, "tol": TOL[dn], "ok": ok})
         ffn = []
         # the smallest LBM grant, and two that widen block_f
         for pages in (fused_ffn_pages(LANE, d, f, eb), 300 * eb, 600 * eb):
@@ -315,6 +365,8 @@ def flash_cases(cfg, dev):
               ("non-causal", 1, H, Hkv, 512, hd, False),
               ("ragged", 1, 8, 2, 333, 64, True),
               ("ragged non-causal", 1, 8, 2, 333, 64, False),
+              ("ragged hd128", 1, 8, 2, 333, hd, True),
+              ("ragged hd128 non-causal", 1, 8, 2, 333, hd, False),
               ("hd32", 1, 4, 2, 256, 32, True))
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -328,16 +380,20 @@ def flash_cases(cfg, dev):
                 plans = {lower_attn(d, eb, p, kv, eb if kv == "native" else 1)
                          for p in ATTN_GRANTS}
                 tiles = {ops.legalize_attn_tile(p.block_q, p.block_kv, d, s,
-                                                limit): p for p in plans}
+                                                limit, dtype, kv != "native"): p
+                         for p in plans}
                 for tile, plan in tiles.items():
                     row = {"kernel": "flash_attention", "case": label,
                            "dtype": dn, "kv": kv, "causal": causal,
                            "shape": [b, h, hkv, s, d],
                            "plan_block": [plan.block_q, plan.block_kv],
-                           "hopper_tile": [tile.bq, tile.bkv]}
+                           "kind": tile.kind, "hopper_tile": [tile.bq, tile.bkv]}
                     if kv == "native":
                         got = kfa.flash_attention(q, k, v, causal, tile)
                         want = kfa.flash_attention_plain(q, k, v, causal)
+                        if tile.kind != "simt":
+                            row["bitwise_repeat"] = bool(torch.equal(
+                                got, kfa.flash_attention(q, k, v, causal, tile)))
                     else:
                         row["kernel"] = "flash_attention_quantized"
                         kq, ks = quant.quantize_rows(k, kv)
@@ -356,7 +412,7 @@ def flash_cases(cfg, dev):
                                 torch.equal(got, native))
                     err, ok = _close(got, want, dn)
                     ok = ok and row.get("bitwise_vs_native_on_dequantized",
-                                        True)
+                                        True) and row.get("bitwise_repeat", True)
                     rows.append({**row, "max_abs_err": err, "tol": TOL[dn],
                                  "ok": ok})
     return rows
@@ -415,10 +471,58 @@ def _median_ms(fn, reps: int = 30) -> float:
     return ts[len(ts) // 2]
 
 
+def _turns_ms(fns, reps: int = 30):
+    """:func:`_median_ms` of each callable in ``fns`` (name -> fn),
+    measured in turns, a b .. b a, so that a drift of the card's clock
+    within the call falls on each alike: the mean of each one's two
+    medians, by name."""
+    order = list(fns) + list(fns)[::-1]
+    got = {k: [] for k in fns}
+    for k in order:
+        got[k].append(_median_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in got.items()}
+
+
 def _bound(nbytes: int, flops: int, dtype_name: str):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def _matmul_timing(a, b, tile, limit, reps: int):
+    """cache_matmul at one of the path's shapes (bf16) with the tile the
+    plan legalizes to, against the simt tile the fp32 rule picks at the
+    same plan (the one every bf16 call ran before the gemv and wgmma
+    kinds), timed in turns in this call, beside the plain version and
+    ``torch.matmul``; the kernel held against the plain version."""
+    import torch
+    from repro_torch.kernels import cache_matmul as kmm
+    from repro_torch.kernels import ops
+    m, k = a.shape
+    n = b.shape[1]
+    hop = ops.legalize_matmul_tile(tile, m, limit, a.dtype, k, n)
+    simt = ops.legalize_matmul_tile(tile, m, limit, torch.float32, k, n)
+    bound, by = _bound(2 * (m * k + k * n + m * n), 2 * m * k * n, "bfloat16")
+    got = kmm.cache_matmul(a, b, hop)
+    err, ok = _close(got, kmm.cache_matmul_plain(a, b), "bfloat16")
+    repeat = bool(torch.equal(got, kmm.cache_matmul(a, b, hop)))
+    t = _turns_ms({"ms": lambda: kmm.cache_matmul(a, b, hop),
+                   "simt_ms": lambda: kmm.cache_matmul(a, b, simt)}, reps)
+    out = {"shape": [m, k, n], "plan_tile": [tile.bm, tile.bn, tile.bk],
+           "kind": hop.kind, "hopper_tile": [hop.bm, hop.bn, hop.bk],
+           "simt_tile": [simt.bm, simt.bn, simt.bk], **t,
+           "plain_ms": _median_ms(lambda: kmm.cache_matmul_plain(a, b), reps),
+           "library_ms": _median_ms(lambda: torch.matmul(a, b), reps),
+           "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+           "bitwise_repeat": repeat, "ok": ok and repeat}
+    if hop.kind == "gemv":
+        out["gemv_split"] = list(kmm.gemv_split(n, k, torch.cuda.get_device_properties(
+            a.device).multi_processor_count))
+    if hop.kind == "wgmma":
+        out["output_tiles"] = -(-m // hop.bm) * -(-n // hop.bn)
+    out["speedup_vs_simt"] = out["simt_ms"] / out["ms"]
+    out["vs_library"] = out["ms"] / out["library_ms"]
+    return out
 
 
 def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
@@ -429,7 +533,6 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
     from repro_torch.core.plan import lower_ffn
     from repro_torch.core.vmem import LANE
     from repro_torch.kernels import block_fused_ffn as kffn
-    from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import ops
     d, f = cfg.d_model, cfg.d_ff
     dt = torch.bfloat16
@@ -447,17 +550,7 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
     out = {}
     for label, a, b, tile in (("up", x, wg, lwm.up_tile),
                               ("down", h, wd, lwm.down_tile)):
-        hop = ops.legalize_matmul_tile(tile, a.shape[0], limit)
-        m, k = a.shape
-        n = b.shape[1]
-        bound, by = _bound(eb * (m * k + k * n + m * n), 2 * m * k * n, dn)
-        err, ok = _close(kmm.cache_matmul(a, b, hop), kmm.cache_matmul_plain(a, b), dn)
-        out[f"cache_matmul.{label}"] = {
-            "shape": [m, k, n], "hopper_tile": [hop.bm, hop.bn, hop.bk],
-            "ms": _median_ms(lambda: kmm.cache_matmul(a, b, hop)),
-            "plain_ms": _median_ms(lambda: kmm.cache_matmul_plain(a, b)),
-            "library_ms": _median_ms(lambda: torch.matmul(a, b)),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "ok": ok}
+        out[f"cache_matmul.{label}"] = _matmul_timing(a, b, tile, limit, 30)
     hop = ops.legalize_ffn_tile(lbm.block_s, lbm.block_f, batch, limit)
     bound, by = _bound(eb * (2 * batch * d + 3 * d * f), 6 * batch * d * f, dn)
     err, ok = _close(kffn.block_fused_ffn(x, wg, wu, wd, hop),
@@ -516,7 +609,6 @@ def prefill_timings(cfg, dev):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import block_fused_ffn as kffn
-    from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant
@@ -549,19 +641,8 @@ def prefill_timings(cfg, dev):
     h = _randn(gen, (B * S, f), dt)
     for label, a, b, tile in (("up", x, wg, lwm.ffn.up_tile),
                               ("down", h, wd, lwm.ffn.down_tile)):
-        hop = ops.legalize_matmul_tile(tile, a.shape[0], limit)
-        m, k = a.shape
-        n = b.shape[1]
-        bound, by = _bound(eb * (m * k + k * n + m * n), 2 * m * k * n, dn)
-        err, ok = _close(kmm.cache_matmul(a, b, hop),
-                         kmm.cache_matmul_plain(a, b), dn)
         out[f"cache_matmul.prefill.{label}"] = {
-            "shape": [m, k, n], "plan": lwm.describe(),
-            "hopper_tile": [hop.bm, hop.bn, hop.bk],
-            "ms": _median_ms(lambda: kmm.cache_matmul(a, b, hop), 10),
-            "plain_ms": _median_ms(lambda: kmm.cache_matmul_plain(a, b), 10),
-            "library_ms": _median_ms(lambda: torch.matmul(a, b), 10),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "ok": ok}
+            "plan": lwm.describe(), **_matmul_timing(a, b, tile, limit, 10)}
     del x, h, wg, wu, wd
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = _randn(gen, (B, H, S, hd), dt)
@@ -570,25 +651,35 @@ def prefill_timings(cfg, dev):
     flops = 2 * B * H * S * S * hd               # causal: half of 4*B*H*S*Sk*hd
     qo_bytes = 2 * eb * B * H * S * hd           # q read, O written
     tile = ops.legalize_attn_tile(lbm.attn.block_q, lbm.attn.block_kv, hd, S,
-                                  limit)
+                                  limit, dt)
+    # the simt tile the same plan gives fp32 (every bf16 call's before)
+    simt = ops.legalize_attn_tile(lbm.attn.block_q, lbm.attn.block_kv, hd, S,
+                                  limit, torch.float32)
     bound, by = _bound(qo_bytes + 2 * eb * B * Hkv * S * hd, flops, dn)
-    err, ok = _close(kfa.flash_attention(q, k, v, True, tile),
-                     kfa.flash_attention_plain(q, k, v, True), dn)
-    ms = _median_ms(lambda: kfa.flash_attention(q, k, v, True, tile))
+    got = kfa.flash_attention(q, k, v, True, tile)
+    err, ok = _close(got, kfa.flash_attention_plain(q, k, v, True), dn)
+    repeat = bool(torch.equal(got, kfa.flash_attention(q, k, v, True, tile)))
+    t = _turns_ms({"ms": lambda: kfa.flash_attention(q, k, v, True, tile),
+                   "simt_ms": lambda: kfa.flash_attention(q, k, v, True, simt)})
     out["flash_attention"] = {
         "shape": [B, H, Hkv, S, hd], "plan": [lbm.attn.block_q,
                                                lbm.attn.block_kv],
-        "hopper_tile": [tile.bq, tile.bkv], "ms": ms,
-        "tflops": flops / ms / 1e9,
+        "kind": tile.kind, "hopper_tile": [tile.bq, tile.bkv],
+        "simt_tile": [simt.bq, simt.bkv], **t,
+        "tflops": flops / t["ms"] / 1e9,
         "plain_ms": _median_ms(lambda: kfa.flash_attention_plain(q, k, v, True)),
         "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
-        "bound_ms": bound, "bound_by": by, "max_abs_err": err, "ok": ok}
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+        "bitwise_repeat": repeat, "ok": ok and repeat}
+    out["flash_attention"]["speedup_vs_simt"] = t["simt_ms"] / t["ms"]
+    out["flash_attention"]["vs_library"] = (t["ms"] /
+                                            out["flash_attention"]["library_ms"])
     kq, ks = quant.quantize_rows(k, lwm.kv_dtype)
     vq, vs = quant.quantize_rows(v, lwm.kv_dtype)
     ks, vs = ks[..., 0], vs[..., 0]
     tile = ops.legalize_attn_tile(lwm.attn.block_q, lwm.attn.block_kv, hd, S,
-                                  limit)
+                                  limit, dt, True)
     bound, by = _bound(qo_bytes + 2 * B * Hkv * S * (hd + 4), flops, dn)
     err, ok = _close(kfa.flash_attention_quantized(q, kq, vq, ks, vs, True, tile),
                      kfa.flash_attention_quantized_plain(q, kq, vq, ks, vs, True),
@@ -596,7 +687,7 @@ def prefill_timings(cfg, dev):
     ms = _median_ms(lambda: kfa.flash_attention_quantized(q, kq, vq, ks, vs,
                                                           True, tile))
     out["flash_attention_quantized"] = {
-        "shape": [B, H, Hkv, S, hd], "kv": lwm.kv_dtype,
+        "shape": [B, H, Hkv, S, hd], "kv": lwm.kv_dtype, "kind": tile.kind,
         "plan": [lwm.attn.block_q, lwm.attn.block_kv],
         "hopper_tile": [tile.bq, tile.bkv], "ms": ms,
         "tflops": flops / ms / 1e9,
@@ -804,16 +895,37 @@ PREFILL_KERNELS = ("cache_matmul", "block_fused_ffn", "flash_attention",
 
 
 def _counters():
-    """The six kernels' launch counters, by kernel name."""
+    """The six kernels' launch counters, by kernel name, and cache_matmul's
+    and the native flash_attention's split by tile kind
+    (``cache_matmul.gemv`` etc.)."""
     from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ssd_scan as kssd
-    return {"cache_matmul": kmm.launches, "block_fused_ffn": kffn.launches,
-            "flash_attention": kfa.launches,
-            "flash_attention_quantized": kfa.launches_quantized,
-            "cache_matmul_quant": kmm.launches_quant,
-            "ssd_chunk": kssd.launches}
+    out = {"cache_matmul": kmm.launches, "block_fused_ffn": kffn.launches,
+           "flash_attention": kfa.launches,
+           "flash_attention_quantized": kfa.launches_quantized,
+           "cache_matmul_quant": kmm.launches_quant,
+           "ssd_chunk": kssd.launches}
+    out.update({f"cache_matmul.{k}": v for k, v in kmm.launches_by_kind.items()})
+    out.update({f"flash_attention.{k}": v
+                for k, v in kfa.launches_by_kind.items()})
+    return out
+
+
+def _gate_kinds(counters, label: str, matmul=(), flash=()):
+    """Every bf16 launch of the path ran the new kinds: no cache_matmul
+    launch of the ``simt`` kind, each kind of ``matmul`` launched; where
+    ``flash`` names ``wgmma``, no native flash launch of the simt kind
+    and some of the wgmma kernel."""
+    bad = [k for k in matmul if counters[f"cache_matmul.{k}"] <= 0]
+    if counters["cache_matmul.simt"]:
+        bad.append("cache_matmul.simt")
+    bad += [f"flash {k}" for k in flash if counters[f"flash_attention.{k}"] <= 0]
+    if flash and counters["flash_attention.simt"]:
+        bad.append("flash_attention.simt")
+    if bad:
+        raise AssertionError(f"{label}: kinds {bad} wrong: {counters}")
 
 
 def _zero_counters():
@@ -824,6 +936,9 @@ def _zero_counters():
     kmm.launches = kffn.launches = kmm.launches_quant = 0
     kfa.launches = kfa.launches_quantized = 0
     kssd.launches = 0
+    for by_kind in (kmm.launches_by_kind, kfa.launches_by_kind):
+        for k in by_kind:
+            by_kind[k] = 0
 
 
 def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
@@ -887,6 +1002,7 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
            "plans": [p.describe() for p in plans]}
     if min(launches[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"e2e: a kernel never launched: {launches}")
+    _gate_kinds(launches, "e2e", ("gemv", "wgmma"), ("wgmma",))
     return res
 
 
@@ -1001,6 +1117,7 @@ def serve_main_path(cfg, dev, counters):
                                else set())
     if min(counters[k] for k in need) <= 0:
         raise AssertionError(f"serve: a kernel never launched: {counters}")
+    _gate_kinds(counters, "serve", ("gemv",))
     vocab = srv.tenants[0].cfg.vocab_size
     tenants = {}
     for t in srv.tenants:
@@ -1068,9 +1185,12 @@ def check_serial_pipelined(cfg, dev, layers: int = 4):
                 raise AssertionError(f"{label}: plans {got}, want {kind}")
             plans = sorted({p.describe() for t in srv.tenants for p in t.plans})
             del srv
-        launches = _counters()[kernel]
+        counts = _counters()
+        launches = counts[kernel]
         if launches <= 0:
             raise AssertionError(f"{label}: {kernel} never launched")
+        if kernel == "cache_matmul" and served.dtype == "bfloat16":
+            _gate_kinds(counts, label, ("gemv",))
         for tid, s in outs[0]["tenants"].items():
             p = outs[1]["tenants"][tid]
             if not np.array_equal(s["output"], p["output"]):
@@ -1081,7 +1201,8 @@ def check_serial_pipelined(cfg, dev, layers: int = 4):
         res[f"{width}@{pages}p"] = {
             "d_model": served.d_model, "layers": served.num_layers,
             "dtype": served.dtype, "kind": kind, "plans": plans,
-            "launches": {kernel: launches}, "tokens": {
+            "launches": {k: v for k, v in counts.items()
+                         if k.startswith(kernel)}, "tokens": {
                 tid: v["tokens"] for tid, v in outs[1]["tenants"].items()},
             "bit_identical": True}
     if not any(r["kind"] == "LBM" for r in res.values()):
@@ -1139,6 +1260,7 @@ def prefill_main_path(cfg, dev, counters):
     counters.update(_counters())
     if min(counters[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"prefill: a kernel never launched: {counters}")
+    _gate_kinds(counters, "prefill", ("wgmma",), ("wgmma",))
     bad = [n for n, lg in logits.items() if not bool(torch.isfinite(lg).all())]
     if bad:
         raise AssertionError(f"prefill: non-finite logits under {bad}")
@@ -2014,12 +2136,17 @@ def main() -> int:
         "ssd_chunk": (csrc + "ssd_chunk.cu",
                       "src/repro/kernels/ssd_scan.py:62",
                       timings["ssd_chunk.prefill"], prefill_ssm_counts)}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": t["max_abs_err"],
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]}
+                **{k: t[k] for k in keys},
+                **{k: t[k] for k in ("kind", "simt_ms") if k in t}}
                for name, (src, rep, t, counts) in source.items()]
+    # cache_matmul's prefill GEMM (wgmma, 2048 rows) beside its decode one
+    pf = timings["cache_matmul.prefill.up"]
+    kernels[0]["prefill"] = {"launches": prefill_counts["cache_matmul"],
+                             "max_abs_err": pf["max_abs_err"],
+                             **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(report["device"]["nvidia_smi"])

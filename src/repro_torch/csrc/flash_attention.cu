@@ -27,7 +27,7 @@
 // GQA: q-head h reads KV head h / (H / Hkv) through its own offsets; no
 // K/V is repeated in device memory.
 //
-// Layout.  One thread block per (b*H + h, BQ-row q tile).  The q tile
+// Layout (simt).  One thread block per (b*H + h, BQ-row q tile).  The q tile
 // stays in shared memory as fp32; the block loops over BKV-row KV tiles,
 // staging K (transposed) and V in shared memory as fp32, computes its
 // [BQ x BKV] score tile in registers (TM x TN per thread), reduces row
@@ -47,12 +47,26 @@
 // S = Sk = 1024, hd 128, causal) the work is 2*B*H*S*Sk*hd = 17 GFLOP
 // against 38 MB of inputs and output: far above the card's ~295 FLOP per
 // byte, so it is bound by operations (0.017 ms at the bf16 tensor-core
-// peak).  This first version uses plain fp32 FMA from shared memory, no
-// tensor cores: it is right first, and far off that bound.  Making it
-// fast (wgmma on bf16 tiles, TMA loads, warp specialisation) is later
-// work.  What the design does already: K/V cross device memory once per
-// q tile at their stored width (1 byte a value when quantized), and the
-// causal q tiles are launched longest first so the tail is short.
+// peak).  Two kernels, one menu:
+//
+//  * simt (flash_kernel; fp32, quantized K/V, head dims 32 and 64, and
+//    bf16 where asked): plain fp32 FMA from shared memory, as described
+//    above.  K/V cross device memory once per q tile at their stored width
+//    (1 byte a value when quantized), and the causal q tiles are launched
+//    longest first so the tail is short.
+//  * wgmma (flash_wgmma_kernel; bf16 q and native K/V at hd 128): one block
+//    per (b*H + h, 128-row q tile), longest first.  A producer warp loads
+//    the q tile once and K/V tiles of 128 keys into a 2-stage ring by TMA
+//    (128-byte swizzled, zero fill past S and Sk); two consumer warpgroups
+//    of 64 q rows each compute S = Q K^T with wgmma m64n128k16 from shared
+//    memory (K's [keys, hd] tile is K-major as it lies), run the online
+//    softmax on the accumulator fragment in registers (row max and sum over
+//    the 4 threads of a row by shuffles, in fp32, on log2(e)-scaled scores
+//    with exp2f), round p to bf16 in registers as the reference's
+//    p.astype(v.dtype) does, and feed it as wgmma's register A operand for
+//    O += P V (V's [keys, hd] tile is MN-major: the transpose bit).  The
+//    -1e30 mask, the l == 0 guard and the skipped tiles are the simt
+//    kernel's.
 //
 // Plain C interface for ctypes: the entry point returns the CUDA error
 // of the launch (0 on success); `tile` indexes the menu below, which
@@ -62,6 +76,7 @@
 
 #include <cuda_fp8.h>
 
+#include "hopper_async.cuh"
 #include "tile_common.cuh"
 
 namespace repro {
@@ -73,6 +88,7 @@ __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<fl
 
 template <int HD, int BQ, int BKV, int TM, int TN>
 struct AttnTile {
+  static constexpr int kind = 0, dtypes = 3;  // simt; fp32 | bf16
   static constexpr int hd = HD, bq = BQ, bkv = BKV, tm = TM, tn = TN;
   static constexpr int ntx = BKV / TN;      // threads sharing a q row
   static constexpr int nty = BQ / TM;
@@ -242,6 +258,215 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* ks, con
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- wgmma --
+struct FlashWgmma {
+  static constexpr int kind = 2, dtypes = 2;  // wgmma; bf16
+  static constexpr int hd = 128, bq = 128, bkv = 128, tm = 64, tn = 128;
+  static constexpr int stages = 2;
+  static constexpr int threads = 2 * 128 + 32;  // two consumer warpgroups, a producer warp
+  static constexpr int tile_bytes = 128 * 128 * 2;  // q, k or v tile: two [128][64] boxes
+  static constexpr int box_bytes = tile_bytes / 2;
+  // 1024 to align to the swizzle atom; q; the K/V ring; the q barrier and
+  // a full and an empty barrier per stage
+  static constexpr int smem = 1024 + tile_bytes * (1 + 2 * stages) + (1 + 2 * stages) * 8;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// q [B*H, S, 128], k/v [B*Hkv, Sk, 128] as 3-D tensor maps (boxes of 64 x
+// 128 rows x 1); O [B*H, S, 128] bf16.  scale_log2 = hd^-0.5 * log2(e).
+__global__ void __launch_bounds__(FlashWgmma::threads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                       const __grid_constant__ CUtensorMap tmap_k,
+                       const __grid_constant__ CUtensorMap tmap_v, __nv_bfloat16* __restrict__ O,
+                       int H, int groups, int S, int Sk, int causal, float scale_log2) {
+  using TL = FlashWgmma;
+  constexpr int TB = TL::tile_bytes, BOX = TL::box_bytes, ST = TL::stages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = Qs + TB;            // stage s at Ks + s * TB
+  uint8_t* Vs = Ks + ST * TB;       // stage s at Vs + s * TB
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + ST * TB);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
+  const int bh = blockIdx.y;  // b * H + h
+  const int kvh = (bh / H) * (H / groups) + (bh % H) / groups;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // longest first
+  const int q0 = qt * TL::bq;
+  int n_kv = (Sk + TL::bkv - 1) / TL::bkv;
+  if (causal) n_kv = min(n_kv, (min(q0 + TL::bq, S) - 1) / TL::bkv + 1);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp
+    if (tid == 0) {
+      mbar_expect_tx(qbar, TB);
+      tma_load_3d(Qs, &tmap_q, qbar, 0, q0, bh);
+      tma_load_3d(Qs + BOX, &tmap_q, qbar, 64, q0, bh);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % ST;
+        if (t >= ST) mbar_wait(&empty[s], (t / ST - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * TB);
+        uint8_t* k = Ks + s * TB;
+        uint8_t* v = Vs + s * TB;
+        tma_load_3d(k, &tmap_k, &full[s], 0, t * TL::bkv, kvh);
+        tma_load_3d(k + BOX, &tmap_k, &full[s], 64, t * TL::bkv, kvh);
+        tma_load_3d(v, &tmap_v, &full[s], 0, t * TL::bkv, kvh);
+        tma_load_3d(v + BOX, &tmap_v, &full[s], 64, t * TL::bkv, kvh);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
+  float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  mbar_wait(qbar, 0);
+  const uint8_t* q = Qs + wg * 64 * 128;  // this warpgroup's 64 rows of each box
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int s = t % ST;
+    mbar_wait(&full[s], (t / ST) & 1);
+    const uint8_t* k = Ks + s * TB;
+    const uint8_t* v = Vs + s * TB;
+
+    // S = Q K^T: 8 steps of 16 along hd, 4 per 64-wide box
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int off = (kk / 4) * BOX + 32 * (kk % 4);
+      wgmma_m64n128k16_ss<0>(sc, desc_b128(q + off, 16, 1024), desc_b128(k + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax; register i: row row0 + 8 * ((i / 2) % 2), key
+    // k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2
+    const int k0 = t * TL::bkv;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = row0 + 8 * h;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const int kpos = k0 + 8 * j + 2 * (lane % 4) + e;
+          float x = __fmul_rn(sc[i], scale_log2);
+          if (kpos >= Sk || (causal && kpos > qpos)) x = kNegInf;
+          sc[i] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      const float m_new = fmaxf(m[h], quad_max(mx));
+      const float alpha = exp2f(__fsub_rn(m[h], m_new));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float p = exp2f(__fsub_rn(sc[i], m_new));
+          sc[i] = p;
+          sum = __fadd_rn(sum, p);
+        }
+      }
+      l[h] = __fadd_rn(__fmul_rn(l[h], alpha), quad_sum(sum));
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j + 2 * h] = __fmul_rn(o[4 * j + 2 * h], alpha);
+        o[4 * j + 2 * h + 1] = __fmul_rn(o[4 * j + 2 * h + 1], alpha);
+      }
+    }
+
+    // O += P V: p in bf16 as wgmma's A fragment; keys 16 kk .. 16 kk + 15
+    // are accumulator columns 8 (2 kk) .. 8 (2 kk + 1) + 7
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a[4] = {pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
+                             pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+                             pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
+                             pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+      wgmma_m64n128k16_rs<1>(o, a, desc_b128(v + 2048 * kk, BOX, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (tid == 0) mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* out = O + (size_t)bh * S * TL::hd;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= S) continue;
+    const float inv = l[h] == 0.f ? 1.f : l[h];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * TL::hd + col) =
+          __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * h], inv),
+                                __fdiv_rn(o[4 * j + 2 * h + 1], inv));
+    }
+  }
+}
+
+cudaError_t run_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
+                      int S, int Sk, int causal, float sm_scale, cudaStream_t stream) {
+  using TL = FlashWgmma;
+  CUtensorMap tq, tk, tv;
+  const uint32_t box[2] = {64, (uint32_t)TL::bq};
+  const uint64_t row = TL::hd * 2;
+  const uint64_t q_dims[3] = {(uint64_t)TL::hd, (uint64_t)S, (uint64_t)B * H};
+  const uint64_t q_strides[2] = {row, row * S};
+  const uint64_t kv_dims[3] = {(uint64_t)TL::hd, (uint64_t)Sk, (uint64_t)B * Hkv};
+  const uint64_t kv_strides[2] = {row, row * Sk};
+  cudaError_t e = encode_tmap_bf16(&tq, q, 3, q_dims, q_strides, box);
+  if (e == cudaSuccess) e = encode_tmap_bf16(&tk, k, 3, kv_dims, kv_strides, box);
+  if (e == cudaSuccess) e = encode_tmap_bf16(&tv, v, 3, kv_dims, kv_strides, box);
+  if (e != cudaSuccess) return e;
+  e = set_smem(flash_wgmma_kernel, TL::smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + TL::bq - 1) / TL::bq, B * H);
+  flash_wgmma_kernel<<<grid, TL::threads, TL::smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, H / Hkv, S, Sk, causal,
+      sm_scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 // The compiled tile menu, by index (kernels/flash_attention.py::TILES).
 using A0 = AttnTile<32, 64, 64, 4, 4>;
 using A1 = AttnTile<32, 128, 128, 8, 8>;
@@ -249,6 +474,7 @@ using A2 = AttnTile<64, 64, 64, 4, 4>;
 using A3 = AttnTile<64, 128, 128, 8, 8>;
 using A4 = AttnTile<128, 64, 64, 4, 4>;
 using A5 = AttnTile<128, 128, 64, 8, 4>;
+using A6 = FlashWgmma;  // bf16, native K/V, hd 128
 
 template <typename TQ, typename TKV, bool QUANT>
 int dispatch(int tile, const void* q, const void* k, const void* v, const void* ks,
@@ -279,8 +505,9 @@ int dispatch_kv(int kv_kind, int tile, const void* q, const void* k, const void*
 
 template <typename TL>
 void describe(int* out) {
-  out[0] = TL::hd; out[1] = TL::bq; out[2] = TL::bkv;
-  out[3] = TL::tm; out[4] = TL::tn; out[5] = TL::smem;
+  out[0] = TL::kind; out[1] = TL::dtypes;
+  out[2] = TL::hd; out[3] = TL::bq; out[4] = TL::bkv;
+  out[5] = TL::tm; out[6] = TL::tn; out[7] = TL::smem;
 }
 
 }  // namespace repro
@@ -294,6 +521,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
                         const void* vs, void* o, int q_bf16, int kv_kind, int B, int H, int Hkv,
                         int S, int Sk, int causal, float sm_scale, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile == 6) {
+    if (!q_bf16 || kv_kind != 0) return cudaErrorInvalidValue;
+    return repro::run_wgmma(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+  }
   if (q_bf16)
     return repro::dispatch_kv<__nv_bfloat16>(kv_kind, tile, q, k, v, ks, vs, o, B, H, Hkv, S, Sk,
                                              causal, sm_scale, s);
@@ -301,7 +532,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
                                    sm_scale, s);
 }
 
-// Writes (hd, bq, bkv, tm, tn, shared-memory bytes) of menu entry `tile`;
+// Writes (kind, dtypes, hd, bq, bkv, tm, tn, shared-memory bytes) of menu
+// entry `tile` (kind 0 simt, 2 wgmma; dtypes a mask, 1 fp32, 2 bf16);
 // returns the number of entries.
 int flash_attention_tile(int tile, int* out) {
   switch (tile) {
@@ -311,9 +543,10 @@ int flash_attention_tile(int tile, int* out) {
     case 3: repro::describe<repro::A3>(out); break;
     case 4: repro::describe<repro::A4>(out); break;
     case 5: repro::describe<repro::A5>(out); break;
+    case 6: repro::describe<repro::A6>(out); break;
     default: break;
   }
-  return 6;
+  return 7;
 }
 
 }  // extern "C"

@@ -98,18 +98,29 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def menu_fields(tile) -> tuple:
+    """The ints a C menu describes for one entry: the tile's own
+    ``menu_fields()`` where it has them, else its five shape fields and
+    its shared-memory bytes."""
+    own = getattr(tile, "menu_fields", None)
+    if own is not None:
+        return tuple(own())
+    return dataclasses.astuple(tile) + (tile.smem_bytes,)
+
+
 def check_menu(describe, tiles: Sequence, name: str) -> None:
     """Hold a kernel module's Python tile menu against the one compiled
-    into its library: ``describe(i, out)`` writes entry i's five shape
-    fields and its shared-memory bytes and returns the entry count."""
-    out = (ctypes.c_int * 6)()
+    into its library: ``describe(i, out)`` writes entry i's fields (those
+    of :func:`menu_fields`) and returns the entry count."""
+    out = (ctypes.c_int * 16)()
     n = describe(0, out)
     if n != len(tiles):
         raise RuntimeError(f"{name}: the library has {n} tiles, the Python "
                            f"menu {len(tiles)}")
     for i, t in enumerate(tiles):
         describe(i, out)
-        want = dataclasses.astuple(t) + (t.smem_bytes,)
-        if tuple(out) != want:
-            raise RuntimeError(f"{name}: tile {i} is {tuple(out)} in the "
+        want = menu_fields(t)
+        got = tuple(out[:len(want)])
+        if got != want:
+            raise RuntimeError(f"{name}: tile {i} is {got} in the "
                                f"library, {want} in Python")

@@ -18,7 +18,10 @@ prefill path's shape: operations).
   (the reference's ``attention_ref`` semantics and cast points).
 * :data:`TILES` is the menu of (hd, BQ, BKV) tiles the CUDA source
   compiles; ``kernels/ops.py::legalize_attn_tile`` picks one under a
-  plan's blocks.
+  plan's blocks.  The ``wgmma`` tile (bf16, native K/V, hd 128) runs a
+  tensor-core kernel; the ``simt`` tiles run the fp32-FMA one, which
+  also serves the quantized K/V.  :data:`launches_by_kind` splits the
+  native launches by kind.
 
 Layouts are the reference's: q [B, H, S, hd]; k, v [B, Hkv, Sk, hd] with
 H % Hkv == 0 (q-head h reads KV head h // (H // Hkv)); scales
@@ -29,11 +32,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cache_matmul import DTYPES
+from repro_torch.kernels.cache_matmul import DTYPES, KINDS, dtype_mask
 
 NEG_INF = -1e30
 # quantized K/V storage dtype -> the C entry point's kv_kind
@@ -43,31 +47,46 @@ KV_KINDS = {torch.int8: 1, torch.float8_e4m3fn: 2}
 @dataclasses.dataclass(frozen=True)
 class AttnTile:
     """One compiled tile: head dim hd, a [bq, bkv] score tile per thread
-    block, a [tm, tn] register tile of it per thread."""
+    block.  ``simt``: a [tm, tn] register tile of it per thread, fp32 FMA
+    (fp32 and bf16, native or quantized K/V).  ``wgmma``: warpgroups of
+    tm = 64 q rows issuing wgmma of width tn (bf16 q and native K/V)."""
     hd: int
     bq: int
     bkv: int
     tm: int
     tn: int
+    kind: str = "simt"
+    dtypes: Tuple[torch.dtype, ...] = DTYPES
 
     @property
     def smem_bytes(self) -> int:
+        if self.kind == "wgmma":   # alignment, bf16 q and a 2-stage K/V ring,
+            tile = 2 * self.hd * self.bq    # a q barrier, full/empty per stage
+            return 1024 + tile * (1 + 2 * WGMMA_STAGES) + (1 + 2 * WGMMA_STAGES) * 8
         q = self.hd * (self.bq + 1)
         k = self.hd * (self.bkv + 1)
         v = self.bkv * self.hd
         p = self.bkv * (self.bq + 1)
         return 4 * (q + k + v + p)
 
+    def menu_fields(self) -> Tuple[int, ...]:
+        """The entry as ``flash_attention_tile`` describes it."""
+        return (KINDS.index(self.kind), dtype_mask(self.dtypes), self.hd,
+                self.bq, self.bkv, self.tm, self.tn, self.smem_bytes)
 
+
+WGMMA_STAGES = 2      # csrc/flash_attention.cu::FlashWgmma::stages
 # Index i is tile i of csrc/flash_attention.cu (checked when it loads).
 TILES = (AttnTile(32, 64, 64, 4, 4),
          AttnTile(32, 128, 128, 8, 8),
          AttnTile(64, 64, 64, 4, 4),
          AttnTile(64, 128, 128, 8, 8),
          AttnTile(128, 64, 64, 4, 4),
-         AttnTile(128, 128, 64, 8, 4))
+         AttnTile(128, 128, 64, 8, 4),
+         AttnTile(128, 128, 128, 64, 128, "wgmma", (torch.bfloat16,)))
 
 launches = 0
+launches_by_kind: Dict[str, int] = {"simt": 0, "wgmma": 0}
 launches_quantized = 0
 _lib = None
 
@@ -135,6 +154,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: q dtype {q.dtype}; want one of "
                         f"{DTYPES}")
+    if q.dtype not in tile.dtypes or (scales and tile.kind != "simt"):
+        raise TypeError(f"flash_attention: tile {tile} is not compiled for "
+                        f"q {q.dtype} with {'quantized' if scales else 'native'}"
+                        f" K/V")
     if any(t.device != q.device for t in (k, v, *scales)):
         raise ValueError("flash_attention: operands on different devices")
 
@@ -167,6 +190,7 @@ def _launch(q, k, v, ks, vs, kv_kind: int, causal: bool,
         launches_quantized += 1
     else:
         launches += 1
+        launches_by_kind[tile.kind] += 1
     return o
 
 

@@ -11,9 +11,12 @@ bm/bn up to 1024 and bk up to 2048; a Hopper thread block has at most the
 device's opt-in shared memory per block (227 KB on the H100).  So the
 plan's tile is kept as an upper bound and legalized: the kernel runs the
 compiled Hopper tile that fits under it and in shared memory, chosen for
-the operand's row count.  Where the reference pads operands to tile
-boundaries through HBM (``_pad_to``), the Hopper kernels mask their
-ragged edges instead.  CPU tensors take the kernels' plain versions.
+the operands' dtype and row count: fp32 keeps the fp32-FMA (``simt``)
+tiles; bf16 takes the tensor-core (``wgmma``) tiles of cache_matmul and
+flash attention, and for decode rows cache_matmul's ``gemv`` tile.
+Where the reference pads operands to tile boundaries through HBM
+(``_pad_to``), the Hopper kernels mask their ragged edges instead.  CPU
+tensors take the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -55,14 +58,13 @@ def _pick(fits: Sequence[_T], rows: int, row_dim: str, area) -> _T:
     return max((t for t in fits if size(t) == best), key=area)
 
 
-def legalize_matmul_tile(tile: TileConfig, m: int, limit: Optional[int],
-                         menu: Sequence[kmm.HopperTile] = kmm.TILES
-                         ) -> kmm.HopperTile:
-    """The compiled tile of ``menu`` (cache_matmul's by default) for a
-    plan tile: no dimension above the plan's, shared memory within
-    ``limit``.  When no compiled tile fits under the plan's bound, the
-    smallest one runs (the floor, as the reference's tile selection falls
-    back to its smallest candidate)."""
+def _legalize_simt(tile: TileConfig, m: int, limit: Optional[int],
+                   menu: Sequence[_T]) -> _T:
+    """The tile of ``menu`` for a plan tile: no dimension above the
+    plan's, shared memory within ``limit``, the fewest wasted rows.  When
+    no compiled tile fits under the plan's bound, the smallest one runs
+    (the floor, as the reference's tile selection falls back to its
+    smallest candidate)."""
     fits = [t for t in menu
             if t.bm <= tile.bm and t.bn <= tile.bn and t.bk <= tile.bk
             and (limit is None or t.smem_bytes <= limit)]
@@ -71,10 +73,48 @@ def legalize_matmul_tile(tile: TileConfig, m: int, limit: Optional[int],
     return _pick(fits, m, "bm", lambda t: t.bn * t.bk)
 
 
+def matmul_kind(m: int, dtype: torch.dtype, k: Optional[int] = None,
+                n: Optional[int] = None) -> str:
+    """The tile kind a cache_matmul call of ``m`` rows runs: fp32 ->
+    ``simt`` (IEEE fp32, no tensor cores); bf16 with at most 8 rows ->
+    ``gemv``; more rows -> ``wgmma``, unless the row length K or N of an
+    operand is not a multiple of 8 (TMA needs 16-byte row strides), which
+    goes to ``simt``."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if m <= max(t.bm for t in kmm.TILES if t.kind == "gemv"):
+        return "gemv"
+    if any(x is not None and x % 8 for x in (k, n)):
+        return "simt"
+    return "wgmma"
+
+
+def legalize_matmul_tile(tile: TileConfig, m: int, limit: Optional[int],
+                         dtype: torch.dtype, k: Optional[int] = None,
+                         n: Optional[int] = None) -> kmm.HopperTile:
+    """The compiled cache_matmul tile for a plan tile, operands of ``m``
+    rows in ``dtype`` (K and N, where given, route misaligned rows): a
+    tile of :func:`matmul_kind`'s kind no larger than the plan's in any
+    dimension and within ``limit``, the fewest wasted rows (bf16 at 9 to
+    64 rows takes the 64-row wgmma tile, more rows the 128-row one).
+    Where no tile of that kind fits under the plan, or the kind is
+    ``simt``, the simt tiles' rule applies."""
+    kind = matmul_kind(m, dtype, k, n)
+    if kind != "simt":
+        fits = [t for t in kmm.TILES if t.kind == kind and dtype in t.dtypes
+                and t.bm <= tile.bm and t.bn <= tile.bn and t.bk <= tile.bk
+                and (limit is None or t.smem_bytes <= limit)]
+        if fits:
+            return _pick(fits, m, "bm", lambda t: t.bn * t.bk)
+    return _legalize_simt(tile, m, limit,
+                          [t for t in kmm.TILES if t.kind == "simt"])
+
+
 def legalize_matmul_quant_tile(tile: TileConfig, m: int,
                                limit: Optional[int]) -> kmm.QuantTile:
-    """:func:`legalize_matmul_tile` over cache_matmul_quant's menu."""
-    return legalize_matmul_tile(tile, m, limit, kmm.QUANT_TILES)
+    """:func:`legalize_matmul_tile`'s simt rule over cache_matmul_quant's
+    menu."""
+    return _legalize_simt(tile, m, limit, kmm.QUANT_TILES)
 
 
 def legalize_ffn_tile(block_s: int, block_f: int, s: int,
@@ -92,29 +132,40 @@ def legalize_ffn_tile(block_s: int, block_f: int, s: int,
 
 
 def legalize_attn_tile(block_q: int, block_kv: int, hd: int, s: int,
-                       limit: Optional[int]) -> kfa.AttnTile:
+                       limit: Optional[int], dtype: torch.dtype,
+                       quantized: bool = False) -> kfa.AttnTile:
     """The compiled flash-attention tile for a plan's blocks: head dim
     ``hd``, [bq, bkv] no larger than the plan's [block_q, block_kv],
-    shared memory within ``limit``; the fewest wasted rows of the ``s``
-    query rows, then the largest score tile.  The smallest tile of the
-    head dim when none fits; raises for a head dim with no compiled
-    tile."""
+    shared memory within ``limit``.  bf16 q with native K/V takes a
+    ``wgmma`` tile of the head dim where one fits; fp32, quantized K/V
+    (``quantized``) and head dims without one take the ``simt`` tiles: the
+    fewest wasted rows of the ``s`` query rows, then the largest score
+    tile, and the smallest tile of the head dim when none fits.  Raises
+    for a head dim with no compiled tile."""
     own = [t for t in kfa.TILES if t.hd == hd]
     if not own:
         raise ValueError(f"flash_attention: head dim {hd} not compiled "
                          f"(have {sorted({t.hd for t in kfa.TILES})})")
-    fits = [t for t in own if t.bq <= block_q and t.bkv <= block_kv
-            and (limit is None or t.smem_bytes <= limit)]
-    if not fits:
-        fits = [min(own, key=lambda t: (t.bq * t.bkv, t.smem_bytes))]
-    return _pick(fits, s, "bq", lambda t: t.bq * t.bkv)
+
+    def fits(kind):
+        return [t for t in own if t.kind == kind and dtype in t.dtypes
+                and t.bq <= block_q and t.bkv <= block_kv
+                and (limit is None or t.smem_bytes <= limit)]
+
+    if dtype == torch.bfloat16 and not quantized and fits("wgmma"):
+        return _pick(fits("wgmma"), s, "bq", lambda t: t.bq * t.bkv)
+    simt = [t for t in own if t.kind == "simt"]
+    return _pick(fits("simt") or
+                 [min(simt, key=lambda t: (t.bq * t.bkv, t.smem_bytes))],
+                 s, "bq", lambda t: t.bq * t.bkv)
 
 
 def planned_matmul(a: torch.Tensor, b: torch.Tensor,
                    tile: TileConfig) -> torch.Tensor:
     """Matmul through an explicit, already-lowered plan tile (legalized
     for Hopper) — the KernelPlan dispatch point."""
-    hopper = legalize_matmul_tile(tile, a.shape[0], smem_limit(a.device))
+    hopper = legalize_matmul_tile(tile, a.shape[0], smem_limit(a.device),
+                                  a.dtype, a.shape[1], b.shape[1])
     return kmm.cache_matmul(a, b, hopper)
 
 
@@ -210,7 +261,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     not."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     tile = legalize_attn_tile(block_q, block_kv, q.shape[3], q.shape[2],
-                              smem_limit(q.device))
+                              smem_limit(q.device), q.dtype,
+                              kv_dtype != "native")
     if kv_dtype != "native":
         kq, ks = kquant.quantize_rows(k, kv_dtype)
         vq, vs = kquant.quantize_rows(v, kv_dtype)

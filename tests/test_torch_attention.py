@@ -13,6 +13,9 @@ quantized kernel against the native one on dequantized K/V, int8
 quantization) are exact.  The CUDA kernel itself runs only on the card
 (tests/test_torch_gpu.py and ``chip_smoke.py``).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,8 +61,8 @@ def _np(x):
                       jnp.asarray(x, jnp.float32))
 
 
-def _tile(hd):
-    return ops.legalize_attn_tile(128, 128, hd, 64, H100_SMEM_OPTIN)
+def _tile(hd, dtype=torch.float32):
+    return ops.legalize_attn_tile(128, 128, hd, 64, H100_SMEM_OPTIN, dtype)
 
 
 # ------------------------------------------------------------ kernels --
@@ -229,28 +232,44 @@ def test_quant_names_match_reference():
 def test_compiled_attn_tiles_fit_hopper():
     assert {t.hd for t in kfa.TILES} == {32, 64, 128}
     for t in kfa.TILES:
-        ntx, nty = t.bkv // t.tn, t.bq // t.tm
         assert t.smem_bytes <= H100_SMEM_OPTIN
+        if t.kind == "wgmma":   # two warpgroups of 64 q rows, hd-wide P.V
+            assert t.dtypes == (torch.bfloat16,) and t.hd == 128
+            assert (t.bq, t.bkv, t.tm, t.tn) == (128, 128, 64, 128)
+            continue
+        assert t.kind == "simt"
+        ntx, nty = t.bkv // t.tn, t.bq // t.tm
         assert ntx * nty <= 1024 and (ntx * nty) % 32 == 0
         assert ntx <= 32 and ntx & (ntx - 1) == 0 and t.hd % ntx == 0
+
+
+SIMT = [t for t in kfa.TILES if t.kind == "simt"]
+FLASH_WGMMA = next(t for t in kfa.TILES if t.kind == "wgmma")
 
 
 @pytest.mark.parametrize("pages", [9, 32, 60, 456])
 @pytest.mark.parametrize("kv_dtype", ["native", "int8"])
 @pytest.mark.parametrize("hd", [32, 64, 128])
-def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
     """Plans lowered at full width (bf16) legalize to a compiled tile of
     the head dim, no larger than the plan's blocks, within shared
-    memory."""
+    memory: the wgmma tile for bf16 q with native K/V at hd 128, else the
+    simt tile the simt-only rule picks (fp32, quantized K/V, hd 32 / 64)."""
     plan = pplan.lower_attn(hd, 2, pages, kv_dtype,
                             1 if kv_dtype != "native" else 2)
     for s in (333, 1024):
         tile = ops.legalize_attn_tile(plan.block_q, plan.block_kv, hd, s,
-                                      H100_SMEM_OPTIN)
-        assert tile in kfa.TILES and tile.hd == hd
+                                      H100_SMEM_OPTIN, dtype,
+                                      kv_dtype != "native")
+        assert tile in kfa.TILES and tile.hd == hd and dtype in tile.dtypes
         assert tile.bq <= plan.block_q and tile.bkv <= plan.block_kv
         assert tile.smem_bytes <= H100_SMEM_OPTIN
-        fits = [t for t in kfa.TILES if t.hd == hd
+        if dtype == torch.bfloat16 and kv_dtype == "native" and hd == 128:
+            assert tile == FLASH_WGMMA
+            continue
+        assert tile.kind == "simt"
+        fits = [t for t in SIMT if t.hd == hd
                 and t.smem_bytes <= H100_SMEM_OPTIN]
         assert tile.bq == max(t.bq for t in fits)
     # a small grant lowers to (128, 128) and a large one to (512, 512)
@@ -260,13 +279,51 @@ def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd):
             pplan.lower_attn(128, 2, 60).block_kv) == (512, 512)
 
 
+@pytest.mark.parametrize("pages", [9, 32, 60, 456])
+def test_bf16_native_hd128_takes_the_wgmma_flash_tile(pages):
+    """The path's attention (bf16, native K/V, hd 128) runs the wgmma
+    kernel under every plan; with quantized K/V or in fp32 it keeps the
+    simt tile it had (at hd 128: 64 x 64 for up to 64 rows, else
+    128 x 64)."""
+    plan = pplan.lower_attn(128, 2, pages)
+    assert plan.block_q >= 128 and plan.block_kv >= 128
+    for s, kept in ((40, kfa.AttnTile(128, 64, 64, 4, 4)),
+                    (1024, kfa.AttnTile(128, 128, 64, 8, 4))):
+        assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 128, s,
+                                      H100_SMEM_OPTIN, torch.bfloat16) \
+            == FLASH_WGMMA
+        assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 128, s,
+                                      H100_SMEM_OPTIN, torch.bfloat16,
+                                      True) == kept
+        assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 128, s,
+                                      H100_SMEM_OPTIN, torch.float32) == kept
+
+
 def test_legalize_attn_tile_floor_and_unknown_head_dim():
-    assert ops.legalize_attn_tile(16, 16, 64, 8, H100_SMEM_OPTIN) == \
-        min((t for t in kfa.TILES if t.hd == 64),
-            key=lambda t: (t.bq * t.bkv, t.smem_bytes))
-    assert ops.legalize_attn_tile(128, 128, 64, 40, None).bq == 64
-    with pytest.raises(ValueError, match="head dim"):
-        ops.legalize_attn_tile(128, 128, 16, 64, H100_SMEM_OPTIN)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert ops.legalize_attn_tile(16, 16, 64, 8, H100_SMEM_OPTIN,
+                                      dtype) == \
+            min((t for t in SIMT if t.hd == 64),
+                key=lambda t: (t.bq * t.bkv, t.smem_bytes))
+        assert ops.legalize_attn_tile(128, 128, 64, 40, None, dtype).bq == 64
+        # below the wgmma tile's blocks, hd 128 keeps a simt tile
+        assert ops.legalize_attn_tile(64, 64, 128, 40, H100_SMEM_OPTIN,
+                                      dtype).kind == "simt"
+        with pytest.raises(ValueError, match="head dim"):
+            ops.legalize_attn_tile(128, 128, 16, 64, H100_SMEM_OPTIN, dtype)
+
+
+def test_flash_menu_mirrors_the_cuda_source():
+    src = (Path(pplan.__file__).parents[1] / "csrc" /
+           "flash_attention.cu").read_text()
+    menu = re.findall(r"using A(\d+) = (AttnTile<([\d, ]+)>|FlashWgmma);", src)
+    assert [int(i) for i, *_ in menu] == list(range(len(kfa.TILES)))
+    for (_, _, simt), t in zip(menu, kfa.TILES):
+        if simt:
+            assert (t.kind, t.hd, t.bq, t.bkv, t.tm, t.tn) == \
+                ("simt", *map(int, simt.split(",")))
+        else:
+            assert t == FLASH_WGMMA
 
 
 def test_flash_wrappers_reject_malformed_operands():
@@ -289,3 +346,10 @@ def test_flash_wrappers_reject_malformed_operands():
                                       torch.ones(1, 2, 9), True, t32)
     with pytest.raises(TypeError):                  # q dtype
         kfa.flash_attention(q.half(), kv.half(), kv.half(), True, t32)
+    q128, kv128 = torch.zeros(1, 4, 8, 128), torch.zeros(1, 2, 8, 128)
+    with pytest.raises(TypeError):                  # wgmma tile, fp32 q
+        kfa.flash_attention(q128, kv128, kv128, True, FLASH_WGMMA)
+    with pytest.raises(TypeError):                  # wgmma tile, quantized
+        kfa.flash_attention_quantized(
+            q128.bfloat16(), kv128.to(torch.int8), kv128.to(torch.int8),
+            torch.ones(1, 2, 8), torch.ones(1, 2, 8), True, FLASH_WGMMA)

@@ -27,11 +27,23 @@ FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
 
+# cache_matmul shapes (M, K, N) per tile kind: ragged rows, N and K not
+# multiples of the tiles; wgmma takes K and N multiples of 8 only
+MM_SHAPES = {"simt": ((37, 333, 1000),),
+             "gemv": ((1, 333, 1000), (2, 4096, 11008), (2, 11008, 4096),
+                      (7, 333, 1000), (8, 64, 97)),
+             "wgmma": ((9, 64, 256), (37, 520, 1000), (65, 4096, 1000),
+                       (300, 520, 1000), (300, 1000, 4104))}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain_versions(dtype):
     """Each CUDA kernel against its plain version on the card, ragged
-    shapes, every compiled tile.  Count one launch per call."""
+    shapes, every compiled tile of the dtype (cache_matmul's gemv and
+    wgmma tiles in bf16, at their kinds' shapes).  Count one launch per
+    call, on the kind's counter too; a gemv or wgmma tile's second launch
+    is bitwise equal to its first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -42,14 +54,20 @@ def test_cuda_kernels_match_plain_versions(dtype):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dt)
 
-    a, b = rand(37, 333), rand(333, 1000, scale=333 ** -0.5)
     for tile in kmm.TILES:
-        before = kmm.launches
-        got = kmm.cache_matmul(a, b, tile)
-        assert kmm.launches == before + 1
-        torch.testing.assert_close(got.float(),
-                                   kmm.cache_matmul_plain(a, b).float(),
-                                   **MATMUL_TOL[dtype])
+        if dt not in tile.dtypes:
+            continue
+        for m, k, n in MM_SHAPES[tile.kind]:
+            a, b = rand(m, k), rand(k, n, scale=k ** -0.5)
+            before, kind = kmm.launches, kmm.launches_by_kind[tile.kind]
+            got = kmm.cache_matmul(a, b, tile)
+            assert kmm.launches == before + 1
+            assert kmm.launches_by_kind[tile.kind] == kind + 1
+            torch.testing.assert_close(got.float(),
+                                       kmm.cache_matmul_plain(a, b).float(),
+                                       **MATMUL_TOL[dtype])
+            if tile.kind != "simt":
+                assert torch.equal(got, kmm.cache_matmul(a, b, tile))
     x = rand(37, 333)
     wg, wu = rand(333, 1000, scale=333 ** -0.5), rand(333, 1000,
                                                      scale=333 ** -0.5)
@@ -91,26 +109,35 @@ def test_cuda_cache_matmul_quant_matches_plain_version(dtype, kv):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain_versions(dtype):
-    """The CUDA kernel against its plain versions on the card, ragged
-    shapes, every compiled tile, native and quantized K/V; the fp32
-    quantized path bitwise equal to the native one on dequantized K/V.
-    One launch per call on each counter."""
+    """The CUDA kernels against their plain versions on the card, ragged
+    shapes, every compiled tile of the dtype, native and quantized K/V
+    (the wgmma tile: bf16, native K/V, hd 128, bitwise on a repeat); the
+    fp32 quantized path bitwise equal to the native one on dequantized
+    K/V.  One launch per call on each counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for tile in kfa.TILES:
+        if dt not in tile.dtypes:
+            continue
         B, H, Hkv, S, hd = 2, 8, 2, 333, tile.hd
         q = torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Hkv, S, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((B, Hkv, S, hd), generator=gen, device="cuda").to(dt)
         for causal in (True, False):
             before = kfa.launches
+            kind = kfa.launches_by_kind[tile.kind]
             got = kfa.flash_attention(q, k, v, causal, tile)
             assert kfa.launches == before + 1
+            assert kfa.launches_by_kind[tile.kind] == kind + 1
             torch.testing.assert_close(
                 got.float(), kfa.flash_attention_plain(q, k, v, causal).float(),
                 **FLASH_TOL[dtype])
+            if tile.kind == "wgmma":   # native bf16 only; bitwise repeat
+                assert torch.equal(got, kfa.flash_attention(q, k, v, causal,
+                                                            tile))
+                continue
             for kv_dtype in ("int8", "fp8_e4m3"):
                 kq, ks = pquant.quantize_rows(k, kv_dtype)
                 vq, vs = pquant.quantize_rows(v, kv_dtype)

@@ -8,6 +8,9 @@ The CUDA kernels themselves run only on the card (tests/test_torch_gpu.py
 and ``chip_smoke.py``).
 """
 import dataclasses
+import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,9 @@ from repro.kernels.cache_matmul import cache_matmul as ref_cache_matmul
 from repro_torch.core import plan as pplan
 from repro_torch.core import vmem as pvmem
 from repro_torch.kernels import block_fused_ffn as kffn
+from repro_torch.kernels import build
 from repro_torch.kernels import cache_matmul as kmm
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as pref
 
@@ -177,28 +182,146 @@ def test_wrappers_reject_malformed_operands():
 def test_compiled_tiles_fit_hopper_shared_memory():
     for t in kmm.TILES:
         assert t.smem_bytes <= H100_SMEM_OPTIN
-        assert t.bm % t.tm == 0 and t.bn % t.tn == 0
-        assert (t.bm // t.tm) * (t.bn // t.tn) <= 1024
+        assert t.kind in kmm.KINDS and set(t.dtypes) <= set(kmm.DTYPES)
+        if t.kind == "wgmma":          # warpgroups of 64 rows, one wgmma wide
+            assert t.bm % 64 == 0 and t.tm == 64 and t.tn == t.bn <= 256
+            assert t.bn % 64 == 0 and t.bk % 16 == 0
+        else:
+            assert t.bm % t.tm == 0 and t.bn % t.tn == 0
+            assert (t.bm // t.tm) * (t.bn // t.tn) <= 1024
     for t in kffn.TILES:
         assert t.smem_bytes <= H100_SMEM_OPTIN
         assert (t.bs // t.tm) * (t.bf // t.tn) <= 1024
 
 
+@pytest.mark.parametrize("menu", ["cache_matmul", "cache_matmul_quant",
+                                  "block_fused_ffn", "flash_attention"])
+def test_every_menu_entry_fits_the_shared_memory_limit(menu):
+    """Each menu entry's Python shared-memory formula (the bytes its
+    kernel asks for, held against the library's at load) fits an H100
+    block's 232,448 bytes, and the entries are distinct."""
+    tiles = {"cache_matmul": kmm.TILES, "cache_matmul_quant": kmm.QUANT_TILES,
+             "block_fused_ffn": kffn.TILES,
+             "flash_attention": kfa.TILES}[menu]
+    assert len(set(tiles)) == len(tiles)
+    for t in tiles:
+        assert 0 < t.smem_bytes <= H100_SMEM_OPTIN, t
+        assert build.menu_fields(t)[-1] == t.smem_bytes
+
+
+SIMT = [t for t in kmm.TILES if t.kind == "simt"]
+# the tiles the simt-only legalization chose for the path's shapes
+PATH_SIMT = {2: kmm.HopperTile(8, 32, 256, 1, 1),
+             2048: kmm.HopperTile(128, 128, 32, 8, 8)}
+
+
 @pytest.mark.parametrize("pages", [32, 64, 300, 1200])
-@pytest.mark.parametrize("m", [2, 256])
+@pytest.mark.parametrize("m", [2, 256, 2048])
 def test_legalized_matmul_tile_stays_under_the_plan(pages, m):
-    """Full-width yi-9b LWM plans (sized for TPU VMEM) legalize to a
-    compiled Hopper tile no larger than the plan's in any dimension,
-    within shared memory, with the fewest wasted rows."""
+    """fp32: full-width yi-9b LWM plans (sized for TPU VMEM) legalize to
+    a compiled simt tile no larger than the plan's in any dimension,
+    within shared memory, with the fewest wasted rows: the simt-only
+    rule, unchanged by the bf16 kinds."""
     plan = pplan.lower_ffn(128, 4096, 11008, 2, pages, want_fused=False)
     for tile in (plan.up_tile, plan.down_tile):
-        hop = ops.legalize_matmul_tile(tile, m, H100_SMEM_OPTIN)
-        assert hop in kmm.TILES
+        hop = ops.legalize_matmul_tile(tile, m, H100_SMEM_OPTIN,
+                                       torch.float32, 4096, 11008)
+        assert hop in SIMT
         assert hop.bm <= tile.bm and hop.bn <= tile.bn and hop.bk <= tile.bk
         assert hop.smem_bytes <= H100_SMEM_OPTIN
-        fits = [t.bm for t in kmm.TILES if t.bm <= tile.bm and t.bn <= tile.bn
+        fits = [t.bm for t in SIMT if t.bm <= tile.bm and t.bn <= tile.bn
                 and t.bk <= tile.bk]
         assert hop.bm == min([b for b in fits if b >= m] or [max(fits)])
+        if m in PATH_SIMT:
+            assert hop == PATH_SIMT[m]
+
+
+@functools.lru_cache(maxsize=None)
+def _full_width_lwm_tiles():
+    """Every distinct (up, down) plan tile of a full-width yi-9b LWM grant
+    of 4 to 1800 pages, at the decode (128) and prefill (1024) seq blocks."""
+    tiles = set()
+    for seq in (128, 1024):
+        for pages in range(4, 1801):
+            plan = pplan.lower_ffn(seq, 4096, 11008, 2, pages,
+                                   want_fused=False)
+            tiles |= {(plan.up_tile, 4096, 11008),
+                      (plan.down_tile, 11008, 4096)}
+    return sorted(tiles, key=repr)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 64, 65, 256, 300, 2048])
+def test_bf16_full_width_plans_legalize_to_the_new_kinds(m):
+    """bf16 at full width: every LWM plan of 4-1800 pages gives the gemv
+    tile at up to 8 rows and a wgmma tile above (the 64-row one at 9-64
+    rows, the 128-row one above), under the plan's tile and within
+    shared memory."""
+    tiles = _full_width_lwm_tiles()
+    assert min(t.bm * t.bn * t.bk for t, _, _ in tiles) == 128 * 256 * 256
+    for tile, k, n in tiles:
+        hop = ops.legalize_matmul_tile(tile, m, H100_SMEM_OPTIN,
+                                       torch.bfloat16, k, n)
+        assert hop.kind == ("gemv" if m <= 8 else "wgmma"), tile
+        assert torch.bfloat16 in hop.dtypes
+        assert hop.bm <= tile.bm and hop.bn <= tile.bn and hop.bk <= tile.bk
+        assert hop.smem_bytes <= H100_SMEM_OPTIN
+        if hop.kind == "wgmma":
+            assert hop.bm == (64 if m <= 64 else 128)
+        assert ops.matmul_kind(m, torch.bfloat16, k, n) == hop.kind
+
+
+@pytest.mark.parametrize("m,k,n,kind", [
+    (37, 333, 1000, "simt"),      # K rows not 16-byte aligned: no TMA
+    (37, 520, 1002, "simt"),      # N rows not 16-byte aligned
+    (37, 520, 1000, "wgmma"),
+    (7, 333, 1000, "gemv"),       # gemv masks ragged K and N itself
+    (1, 4096, 97, "gemv"),
+    (2048, 4096, 11008, "wgmma")])
+def test_misaligned_bf16_rows_route_to_simt(m, k, n, kind):
+    """The route is the legalization's: bf16 wgmma needs K and N to be
+    multiples of 8; a shape it cannot take gets the simt tile the fp32
+    rule picks; fp32 is simt at every shape."""
+    tile = pvmem.TileConfig(128, 256, 256, 0)
+    hop = ops.legalize_matmul_tile(tile, m, H100_SMEM_OPTIN, torch.bfloat16,
+                                   k, n)
+    assert hop.kind == kind
+    if kind == "simt":
+        assert hop == ops.legalize_matmul_tile(tile, m, H100_SMEM_OPTIN,
+                                               torch.float32, k, n)
+    assert ops.legalize_matmul_tile(tile, m, H100_SMEM_OPTIN, torch.float32,
+                                    k, n).kind == "simt"
+
+
+@pytest.mark.parametrize("n,k", [(11008, 4096), (4096, 11008), (1000, 333),
+                                 (97, 64), (300, 0)])
+def test_gemv_split_covers_k_and_fills_the_card(n, k):
+    """K ranges of a multiple of 32 rows that cover K once, about four
+    blocks per SM of an H100 (132 SMs) where K allows."""
+    kchunk, ranges = kmm.gemv_split(n, k, 132)
+    assert kchunk % 32 == 0 and kchunk >= 32 and ranges >= 1
+    assert ranges * kchunk >= k and (ranges - 1) * kchunk < max(k, 1)
+    cols = -(-n // 256)
+    if k >= 32 * 4 * 132 // cols:
+        assert 2 * 132 <= cols * ranges <= 8 * 132
+    assert {(11008, 4096): (320, 13),
+            (4096, 11008): (352, 32)}.get((n, k), (kchunk, ranges)) == \
+        (kchunk, ranges)
+
+
+def test_menus_mirror_the_cuda_sources():
+    """Each tile menu against the `using` lines of its CUDA source (the
+    library checks the same at load, on the card)."""
+    src = (Path(pvmem.__file__).parents[1] / "csrc" / "cache_matmul.cu").read_text()
+    menu = re.findall(r"using T(\d+) = (Tile<([\d, ]+)>|Gemv|Wgmma<(\d+), (\d+)>);", src)
+    assert [int(i) for i, *_ in menu] == list(range(len(kmm.TILES)))
+    for (i, _, simt, wbm, wbn), t in zip(menu, kmm.TILES):
+        if simt:
+            assert (t.kind, t.bm, t.bn, t.bk, t.tm, t.tn) == \
+                ("simt", *map(int, simt.split(",")))
+        elif wbm:
+            assert (t.kind, t.bm, t.bn) == ("wgmma", int(wbm), int(wbn))
+        else:
+            assert t.kind == "gemv"
 
 
 @pytest.mark.parametrize("pages", [324, 600, 1200])
@@ -216,7 +339,10 @@ def test_legalized_ffn_tile_keeps_the_hidden_tile_under_the_plan(pages, s):
 
 def test_legalization_floor_when_no_tile_fits():
     tiny = pvmem.TileConfig(4, 4, 4, 0)
-    assert ops.legalize_matmul_tile(tiny, 2, H100_SMEM_OPTIN) == \
-        min(kmm.TILES, key=lambda t: (t.bm * t.bn, t.smem_bytes))
+    floor = min(SIMT, key=lambda t: (t.bm * t.bn, t.smem_bytes))
+    for dtype in (torch.float32, torch.bfloat16):   # no gemv / wgmma fits
+        for m in (2, 256):
+            assert ops.legalize_matmul_tile(tiny, m, H100_SMEM_OPTIN, dtype,
+                                            4096, 11008) == floor
     assert ops.legalize_ffn_tile(4, 4, 2, H100_SMEM_OPTIN) == \
         min(kffn.TILES, key=lambda t: (t.bs * t.bf, t.smem_bytes))

@@ -12,6 +12,8 @@ tol (2e-3 fp32, 2e-2 bf16).  The CUDA kernel itself runs only on the card
 its plain version because the tensors lie on the CPU.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from repro.kernels.cache_matmul import cache_matmul_quant as ref_cmq
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import plan as pplan
 from repro_torch.core import vmem as pvmem
+from repro_torch.kernels import build
 from repro_torch.kernels import cache_matmul as kmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as pquant
@@ -132,16 +135,30 @@ def test_planned_ffn_quant_matches_reference(kv, fused, via):
 
 
 # ------------------------------------------------------ legalization --
+QUANT_SHAPES = [(8, 32, 256, 1, 1), (16, 64, 64, 2, 2), (32, 64, 64, 2, 4),
+                (64, 64, 32, 4, 4), (128, 128, 32, 8, 8), (8, 32, 32, 1, 1)]
+
+
 def test_quant_menu_mirrors_the_matmul_menu_and_fits():
-    """The quant kernel compiles the same tile shapes as cache_matmul;
-    its shared memory adds the fp32 scale stripe to the fp32-staged A
-    and dequantized B tiles."""
-    assert [dataclasses.astuple(t) for t in kmm.QUANT_TILES] == \
-        [dataclasses.astuple(t) for t in kmm.TILES]
-    for q, t in zip(kmm.QUANT_TILES, kmm.TILES):
-        assert q != t                     # distinct menus, distinct indices
-        assert q.smem_bytes == t.smem_bytes + 4 * t.bn <= H100_SMEM_OPTIN
+    """The quant kernel's menu is its own, written out: the six tile
+    shapes cache_matmul's simt kernel had, pinned here and to the `using`
+    lines of csrc/cache_matmul_quant.cu, whatever cache_matmul's menu
+    holds.  Its shared memory adds the fp32 scale stripe to the
+    fp32-staged A and dequantized B tiles, and its library describes the
+    six ints it always did."""
+    assert [dataclasses.astuple(t) for t in kmm.QUANT_TILES] == QUANT_SHAPES
+    src = (Path(pvmem.__file__).parents[1] / "csrc" /
+           "cache_matmul_quant.cu").read_text()
+    menu = re.findall(r"using Q(\d+) = QTile<([\d, ]+)>;", src)
+    assert [int(i) for i, _ in menu] == list(range(len(QUANT_SHAPES)))
+    assert [tuple(map(int, v.split(","))) for _, v in menu] == QUANT_SHAPES
+    for q in kmm.QUANT_TILES:
+        assert not isinstance(q, kmm.HopperTile)   # a menu of its own
+        bm, bn, bk = q.bm, q.bn, q.bk
+        assert q.smem_bytes == 4 * (bk * (bm + 1) + bk * bn) + 4 * bn \
+            <= H100_SMEM_OPTIN
         assert (q.bm // q.tm) * (q.bn // q.tn) <= 1024
+        assert build.menu_fields(q) == dataclasses.astuple(q) + (q.smem_bytes,)
 
 
 def _full_width_plan_tiles():
