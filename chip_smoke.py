@@ -19,8 +19,11 @@ Phases, each printed as one JSON object with its seconds:
   prefill path's shape, non-causal, ragged and at hd 32, with the fp32
   quantized kernel bitwise equal to the native one on dequantized K/V;
   tiles and blocks lowered from full-width plans under several grants;
-  cache_matmul_quant with int8 and fp8 codes at every compiled tile, at
-  the decode shapes, 256 and 2048 rows and a ragged shape; ssd_chunk at
+  cache_matmul_quant with int8 and fp8 codes at every compiled tile of
+  the dtype, at the decode shapes, 256 and 2048 rows and ragged shapes
+  (its gemv tile at up to 8 rows, its wgmma tile above); the fused FFN
+  also at ragged rows, d_model and d_ff (its wgmma tile above 8 bf16
+  rows, the 8-row simt tile below); ssd_chunk at
   full-width mamba2 heads (B/C per batch row) for chunks of 256, 128,
   64, a 44-token tail and 1, and at the reduced shape.  Then times each
   kernel at the shape of each path that runs it (the FFN kernels at
@@ -29,9 +32,11 @@ Phases, each printed as one JSON object with its seconds:
   inputs.  Every row names its tile's kind: bf16 ``cache_matmul`` runs
   the gemv tile at up to 8 rows and a wgmma tile above (also at ragged
   rows, N and K), bf16 native flash attention at hd 128 the wgmma
-  kernel, the rest the simt tiles; the gemv / wgmma tiles must repeat
-  bitwise and are timed in turns against the simt tile of the same
-  plan (``simt_ms``).
+  kernel, the bf16 fused FFN at the prefill's rows its cluster-reduced
+  wgmma tile (beside its partial bytes and, as a yardstick of several
+  calls, the unfused bf16 chain), the rest the simt tiles; the gemv /
+  wgmma tiles must repeat bitwise and are timed in turns against the
+  simt tile of the same plan (``simt_ms``).
 * ``e2e``: full-width yi-9b cut to 4 layers, random weights from one
   seed: prefill, then two teacher-forced decode epochs (an LBM plan and an
   LWM plan) with a native, an int8 and an fp8 KV cache, and
@@ -53,8 +58,9 @@ Phases, each printed as one JSON object with its seconds:
   full-depth yi-9b (2 prompts of 1024 tokens) plain, under the smallest
   LBM grant that lowers fused with native KV, and under 32-page LWM
   grants with int8 and fp8 KV; counters zeroed just before and read just
-  after one pass of the four; gated against the plain path on the card;
-  timed, and profiled once per plan kind.
+  after one pass of the four (every block_fused_ffn launch of the wgmma
+  kind); gated against the plain path on the card; timed, and profiled
+  once per plan kind.
 * ``serve_kv``: slice 3's serving path.  ``MultiTenantServer(kv_dtype=
   "auto")`` serves full-width, full-depth yi-9b: a resident tenant and
   three 256-token prompt tenants arriving at distinct steps on one
@@ -65,9 +71,11 @@ Phases, each printed as one JSON object with its seconds:
 * ``ffn_quant``: slice 3's kernel path.  ``ops.planned_ffn_quant`` over
   the 48 layers' FFN weights quantized to int8 and to fp8, at 2 and 2048
   rows, under the serve_kv decode plan, the LWM@32p prefill plan and a
-  fused plan (the fallback tile); gated against the plain chain and
-  against ``planned_ffn`` on the bf16 weights, timed per pass, and
-  cache_matmul_quant timed per GEMM.
+  fused plan (the fallback tile); the launches of the gemv kind (2 rows)
+  and the wgmma kind (2048 rows) counted, none of the simt kind; gated
+  against the plain chain and against ``planned_ffn`` on the bf16
+  weights, timed per pass, and cache_matmul_quant timed per GEMM, in
+  turns against the simt tile of the same plan.
 * ``e2e_ssm``: slice 4.  Full-width mamba2-370m cut to 4 layers, random
   weights from one seed: ``make_prefill`` of a 300-token prompt (a
   256-token chunk and a 44-token tail segment) under grants of 32, 16
@@ -151,6 +159,10 @@ ATTN_GRANTS = (9, 32, 60)                   # pages; lower_attn -> blocks
 MM_RAGGED = ((1, 333, 1000), (2, 520, 1000), (7, 333, 1000), (37, 333, 1000),
              (37, 520, 1000), (65, 4096, 1000), (300, 520, 1000),
              (300, 1000, 4104))
+# cache_matmul_quant's ragged (M, K, N): gemv rows with K, N off the tile;
+# wgmma rows with K % 8 == 0 and N % 16 == 0 (TMA) off the 64 x 256 tile
+MQ_RAGGED = ((1, 333, 1000), (2, 520, 1000), (7, 333, 1000), (37, 520, 1008),
+             (65, 4096, 1008), (300, 1000, 4112))
 SSM_ARCH = "mamba2-370m"
 # ssd_chunk cases: the chunks the plans lower (256, 128, 64), a prompt's
 # tail segment (44) and one token, each over three chunks
@@ -325,6 +337,11 @@ def kernel_cases(cfg, dev):
                 ffn.append((f"lbm@{pages}p", s, d, f, plan))
         ffn.append(("ragged", 37, 333, 1000,
                     lower_ffn(LANE, 333, 1000, eb, 4096, want_fused=True)))
+        # ragged rows with d_model and d_ff off the wgmma tile and its
+        # cluster (d_ff 1000: 8 tiles of 128, the last one partial)
+        ragged_ffn = lower_ffn(LANE, 520, 1000, eb, 4096, want_fused=True)
+        ffn += [(f"ragged s{s}", s, 520, 1000, ragged_ffn)
+                for s in (1, 2, 7, 37, 65, 300)]
         for label, s, dd, ff, plan in ffn:
             if not plan.fused:
                 raise AssertionError(f"{label}: plan {plan} is not fused")
@@ -336,12 +353,16 @@ def kernel_cases(cfg, dev):
                                 block_f=plan.block_f)
             err, ok = _close(got, kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
             hop = ops.legalize_ffn_tile(plan.block_s, min(plan.block_f, ff), s,
-                                        limit)
-            rows.append({"kernel": "block_fused_ffn", "case": label,
-                         "dtype": dn, "shape": [s, dd, ff],
-                         "plan_block": [plan.block_s, plan.block_f],
-                         "hopper_tile": [hop.bs, hop.bf, hop.bk],
-                         "max_abs_err": err, "tol": TOL[dn], "ok": ok})
+                                        limit, dtype, dd, ff)
+            row = {"kernel": "block_fused_ffn", "case": label, "dtype": dn,
+                   "shape": [s, dd, ff],
+                   "plan_block": [plan.block_s, plan.block_f],
+                   "kind": hop.kind, "hopper_tile": [hop.bs, hop.bf, hop.bk]}
+            if hop.kind != "simt":       # two launches are bit-identical
+                row["bitwise_repeat"] = bool(torch.equal(got, ops.fused_ffn(
+                    x, wg, wu, wd, block_s=plan.block_s, block_f=plan.block_f)))
+                ok = ok and row["bitwise_repeat"]
+            rows.append({**row, "max_abs_err": err, "tol": TOL[dn], "ok": ok})
     return rows
 
 
@@ -420,9 +441,11 @@ def flash_cases(cfg, dev):
 
 def quant_cases(cfg, dev):
     """cache_matmul_quant against its plain version: int8 and fp8 codes,
-    bf16 and fp32 activations, every compiled tile, at the full-width
-    decode shapes (M = 2, gate/up and down), 256 and 2048 rows, and a
-    ragged shape."""
+    bf16 and fp32 activations, every compiled tile of the dtype at the
+    shapes its kind takes: the full-width decode shapes (M = 2, gate/up
+    and down), 256 and 2048 rows, and ragged shapes (rows 1, 2, 7, 37,
+    65, 300 with K and N off the tiles); the gemv and wgmma tiles bitwise
+    on a repeat."""
     import torch
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import quant
@@ -431,7 +454,16 @@ def quant_cases(cfg, dev):
     gen.manual_seed(4)
     shapes = (("decode up", 2, d, f), ("decode down", 2, f, d),
               ("256 up", 256, d, f), ("2048 up", 2048, d, f),
-              ("2048 down", 2048, f, d), ("ragged", 37, 333, 1000))
+              ("2048 down", 2048, f, d), ("ragged", 37, 333, 1000),
+              *((f"ragged m{m}", m, k, n) for m, k, n in MQ_RAGGED))
+
+    def takes(tile, m, k, n):
+        if tile.kind == "gemv":
+            return m <= tile.bm
+        if tile.kind == "wgmma":
+            return m > 8 and k % 8 == 0 and n % 16 == 0
+        return m in (2, 256, 2048) or (m, k, n) == (37, 333, 1000)
+
     rows = []
     for label, m, k, n in shapes:
         w = _randn(gen, (k, n), torch.float32, 1 / math.sqrt(k))
@@ -442,12 +474,20 @@ def quant_cases(cfg, dev):
                 a = _randn(gen, (m, k), dtype)
                 want = kmm.cache_matmul_quant_plain(a, q, sc)
                 for tile in kmm.QUANT_TILES:
+                    if dtype not in tile.dtypes or not takes(tile, m, k, n):
+                        continue
                     got = kmm.cache_matmul_quant(a, q, sc, tile)
                     err, ok = _close(got, want, dn)
-                    rows.append({"kernel": "cache_matmul_quant", "case": label,
-                                 "dtype": dn, "kv": kv, "shape": [m, k, n],
-                                 "hopper_tile": [tile.bm, tile.bn, tile.bk],
-                                 "max_abs_err": err, "tol": TOL[dn], "ok": ok})
+                    row = {"kernel": "cache_matmul_quant", "case": label,
+                           "dtype": dn, "kv": kv, "shape": [m, k, n],
+                           "kind": tile.kind,
+                           "hopper_tile": [tile.bm, tile.bn, tile.bk]}
+                    if tile.kind != "simt":
+                        row["bitwise_repeat"] = bool(torch.equal(
+                            got, kmm.cache_matmul_quant(a, q, sc, tile)))
+                        ok = ok and row["bitwise_repeat"]
+                    rows.append({**row, "max_abs_err": err, "tol": TOL[dn],
+                                 "ok": ok})
             del q, sc
     return rows
 
@@ -551,13 +591,14 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
     for label, a, b, tile in (("up", x, wg, lwm.up_tile),
                               ("down", h, wd, lwm.down_tile)):
         out[f"cache_matmul.{label}"] = _matmul_timing(a, b, tile, limit, 30)
-    hop = ops.legalize_ffn_tile(lbm.block_s, lbm.block_f, batch, limit)
+    hop = ops.legalize_ffn_tile(lbm.block_s, lbm.block_f, batch, limit, dt,
+                                d, f)
     bound, by = _bound(eb * (2 * batch * d + 3 * d * f), 6 * batch * d * f, dn)
     err, ok = _close(kffn.block_fused_ffn(x, wg, wu, wd, hop),
                      kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
     out["block_fused_ffn.decode"] = {
         "shape": [batch, d, f], "plan_block": [lbm.block_s, lbm.block_f],
-        "hopper_tile": [hop.bs, hop.bf, hop.bk],
+        "kind": hop.kind, "hopper_tile": [hop.bs, hop.bf, hop.bk],
         "ms": _median_ms(lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop)),
         "plain_ms": _median_ms(lambda: kffn.block_fused_ffn_plain(x, wg, wu, wd)),
         "library_ms": None, "bound_ms": bound, "bound_by": by,
@@ -625,19 +666,40 @@ def prefill_timings(cfg, dev):
     wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
     wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
     wd = _randn(gen, (f, d), dt, 1 / math.sqrt(f))
-    hop = ops.legalize_ffn_tile(lbm.ffn.block_s, lbm.ffn.block_f, B * S, limit)
+    hop = ops.legalize_ffn_tile(lbm.ffn.block_s, lbm.ffn.block_f, B * S,
+                                limit, dt, d, f)
+    # the simt tile the same plan gives fp32 (every bf16 call's before)
+    simt = ops.legalize_ffn_tile(lbm.ffn.block_s, lbm.ffn.block_f, B * S,
+                                 limit, torch.float32, d, f)
     bound, by = _bound(eb * (2 * B * S * d + 3 * d * f), 6 * B * S * d * f, dn)
-    err, ok = _close(kffn.block_fused_ffn(x, wg, wu, wd, hop),
-                     kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
+    got = kffn.block_fused_ffn(x, wg, wu, wd, hop)
+    err, ok = _close(got, kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
+    repeat = bool(torch.equal(got, kffn.block_fused_ffn(x, wg, wu, wd, hop)))
+    del got
+    t = _turns_ms({"ms": lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop),
+                   "simt_ms": lambda: kffn.block_fused_ffn(x, wg, wu, wd,
+                                                           simt)}, 10)
+
+    def chain():         # several PyTorch calls: a yardstick, not a library
+        return torch.matmul(F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu),
+                            wd)
+
     out["block_fused_ffn.prefill"] = {
-        "shape": [B * S, d, f], "plan": lbm.describe(),
+        "shape": [B * S, d, f], "plan": lbm.describe(), "kind": hop.kind,
         "hopper_tile": [hop.bs, hop.bf, hop.bk],
-        "ms": _median_ms(lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop), 10),
+        "simt_tile": [simt.bs, simt.bf, simt.bk], **t,
+        "tflops": 6 * B * S * d * f / t["ms"] / 1e9,
         "plain_ms": _median_ms(
             lambda: kffn.block_fused_ffn_plain(x, wg, wu, wd), 10),
-        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "chain_ms": _median_ms(chain, 10),
+        "chain": "yardstick, several calls: torch.matmul x3 with silu * mul, "
+                 "bf16, the hidden tensors through device memory",
+        "bound_ms": bound, "bound_by": by,
         "partial_bytes": kffn.partial_bytes(hop, B * S, d, f),
-        "max_abs_err": err, "ok": ok}
+        "simt_partial_bytes": kffn.partial_bytes(simt, B * S, d, f),
+        "max_abs_err": err, "bitwise_repeat": repeat, "ok": ok and repeat,
+        "speedup_vs_simt": t["simt_ms"] / t["ms"]}
     h = _randn(gen, (B * S, f), dt)
     for label, a, b, tile in (("up", x, wg, lwm.ffn.up_tile),
                               ("down", h, wd, lwm.ffn.down_tile)):
@@ -895,9 +957,9 @@ PREFILL_KERNELS = ("cache_matmul", "block_fused_ffn", "flash_attention",
 
 
 def _counters():
-    """The six kernels' launch counters, by kernel name, and cache_matmul's
-    and the native flash_attention's split by tile kind
-    (``cache_matmul.gemv`` etc.)."""
+    """The six kernels' launch counters, by kernel name, and those of
+    cache_matmul, the native flash_attention, cache_matmul_quant and
+    block_fused_ffn split by tile kind (``cache_matmul.gemv`` etc.)."""
     from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
@@ -907,23 +969,29 @@ def _counters():
            "flash_attention_quantized": kfa.launches_quantized,
            "cache_matmul_quant": kmm.launches_quant,
            "ssd_chunk": kssd.launches}
-    out.update({f"cache_matmul.{k}": v for k, v in kmm.launches_by_kind.items()})
-    out.update({f"flash_attention.{k}": v
-                for k, v in kfa.launches_by_kind.items()})
+    for name, by_kind in (("cache_matmul", kmm.launches_by_kind),
+                          ("flash_attention", kfa.launches_by_kind),
+                          ("cache_matmul_quant", kmm.launches_quant_by_kind),
+                          ("block_fused_ffn", kffn.launches_by_kind)):
+        out.update({f"{name}.{k}": v for k, v in by_kind.items()})
     return out
 
 
-def _gate_kinds(counters, label: str, matmul=(), flash=()):
+def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=()):
     """Every bf16 launch of the path ran the new kinds: no cache_matmul
     launch of the ``simt`` kind, each kind of ``matmul`` launched; where
     ``flash`` names ``wgmma``, no native flash launch of the simt kind
-    and some of the wgmma kernel."""
+    and some of the wgmma kernel; likewise ``ffn`` for block_fused_ffn
+    and ``quant`` for cache_matmul_quant (each kind named launched, none
+    of the simt kind)."""
     bad = [k for k in matmul if counters[f"cache_matmul.{k}"] <= 0]
     if counters["cache_matmul.simt"]:
         bad.append("cache_matmul.simt")
-    bad += [f"flash {k}" for k in flash if counters[f"flash_attention.{k}"] <= 0]
-    if flash and counters["flash_attention.simt"]:
-        bad.append("flash_attention.simt")
+    for name, kinds in (("flash_attention", flash), ("block_fused_ffn", ffn),
+                        ("cache_matmul_quant", quant)):
+        bad += [f"{name}.{k}" for k in kinds if counters[f"{name}.{k}"] <= 0]
+        if kinds and counters[f"{name}.simt"]:
+            bad.append(f"{name}.simt")
     if bad:
         raise AssertionError(f"{label}: kinds {bad} wrong: {counters}")
 
@@ -936,7 +1004,8 @@ def _zero_counters():
     kmm.launches = kffn.launches = kmm.launches_quant = 0
     kfa.launches = kfa.launches_quantized = 0
     kssd.launches = 0
-    for by_kind in (kmm.launches_by_kind, kfa.launches_by_kind):
+    for by_kind in (kmm.launches_by_kind, kfa.launches_by_kind,
+                    kmm.launches_quant_by_kind, kffn.launches_by_kind):
         for k in by_kind:
             by_kind[k] = 0
 
@@ -1002,7 +1071,12 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
            "plans": [p.describe() for p in plans]}
     if min(launches[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"e2e: a kernel never launched: {launches}")
+    # the LBM decode epochs run block_fused_ffn's simt decode tile (2
+    # rows), make_prefill's 80 rows its wgmma tile
     _gate_kinds(launches, "e2e", ("gemv", "wgmma"), ("wgmma",))
+    if launches["block_fused_ffn.wgmma"] <= 0:
+        raise AssertionError(f"e2e: no wgmma block_fused_ffn launch: "
+                             f"{launches}")
     return res
 
 
@@ -1260,7 +1334,7 @@ def prefill_main_path(cfg, dev, counters):
     counters.update(_counters())
     if min(counters[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"prefill: a kernel never launched: {counters}")
-    _gate_kinds(counters, "prefill", ("wgmma",), ("wgmma",))
+    _gate_kinds(counters, "prefill", ("wgmma",), ("wgmma",), ("wgmma",))
     bad = [n for n, lg in logits.items() if not bool(torch.isfinite(lg).all())]
     if bad:
         raise AssertionError(f"prefill: non-finite logits under {bad}")
@@ -1540,10 +1614,13 @@ def _library_quant_ms(a, q, scale, want, dn):
 def quant_timings(cfg, dev, plans):
     """cache_matmul_quant at the ffn_quant path's GEMMs (bf16 A, int8 and
     fp8 codes, M = 2 and 2048 rows, gate/up and down) with the tiles each
-    plan lowers to, against its plain version on the timed inputs: CUDA
-    event medians of the kernel, the plain version, a library call where
-    one computes the same function, and ``torch.matmul`` on a bf16 B
-    dequantized beforehand (a yardstick for another function)."""
+    plan lowers to (gemv at 2 rows, wgmma at 2048), against its plain
+    version on the timed inputs and bitwise on a repeat: CUDA event
+    medians of the kernel and, in turns with it, of the simt tile the
+    same plan gave before the new kinds (``simt_ms``), of the plain
+    version, a library call where one computes the same function, and
+    ``torch.matmul`` on a bf16 B dequantized beforehand (a yardstick for
+    another function)."""
     import torch
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import ops, quant
@@ -1566,19 +1643,31 @@ def quant_timings(cfg, dev, plans):
                 for pname, plan in plans.items():
                     tiles = ops.ffn_quant_tiles(plan, rows, d, f)
                     tile = tiles[0] if gemm == "up" else tiles[1]
-                    hop = ops.legalize_matmul_quant_tile(tile, rows, limit)
-                    if hop not in timed:        # plans that share a tile
+                    hop = ops.legalize_matmul_quant_tile(tile, rows, limit,
+                                                         dt, k, n)
+                    # the simt tile the same plan gives fp32 (every bf16
+                    # call's before the gemv and wgmma kinds)
+                    simt = ops.legalize_matmul_quant_tile(
+                        tile, rows, limit, torch.float32, k, n)
+                    if (hop, simt) not in timed:  # plans that share tiles
                         bound, by = _bound(
                             eb * (rows * k + rows * n) + k * n + 4 * n,
                             2 * rows * k * n, dn)
-                        err, ok = _close(kmm.cache_matmul_quant(a, q, sc, hop),
-                                         want, dn)
+                        got = kmm.cache_matmul_quant(a, q, sc, hop)
+                        err, ok = _close(got, want, dn)
+                        repeat = bool(torch.equal(
+                            got, kmm.cache_matmul_quant(a, q, sc, hop)))
+                        del got
                         reps = 30 if rows <= 8 else 10
-                        timed[hop] = {
-                            "kv": kv, "shape": [rows, k, n],
+                        t = _turns_ms({
+                            "ms": lambda: kmm.cache_matmul_quant(a, q, sc, hop),
+                            "simt_ms": lambda: kmm.cache_matmul_quant(
+                                a, q, sc, simt)}, reps)
+                        timed[hop, simt] = {
+                            "kv": kv, "shape": [rows, k, n], "kind": hop.kind,
                             "hopper_tile": [hop.bm, hop.bn, hop.bk],
-                            "ms": _median_ms(lambda: kmm.cache_matmul_quant(
-                                a, q, sc, hop), reps),
+                            "simt_tile": [simt.bm, simt.bn, simt.bk], **t,
+                            "speedup_vs_simt": t["simt_ms"] / t["ms"],
                             "plain_ms": _median_ms(
                                 lambda: kmm.cache_matmul_quant_plain(a, q, sc),
                                 reps),
@@ -1586,10 +1675,18 @@ def quant_timings(cfg, dev, plans):
                             "yardstick_matmul_dequantized_bf16_ms": _median_ms(
                                 lambda: torch.matmul(a, deq), reps),
                             "bound_ms": bound, "bound_by": by,
-                            "max_abs_err": err, "ok": ok}
+                            "max_abs_err": err, "bitwise_repeat": repeat,
+                            "ok": ok and repeat}
+                        if lib_ms is not None:
+                            timed[hop, simt]["vs_library"] = t["ms"] / lib_ms
+                        if hop.kind == "gemv":
+                            timed[hop, simt]["gemv_split"] = list(
+                                kmm.gemv_split(n, k, torch.cuda.
+                                               get_device_properties(
+                                                   a.device).multi_processor_count))
                     out[f"{kv} {pname} m{rows} {gemm}"] = {
                         "plan": pname, "plan_tile": [tile.bm, tile.bn, tile.bk],
-                        **timed[hop]}
+                        **timed[hop, simt]}
                 timed.clear()
                 del w, q, sc, deq
     return out
@@ -1652,6 +1749,10 @@ def ffn_quant_main_path(cfg, dev, decode_plan, counters):
     if counters["cache_matmul_quant"] != len(settings) * L * 3:
         raise AssertionError(f"ffn_quant: launches {counters}, want "
                              f"{len(settings) * L * 3} cache_matmul_quant")
+    # bf16 activations: 2 rows on the gemv tile, 2048 on a wgmma tile
+    _gate_kinds(counters, "ffn_quant", quant=("gemv", "wgmma"))
+    if counters["cache_matmul_quant.gemv"] != counters["cache_matmul_quant"] // 2:
+        raise AssertionError(f"ffn_quant: kinds {counters}")
     results = {}
     for pname in plans:
         for rows, x in xs.items():
@@ -2142,11 +2243,18 @@ def main() -> int:
                 **{k: t[k] for k in keys},
                 **{k: t[k] for k in ("kind", "simt_ms") if k in t}}
                for name, (src, rep, t, counts) in source.items()]
-    # cache_matmul's prefill GEMM (wgmma, 2048 rows) beside its decode one
+    # the matmuls' prefill GEMMs (wgmma, 2048 rows) beside their decode ones
     pf = timings["cache_matmul.prefill.up"]
     kernels[0]["prefill"] = {"launches": prefill_counts["cache_matmul"],
                              "max_abs_err": pf["max_abs_err"],
                              **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
+    lwm_q = next(p for p in report["ffn_quant"]["plans"]
+                 if p.startswith("prefill "))
+    pf = report["ffn_quant"]["timings"][f"int8 {lwm_q} m2048 up"]
+    kernels[4]["prefill"] = {
+        "launches": ffn_quant_counts["cache_matmul_quant.wgmma"],
+        "max_abs_err": pf["max_abs_err"],
+        **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(report["device"]["nvidia_smi"])

@@ -1,7 +1,8 @@
 // Hopper's asynchronous building blocks, shared by the port's tensor-core
-// kernels (cache_matmul.cu's wgmma tile, flash_attention.cu's bf16
-// kernel): TMA tensor maps and loads, mbarriers, wgmma shared-memory
-// descriptors and the wgmma instructions, as inline PTX for sm_90a.
+// kernels (the wgmma tiles of cache_matmul.cu, cache_matmul_quant.cu and
+// block_fused_ffn.cu, flash_attention.cu's bf16 kernel): TMA tensor maps
+// and loads, mbarriers, wgmma shared-memory descriptors and the wgmma
+// instructions, as inline PTX for sm_90a.
 //
 // Shared-memory layouts are the ones TMA writes with 128-byte swizzling:
 // a box is 64 bf16 wide (128 bytes, one swizzle span) and its rows follow
@@ -84,14 +85,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A row-major bf16 tensor of `rank` (2 or 3) dimensions, innermost first:
-// dims[0] elements a row, strides[i] bytes between steps of dimension
-// i + 1; boxes of box[0] x box[1] (x 1), 128-byte swizzled, zero fill.
-// cuTensorMapEncodeTiled comes through the runtime's driver entry point,
-// so the library needs no link against libcuda.
-inline cudaError_t encode_tmap_bf16(CUtensorMap* map, const void* base, int rank,
-                                    const uint64_t* dims, const uint64_t* strides,
-                                    const uint32_t* box) {
+// A row-major tensor of `rank` (2 or 3) dimensions and element type
+// `type`, innermost first: dims[0] elements a row, strides[i] bytes between
+// steps of dimension i + 1; boxes of box[0] x box[1] (x 1) with `swizzle`,
+// zero fill past the edges.  cuTensorMapEncodeTiled comes through the
+// runtime's driver entry point, so the library needs no link against
+// libcuda.
+inline cudaError_t encode_tmap(CUtensorMap* map, CUtensorMapDataType type,
+                               CUtensorMapSwizzle swizzle, const void* base, int rank,
+                               const uint64_t* dims, const uint64_t* strides,
+                               const uint32_t* box) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -109,12 +112,39 @@ inline cudaError_t encode_tmap_bf16(CUtensorMap* map, const void* base, int rank
   }
   const cuuint32_t ones[3] = {1, 1, 1};
   const cuuint32_t box3[3] = {box[0], box[1], 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  CUresult r = encode(map, type, rank, const_cast<void*>(base),
                       reinterpret_cast<const cuuint64_t*>(dims),
                       reinterpret_cast<const cuuint64_t*>(strides), box3, ones,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The bf16 maps of the wgmma operands: boxes 64 elements (128 bytes) wide,
+// 128-byte swizzled.
+inline cudaError_t encode_tmap_bf16(CUtensorMap* map, const void* base, int rank,
+                                    const uint64_t* dims, const uint64_t* strides,
+                                    const uint32_t* box) {
+  return encode_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, base,
+                     rank, dims, strides, box);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (a wgmma operand written by threads, not TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Two fp32 values as one bf16 pair (round to nearest even), lo in the low
+// half: a wgmma register A fragment element.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // --------------------------------------------------------------- wgmma --

@@ -6,7 +6,9 @@ y = ((silu(x@wg) * (x@wu)).astype(x.dtype)) @ wd, fp32 accumulation,
 with the [bs, bf] hidden tile kept on chip.  The CUDA source,
 ``csrc/block_fused_ffn.cu``, says why it splits over d_ff with fp32
 partials and a fixed-order second pass (no atomics), what that costs,
-and what bounds it on the H100 (at decode: the weight bytes).
+and what bounds it on the H100 (at decode: the weight bytes; at prefill:
+the operations, and the partials' traffic, which the ``wgmma`` tile cuts
+by summing them across a thread-block cluster).
 
 * :func:`block_fused_ffn` is the wrapper.  For CPU tensors it computes
   the plain version; for CUDA tensors it launches the kernel (its two
@@ -15,46 +17,71 @@ and what bounds it on the H100 (at decode: the weight bytes).
   reference's cast points.
 * :data:`TILES` is the menu the CUDA source compiles;
   ``kernels/ops.py::legalize_ffn_tile`` picks one under a plan's blocks.
+  A tile has a kind, ``simt`` (fp32 FMA) or ``wgmma`` (bf16, tensor
+  cores); :data:`launches_by_kind` counts the launches of each.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cache_matmul import DTYPES
+from repro_torch.kernels.cache_matmul import BF16, DTYPES, KINDS, dtype_mask
+
+
+WGMMA_STAGES = 3      # csrc/block_fused_ffn.cu::FfnWgmma::stages
+CLUSTER = 8           # csrc/block_fused_ffn.cu::FFN_CLUSTER
+EXCHANGE_LD = 136     # csrc/block_fused_ffn.cu::FfnWgmma::ex_ld
 
 
 @dataclasses.dataclass(frozen=True)
 class FfnTile:
     """One compiled block shape: bs rows of x and bf columns of d_ff per
-    thread block, d_model consumed bk at a time, a [tm, tn] register
-    tile per thread."""
+    thread block, d_model consumed bk at a time.  ``simt``: a [tm, tn]
+    register tile per thread.  ``wgmma``: bs / 64 warpgroups of tm = 64
+    rows, each issuing wgmma of width tn = bf, the blocks of a d_ff group
+    of :data:`CLUSTER` tiles summing their partials as a cluster."""
     bs: int
     bf: int
     bk: int
     tm: int
     tn: int
+    kind: str = "simt"
+    dtypes: Tuple[torch.dtype, ...] = DTYPES
 
     @property
     def smem_bytes(self) -> int:
+        if self.kind == "wgmma":   # alignment, ring, fp32 exchange, barriers
+            slot = max(2 * self.bs * self.bk + 2 * 2 * self.bk * self.bf,
+                       2 * self.bf * self.bf)
+            return (1024 + WGMMA_STAGES * slot + 4 * self.bs * EXCHANGE_LD
+                    + 2 * WGMMA_STAGES * 8)
         x = self.bk * (self.bs + 1)
         gu = 2 * self.bk * self.bf
         h = self.bf * (self.bs + 1)
         wd = self.bf * self.bf
         return 4 * (x + gu + h + wd)
 
+    def menu_fields(self) -> Tuple[int, ...]:
+        """The entry as ``block_fused_ffn_tile`` describes it."""
+        return (KINDS.index(self.kind), dtype_mask(self.dtypes), self.bs,
+                self.bf, self.bk, self.tm, self.tn, self.smem_bytes)
+
 
 # Index i is tile i of csrc/block_fused_ffn.cu (checked when it loads).
 TILES = (FfnTile(8, 64, 64, 1, 2),
          FfnTile(16, 64, 32, 2, 2),
          FfnTile(32, 64, 32, 2, 4),
-         FfnTile(64, 64, 32, 4, 4))
+         FfnTile(64, 64, 32, 4, 4),
+         FfnTile(64, 128, 64, 64, 128, "wgmma", BF16),
+         FfnTile(128, 128, 64, 64, 128, "wgmma", BF16))
 
 launches = 0
+launches_by_kind: Dict[str, int] = dict.fromkeys(KINDS, 0)
 _lib = None
 
 
@@ -85,16 +112,22 @@ def block_fused_ffn_plain(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def partial_bytes(tile: FfnTile, s: int, d: int, f: int) -> int:
     """Bytes of the fp32 partial outputs one launch writes (and its second
-    pass reads): one [s, d] slab per bf-wide d_ff block."""
-    return 4 * (-(-f // tile.bf)) * s * d
+    pass reads): one [s, d] slab per bf-wide d_ff block (``simt``), or per
+    cluster of :data:`CLUSTER` such blocks (``wgmma``)."""
+    slabs = -(-f // tile.bf)
+    if tile.kind == "wgmma":
+        slabs = -(-slabs // CLUSTER)
+    return 4 * slabs * s * d
 
 
 def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                     wd: torch.Tensor, tile: FfnTile) -> torch.Tensor:
     """y = silu(x@wg) * (x@wu) @ wd through the Hopper kernel with block
-    shape ``tile`` (one of :data:`TILES`; the plain version ignores it).
-    x: [S, d]; wg/wu: [d, f]; wd: [f, d].  Ragged S and d_ff are masked
-    in the kernel: no padding."""
+    shape ``tile`` (one of :data:`TILES` compiled for x's dtype; the plain
+    version ignores it).  x: [S, d]; wg/wu: [d, f]; wd: [f, d].  Ragged S,
+    d_model and d_ff are masked in the kernel: no padding.  A ``wgmma``
+    tile needs d and f to be multiples of 8 (TMA's 16-byte row
+    strides)."""
     if x.dim() != 2 or wg.dim() != 2 or wu.shape != wg.shape \
             or x.shape[1] != wg.shape[0] or wd.shape != (wg.shape[1], x.shape[1]):
         raise ValueError(f"block_fused_ffn: shapes x{tuple(x.shape)} "
@@ -114,6 +147,14 @@ def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         raise ValueError("block_fused_ffn: operands must be contiguous")
     s, d = x.shape
     f = wg.shape[1]
+    if x.dtype not in tile.dtypes:
+        raise TypeError(f"block_fused_ffn: tile {tile} is not compiled for "
+                        f"{x.dtype}")
+    if tile.kind == "wgmma" and (d % 8 or f % 8
+                                 or any(w.data_ptr() % 16 for w in ws)):
+        raise ValueError(f"block_fused_ffn: the wgmma tile needs d_model and "
+                         f"d_ff multiples of 8 and 16-byte aligned operands "
+                         f"(d={d}, f={f})")
     y = torch.empty((s, d), dtype=x.dtype, device=x.device)
     if s == 0 or d == 0:
         return y
@@ -130,4 +171,5 @@ def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                            f"{err} (S={s}, d={d}, f={f}, tile={tile})")
     global launches
     launches += 1
+    launches_by_kind[tile.kind] += 1
     return y

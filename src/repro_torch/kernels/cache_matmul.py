@@ -18,11 +18,12 @@ bounds it on the H100 (at decode: the bytes of B).
   plain PyTorch versions, with the reference's cast points.
 * :data:`TILES` / :data:`QUANT_TILES` are the menus of tile shapes the
   CUDA sources compile; ``kernels/ops.py::legalize_matmul_tile`` and
-  ``legalize_matmul_quant_tile`` pick one under a plan's tile.  A
-  cache_matmul tile has a kind: ``simt`` (fp32 FMA from shared memory,
-  fp32 and bf16), ``gemv`` (bf16 decode rows, B streamed into registers)
-  or ``wgmma`` (bf16, tensor cores fed by TMA); :data:`launches_by_kind`
-  counts the launches of each.
+  ``legalize_matmul_quant_tile`` pick one under a plan's tile.  A tile
+  of either menu has a kind: ``simt`` (fp32 FMA from shared memory,
+  fp32 and bf16), ``gemv`` (bf16 decode rows, B streamed into registers;
+  codes converted there) or ``wgmma`` (bf16, tensor cores fed by TMA;
+  codes converted to bf16 tiles on chip); :data:`launches_by_kind` /
+  :data:`launches_quant_by_kind` count the launches of each.
 """
 from __future__ import annotations
 
@@ -94,28 +95,47 @@ TILES = (HopperTile(8, 32, 256, 1, 1),
 @dataclasses.dataclass(frozen=True)
 class QuantTile:
     """A compiled tile of the quantized kernel: a [bm, bn] output tile per
-    thread block, K consumed bk at a time, a [tm, tn] register tile per
-    thread.  B lands in shared memory dequantized, as fp32 like A, beside
-    the block's [bn] fp32 scale stripe (``QTile::smem`` in
-    csrc/cache_matmul_quant.cu)."""
+    thread block, K consumed bk at a time.  ``simt``: a [tm, tn] register
+    tile per thread, B landing in shared memory dequantized as fp32 like
+    A, beside the block's [bn] fp32 scale stripe.  ``gemv``: up to bm rows
+    of A, 16 codes a lane in registers, bn columns a block.  ``wgmma``:
+    bm / 64 warpgroups of 64 rows over a TMA ring of A and code tiles,
+    converting the codes into bf16 B tiles on chip
+    (``QTile``, ``QGemv``, ``QWgmma`` in csrc/cache_matmul_quant.cu)."""
     bm: int
     bn: int
     bk: int
     tm: int
     tn: int
+    kind: str = "simt"
+    dtypes: Tuple[torch.dtype, ...] = DTYPES
 
     @property
     def smem_bytes(self) -> int:
+        if self.kind == "gemv":     # A slab, then the warps' partial sums
+            return 4 * max(self.bk * self.bm, GEMV_WARPS * self.bm * self.bn)
+        if self.kind == "wgmma":    # alignment, A / code ring, bf16 B tiles, barriers
+            return (1024 + WGMMA_STAGES * (2 * self.bm * self.bk + self.bk * self.bn)
+                    + QUANT_B_STAGES * 2 * self.bk * self.bn + 2 * WGMMA_STAGES * 8)
         return 4 * (self.bk * (self.bm + 1) + self.bk * self.bn + self.bn)
 
+    def menu_fields(self) -> Tuple[int, ...]:
+        """The entry as ``cache_matmul_quant_tile`` describes it."""
+        return (KINDS.index(self.kind), dtype_mask(self.dtypes), self.bm,
+                self.bn, self.bk, self.tm, self.tn, self.smem_bytes)
 
+
+QUANT_B_STAGES = 3    # csrc/cache_matmul_quant.cu::QWgmma::b_stages
 # Index i is tile i of csrc/cache_matmul_quant.cu (checked when it loads).
 QUANT_TILES = (QuantTile(8, 32, 256, 1, 1),
                QuantTile(16, 64, 64, 2, 2),
                QuantTile(32, 64, 64, 2, 4),
                QuantTile(64, 64, 32, 4, 4),
                QuantTile(128, 128, 32, 8, 8),
-               QuantTile(8, 32, 32, 1, 1))
+               QuantTile(8, 32, 32, 1, 1),
+               QuantTile(8, 256, 256, 8, 16, "gemv", BF16),
+               QuantTile(64, 256, 64, 64, 256, "wgmma", BF16),
+               QuantTile(128, 256, 64, 64, 256, "wgmma", BF16))
 
 
 def gemv_split(n: int, k: int, sms: int) -> Tuple[int, int]:
@@ -133,6 +153,7 @@ def gemv_split(n: int, k: int, sms: int) -> Tuple[int, int]:
 launches = 0
 launches_by_kind: Dict[str, int] = dict.fromkeys(KINDS, 0)
 launches_quant = 0
+launches_quant_by_kind: Dict[str, int] = dict.fromkeys(KINDS, 0)
 _lib = None
 _qlib = None
 _sms: Dict[int, int] = {}
@@ -237,10 +258,11 @@ def _quant_library() -> ctypes.CDLL:
     if _qlib is None:
         lib = build.load("cache_matmul_quant")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.cache_matmul_quant_f32_i8, lib.cache_matmul_quant_f32_f8,
-                   lib.cache_matmul_quant_bf16_i8,
-                   lib.cache_matmul_quant_bf16_f8):
+        for fn in (lib.cache_matmul_quant_f32_i8, lib.cache_matmul_quant_f32_f8):
             fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            fn.restype = i32
+        for fn in (lib.cache_matmul_quant_bf16_i8, lib.cache_matmul_quant_bf16_f8):
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
             fn.restype = i32
         lib.cache_matmul_quant_tile.argtypes = [i32, ctypes.POINTER(i32)]
         lib.cache_matmul_quant_tile.restype = i32
@@ -277,9 +299,12 @@ def _check_quant(a: torch.Tensor, b_q: torch.Tensor,
 def cache_matmul_quant(a: torch.Tensor, b_q: torch.Tensor,
                        b_scale: torch.Tensor, tile: QuantTile) -> torch.Tensor:
     """C[M,N] = A[M,K] @ (B_q[K,N] * b_scale[1,N]) through the Hopper
-    kernel with ``tile`` (one of :data:`QUANT_TILES`; the plain version
-    ignores it).  B is read as 1-byte codes and dequantized on chip: no
-    fp copy of B is made.  Ragged edges are masked in the kernel."""
+    kernel with ``tile`` (one of :data:`QUANT_TILES` compiled for A's
+    dtype; the plain version ignores it).  B is read as 1-byte codes and
+    dequantized on chip: no fp copy of B is made.  Ragged edges are masked
+    in the kernel.  A ``gemv`` tile takes at most bm rows; a ``wgmma``
+    tile needs K a multiple of 8 and N of 16 (TMA's 16-byte row
+    strides)."""
     _check_quant(a, b_q, b_scale)
     if a.device.type == "cpu":
         return cache_matmul_quant_plain(a, b_q, b_scale)
@@ -290,20 +315,41 @@ def cache_matmul_quant(a: torch.Tensor, b_q: torch.Tensor,
         raise ValueError("cache_matmul_quant: operands must be contiguous")
     m, k = a.shape
     n = b_q.shape[1]
+    if a.dtype not in tile.dtypes:
+        raise TypeError(f"cache_matmul_quant: tile {tile} is not compiled for "
+                        f"{a.dtype}")
+    if tile.kind == "gemv" and m > tile.bm:
+        raise ValueError(f"cache_matmul_quant: {m} rows exceed the gemv "
+                         f"tile's {tile.bm}")
+    if tile.kind == "wgmma" and (k % 8 or n % 16 or a.data_ptr() % 16
+                                 or b_q.data_ptr() % 16):
+        raise ValueError(f"cache_matmul_quant: the wgmma tile needs K a "
+                         f"multiple of 8, N of 16 and 16-byte aligned "
+                         f"operands (K={k}, N={n})")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return c
     lib = _quant_library()
-    fn = getattr(lib, "cache_matmul_quant_{}_{}".format(
-        "f32" if a.dtype == torch.float32 else "bf16",
-        "i8" if b_q.dtype == torch.int8 else "f8"))
+    codes = "i8" if b_q.dtype == torch.int8 else "f8"
+    stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(),
-                 c.data_ptr(), m, n, k, QUANT_TILES.index(tile),
-                 torch.cuda.current_stream().cuda_stream)
+        if a.dtype == torch.float32:
+            err = getattr(lib, f"cache_matmul_quant_f32_{codes}")(
+                a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(), c.data_ptr(),
+                m, n, k, QUANT_TILES.index(tile), stream)
+        else:
+            kchunk, ranges = (gemv_split(n, k, _sm_count(a.device))
+                              if tile.kind == "gemv" else (0, 1))
+            partial = (torch.empty((ranges, m, n), dtype=torch.float32,
+                                   device=a.device) if ranges > 1 else None)
+            err = getattr(lib, f"cache_matmul_quant_bf16_{codes}")(
+                a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(), c.data_ptr(),
+                None if partial is None else partial.data_ptr(), m, n, k,
+                QUANT_TILES.index(tile), kchunk, stream)
     if err != 0:
         raise RuntimeError(f"cache_matmul_quant: launch failed with CUDA "
                            f"error {err} (M={m}, N={n}, K={k}, tile={tile})")
     global launches_quant
     launches_quant += 1
+    launches_quant_by_kind[tile.kind] += 1
     return c

@@ -12,8 +12,10 @@ device's opt-in shared memory per block (227 KB on the H100).  So the
 plan's tile is kept as an upper bound and legalized: the kernel runs the
 compiled Hopper tile that fits under it and in shared memory, chosen for
 the operands' dtype and row count: fp32 keeps the fp32-FMA (``simt``)
-tiles; bf16 takes the tensor-core (``wgmma``) tiles of cache_matmul and
-flash attention, and for decode rows cache_matmul's ``gemv`` tile.
+tiles; bf16 takes the tensor-core (``wgmma``) tiles of cache_matmul,
+cache_matmul_quant, block_fused_ffn and flash attention, and for decode
+rows the ``gemv`` tiles of the two matmuls (block_fused_ffn keeps its
+simt tile there).
 Where the reference pads operands to tile boundaries through HBM
 (``_pad_to``), the Hopper kernels mask their ragged edges instead.  CPU
 tensors take the kernels' plain versions.
@@ -110,24 +112,77 @@ def legalize_matmul_tile(tile: TileConfig, m: int, limit: Optional[int],
                           [t for t in kmm.TILES if t.kind == "simt"])
 
 
-def legalize_matmul_quant_tile(tile: TileConfig, m: int,
-                               limit: Optional[int]) -> kmm.QuantTile:
-    """:func:`legalize_matmul_tile`'s simt rule over cache_matmul_quant's
-    menu."""
-    return _legalize_simt(tile, m, limit, kmm.QUANT_TILES)
+def matmul_quant_kind(m: int, dtype: torch.dtype, k: Optional[int] = None,
+                      n: Optional[int] = None) -> str:
+    """The tile kind a cache_matmul_quant call of ``m`` rows of A in
+    ``dtype`` runs: :func:`matmul_kind`'s rule, except that the 1-byte
+    codes' rows are 16-byte aligned for TMA only when N is a multiple of
+    16: fp32 -> ``simt``; bf16 with at most 8 rows -> ``gemv``; more rows
+    -> ``wgmma``, unless K is not a multiple of 8 or N not of 16, which
+    goes to ``simt``."""
+    kind = matmul_kind(m, dtype, k, n)
+    return "simt" if kind == "wgmma" and n is not None and n % 16 else kind
+
+
+def legalize_matmul_quant_tile(tile: TileConfig, m: int, limit: Optional[int],
+                               dtype: torch.dtype, k: Optional[int] = None,
+                               n: Optional[int] = None) -> kmm.QuantTile:
+    """The compiled cache_matmul_quant tile for a plan tile, A of ``m``
+    rows in ``dtype`` (K and N, where given, route misaligned rows): a
+    tile of :func:`matmul_quant_kind`'s kind no larger than the plan's
+    in any dimension and within ``limit`` (bf16 at 9 to 64 rows takes the
+    64-row wgmma tile, more rows the 128-row one); where none fits, or the
+    kind is ``simt``, :func:`legalize_matmul_tile`'s simt rule over the
+    quant menu's simt tiles."""
+    kind = matmul_quant_kind(m, dtype, k, n)
+    if kind != "simt":
+        fits = [t for t in kmm.QUANT_TILES if t.kind == kind
+                and dtype in t.dtypes and t.bm <= tile.bm and t.bn <= tile.bn
+                and t.bk <= tile.bk
+                and (limit is None or t.smem_bytes <= limit)]
+        if fits:
+            return _pick(fits, m, "bm", lambda t: t.bn * t.bk)
+    return _legalize_simt(tile, m, limit,
+                          [t for t in kmm.QUANT_TILES if t.kind == "simt"])
+
+
+def ffn_kind(s: int, dtype: torch.dtype, d: Optional[int] = None,
+             f: Optional[int] = None) -> str:
+    """The tile kind a block_fused_ffn call of ``s`` rows runs: bf16 with
+    more than 8 rows -> ``wgmma``, unless d_model or d_ff is not a
+    multiple of 8 (TMA needs 16-byte row strides); fp32 and decode rows
+    (at most 8) -> ``simt``."""
+    if dtype != torch.bfloat16 or s <= 8:
+        return "simt"
+    if (d is not None and d % 8) or (f is not None and f % 8):
+        return "simt"
+    return "wgmma"
 
 
 def legalize_ffn_tile(block_s: int, block_f: int, s: int,
-                      limit: Optional[int]) -> kffn.FfnTile:
-    """The compiled block_fused_ffn tile for a plan's fused blocks: the
-    [bs, bf] hidden tile no larger than the plan's [block_s, block_f]
-    (the LBM working set the grant admitted), shared memory within
-    ``limit``; the smallest tile when none fits."""
-    fits = [t for t in kffn.TILES
+                      limit: Optional[int], dtype: torch.dtype,
+                      d: Optional[int] = None,
+                      f: Optional[int] = None) -> kffn.FfnTile:
+    """The compiled block_fused_ffn tile for a plan's fused blocks and
+    ``s`` rows of x in ``dtype`` (d_model ``d`` and d_ff ``f``, where
+    given, route misaligned rows): the [bs, bf] hidden tile no larger
+    than the plan's [block_s, block_f] (the LBM working set the grant
+    admitted), shared memory within ``limit``; a tile of
+    :func:`ffn_kind`'s kind where one fits (bf16 at 9 to 64 rows the
+    64-row wgmma tile, more rows the 128-row one), else a simt tile, the
+    smallest when none fits."""
+    if ffn_kind(s, dtype, d, f) == "wgmma":
+        fits = [t for t in kffn.TILES if t.kind == "wgmma"
+                and dtype in t.dtypes and t.bs <= block_s and t.bf <= block_f
+                and (limit is None or t.smem_bytes <= limit)]
+        if fits:
+            return _pick(fits, s, "bs", lambda t: t.bf * t.bk)
+    simt = [t for t in kffn.TILES if t.kind == "simt"]
+    fits = [t for t in simt
             if t.bs <= block_s and t.bf <= block_f
             and (limit is None or t.smem_bytes <= limit)]
     if not fits:
-        fits = [min(kffn.TILES, key=lambda t: (t.bs * t.bf, t.smem_bytes))]
+        fits = [min(simt, key=lambda t: (t.bs * t.bf, t.smem_bytes))]
     return _pick(fits, s, "bs", lambda t: t.bf * t.bk)
 
 
@@ -185,9 +240,10 @@ def fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     the on-chip hidden tile.  The row block is not clamped to S as the
     reference clamps it: S rows are masked in the kernel, so the
     legalization picks the smallest compiled row block covering S."""
-    s = x.shape[0]
-    tile = legalize_ffn_tile(block_s, min(block_f, wg.shape[1]), s,
-                             smem_limit(x.device))
+    s, d = x.shape
+    f = wg.shape[1]
+    tile = legalize_ffn_tile(block_s, min(block_f, f), s,
+                             smem_limit(x.device), x.dtype, d, f)
     return kffn.block_fused_ffn(x, wg, wu, wd, tile)
 
 
@@ -218,7 +274,8 @@ def planned_matmul_quant(a: torch.Tensor, b_q: torch.Tensor,
     with per-column scales ``b_scale`` [1, N]
     (``kernels/quant.py::quantize_cols``).  B streams at quantized width
     through the plan's tile, legalized for the quant kernel's menu."""
-    hopper = legalize_matmul_quant_tile(tile, a.shape[0], smem_limit(a.device))
+    hopper = legalize_matmul_quant_tile(tile, a.shape[0], smem_limit(a.device),
+                                        a.dtype, a.shape[1], b_q.shape[1])
     return kmm.cache_matmul_quant(a, b_q, b_scale, hopper)
 
 

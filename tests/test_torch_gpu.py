@@ -36,14 +36,34 @@ MM_SHAPES = {"simt": ((37, 333, 1000),),
                        (300, 520, 1000), (300, 1000, 4104))}
 
 
+# block_fused_ffn shapes (S, d_model, d_ff) per tile kind: ragged rows
+# (the wgmma tile is held at decode rows too, though the legalization
+# gives them the simt tile), d_model and d_ff off the tiles (d_ff not a
+# multiple of the wgmma tile's 128 x 8-block cluster); wgmma takes
+# d_model and d_ff multiples of 8 only
+FFN_SHAPES = {"simt": ((37, 333, 1000),),
+              "wgmma": ((1, 520, 1000), (2, 520, 1000), (7, 520, 1000),
+                        (9, 64, 256), (37, 520, 1000), (65, 520, 1000),
+                        (300, 520, 1000), (300, 4096, 2056))}
+# cache_matmul_quant shapes (M, K, N) per tile kind; wgmma takes K
+# multiples of 8 and N multiples of 16 only
+QUANT_SHAPES = {"simt": ((37, 333, 1000), (2, 4096, 300), (130, 64, 97)),
+                "gemv": ((1, 333, 1000), (2, 520, 1000), (2, 4096, 11008),
+                         (2, 11008, 4096), (7, 333, 1000), (8, 64, 97)),
+                "wgmma": ((1, 520, 1008), (2, 520, 1008), (7, 520, 1008),
+                          (9, 64, 256), (37, 520, 1008), (65, 4096, 1008),
+                          (300, 1000, 4112), (300, 520, 1008))}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain_versions(dtype):
     """Each CUDA kernel against its plain version on the card, ragged
     shapes, every compiled tile of the dtype (cache_matmul's gemv and
-    wgmma tiles in bf16, at their kinds' shapes).  Count one launch per
-    call, on the kind's counter too; a gemv or wgmma tile's second launch
-    is bitwise equal to its first."""
+    wgmma tiles and block_fused_ffn's wgmma tiles in bf16, at their
+    kinds' shapes).  Count one launch per call, on the kind's counter
+    too; a gemv or wgmma tile's second launch is bitwise equal to its
+    first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -68,17 +88,23 @@ def test_cuda_kernels_match_plain_versions(dtype):
                                        **MATMUL_TOL[dtype])
             if tile.kind != "simt":
                 assert torch.equal(got, kmm.cache_matmul(a, b, tile))
-    x = rand(37, 333)
-    wg, wu = rand(333, 1000, scale=333 ** -0.5), rand(333, 1000,
-                                                     scale=333 ** -0.5)
-    wd = rand(1000, 333, scale=1000 ** -0.5)
     for tile in kffn.TILES:
-        before = kffn.launches
-        got = kffn.block_fused_ffn(x, wg, wu, wd, tile)
-        assert kffn.launches == before + 1
-        torch.testing.assert_close(
-            got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
-            **MATMUL_TOL[dtype])
+        if dt not in tile.dtypes:
+            continue
+        for s, d, f in FFN_SHAPES[tile.kind]:
+            x = rand(s, d)
+            wg, wu = rand(d, f, scale=d ** -0.5), rand(d, f, scale=d ** -0.5)
+            wd = rand(f, d, scale=f ** -0.5)
+            before, kind = kffn.launches, kffn.launches_by_kind[tile.kind]
+            got = kffn.block_fused_ffn(x, wg, wu, wd, tile)
+            assert kffn.launches == before + 1
+            assert kffn.launches_by_kind[tile.kind] == kind + 1
+            torch.testing.assert_close(
+                got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
+                **MATMUL_TOL[dtype])
+            if tile.kind != "simt":
+                assert torch.equal(got, kffn.block_fused_ffn(x, wg, wu, wd,
+                                                             tile))
 
 
 @pytest.mark.gpu
@@ -86,24 +112,32 @@ def test_cuda_kernels_match_plain_versions(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_cache_matmul_quant_matches_plain_version(dtype, kv):
     """The dequant-fused matmul against its plain version on the card,
-    int8 and fp8 codes, ragged shapes, every compiled tile; one launch
-    per call."""
+    int8 and fp8 codes, ragged shapes, every compiled tile of the dtype
+    (the gemv and wgmma tiles in bf16, at their kinds' shapes); one
+    launch per call, on the kind's counter too; a gemv or wgmma tile's
+    second launch is bitwise equal to its first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for m, k, n in ((37, 333, 1000), (2, 4096, 300), (130, 64, 97)):
-        a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
-        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
-        q, s = pquant.quantize_cols(w, kv)
-        want = kmm.cache_matmul_quant_plain(a, q, s).float()
-        for tile in kmm.QUANT_TILES:
+    for tile in kmm.QUANT_TILES:
+        if dt not in tile.dtypes:
+            continue
+        for m, k, n in QUANT_SHAPES[tile.kind]:
+            a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+            q, s = pquant.quantize_cols(w, kv)
+            want = kmm.cache_matmul_quant_plain(a, q, s).float()
             before = kmm.launches_quant
+            kind = kmm.launches_quant_by_kind[tile.kind]
             got = kmm.cache_matmul_quant(a, q, s, tile)
             assert kmm.launches_quant == before + 1
+            assert kmm.launches_quant_by_kind[tile.kind] == kind + 1
             assert got.dtype == dt and got.shape == (m, n)
             torch.testing.assert_close(got.float(), want, **MATMUL_TOL[dtype])
+            if tile.kind != "simt":
+                assert torch.equal(got, kmm.cache_matmul_quant(a, q, s, tile))
 
 
 @pytest.mark.gpu

@@ -192,6 +192,10 @@ def test_compiled_tiles_fit_hopper_shared_memory():
     for t in kffn.TILES:
         assert t.smem_bytes <= H100_SMEM_OPTIN
         assert (t.bs // t.tm) * (t.bf // t.tn) <= 1024
+        assert t.kind in ("simt", "wgmma") and set(t.dtypes) <= set(kmm.DTYPES)
+        if t.kind == "wgmma":          # warpgroups of 64 rows, 128-wide d_ff
+            assert t.bs % 64 == 0 and t.tm == 64 and t.tn == t.bf == 128
+            assert t.dtypes == (torch.bfloat16,) and t.bk == 64
 
 
 @pytest.mark.parametrize("menu", ["cache_matmul", "cache_matmul_quant",
@@ -322,19 +326,85 @@ def test_menus_mirror_the_cuda_sources():
             assert (t.kind, t.bm, t.bn) == ("wgmma", int(wbm), int(wbn))
         else:
             assert t.kind == "gemv"
+    src = (Path(pvmem.__file__).parents[1] / "csrc" /
+           "block_fused_ffn.cu").read_text()
+    menu = re.findall(r"using F(\d+) = (FfnTile<([\d, ]+)>|FfnWgmma<(\d+)>);",
+                      src)
+    assert [int(i) for i, *_ in menu] == list(range(len(kffn.TILES)))
+    for (_, _, simt, wbs), t in zip(menu, kffn.TILES):
+        if simt:
+            assert (t.kind, t.bs, t.bf, t.bk, t.tm, t.tn) == \
+                ("simt", *map(int, simt.split(",")))
+        else:
+            assert (t.kind, t.bs, t.bf) == ("wgmma", int(wbs), 128)
+        assert build.menu_fields(t) == t.menu_fields()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pages", [324, 600, 1200])
 @pytest.mark.parametrize("s", [2, 256])
-def test_legalized_ffn_tile_keeps_the_hidden_tile_under_the_plan(pages, s):
+def test_legalized_ffn_tile_keeps_the_hidden_tile_under_the_plan(pages, s,
+                                                                 dtype):
     plan = pplan.lower_ffn(128, 4096, 11008, 2, pages, want_fused=True)
     assert plan.fused
     hop = ops.legalize_ffn_tile(plan.block_s, plan.block_f, s,
-                                H100_SMEM_OPTIN)
-    assert hop in kffn.TILES
+                                H100_SMEM_OPTIN, dtype, 4096, 11008)
+    assert hop in kffn.TILES and dtype in hop.dtypes
     assert hop.bs <= plan.block_s and hop.bf <= plan.block_f
     assert hop.smem_bytes <= H100_SMEM_OPTIN
-    assert hop.bs >= min(s, max(t.bs for t in kffn.TILES))
+    assert hop.bs >= min(s, max(t.bs for t in kffn.TILES
+                                if t.kind == hop.kind))
+    assert hop.kind == ("wgmma" if dtype == torch.bfloat16 and s > 8
+                        else "simt")
+
+
+@pytest.mark.parametrize("seq,pages", [(1024, None), (1024, 600), (128, 324),
+                                       (128, 1200)])
+def test_full_width_lbm_plans_legalize_ffn_to_wgmma(seq, pages):
+    """bf16 prefill rows under full-width yi-9b LBM plans (the smallest
+    fused grant at seq 1024 gives [256, 128]) take the 128-row wgmma tile,
+    never above the plan's [block_s, block_f]; decode rows stay on the
+    simt tile F0 (8 x 64)."""
+    d, f = 4096, 11008
+    pages = pages or pvmem.fused_ffn_pages(seq, d, f, 2)
+    plan = pplan.lower_ffn(seq, d, f, 2, pages, want_fused=True)
+    assert plan.fused
+    if seq == 1024 and pages == pvmem.fused_ffn_pages(seq, d, f, 2):
+        assert (plan.block_s, plan.block_f) == (256, 128)
+    for s, want in ((2048, (128, "wgmma")), (300, (128, "wgmma")),
+                    (37, (64, "wgmma")), (2, (8, "simt"))):
+        hop = ops.legalize_ffn_tile(plan.block_s, plan.block_f, s,
+                                    H100_SMEM_OPTIN, torch.bfloat16, d, f)
+        assert (hop.bs, hop.kind) == want, s
+        assert hop.bs <= plan.block_s and hop.bf <= plan.block_f
+        assert hop.smem_bytes <= H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("s,d,f,kind", [
+    (2048, 4096, 11008, "wgmma"), (37, 520, 1000, "wgmma"),
+    (8, 520, 1000, "simt"),        # decode rows stay on the simt tile
+    (37, 333, 1000, "simt"),       # d_model % 8: x rows unaligned for TMA
+    (37, 520, 1002, "simt")])      # d_ff % 8
+def test_ffn_legalization_routes_by_dtype_rows_and_alignment(s, d, f, kind):
+    hop = ops.legalize_ffn_tile(256, 128, s, H100_SMEM_OPTIN, torch.bfloat16,
+                                d, f)
+    assert hop.kind == kind == ops.ffn_kind(s, torch.bfloat16, d, f)
+    assert ops.legalize_ffn_tile(256, 128, s, H100_SMEM_OPTIN, torch.float32,
+                                 d, f).kind == "simt"
+
+
+def test_partial_bytes_of_the_cluster_reduced_tile():
+    """At the prefill shape (2048 x 4096, d_ff 11008) the simt tile's 172
+    slabs are 5.77 GB of fp32 partials; the wgmma tile's clusters of 8
+    128-wide d_ff tiles leave ceil(86 / 8) = 11 slabs, 0.37 GB."""
+    s, d, f = 2048, 4096, 11008
+    simt = kffn.TILES[3]
+    wgmma = ops.legalize_ffn_tile(256, 128, s, H100_SMEM_OPTIN,
+                                  torch.bfloat16, d, f)
+    assert kffn.partial_bytes(simt, s, d, f) == 4 * 172 * s * d == 5771362304
+    assert kffn.partial_bytes(wgmma, s, d, f) == 4 * 11 * s * d == 369098752
+    assert kffn.partial_bytes(wgmma, s, d, f) <= 0.4e9
+    assert kffn.partial_bytes(wgmma, 37, 520, 1000) == 4 * 1 * 37 * 520
 
 
 def test_legalization_floor_when_no_tile_fits():
@@ -344,5 +414,8 @@ def test_legalization_floor_when_no_tile_fits():
         for m in (2, 256):
             assert ops.legalize_matmul_tile(tiny, m, H100_SMEM_OPTIN, dtype,
                                             4096, 11008) == floor
-    assert ops.legalize_ffn_tile(4, 4, 2, H100_SMEM_OPTIN) == \
-        min(kffn.TILES, key=lambda t: (t.bs * t.bf, t.smem_bytes))
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (2, 256):
+            assert ops.legalize_ffn_tile(4, 4, s, H100_SMEM_OPTIN, dtype,
+                                         4096, 11008) == \
+                min(kffn.TILES, key=lambda t: (t.bs * t.bf, t.smem_bytes))

@@ -137,28 +137,55 @@ def test_planned_ffn_quant_matches_reference(kv, fused, via):
 # ------------------------------------------------------ legalization --
 QUANT_SHAPES = [(8, 32, 256, 1, 1), (16, 64, 64, 2, 2), (32, 64, 64, 2, 4),
                 (64, 64, 32, 4, 4), (128, 128, 32, 8, 8), (8, 32, 32, 1, 1)]
+# the bf16 tiles after them: the gemv decode tile and the wgmma tiles
+QUANT_NEW = [("gemv", (8, 256, 256, 8, 16)),
+             ("wgmma", (64, 256, 64, 64, 256)),
+             ("wgmma", (128, 256, 64, 64, 256))]
 
 
 def test_quant_menu_mirrors_the_matmul_menu_and_fits():
-    """The quant kernel's menu is its own, written out: the six tile
-    shapes cache_matmul's simt kernel had, pinned here and to the `using`
-    lines of csrc/cache_matmul_quant.cu, whatever cache_matmul's menu
-    holds.  Its shared memory adds the fp32 scale stripe to the
-    fp32-staged A and dequantized B tiles, and its library describes the
-    six ints it always did."""
-    assert [dataclasses.astuple(t) for t in kmm.QUANT_TILES] == QUANT_SHAPES
+    """The quant kernel's menu is its own, written out: the six simt tile
+    shapes cache_matmul's simt kernel had (fp32 and bf16), then the bf16
+    gemv and wgmma tiles, pinned here and to the `using` lines of
+    csrc/cache_matmul_quant.cu, whatever cache_matmul's menu holds.  A
+    simt tile's shared memory adds the fp32 scale stripe to the
+    fp32-staged A and dequantized B tiles; the wgmma tiles' holds the
+    TMA ring of A and code tiles and three converted bf16 B tiles.  Its
+    library describes each entry's kind, dtypes, shape and bytes."""
+    simt = [t for t in kmm.QUANT_TILES if t.kind == "simt"]
+    assert [(t.bm, t.bn, t.bk, t.tm, t.tn) for t in simt] == QUANT_SHAPES
+    assert kmm.QUANT_TILES[:len(simt)] == tuple(simt)
+    assert [(t.kind, (t.bm, t.bn, t.bk, t.tm, t.tn))
+            for t in kmm.QUANT_TILES[len(simt):]] == QUANT_NEW
     src = (Path(pvmem.__file__).parents[1] / "csrc" /
            "cache_matmul_quant.cu").read_text()
-    menu = re.findall(r"using Q(\d+) = QTile<([\d, ]+)>;", src)
-    assert [int(i) for i, _ in menu] == list(range(len(QUANT_SHAPES)))
-    assert [tuple(map(int, v.split(","))) for _, v in menu] == QUANT_SHAPES
+    menu = re.findall(r"using Q(\d+) = (QTile<([\d, ]+)>|QGemv|QWgmma<(\d+), "
+                      r"(\d+)>);", src)
+    assert [int(i) for i, *_ in menu] == list(range(len(kmm.QUANT_TILES)))
+    assert [tuple(map(int, v.split(","))) for _, _, v, _, _ in menu
+            if v] == QUANT_SHAPES
+    for (_, _, shape, wbm, wbn), t in zip(menu, kmm.QUANT_TILES):
+        if wbm:
+            assert (t.kind, t.bm, t.bn) == ("wgmma", int(wbm), int(wbn))
+        elif not shape:
+            assert t.kind == "gemv"
     for q in kmm.QUANT_TILES:
         assert not isinstance(q, kmm.HopperTile)   # a menu of its own
         bm, bn, bk = q.bm, q.bn, q.bk
-        assert q.smem_bytes == 4 * (bk * (bm + 1) + bk * bn) + 4 * bn \
-            <= H100_SMEM_OPTIN
-        assert (q.bm // q.tm) * (q.bn // q.tn) <= 1024
-        assert build.menu_fields(q) == dataclasses.astuple(q) + (q.smem_bytes,)
+        assert q.smem_bytes <= H100_SMEM_OPTIN
+        if q.kind == "simt":
+            assert set(q.dtypes) == {torch.float32, torch.bfloat16}
+            assert q.smem_bytes == 4 * (bk * (bm + 1) + bk * bn) + 4 * bn
+            assert (q.bm // q.tm) * (q.bn // q.tn) <= 1024
+        else:
+            assert q.dtypes == (torch.bfloat16,)
+        if q.kind == "wgmma":
+            assert q.smem_bytes == (1024 + 4 * (2 * bm * bk + bk * bn)
+                                    + 3 * 2 * bk * bn + 2 * 4 * 8)
+            assert bm % 64 == 0 and q.tn == bn == 256 and bk % 16 == 0
+        assert build.menu_fields(q) == (kmm.KINDS.index(q.kind),
+                                        kmm.dtype_mask(q.dtypes), bm, bn, bk,
+                                        q.tm, q.tn, q.smem_bytes)
 
 
 def _full_width_plan_tiles():
@@ -185,26 +212,73 @@ def _full_width_plan_tiles():
     return out
 
 
+SIMT_Q = [t for t in kmm.QUANT_TILES if t.kind == "simt"]
+
+
 @pytest.mark.parametrize("m", [2, 256, 2048])
 def test_full_width_plan_tiles_legalize_to_the_quant_menu(m):
+    """fp32 A: every full-width plan tile legalizes by the simt rule over
+    the quant menu's simt tiles; bf16 A: to the gemv tile at 2 rows and a
+    wgmma tile (the 128-row one) at 256 and 2048, under the plan's tile
+    and within shared memory."""
     for label, tile in _full_width_plan_tiles():
-        hop = ops.legalize_matmul_quant_tile(tile, m, H100_SMEM_OPTIN)
-        assert hop in kmm.QUANT_TILES, label
+        hop = ops.legalize_matmul_quant_tile(tile, m, H100_SMEM_OPTIN,
+                                             torch.float32, 4096, 11008)
+        assert hop in SIMT_Q, label
         assert hop.smem_bytes <= H100_SMEM_OPTIN, label
-        fits = [t for t in kmm.QUANT_TILES if t.bm <= tile.bm
+        fits = [t for t in SIMT_Q if t.bm <= tile.bm
                 and t.bn <= tile.bn and t.bk <= tile.bk]
         if fits:
             assert hop in fits, label
             assert hop.bm == min([t.bm for t in fits if t.bm >= m]
                                  or [max(t.bm for t in fits)]), label
         else:
-            assert hop == kmm.QUANT_TILES[-1], label
+            assert hop == kmm.QUANT_TILES[5], label
+        for k, n in ((4096, 11008), (11008, 4096)):
+            bf = ops.legalize_matmul_quant_tile(tile, m, H100_SMEM_OPTIN,
+                                                torch.bfloat16, k, n)
+            assert bf.kind == ("gemv" if m <= 8 else "wgmma"), label
+            assert bf.bm == (8 if m <= 8 else 128), label
+            assert bf.bm <= tile.bm and bf.bn <= tile.bn \
+                and bf.bk <= tile.bk, label
+            assert bf.smem_bytes <= H100_SMEM_OPTIN, label
+
+
+@pytest.mark.parametrize("m,k,n,dtype,kind", [
+    (2048, 4096, 11008, torch.float32, "simt"),    # fp32 never leaves simt
+    (2, 4096, 11008, torch.float32, "simt"),
+    (2, 4096, 11008, torch.bfloat16, "gemv"),
+    (8, 333, 1000, torch.bfloat16, "gemv"),        # gemv masks K and N
+    (9, 4096, 11008, torch.bfloat16, "wgmma"),
+    (2048, 4096, 11008, torch.bfloat16, "wgmma"),
+    (2048, 11008, 4096, torch.bfloat16, "wgmma"),
+    (37, 520, 1000, torch.bfloat16, "simt"),       # N % 16: code rows unaligned
+    (37, 333, 1008, torch.bfloat16, "simt"),       # K % 8: A rows unaligned
+    (37, 520, 1008, torch.bfloat16, "wgmma")])
+def test_quant_legalization_routes_by_dtype_rows_and_alignment(m, k, n,
+                                                               dtype, kind):
+    """The route is :func:`ops.matmul_quant_kind`'s: fp32 -> simt, bf16
+    at most 8 rows -> gemv, more -> wgmma unless TMA's 16-byte row strides
+    fail (K % 8 for A, N % 16 for the codes), where the fp32 rule's simt
+    tile runs."""
+    tile = pvmem.TileConfig(128, 256, 256, 0)
+    hop = ops.legalize_matmul_quant_tile(tile, m, H100_SMEM_OPTIN, dtype, k, n)
+    assert hop.kind == kind == ops.matmul_quant_kind(m, dtype, k, n)
+    assert dtype in hop.dtypes
+    if kind == "simt":
+        assert hop == ops.legalize_matmul_quant_tile(tile, m, H100_SMEM_OPTIN,
+                                                     torch.float32, k, n)
+    if kind == "wgmma":
+        assert hop.bm == (64 if m <= 64 else 128)
 
 
 def test_quant_legalization_floor_when_no_tile_fits():
     tiny = pvmem.TileConfig(4, 4, 4, 0)
-    assert ops.legalize_matmul_quant_tile(tiny, 2, H100_SMEM_OPTIN) == \
-        min(kmm.QUANT_TILES, key=lambda t: (t.bm * t.bn, t.smem_bytes))
+    for dtype in (torch.float32, torch.bfloat16):   # no gemv / wgmma fits
+        for m in (2, 2048):
+            assert ops.legalize_matmul_quant_tile(
+                tiny, m, H100_SMEM_OPTIN, dtype, 4096, 11008) == \
+                min(SIMT_Q, key=lambda t: (t.bm * t.bn, t.smem_bytes))
 
 
 def test_quant_wrapper_rejects_malformed_operands():

@@ -468,3 +468,72 @@ def test_init_caches_match_reference_structure(dtype):
             assert str(p[name].dtype).removeprefix("torch.") == \
                 str(r[name].dtype)
             assert not bool(p[name].any())
+
+
+# --------------------------------------------------------------- bf16 --
+# The reference rounds the intra-chunk weights w = (C B^T) * L * dt and
+# decay_out * dt to x's dtype before its contractions; the port's SSD
+# scan is held to it in bf16 at the model rule of the logits gates: max
+# |difference| within 2e-2 of the largest reference |y|.
+BF16_REL = 2e-2
+
+
+def _rel_err(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert np.isfinite(got).all()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _bf16_pair(a):
+    """One fp32 numpy array as a JAX and a torch bf16 array (both round
+    to nearest even)."""
+    return (jnp.asarray(a).astype(jnp.bfloat16),
+            torch.from_numpy(a).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("s,chunk", [(64, 16), (96, 32), (44, 44)])
+def test_ssd_bf16_matches_reference(s, chunk, with_h0):
+    """x, B and C in bf16 (dt, A, D and the state in fp32, as
+    mamba2_forward passes them)."""
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(2, s, 3, 16, 8, seed=s + chunk)
+    (xj, xt), (bj, bt), (cj, ct) = map(_bf16_pair, (x, Bm, Cm))
+    want_y, want_h = RS.ssd(xj, jnp.asarray(dt), jnp.asarray(A), bj, cj,
+                            jnp.asarray(D), chunk,
+                            jnp.asarray(h0) if with_h0 else None)
+    got_y, got_h = PS.ssd(xt, _t(dt), _t(A), bt, ct, _t(D), chunk,
+                          _t(h0) if with_h0 else None)
+    assert got_y.dtype == torch.bfloat16 and got_h.dtype == torch.float32
+    assert _rel_err(got_y.float(), want_y.astype(jnp.float32)) <= BF16_REL
+    assert _rel_err(got_h, want_h) <= BF16_REL
+
+
+@pytest.fixture(scope="module")
+def mamba_bf16():
+    rcfg = dataclasses.replace(rbase.get_arch("mamba2-370m").reduced(),
+                               dtype="bfloat16")
+    pcfg = dataclasses.replace(pbase.get_arch("mamba2-370m").reduced(),
+                               dtype="bfloat16")
+    rparams = RM.init_params(rcfg, jax.random.PRNGKey(1))
+    pparams = bridge.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, rparams), pcfg, "cpu")
+    return rcfg, pcfg, rparams, pparams
+
+
+@pytest.mark.parametrize("s,chunk", [(64, None), (64, 16), (70, None)],
+                         ids=["s64", "s64_plan16", "s70_tail6"])
+def test_mamba2_forward_bf16_matches_reference(mamba_bf16, s, chunk):
+    """The reduced mamba2 block in bf16, weights bridged from the
+    reference's: the block output within 2e-2 of its largest reference
+    value, and the carried SSM state likewise."""
+    rcfg, pcfg, rparams, pparams = mamba_bf16
+    rp = jax.tree_util.tree_map(lambda a: a[0], rparams["layers"]["mamba"])
+    pp = pparams["layers"][0]["mamba"]
+    assert pp["in_proj"]["w"].dtype == torch.bfloat16
+    xj, xt = _bf16_pair(_hidden(rcfg, s, seed=s))
+    want, wst = RS.mamba2_forward(rp, xj, rcfg, None, chunk=chunk)
+    got, gst = PS.mamba2_forward(pp, xt, pcfg, None, chunk=chunk)
+    assert got.dtype == torch.bfloat16
+    assert _rel_err(got.float(), want.astype(jnp.float32)) <= BF16_REL
+    assert _rel_err(gst["ssm"], wst["ssm"]) <= BF16_REL
