@@ -31,10 +31,11 @@ Phases, each printed as one JSON object with its seconds:
   a serving chunk's), checked against its plain version on the timed
   inputs.  Every row names its tile's kind: bf16 ``cache_matmul`` runs
   the gemv tile at up to 8 rows and a wgmma tile above (also at ragged
-  rows, N and K), bf16 native flash attention at hd 128 the wgmma
-  kernel, the bf16 fused FFN at the prefill's rows its cluster-reduced
-  wgmma tile (beside its partial bytes and, as a yardstick of several
-  calls, the unfused bf16 chain), the rest the simt tiles; the gemv /
+  rows, N and K), bf16 flash attention at hd 128 the wgmma kernel of
+  its K/V storage (native, or int8 / fp8 codes), the bf16 fused FFN at
+  the prefill's rows its cluster-reduced wgmma tile (beside its partial
+  bytes and, as a yardstick of several calls, the unfused bf16 chain),
+  bf16 ``ssd_chunk`` its wgmma kind, the rest the simt tiles; the gemv /
   wgmma tiles must repeat bitwise and are timed in turns against the
   simt tile of the same plan (``simt_ms``).
 * ``e2e``: full-width yi-9b cut to 4 layers, random weights from one
@@ -58,9 +59,10 @@ Phases, each printed as one JSON object with its seconds:
   full-depth yi-9b (2 prompts of 1024 tokens) plain, under the smallest
   LBM grant that lowers fused with native KV, and under 32-page LWM
   grants with int8 and fp8 KV; counters zeroed just before and read just
-  after one pass of the four (every block_fused_ffn launch of the wgmma
-  kind); gated against the plain path on the card; timed, and profiled
-  once per plan kind.
+  after one pass of the four (every block_fused_ffn launch and every
+  quantized flash launch of the wgmma kind); gated against the plain
+  path on the card; timed, and profiled once per plan kind (LBM/native,
+  LWM/int8, LWM/fp8).
 * ``serve_kv``: slice 3's serving path.  ``MultiTenantServer(kv_dtype=
   "auto")`` serves full-width, full-depth yi-9b: a resident tenant and
   three 256-token prompt tenants arriving at distinct steps on one
@@ -85,7 +87,8 @@ Phases, each printed as one JSON object with its seconds:
   (256 + 44) equals the one-shot one bitwise on the card.
 * ``prefill_ssm``: ``make_prefill`` of full-depth (48-layer) mamba2 on 2
   prompts of 1024 tokens under the three grants; counters zeroed just
-  before and read just after one pass of the three; the plans' logits
+  before and read just after one pass of the three (every ssd_chunk
+  launch of the wgmma kind, as in serve_ssm and self_ssm); the plans' logits
   gated against each other on an fp32 copy of the weights (SSD is exact
   under any chunking), and in bf16 relative to a plain-version control;
   timed warm, and profiled once.
@@ -368,10 +371,12 @@ def kernel_cases(cfg, dev):
 
 def flash_cases(cfg, dev):
     """flash_attention and flash_attention_quantized (int8, fp8) against
-    their plain versions: the prefill path's shape, a non-causal one, a
-    ragged one and hd 32, with the tiles that plans under several grants
-    legalize to; bf16 and fp32.  In fp32 the quantized kernel must equal
-    the native kernel on the dequantized K/V bitwise."""
+    their plain versions: the prefill path's shape, a non-causal one,
+    ragged S and Sk (also S != Sk), a short prompt and hd 32, with the
+    tiles that plans under several grants legalize to (bf16 at hd 128:
+    the wgmma kernels, native and quantized, bitwise on a repeat); bf16
+    and fp32.  In fp32 the quantized kernel must equal the native kernel
+    on the dequantized K/V bitwise."""
     import torch
     from repro_torch.core.plan import lower_attn
     from repro_torch.kernels import flash_attention as kfa
@@ -382,21 +387,24 @@ def flash_cases(cfg, dev):
     gen.manual_seed(2)
     B, S = PREFILL["batch"], PREFILL["prompt_len"]
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    shapes = (("path", B, H, Hkv, S, hd, True),
-              ("non-causal", 1, H, Hkv, 512, hd, False),
-              ("ragged", 1, 8, 2, 333, 64, True),
-              ("ragged non-causal", 1, 8, 2, 333, 64, False),
-              ("ragged hd128", 1, 8, 2, 333, hd, True),
-              ("ragged hd128 non-causal", 1, 8, 2, 333, hd, False),
-              ("hd32", 1, 4, 2, 256, 32, True))
+    # (label, B, H, Hkv, S, hd, causal, Sk)
+    shapes = (("path", B, H, Hkv, S, hd, True, S),
+              ("non-causal", 1, H, Hkv, 512, hd, False, 512),
+              ("ragged", 1, 8, 2, 333, 64, True, 333),
+              ("ragged non-causal", 1, 8, 2, 333, 64, False, 333),
+              ("ragged hd128", 1, 8, 2, 333, hd, True, 333),
+              ("ragged hd128 non-causal", 1, 8, 2, 333, hd, False, 333),
+              ("ragged Sk hd128", 1, 8, 2, 200, hd, False, 520),
+              ("short hd128", 1, 8, 2, 40, hd, True, 40),
+              ("hd32", 1, 4, 2, 256, 32, True, 256))
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dn = _dtype_name(dtype)
         eb = torch.tensor([], dtype=dtype).element_size()
-        for label, b, h, hkv, s, d, causal in shapes:
+        for label, b, h, hkv, s, d, causal, sk in shapes:
             q = _randn(gen, (b, h, s, d), dtype)
-            k = _randn(gen, (b, hkv, s, d), dtype)
-            v = _randn(gen, (b, hkv, s, d), dtype)
+            k = _randn(gen, (b, hkv, sk, d), dtype)
+            v = _randn(gen, (b, hkv, sk, d), dtype)
             for kv in ("native", "int8", "fp8_e4m3"):
                 plans = {lower_attn(d, eb, p, kv, eb if kv == "native" else 1)
                          for p in ATTN_GRANTS}
@@ -406,7 +414,7 @@ def flash_cases(cfg, dev):
                 for tile, plan in tiles.items():
                     row = {"kernel": "flash_attention", "case": label,
                            "dtype": dn, "kv": kv, "causal": causal,
-                           "shape": [b, h, hkv, s, d],
+                           "shape": [b, h, hkv, s, d], "sk": sk,
                            "plan_block": [plan.block_q, plan.block_kv],
                            "kind": tile.kind, "hopper_tile": [tile.bq, tile.bkv]}
                     if kv == "native":
@@ -424,6 +432,10 @@ def flash_cases(cfg, dev):
                                                             causal, tile)
                         want = kfa.flash_attention_quantized_plain(
                             q, kq, vq, ks, vs, causal)
+                        if tile.kind != "simt":
+                            row["bitwise_repeat"] = bool(torch.equal(
+                                got, kfa.flash_attention_quantized(
+                                    q, kq, vq, ks, vs, causal, tile)))
                         if dtype == torch.float32:
                             native = kfa.flash_attention(
                                 q, quant.dequantize_rows(kq, ks[..., None]),
@@ -644,9 +656,10 @@ def prefill_plans(cfg):
 
 def prefill_timings(cfg, dev):
     """block_fused_ffn (LBM plan), cache_matmul's up and down GEMMs (LWM
-    plan) and both flash kernels at the prefill path's shapes (bf16,
-    B x prompt_len rows), with the tiles the prefill phase's plans lower
-    to, each held against its plain version on the same inputs."""
+    plan) and both flash kernels (the quantized one under the int8 and
+    the fp8 plan) at the prefill path's shapes (bf16, B x prompt_len
+    rows), with the tiles the prefill phase's plans lower to, each held
+    against its plain version on the same inputs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import block_fused_ffn as kffn
@@ -737,26 +750,42 @@ def prefill_timings(cfg, dev):
     out["flash_attention"]["speedup_vs_simt"] = t["simt_ms"] / t["ms"]
     out["flash_attention"]["vs_library"] = (t["ms"] /
                                             out["flash_attention"]["library_ms"])
-    kq, ks = quant.quantize_rows(k, lwm.kv_dtype)
-    vq, vs = quant.quantize_rows(v, lwm.kv_dtype)
-    ks, vs = ks[..., 0], vs[..., 0]
-    tile = ops.legalize_attn_tile(lwm.attn.block_q, lwm.attn.block_kv, hd, S,
-                                  limit, dt, True)
-    bound, by = _bound(qo_bytes + 2 * B * Hkv * S * (hd + 4), flops, dn)
-    err, ok = _close(kfa.flash_attention_quantized(q, kq, vq, ks, vs, True, tile),
-                     kfa.flash_attention_quantized_plain(q, kq, vq, ks, vs, True),
-                     dn)
-    ms = _median_ms(lambda: kfa.flash_attention_quantized(q, kq, vq, ks, vs,
-                                                          True, tile))
-    out["flash_attention_quantized"] = {
-        "shape": [B, H, Hkv, S, hd], "kv": lwm.kv_dtype, "kind": tile.kind,
-        "plan": [lwm.attn.block_q, lwm.attn.block_kv],
-        "hopper_tile": [tile.bq, tile.bkv], "ms": ms,
-        "tflops": flops / ms / 1e9,
-        "plain_ms": _median_ms(lambda: kfa.flash_attention_quantized_plain(
-            q, kq, vq, ks, vs, True)),
-        "library_ms": None, "bound_ms": bound, "bound_by": by,
-        "max_abs_err": err, "ok": ok}
+    # the quantized kernel under the LWM/int8 and LWM/fp8 plans: the tile
+    # they legalize to in turns against the simt tile the same plan gives
+    # fp32 (every quantized call's before the quantized wgmma kernel)
+    for name in ("LWM/int8", "LWM/fp8_e4m3"):
+        plan = plans[name]
+        kq, ks = quant.quantize_rows(k, plan.kv_dtype)
+        vq, vs = quant.quantize_rows(v, plan.kv_dtype)
+        ks, vs = ks[..., 0], vs[..., 0]
+        tile = ops.legalize_attn_tile(plan.attn.block_q, plan.attn.block_kv,
+                                      hd, S, limit, dt, True)
+        simt = ops.legalize_attn_tile(plan.attn.block_q, plan.attn.block_kv,
+                                      hd, S, limit, torch.float32, True)
+        bound, by = _bound(qo_bytes + 2 * B * Hkv * S * (hd + 4), flops, dn)
+        got = kfa.flash_attention_quantized(q, kq, vq, ks, vs, True, tile)
+        err, ok = _close(got, kfa.flash_attention_quantized_plain(
+            q, kq, vq, ks, vs, True), dn)
+        repeat = bool(torch.equal(got, kfa.flash_attention_quantized(
+            q, kq, vq, ks, vs, True, tile)))
+        del got
+        t = _turns_ms({"ms": lambda: kfa.flash_attention_quantized(
+                           q, kq, vq, ks, vs, True, tile),
+                       "simt_ms": lambda: kfa.flash_attention_quantized(
+                           q, kq, vq, ks, vs, True, simt)})
+        key = "flash_attention_quantized" + (
+            "" if plan.kv_dtype == "int8" else f".{plan.kv_dtype}")
+        out[key] = {
+            "shape": [B, H, Hkv, S, hd], "kv": plan.kv_dtype,
+            "kind": tile.kind, "plan": [plan.attn.block_q, plan.attn.block_kv],
+            "hopper_tile": [tile.bq, tile.bkv],
+            "simt_tile": [simt.bq, simt.bkv], **t,
+            "tflops": flops / t["ms"] / 1e9,
+            "plain_ms": _median_ms(lambda: kfa.flash_attention_quantized_plain(
+                q, kq, vq, ks, vs, True)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err, "bitwise_repeat": repeat, "ok": ok and repeat,
+            "speedup_vs_simt": t["simt_ms"] / t["ms"]}
     return out
 
 
@@ -772,8 +801,9 @@ def _ssd_inputs(gen, b, h, s, p, n, dtype):
             _randn(gen, (b, s, n), dtype))
 
 
-def _ssd_plain(x, dt, A, Bm, Cm, chunk):
-    """The plain version on the reference's broadcast [BH, S, N] B/C."""
+def _ssd_plain(x, dt, A, Bm, Cm, chunk, kind=None):
+    """The plain version on the reference's broadcast [BH, S, N] B/C
+    (``kind``, the kernel's, is ignored)."""
     from repro_torch.kernels import ssd_scan as kssd
     h = x.shape[0] // Bm.shape[0]
     return kssd.ssd_chunk_plain(x, dt, A, Bm.repeat_interleave(h, 0),
@@ -785,8 +815,11 @@ def ssd_cases(ssm_cfg, dev):
     x 32 heads, P 64, N 128, B/C per batch row) at each chunk of
     :data:`SSD_CHUNKS` over three chunks, and the reduced shape (P 32,
     N 16); bf16 and fp32 inputs, both at the fp32 tolerance (the
-    arithmetic and the outputs are fp32)."""
+    arithmetic and the outputs are fp32).  bf16 runs the kind
+    ``ops.ssd_kind`` routes (wgmma) and the simt kind, fp32 the simt
+    kind; every case bitwise on a repeat."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as kssd
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -799,15 +832,19 @@ def ssd_cases(ssm_cfg, dev):
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, h, p, n, q, s in shapes:
             ops_in = _ssd_inputs(gen, b, h, s, p, n, dtype)
-            y, st = kssd.ssd_chunk(*ops_in, q)
             want_y, want_st = _ssd_plain(*ops_in, q)
-            ey, oky = _close(y, want_y, "float32")
-            es, oks = _close(st, want_st, "float32")
-            rows.append({"kernel": "ssd_chunk", "case": f"{label} Q{q}",
-                         "dtype": _dtype_name(dtype),
-                         "shape": [b * h, s, p, n], "chunk": q,
-                         "max_abs_err": max(ey, es), "tol": TOL["float32"],
-                         "ok": oky and oks})
+            for kind in dict.fromkeys((ops.ssd_kind(dtype, n, p), "simt")):
+                y, st = kssd.ssd_chunk(*ops_in, q, kind=kind)
+                ey, oky = _close(y, want_y, "float32")
+                es, oks = _close(st, want_st, "float32")
+                y2, st2 = kssd.ssd_chunk(*ops_in, q, kind=kind)
+                repeat = bool(torch.equal(y, y2) and torch.equal(st, st2))
+                rows.append({"kernel": "ssd_chunk", "case": f"{label} Q{q}",
+                             "dtype": _dtype_name(dtype), "kind": kind,
+                             "shape": [b * h, s, p, n], "chunk": q,
+                             "max_abs_err": max(ey, es),
+                             "tol": TOL["float32"], "bitwise_repeat": repeat,
+                             "ok": oky and oks and repeat})
     return rows
 
 
@@ -827,9 +864,12 @@ def ssd_work(b, h, s, p, n, q, eb):
 def ssd_timings(ssm_cfg, dev):
     """ssd_chunk at the SSM paths' shapes (bf16, full-width mamba2, B/C
     per batch row): the prefill phase's (B 2, S 1024) at each chunk its
-    grants lower, and a serving prompt chunk (B 2, S 256); kernel, plain
-    and bound, each checked against the plain version."""
+    grants lower, and a serving prompt chunk (B 2, S 256); the routed
+    kind (wgmma) timed in turns against the simt kind (``simt_ms``),
+    plain and bound, checked against the plain version and bitwise on a
+    repeat."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as kssd
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -841,20 +881,28 @@ def ssd_timings(ssm_cfg, dev):
                         ("prefill.q64", SSM_PREFILL["prompt_len"], 64),
                         ("serve_chunk", 256, 256)):
         ops_in = _ssd_inputs(gen, b, h, s, p, n, torch.bfloat16)
-        y, st = kssd.ssd_chunk(*ops_in, q)
+        kind = ops.ssd_kind(torch.bfloat16, n, p)
+        y, st = kssd.ssd_chunk(*ops_in, q, kind=kind)
         want_y, want_st = _ssd_plain(*ops_in, q)
         ey, oky = _close(y, want_y, "float32")
         es, oks = _close(st, want_st, "float32")
+        y2, st2 = kssd.ssd_chunk(*ops_in, q, kind=kind)
+        repeat = bool(torch.equal(y, y2) and torch.equal(st, st2))
+        del y, st, y2, st2
         bound, by = _bound(*ssd_work(b, h, s, p, n, q, 2), "bfloat16")
         x, dt, A, Bm, Cm = ops_in
         Bw, Cw = Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0)
+        t = _turns_ms({"ms": lambda: kssd.ssd_chunk(*ops_in, q, kind=kind),
+                       "simt_ms": lambda: kssd.ssd_chunk(*ops_in, q,
+                                                         kind="simt")})
         out[f"ssd_chunk.{label}"] = {
-            "shape": [b, h, s, p, n], "chunk": q,
-            "ms": _median_ms(lambda: kssd.ssd_chunk(*ops_in, q)),
+            "shape": [b, h, s, p, n], "chunk": q, "kind": kind, **t,
             "plain_ms": _median_ms(
                 lambda: kssd.ssd_chunk_plain(x, dt, A, Bw, Cw, q)),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "max_abs_err": max(ey, es), "ok": oky and oks}
+            "max_abs_err": max(ey, es), "bitwise_repeat": repeat,
+            "ok": oky and oks and repeat,
+            "speedup_vs_simt": t["simt_ms"] / t["ms"]}
     return out
 
 
@@ -957,9 +1005,8 @@ PREFILL_KERNELS = ("cache_matmul", "block_fused_ffn", "flash_attention",
 
 
 def _counters():
-    """The six kernels' launch counters, by kernel name, and those of
-    cache_matmul, the native flash_attention, cache_matmul_quant and
-    block_fused_ffn split by tile kind (``cache_matmul.gemv`` etc.)."""
+    """The six kernels' launch counters, by kernel name, and each split
+    by tile kind (``cache_matmul.gemv``, ``ssd_chunk.wgmma`` etc.)."""
     from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import cache_matmul as kmm
     from repro_torch.kernels import flash_attention as kfa
@@ -972,23 +1019,30 @@ def _counters():
     for name, by_kind in (("cache_matmul", kmm.launches_by_kind),
                           ("flash_attention", kfa.launches_by_kind),
                           ("cache_matmul_quant", kmm.launches_quant_by_kind),
-                          ("block_fused_ffn", kffn.launches_by_kind)):
+                          ("block_fused_ffn", kffn.launches_by_kind),
+                          ("flash_attention_quantized",
+                           kfa.launches_quantized_by_kind),
+                          ("ssd_chunk", kssd.launches_by_kind)):
         out.update({f"{name}.{k}": v for k, v in by_kind.items()})
     return out
 
 
-def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=()):
+def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=(),
+                flash_quantized=(), ssd=()):
     """Every bf16 launch of the path ran the new kinds: no cache_matmul
     launch of the ``simt`` kind, each kind of ``matmul`` launched; where
     ``flash`` names ``wgmma``, no native flash launch of the simt kind
-    and some of the wgmma kernel; likewise ``ffn`` for block_fused_ffn
-    and ``quant`` for cache_matmul_quant (each kind named launched, none
-    of the simt kind)."""
+    and some of the wgmma kernel; likewise ``ffn`` for block_fused_ffn,
+    ``quant`` for cache_matmul_quant, ``flash_quantized`` for
+    flash_attention_quantized and ``ssd`` for ssd_chunk (each kind named
+    launched, none of the simt kind)."""
     bad = [k for k in matmul if counters[f"cache_matmul.{k}"] <= 0]
     if counters["cache_matmul.simt"]:
         bad.append("cache_matmul.simt")
     for name, kinds in (("flash_attention", flash), ("block_fused_ffn", ffn),
-                        ("cache_matmul_quant", quant)):
+                        ("cache_matmul_quant", quant),
+                        ("flash_attention_quantized", flash_quantized),
+                        ("ssd_chunk", ssd)):
         bad += [f"{name}.{k}" for k in kinds if counters[f"{name}.{k}"] <= 0]
         if kinds and counters[f"{name}.simt"]:
             bad.append(f"{name}.simt")
@@ -1005,7 +1059,8 @@ def _zero_counters():
     kfa.launches = kfa.launches_quantized = 0
     kssd.launches = 0
     for by_kind in (kmm.launches_by_kind, kfa.launches_by_kind,
-                    kmm.launches_quant_by_kind, kffn.launches_by_kind):
+                    kmm.launches_quant_by_kind, kffn.launches_by_kind,
+                    kfa.launches_quantized_by_kind, kssd.launches_by_kind):
         for k in by_kind:
             by_kind[k] = 0
 
@@ -1334,7 +1389,8 @@ def prefill_main_path(cfg, dev, counters):
     counters.update(_counters())
     if min(counters[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"prefill: a kernel never launched: {counters}")
-    _gate_kinds(counters, "prefill", ("wgmma",), ("wgmma",), ("wgmma",))
+    _gate_kinds(counters, "prefill", ("wgmma",), ("wgmma",), ("wgmma",),
+                flash_quantized=("wgmma",))
     bad = [n for n, lg in logits.items() if not bool(torch.isfinite(lg).all())]
     if bad:
         raise AssertionError(f"prefill: non-finite logits under {bad}")
@@ -1375,7 +1431,7 @@ def prefill_main_path(cfg, dev, counters):
     peak = torch.cuda.max_memory_allocated()
     profiles = {name: {"plan": plans[name].describe(),
                        **_profile(lambda p=plans[name]: call(p))}
-                for name in ("LBM/native", "LWM/int8")}
+                for name in ("LBM/native", "LWM/int8", "LWM/fp8_e4m3")}
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
             "prompt_len": S, "launches": dict(counters), "gates": gates,
             "runs": runs, "peak_memory_bytes": peak, "profile": profiles}
@@ -1960,6 +2016,7 @@ def prefill_ssm_main_path(cfg, dev, counters):
     if counters["ssd_chunk"] <= 0:
         raise AssertionError(f"prefill_ssm: ssd_chunk never launched: "
                              f"{counters}")
+    _gate_kinds(counters, "prefill_ssm", ssd=("wgmma",))
     bad = [q for q, lg in logits.items() if not bool(torch.isfinite(lg).all())]
     if bad:
         raise AssertionError(f"prefill_ssm: non-finite logits at chunks {bad}")
@@ -2063,6 +2120,7 @@ def serve_ssm_main_path(cfg, dev, counters):
     counters.update(_counters())
     if counters["ssd_chunk"] <= 0:
         raise AssertionError(f"serve_ssm: ssd_chunk never launched: {counters}")
+    _gate_kinds(counters, "serve_ssm", ssd=("wgmma",))
     resident = srv.tenants[0]
     vocab, tenants = cfg.vocab_size, {}
     for t, quote in zip(srv.tenants, [0] + quotes):
@@ -2132,6 +2190,7 @@ def check_serial_pipelined_ssm(cfg, dev, counters):
     counters.update(_counters())
     if counters["ssd_chunk"] <= 0:
         raise AssertionError(f"self_ssm: ssd_chunk never launched: {counters}")
+    _gate_kinds(counters, "self_ssm", ssd=("wgmma",))
     (serial, serial_chunks), (piped, piped_chunks) = outs
     if serial_chunks != piped_chunks:
         raise AssertionError(f"self_ssm: prefill chunks differ: "
@@ -2248,6 +2307,10 @@ def main() -> int:
     kernels[0]["prefill"] = {"launches": prefill_counts["cache_matmul"],
                              "max_abs_err": pf["max_abs_err"],
                              **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
+    # the quantized flash kernel under the fp8 plan beside the int8 one
+    pf = timings["flash_attention_quantized.fp8_e4m3"]
+    kernels[3]["fp8_e4m3"] = {"max_abs_err": pf["max_abs_err"],
+                              **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
     lwm_q = next(p for p in report["ffn_quant"]["plans"]
                  if p.startswith("prefill "))
     pf = report["ffn_quant"]["timings"][f"int8 {lwm_q} m2048 up"]

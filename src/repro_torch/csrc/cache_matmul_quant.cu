@@ -173,42 +173,9 @@ cudaError_t run(const T* a, const Q* b, const float* s, T* c, int M, int N, int 
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------- codes ------
-// Four codes of one 32-bit word (byte j is column j) as exact floats.
-template <typename Q>
-struct Codes;
-
-template <>
-struct Codes<int8_t> {
-  // q + 128 lands in the low mantissa byte of 2^23: (2^23 + q + 128) - (2^23 + 128)
-  __device__ __forceinline__ static void to_f32(uint32_t w, float (&f)[4]) {
-    const uint32_t x = w ^ 0x80808080u;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f[j] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + j)) - 8388736.f;
-  }
-};
-
-template <>
-struct Codes<__nv_fp8_e4m3> {
-  // cvt.rn.f16x2.e4m3x2 (exact: e4m3 lies inside fp16), then widened
-  __device__ __forceinline__ static void to_f32(uint32_t w, float (&f)[4]) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
-          static_cast<__nv_fp8x2_storage_t>(w >> (16 * h)), __NV_E4M3);
-      const float2 v = __half22float2(__half2(r));
-      f[2 * h] = v.x;
-      f[2 * h + 1] = v.y;
-    }
-  }
-};
-
-// Two exact floats as a bf16 pair by truncation (exact: each value has at
-// most 8 significant bits), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16_exact(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
-}
+// The codes' exact conversions (Codes<Q>, pack_bf16_exact,
+// codes16_to_bf16) live in hopper_async.cuh: flash_attention.cu's
+// quantized wgmma kernel feeds codes to wgmma the same way.
 
 // ---------------------------------------------------------------- gemv --
 constexpr int QGEMV_BN = 256;   // columns per block: 16 lanes x 16 codes
@@ -478,20 +445,10 @@ __global__ void __launch_bounds__(TL::threads, 1)
     for (int it = 0; it < IT; ++it) {
       const int i = it * CT + threadIdx.x;
       const int k = i / (BN / 16), g = i % (BN / 16);  // 16 codes: columns 16 g ..
-      const uint32_t ws[4] = {v[it].x, v[it].y, v[it].z, v[it].w};
-      uint32_t p[8];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        float f[4];
-        Codes<Q>::to_f32(ws[w], f);
-        p[2 * w] = pack_bf16_exact(f[0], f[1]);
-        p[2 * w + 1] = pack_bf16_exact(f[2], f[3]);
-      }
-      uint8_t* row = b + (g / 4) * (BK * 128) + k * 128;
-      const int c0 = 2 * (g % 4);
-      *reinterpret_cast<uint4*>(row + ((c0 ^ (k % 8)) * 16)) = make_uint4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<uint4*>(row + (((c0 + 1) ^ (k % 8)) * 16)) =
-          make_uint4(p[4], p[5], p[6], p[7]);
+      uint4 lo, hi;
+      codes16_to_bf16<Q>(v[it], lo, hi);
+      *reinterpret_cast<uint4*>(b + sw128_offset(k, 2 * g, BK)) = lo;
+      *reinterpret_cast<uint4*>(b + sw128_offset(k, 2 * g + 1, BK)) = hi;
     }
     // the writes, made visible to wgmma (the async proxy) and complete in
     // both consumer warpgroups before either issues its products

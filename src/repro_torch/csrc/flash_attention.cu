@@ -8,9 +8,10 @@
 //   * flash_attention (:85, pallas_call at :111): K/V in q's type;
 //   * flash_attention_quantized (:132, pallas_call at :173): K/V int8 or
 //     float8_e4m3 with one fp32 scale per row [B,Hkv,Sk], dequantized on
-//     chip.  Here a template flag (QUANT) on the same kernel: each K/V
-//     tile is dequantized to fp32 as it lands in shared memory, so no
-//     dequantized copy ever reaches device memory.
+//     chip.  In fp32 (and bf16 off hd 128) a template flag (QUANT) on
+//     the simt kernel: each K/V tile is dequantized to fp32 as it lands
+//     in shared memory; bf16 at hd 128 runs the quantized wgmma kernel
+//     below.  No dequantized copy ever reaches device memory.
 //
 // What it computes, as _flash_kernel does: fp32 scores times
 // sm_scale = hd^-0.5; masked entries set to -1e30 (not -inf); an online
@@ -47,13 +48,13 @@
 // S = Sk = 1024, hd 128, causal) the work is 2*B*H*S*Sk*hd = 17 GFLOP
 // against 38 MB of inputs and output: far above the card's ~295 FLOP per
 // byte, so it is bound by operations (0.017 ms at the bf16 tensor-core
-// peak).  Two kernels, one menu:
+// peak).  Three kernels, one menu:
 //
-//  * simt (flash_kernel; fp32, quantized K/V, head dims 32 and 64, and
-//    bf16 where asked): plain fp32 FMA from shared memory, as described
-//    above.  K/V cross device memory once per q tile at their stored width
-//    (1 byte a value when quantized), and the causal q tiles are launched
-//    longest first so the tail is short.
+//  * simt (flash_kernel; fp32, head dims 32 and 64, and bf16 where
+//    asked; native or quantized K/V): plain fp32 FMA from shared memory,
+//    as described above.  K/V cross device memory once per q tile at
+//    their stored width (1 byte a value when quantized), and the causal q
+//    tiles are launched longest first so the tail is short.
 //  * wgmma (flash_wgmma_kernel; bf16 q and native K/V at hd 128): one block
 //    per (b*H + h, 128-row q tile), longest first.  A producer warp loads
 //    the q tile once and K/V tiles of 128 keys into a 2-stage ring by TMA
@@ -67,6 +68,27 @@
 //    O += P V (V's [keys, hd] tile is MN-major: the transpose bit).  The
 //    -1e30 mask, the l == 0 guard and the skipped tiles are the simt
 //    kernel's.
+//  * wgmma, quantized (flash_wgmma_quant_kernel; bf16 q with int8 or e4m3
+//    K/V at hd 128): the wgmma kernel fed codes.  The producer warp
+//    TMA-loads the q tile once and, per step, the [128 keys x 128] code
+//    tiles of K and V (16 KB each, unswizzled; rows of 128 bytes) into
+//    one stage.  The two consumer warpgroups convert the stage to bf16
+//    (exact for both formats: hopper_async.cuh's Codes) into the
+//    128-byte-swizzled [keys, hd] layout the native kernel's TMA writes,
+//    double-buffered, and copy the step's 128 K and 128 V row scales
+//    beside it; the stage is released as soon as it is converted, so the
+//    next one loads under this step's products.  The scales are folded,
+//    not multiplied into the codes: the K scale is per key, a column of
+//    the scores, so s = (q . code_k) * ks * hd^-0.5 on the accumulator
+//    fragment, in the pass that masks (bf16 x bf16 products are exact,
+//    fp32 sums: closer to the reference's fp32 dequantized K than a bf16
+//    code * scale would be); the V scale is per key, a column of P, so
+//    p' = p * vs is formed before the bf16 rounding the native kernel
+//    already does, and O += P' codes_V, while l sums the fp32 p.  The
+//    mask, the l == 0 guard and the skipped tiles are the native
+//    kernel's.  No dequantized K/V reaches device memory.  Later tuning:
+//    the H / Hkv q-head blocks of one GQA group convert the same K/V
+//    tiles again, each for itself.
 //
 // Plain C interface for ctypes: the entry point returns the CUDA error
 // of the launch (0 on success); `tile` indexes the menu below, which
@@ -89,6 +111,7 @@ __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<fl
 template <int HD, int BQ, int BKV, int TM, int TN>
 struct AttnTile {
   static constexpr int kind = 0, dtypes = 3;  // simt; fp32 | bf16
+  static constexpr int kv = 3;                // native | quantized K/V
   static constexpr int hd = HD, bq = BQ, bkv = BKV, tm = TM, tn = TN;
   static constexpr int ntx = BKV / TN;      // threads sharing a q row
   static constexpr int nty = BQ / TM;
@@ -261,6 +284,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* ks, con
 // ------------------------------------------------------------- wgmma --
 struct FlashWgmma {
   static constexpr int kind = 2, dtypes = 2;  // wgmma; bf16
+  static constexpr int kv = 1;                // native K/V
   static constexpr int hd = 128, bq = 128, bkv = 128, tm = 64, tn = 128;
   static constexpr int stages = 2;
   static constexpr int threads = 2 * 128 + 32;  // two consumer warpgroups, a producer warp
@@ -462,6 +486,254 @@ cudaError_t run_wgmma(const void* q, const void* k, const void* v, void* o, int 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------- wgmma, quantized --
+struct FlashWgmmaQuant {
+  static constexpr int kind = 2, dtypes = 2;  // wgmma; bf16 q
+  static constexpr int kv = 2;                // int8 / e4m3 K/V with row scales
+  static constexpr int hd = 128, bq = 128, bkv = 128, tm = 64, tn = 128;
+  static constexpr int bufs = 2;                    // converted bf16 K/V tiles
+  static constexpr int threads = 2 * 128 + 32;      // two consumer warpgroups, a producer warp
+  static constexpr int tile_bytes = 128 * 128 * 2;  // q, or a bf16 K or V tile: two boxes
+  static constexpr int box_bytes = tile_bytes / 2;
+  static constexpr int code_bytes = 128 * 128;      // a K or V code tile, 1 byte a value
+  static constexpr int scale_bytes = 2 * 128 * 4;   // the K and V scales of one step
+  // 1024 to align to the swizzle atom; q; the bf16 K and V tiles of each
+  // buffer; one code stage (K and V); the scales of each buffer; the q,
+  // full and empty barriers
+  static constexpr int smem =
+      1024 + tile_bytes * (1 + 2 * bufs) + 2 * code_bytes + bufs * scale_bytes + 3 * 8;
+};
+
+// q [B*H, S, 128] bf16 and the codes kc/vc [B*Hkv, Sk, 128] (1 byte a
+// value) as 3-D tensor maps; KS/VS [B*Hkv, Sk] fp32 row scales; O
+// [B*H, S, 128] bf16.  scale_log2 = hd^-0.5 * log2(e).
+template <typename Q>
+__global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
+    flash_wgmma_quant_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                             const __grid_constant__ CUtensorMap tmap_kc,
+                             const __grid_constant__ CUtensorMap tmap_vc,
+                             const float* __restrict__ KS, const float* __restrict__ VS,
+                             __nv_bfloat16* __restrict__ O, int H, int groups, int S, int Sk,
+                             int causal, float scale_log2) {
+  using TL = FlashWgmmaQuant;
+  constexpr int TB = TL::tile_bytes, BOX = TL::box_bytes, CB = TL::code_bytes;
+  constexpr int CT = 256;                   // consumer threads
+  constexpr int IT = 2 * CB / 16 / CT;      // 16-code vectors a thread converts a step
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* KV = Qs + TB;                    // buffer b: K at KV + 2 b TB, V after it
+  uint8_t* Cs = KV + 2 * TL::bufs * TB;     // the code stage: K codes, then V codes
+  float* Sc = reinterpret_cast<float*>(Cs + 2 * CB);  // buffer b: 128 K, then 128 V scales
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Sc + TL::bufs * 256);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + 1;
+  const int bh = blockIdx.y;  // b * H + h
+  const int kvh = (bh / H) * (H / groups) + (bh % H) / groups;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // longest first
+  const int q0 = qt * TL::bq;
+  int n_kv = (Sk + TL::bkv - 1) / TL::bkv;
+  if (causal) n_kv = min(n_kv, (min(q0 + TL::bq, S) - 1) / TL::bkv + 1);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(full, 1);
+    mbar_init(empty, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp
+    if (tid == 0) {
+      mbar_expect_tx(qbar, TB);
+      tma_load_3d(Qs, &tmap_q, qbar, 0, q0, bh);
+      tma_load_3d(Qs + BOX, &tmap_q, qbar, 64, q0, bh);
+      for (int t = 0; t < n_kv; ++t) {
+        if (t > 0) mbar_wait(empty, (t - 1) & 1);
+        mbar_expect_tx(full, 2 * CB);
+        tma_load_3d(Cs, &tmap_kc, full, 0, t * TL::bkv, kvh);
+        tma_load_3d(Cs + CB, &tmap_vc, full, 0, t * TL::bkv, kvh);
+      }
+    }
+    return;
+  }
+
+  const int ct = threadIdx.x;  // 0 .. 255 over both consumer warpgroups
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
+  const float* scale_src = (ct < 128 ? KS : VS) + (size_t)kvh * Sk;
+  float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  const uint8_t* q = Qs + wg * 64 * 128;  // this warpgroup's 64 rows of each box
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * TL::bkv, b = t % TL::bufs;
+    uint8_t* k = KV + 2 * b * TB;
+    uint8_t* v = k + TB;
+    const float* sc_k = Sc + b * 256;
+    const float* sc_v = sc_k + 128;
+    // this thread's scale: key ct % 128 of K (ct < 128) or of V, zero
+    // past Sk; the load is in flight while the codes land
+    const int key = k0 + ct % 128;
+    const float scale = key < Sk ? __ldg(scale_src + key) : 0.f;
+    mbar_wait(full, t & 1);
+    // Convert the stage into buffer b, as TMA writes a bf16 [keys, hd]
+    // tile: two 64-wide boxes, 128-byte swizzled.  Buffer b was last read
+    // by the products of step t - 2, which both warpgroups had waited for
+    // before the barrier of step t - 1.  All of a thread's code vectors
+    // are loaded before its first store.
+    uint4 cv[IT];
+#pragma unroll
+    for (int it = 0; it < IT; ++it)
+      cv[it] = *reinterpret_cast<const uint4*>(Cs + 16 * (it * CT + ct));
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = it * CT + ct;          // 16-code vector i of the stage
+      const int which = i / (CB / 16);     // 0: K, 1: V
+      const int r = (i % (CB / 16)) / 8;   // key row
+      const int g = i % 8;                 // codes 16 g .. 16 g + 15 of the row
+      uint4 lo, hi;
+      codes16_to_bf16<Q>(cv[it], lo, hi);
+      uint8_t* dst = which ? v : k;
+      *reinterpret_cast<uint4*>(dst + sw128_offset(r, 2 * g, 128)) = lo;
+      *reinterpret_cast<uint4*>(dst + sw128_offset(r, 2 * g + 1, 128)) = hi;
+    }
+    Sc[b * 256 + ct] = scale;
+    // the writes, made visible to wgmma (the async proxy) and complete in
+    // both consumer warpgroups before either reads them; then the stage
+    // is free for the next step's codes
+    fence_proxy_async();
+    named_bar_sync(1, CT);
+    if (ct == 0) mbar_arrive(empty);
+    if (t == 0) mbar_wait(qbar, 0);
+
+    // S = Q codes_K^T: 8 steps of 16 along hd, 4 per 64-wide box
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int off = (kk / 4) * BOX + 32 * (kk % 4);
+      wgmma_m64n128k16_ss<0>(sc, desc_b128(q + off, 16, 1024), desc_b128(k + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax on s = (q . code) * ks * scale_log2; register i: row
+    // row0 + 8 * ((i / 2) % 2), key k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+    // p goes back into sc as p' = p * vs, the A operand of P' codes_V.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = row0 + 8 * h;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        const float2 ks = *reinterpret_cast<const float2*>(sc_k + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const int kpos = k0 + c + e;
+          float x = __fmul_rn(__fmul_rn(sc[i], e ? ks.y : ks.x), scale_log2);
+          if (kpos >= Sk || (causal && kpos > qpos)) x = kNegInf;
+          sc[i] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      const float m_new = fmaxf(m[h], quad_max(mx));
+      const float alpha = exp2f(__fsub_rn(m[h], m_new));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 vs = *reinterpret_cast<const float2*>(sc_v + 8 * j + 2 * (lane % 4));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float p = exp2f(__fsub_rn(sc[i], m_new));
+          sum = __fadd_rn(sum, p);
+          sc[i] = __fmul_rn(p, e ? vs.y : vs.x);
+        }
+      }
+      l[h] = __fadd_rn(__fmul_rn(l[h], alpha), quad_sum(sum));
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j + 2 * h] = __fmul_rn(o[4 * j + 2 * h], alpha);
+        o[4 * j + 2 * h + 1] = __fmul_rn(o[4 * j + 2 * h + 1], alpha);
+      }
+    }
+
+    // O += P' codes_V: p' in bf16 as wgmma's A fragment (as the native
+    // kernel's P V)
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a[4] = {pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
+                             pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+                             pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
+                             pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+      wgmma_m64n128k16_rs<1>(o, a, desc_b128(v + 2048 * kk, BOX, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+
+  __nv_bfloat16* out = O + (size_t)bh * S * TL::hd;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= S) continue;
+    const float inv = l[h] == 0.f ? 1.f : l[h];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * TL::hd + col) =
+          __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * h], inv),
+                                __fdiv_rn(o[4 * j + 2 * h + 1], inv));
+    }
+  }
+}
+
+template <typename Q>
+cudaError_t run_wgmma_quant(const void* q, const void* kc, const void* vc, const void* ks,
+                            const void* vs, void* o, int B, int H, int Hkv, int S, int Sk,
+                            int causal, float sm_scale, cudaStream_t stream) {
+  using TL = FlashWgmmaQuant;
+  // TMA: 16-byte aligned bases (the row strides, 256 and 128 bytes, are)
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kc) |
+       reinterpret_cast<uintptr_t>(vc)) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  const uint32_t q_box[2] = {64, (uint32_t)TL::bq};
+  const uint64_t q_dims[3] = {(uint64_t)TL::hd, (uint64_t)S, (uint64_t)B * H};
+  const uint64_t q_strides[2] = {TL::hd * 2, (uint64_t)TL::hd * 2 * S};
+  const uint32_t c_box[2] = {(uint32_t)TL::hd, (uint32_t)TL::bkv};
+  const uint64_t c_dims[3] = {(uint64_t)TL::hd, (uint64_t)Sk, (uint64_t)B * Hkv};
+  const uint64_t c_strides[2] = {TL::hd, (uint64_t)TL::hd * Sk};
+  cudaError_t e = encode_tmap_bf16(&tq, q, 3, q_dims, q_strides, q_box);
+  if (e == cudaSuccess)
+    e = encode_tmap(&tk, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE, kc, 3, c_dims,
+                    c_strides, c_box);
+  if (e == cudaSuccess)
+    e = encode_tmap(&tv, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE, vc, 3, c_dims,
+                    c_strides, c_box);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_wgmma_quant_kernel<Q>;
+  e = set_smem(kernel, TL::smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + TL::bq - 1) / TL::bq, B * H);
+  kernel<<<grid, TL::threads, TL::smem, stream>>>(
+      tq, tk, tv, static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<__nv_bfloat16*>(o), H, H / Hkv, S, Sk, causal, sm_scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 // The compiled tile menu, by index (kernels/flash_attention.py::TILES).
 using A0 = AttnTile<32, 64, 64, 4, 4>;
 using A1 = AttnTile<32, 128, 128, 8, 8>;
@@ -470,6 +742,7 @@ using A3 = AttnTile<64, 128, 128, 8, 8>;
 using A4 = AttnTile<128, 64, 64, 4, 4>;
 using A5 = AttnTile<128, 128, 64, 8, 4>;
 using A6 = FlashWgmma;  // bf16, native K/V, hd 128
+using A7 = FlashWgmmaQuant;  // bf16, int8 / e4m3 K/V, hd 128
 
 template <typename TQ, typename TKV, bool QUANT>
 int dispatch(int tile, const void* q, const void* k, const void* v, const void* ks,
@@ -502,7 +775,7 @@ template <typename TL>
 void describe(int* out) {
   out[0] = TL::kind; out[1] = TL::dtypes;
   out[2] = TL::hd; out[3] = TL::bq; out[4] = TL::bkv;
-  out[5] = TL::tm; out[6] = TL::tn; out[7] = TL::smem;
+  out[5] = TL::tm; out[6] = TL::tn; out[7] = TL::kv; out[8] = TL::smem;
 }
 
 }  // namespace repro
@@ -520,6 +793,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
     if (!q_bf16 || kv_kind != 0) return cudaErrorInvalidValue;
     return repro::run_wgmma(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
   }
+  if (tile == 7) {
+    if (!q_bf16) return cudaErrorInvalidValue;
+    if (kv_kind == 1)
+      return repro::run_wgmma_quant<int8_t>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal,
+                                            sm_scale, s);
+    if (kv_kind == 2)
+      return repro::run_wgmma_quant<__nv_fp8_e4m3>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal,
+                                                   sm_scale, s);
+    return cudaErrorInvalidValue;
+  }
   if (q_bf16)
     return repro::dispatch_kv<__nv_bfloat16>(kv_kind, tile, q, k, v, ks, vs, o, B, H, Hkv, S, Sk,
                                              causal, sm_scale, s);
@@ -527,9 +810,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
                                    sm_scale, s);
 }
 
-// Writes (kind, dtypes, hd, bq, bkv, tm, tn, shared-memory bytes) of menu
-// entry `tile` (kind 0 simt, 2 wgmma; dtypes a mask, 1 fp32, 2 bf16);
-// returns the number of entries.
+// Writes (kind, dtypes, hd, bq, bkv, tm, tn, K/V, shared-memory bytes) of
+// menu entry `tile` (kind 0 simt, 2 wgmma; dtypes a mask, 1 fp32, 2 bf16;
+// K/V a mask, 1 native, 2 quantized); returns the number of entries.
 int flash_attention_tile(int tile, int* out) {
   switch (tile) {
     case 0: repro::describe<repro::A0>(out); break;
@@ -539,9 +822,10 @@ int flash_attention_tile(int tile, int* out) {
     case 4: repro::describe<repro::A4>(out); break;
     case 5: repro::describe<repro::A5>(out); break;
     case 6: repro::describe<repro::A6>(out); break;
+    case 7: repro::describe<repro::A7>(out); break;
     default: break;
   }
-  return 7;
+  return 8;
 }
 
 }  // extern "C"

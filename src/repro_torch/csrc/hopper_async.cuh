@@ -1,8 +1,10 @@
 // Hopper's asynchronous building blocks, shared by the port's tensor-core
 // kernels (the wgmma tiles of cache_matmul.cu, cache_matmul_quant.cu and
-// block_fused_ffn.cu, flash_attention.cu's bf16 kernel): TMA tensor maps
-// and loads, mbarriers, wgmma shared-memory descriptors and the wgmma
-// instructions, as inline PTX for sm_90a.
+// block_fused_ffn.cu, flash_attention.cu's bf16 kernels, ssd_chunk.cu's
+// wgmma kind): TMA tensor maps and loads, mbarriers, wgmma shared-memory
+// descriptors and the wgmma instructions, as inline PTX for sm_90a; and
+// the exact conversion of int8 / e4m3 codes to bf16 that feeds codes to
+// wgmma.
 //
 // Shared-memory layouts are the ones TMA writes with 128-byte swizzling:
 // a box is 64 bf16 wide (128 bytes, one swizzle span) and its rows follow
@@ -14,6 +16,8 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 
@@ -145,6 +149,70 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile stored as
+// TMA stores it with 128-byte swizzling: 64-element (128-byte) wide boxes
+// of `box_rows` rows side by side, chunk c of row r of a box at chunk
+// c ^ (r % 8).  A thread that writes a wgmma operand itself (converted
+// codes, weights formed on chip) writes it here.
+__device__ __forceinline__ int sw128_offset(int row, int chunk, int box_rows) {
+  return (chunk / 8) * (box_rows * 128) + row * 128 + (((chunk % 8) ^ (row % 8)) * 16);
+}
+
+// ---------------------------------------------------------------- codes --
+// Four 1-byte codes of one 32-bit word (byte j is element j) as exact
+// floats.
+template <typename Q>
+struct Codes;
+
+template <>
+struct Codes<int8_t> {
+  // q + 128 lands in the low mantissa byte of 2^23: (2^23 + q + 128) - (2^23 + 128)
+  __device__ __forceinline__ static void to_f32(uint32_t w, float (&f)[4]) {
+    const uint32_t x = w ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + j)) - 8388736.f;
+  }
+};
+
+template <>
+struct Codes<__nv_fp8_e4m3> {
+  // cvt.rn.f16x2.e4m3x2 (exact: e4m3 lies inside fp16), then widened
+  __device__ __forceinline__ static void to_f32(uint32_t w, float (&f)[4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w >> (16 * h)), __NV_E4M3);
+      const float2 v = __half22float2(__half2(r));
+      f[2 * h] = v.x;
+      f[2 * h + 1] = v.y;
+    }
+  }
+};
+
+// Two exact floats as a bf16 pair by truncation (exact: each value has at
+// most 8 significant bits), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
+// Sixteen codes (one 16-byte vector) as sixteen bf16 values, exactly:
+// two 16-byte vectors, elements 0-7 and 8-15.
+template <typename Q>
+__device__ __forceinline__ void codes16_to_bf16(uint4 v, uint4& lo, uint4& hi) {
+  const uint32_t ws[4] = {v.x, v.y, v.z, v.w};
+  uint32_t p[8];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    float f[4];
+    Codes<Q>::to_f32(ws[w], f);
+    p[2 * w] = pack_bf16_exact(f[0], f[1]);
+    p[2 * w + 1] = pack_bf16_exact(f[2], f[3]);
+  }
+  lo = make_uint4(p[0], p[1], p[2], p[3]);
+  hi = make_uint4(p[4], p[5], p[6], p[7]);
 }
 
 // --------------------------------------------------------------- wgmma --
@@ -291,5 +359,80 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TB));
 }
 
+// D[64 x 64] += A[64 x 16] (shared) * B[16 x 64] (shared), fp32 accumulators;
+// TA = 1: A is M-major (its M index contiguous), 0: K-major; TB as above.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, 1, 1, 1, %34, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "n"(TA), "n"(TB));
+}
+
+// D[64 x 64] += A[64 x 16] (registers, bf16 pairs) * B[16 x 64] (shared),
+// fp32 accumulators; TB as above.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, %37;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TB));
+}
+
+// D[64 x 32] += A[64 x 16] (shared) * B[16 x 32] (shared), fp32 accumulators;
+// TA = 1: A is M-major (its M index contiguous), 0: K-major; TB as above.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, 1, 1, 1, %18, %19;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "n"(TA), "n"(TB));
+}
+
+// D[64 x 32] += A[64 x 16] (registers, bf16 pairs) * B[16 x 32] (shared),
+// fp32 accumulators; TB as above.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, 1, 1, 1, %21;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TB));
+}
 
 }  // namespace repro

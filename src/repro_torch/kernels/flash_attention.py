@@ -18,10 +18,13 @@ prefill path's shape: operations).
   (the reference's ``attention_ref`` semantics and cast points).
 * :data:`TILES` is the menu of (hd, BQ, BKV) tiles the CUDA source
   compiles; ``kernels/ops.py::legalize_attn_tile`` picks one under a
-  plan's blocks.  The ``wgmma`` tile (bf16, native K/V, hd 128) runs a
-  tensor-core kernel; the ``simt`` tiles run the fp32-FMA one, which
-  also serves the quantized K/V.  :data:`launches_by_kind` splits the
-  native launches by kind.
+  plan's blocks.  The two ``wgmma`` tiles (bf16 q, hd 128) run
+  tensor-core kernels, one for native K/V and one for int8 / e4m3 K/V
+  (codes converted to bf16 on chip, scales folded into the scores and
+  into P); the ``simt`` tiles run the fp32-FMA one, for native and
+  quantized K/V.  :data:`launches_by_kind` and
+  :data:`launches_quantized_by_kind` split the native and the quantized
+  launches by kind.
 
 Layouts are the reference's: q [B, H, S, hd]; k, v [B, Hkv, Sk, hd] with
 H % Hkv == 0 (q-head h reads KV head h // (H // Hkv)); scales
@@ -47,9 +50,11 @@ KV_KINDS = {torch.int8: 1, torch.float8_e4m3fn: 2}
 @dataclasses.dataclass(frozen=True)
 class AttnTile:
     """One compiled tile: head dim hd, a [bq, bkv] score tile per thread
-    block.  ``simt``: a [tm, tn] register tile of it per thread, fp32 FMA
-    (fp32 and bf16, native or quantized K/V).  ``wgmma``: warpgroups of
-    tm = 64 q rows issuing wgmma of width tn (bf16 q and native K/V)."""
+    block, for the K/V storage in ``kv`` ("native": q's dtype;
+    "quantized": int8 / e4m3 codes with row scales).  ``simt``: a
+    [tm, tn] register tile of it per thread, fp32 FMA (fp32 and bf16,
+    native or quantized K/V).  ``wgmma``: warpgroups of tm = 64 q rows
+    issuing wgmma of width tn (bf16 q)."""
     hd: int
     bq: int
     bkv: int
@@ -57,12 +62,22 @@ class AttnTile:
     tn: int
     kind: str = "simt"
     dtypes: Tuple[torch.dtype, ...] = DTYPES
+    kv: Tuple[str, ...] = ("native", "quantized")
 
     @property
     def smem_bytes(self) -> int:
-        if self.kind == "wgmma":   # alignment, bf16 q and a 2-stage K/V ring,
-            tile = 2 * self.hd * self.bq    # a q barrier, full/empty per stage
+        tile = 2 * self.hd * self.bq        # bf16 q, or a bf16 K or V tile
+        if self.kind == "wgmma" and self.kv == ("native",):
+            # alignment, q and a 2-stage K/V ring, a q barrier, full/empty
+            # per stage
             return 1024 + tile * (1 + 2 * WGMMA_STAGES) + (1 + 2 * WGMMA_STAGES) * 8
+        if self.kind == "wgmma":
+            # alignment, q, the converted K/V tiles of each buffer, one
+            # stage of K/V codes, each buffer's K and V row scales, the q,
+            # full and empty barriers
+            codes = self.hd * self.bkv
+            return (1024 + tile * (1 + 2 * WGMMA_QUANT_BUFS) + 2 * codes
+                    + WGMMA_QUANT_BUFS * 2 * 4 * self.bkv + 3 * 8)
         q = self.hd * (self.bq + 1)
         k = self.hd * (self.bkv + 1)
         v = self.bkv * self.hd
@@ -72,10 +87,14 @@ class AttnTile:
     def menu_fields(self) -> Tuple[int, ...]:
         """The entry as ``flash_attention_tile`` describes it."""
         return (KINDS.index(self.kind), dtype_mask(self.dtypes), self.hd,
-                self.bq, self.bkv, self.tm, self.tn, self.smem_bytes)
+                self.bq, self.bkv, self.tm, self.tn,
+                sum(1 << KV_STORAGE.index(k) for k in self.kv),
+                self.smem_bytes)
 
 
+KV_STORAGE = ("native", "quantized")   # the menu's K/V mask: bits 1, 2
 WGMMA_STAGES = 2      # csrc/flash_attention.cu::FlashWgmma::stages
+WGMMA_QUANT_BUFS = 2  # csrc/flash_attention.cu::FlashWgmmaQuant::bufs
 # Index i is tile i of csrc/flash_attention.cu (checked when it loads).
 TILES = (AttnTile(32, 64, 64, 4, 4),
          AttnTile(32, 128, 128, 8, 8),
@@ -83,11 +102,15 @@ TILES = (AttnTile(32, 64, 64, 4, 4),
          AttnTile(64, 128, 128, 8, 8),
          AttnTile(128, 64, 64, 4, 4),
          AttnTile(128, 128, 64, 8, 4),
-         AttnTile(128, 128, 128, 64, 128, "wgmma", (torch.bfloat16,)))
+         AttnTile(128, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
+                  ("native",)),
+         AttnTile(128, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
+                  ("quantized",)))
 
 launches = 0
 launches_by_kind: Dict[str, int] = {"simt": 0, "wgmma": 0}
 launches_quantized = 0
+launches_quantized_by_kind: Dict[str, int] = {"simt": 0, "wgmma": 0}
 _lib = None
 
 
@@ -154,10 +177,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: q dtype {q.dtype}; want one of "
                         f"{DTYPES}")
-    if q.dtype not in tile.dtypes or (scales and tile.kind != "simt"):
+    kv = "quantized" if scales else "native"
+    if q.dtype not in tile.dtypes or kv not in tile.kv:
         raise TypeError(f"flash_attention: tile {tile} is not compiled for "
-                        f"q {q.dtype} with {'quantized' if scales else 'native'}"
-                        f" K/V")
+                        f"q {q.dtype} with {kv} K/V")
     if any(t.device != q.device for t in (k, v, *scales)):
         raise ValueError("flash_attention: operands on different devices")
 
@@ -188,6 +211,7 @@ def _launch(q, k, v, ks, vs, kv_kind: int, causal: bool,
     global launches, launches_quantized
     if kv_kind:
         launches_quantized += 1
+        launches_quantized_by_kind[tile.kind] += 1
     else:
         launches += 1
         launches_by_kind[tile.kind] += 1

@@ -13,9 +13,10 @@ plan's tile is kept as an upper bound and legalized: the kernel runs the
 compiled Hopper tile that fits under it and in shared memory, chosen for
 the operands' dtype and row count: fp32 keeps the fp32-FMA (``simt``)
 tiles; bf16 takes the tensor-core (``wgmma``) tiles of cache_matmul,
-cache_matmul_quant, block_fused_ffn and flash attention, and for decode
-rows the ``gemv`` tiles of the two matmuls (block_fused_ffn keeps its
-simt tile there).
+cache_matmul_quant, block_fused_ffn and flash attention (native and
+quantized K/V) and ssd_chunk's wgmma kind, and for decode rows the
+``gemv`` tiles of the two matmuls (block_fused_ffn keeps its simt tile
+there).
 Where the reference pads operands to tile boundaries through HBM
 (``_pad_to``), the Hopper kernels mask their ragged edges instead.  CPU
 tensors take the kernels' plain versions.
@@ -191,23 +192,24 @@ def legalize_attn_tile(block_q: int, block_kv: int, hd: int, s: int,
                        quantized: bool = False) -> kfa.AttnTile:
     """The compiled flash-attention tile for a plan's blocks: head dim
     ``hd``, [bq, bkv] no larger than the plan's [block_q, block_kv],
-    shared memory within ``limit``.  bf16 q with native K/V takes a
-    ``wgmma`` tile of the head dim where one fits; fp32, quantized K/V
-    (``quantized``) and head dims without one take the ``simt`` tiles: the
-    fewest wasted rows of the ``s`` query rows, then the largest score
-    tile, and the smallest tile of the head dim when none fits.  Raises
-    for a head dim with no compiled tile."""
+    shared memory within ``limit``.  bf16 q takes the ``wgmma`` tile of
+    the head dim for its K/V storage (native, or int8 / e4m3 codes when
+    ``quantized``) where one fits; fp32 and head dims without one take
+    the ``simt`` tiles: the fewest wasted rows of the ``s`` query rows,
+    then the largest score tile, and the smallest tile of the head dim
+    when none fits.  Raises for a head dim with no compiled tile."""
     own = [t for t in kfa.TILES if t.hd == hd]
     if not own:
         raise ValueError(f"flash_attention: head dim {hd} not compiled "
                          f"(have {sorted({t.hd for t in kfa.TILES})})")
+    kv = "quantized" if quantized else "native"
 
     def fits(kind):
         return [t for t in own if t.kind == kind and dtype in t.dtypes
-                and t.bq <= block_q and t.bkv <= block_kv
+                and kv in t.kv and t.bq <= block_q and t.bkv <= block_kv
                 and (limit is None or t.smem_bytes <= limit)]
 
-    if dtype == torch.bfloat16 and not quantized and fits("wgmma"):
+    if dtype == torch.bfloat16 and fits("wgmma"):
         return _pick(fits("wgmma"), s, "bq", lambda t: t.bq * t.bkv)
     simt = [t for t in own if t.kind == "simt"]
     return _pick(fits("simt") or
@@ -328,12 +330,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kfa.flash_attention(q, k, v, causal, tile)
 
 
+def ssd_kind(dtype: torch.dtype, n: int, p: int) -> str:
+    """The kind an ssd_chunk call with state size ``n`` and head dim
+    ``p`` runs: bf16 -> ``wgmma`` where N is a multiple of 16 (up to
+    ``kssd.MAX_WGMMA_STATE``) and P one of ``kssd.WGMMA_HEAD_DIMS``
+    (``kssd.wgmma_takes``); fp32 and other shapes -> ``simt``."""
+    return "wgmma" if kssd.wgmma_takes(dtype, n, p) else "simt"
+
+
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, chunk: int = 256
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Intra-chunk SSD (y_diag and the chunk states) through the
-    ssd_chunk kernel.  x [BH, S, P]; dt [BH, S]; A [BH]; B, C [BH, S, N]
-    or, shared by the heads of a batch row, [BH / heads, S, N], which is
-    how the model passes them: no broadcast copy is made."""
+    ssd_chunk kernel of :func:`ssd_kind`'s kind.  x [BH, S, P]; dt
+    [BH, S]; A [BH]; B, C [BH, S, N] or, shared by the heads of a batch
+    row, [BH / heads, S, N], which is how the model passes them: no
+    broadcast copy is made."""
     return kssd.ssd_chunk(x.contiguous(), dt.contiguous(), A.contiguous(),
-                          B.contiguous(), C.contiguous(), chunk)
+                          B.contiguous(), C.contiguous(), chunk,
+                          kind=ssd_kind(x.dtype, B.shape[-1], x.shape[-1]))

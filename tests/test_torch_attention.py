@@ -244,7 +244,10 @@ def test_compiled_attn_tiles_fit_hopper():
 
 
 SIMT = [t for t in kfa.TILES if t.kind == "simt"]
-FLASH_WGMMA = next(t for t in kfa.TILES if t.kind == "wgmma")
+FLASH_WGMMA = next(t for t in kfa.TILES
+                   if t.kind == "wgmma" and "native" in t.kv)
+FLASH_WGMMA_QUANT = next(t for t in kfa.TILES
+                         if t.kind == "wgmma" and "quantized" in t.kv)
 
 
 @pytest.mark.parametrize("pages", [9, 32, 60, 456])
@@ -254,8 +257,9 @@ FLASH_WGMMA = next(t for t in kfa.TILES if t.kind == "wgmma")
 def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
     """Plans lowered at full width (bf16) legalize to a compiled tile of
     the head dim, no larger than the plan's blocks, within shared
-    memory: the wgmma tile for bf16 q with native K/V at hd 128, else the
-    simt tile the simt-only rule picks (fp32, quantized K/V, hd 32 / 64)."""
+    memory: for bf16 q at hd 128 the wgmma tile of the K/V storage
+    (native or quantized), else the simt tile the simt-only rule picks
+    (fp32, hd 32 / 64)."""
     plan = pplan.lower_attn(hd, 2, pages, kv_dtype,
                             1 if kv_dtype != "native" else 2)
     for s in (333, 1024):
@@ -265,8 +269,9 @@ def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
         assert tile in kfa.TILES and tile.hd == hd and dtype in tile.dtypes
         assert tile.bq <= plan.block_q and tile.bkv <= plan.block_kv
         assert tile.smem_bytes <= H100_SMEM_OPTIN
-        if dtype == torch.bfloat16 and kv_dtype == "native" and hd == 128:
-            assert tile == FLASH_WGMMA
+        if dtype == torch.bfloat16 and hd == 128:
+            assert tile == (FLASH_WGMMA if kv_dtype == "native"
+                            else FLASH_WGMMA_QUANT)
             continue
         assert tile.kind == "simt"
         fits = [t for t in SIMT if t.hd == hd
@@ -282,9 +287,9 @@ def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
 @pytest.mark.parametrize("pages", [9, 32, 60, 456])
 def test_bf16_native_hd128_takes_the_wgmma_flash_tile(pages):
     """The path's attention (bf16, native K/V, hd 128) runs the wgmma
-    kernel under every plan; with quantized K/V or in fp32 it keeps the
-    simt tile it had (at hd 128: 64 x 64 for up to 64 rows, else
-    128 x 64)."""
+    kernel under every plan, and with quantized K/V the quantized wgmma
+    kernel; in fp32 it keeps the simt tile it had (at hd 128: 64 x 64
+    for up to 64 rows, else 128 x 64)."""
     plan = pplan.lower_attn(128, 2, pages)
     assert plan.block_q >= 128 and plan.block_kv >= 128
     for s, kept in ((40, kfa.AttnTile(128, 64, 64, 4, 4)),
@@ -294,7 +299,7 @@ def test_bf16_native_hd128_takes_the_wgmma_flash_tile(pages):
             == FLASH_WGMMA
         assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 128, s,
                                       H100_SMEM_OPTIN, torch.bfloat16,
-                                      True) == kept
+                                      True) == FLASH_WGMMA_QUANT
         assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 128, s,
                                       H100_SMEM_OPTIN, torch.float32) == kept
 
@@ -316,14 +321,16 @@ def test_legalize_attn_tile_floor_and_unknown_head_dim():
 def test_flash_menu_mirrors_the_cuda_source():
     src = (Path(pplan.__file__).parents[1] / "csrc" /
            "flash_attention.cu").read_text()
-    menu = re.findall(r"using A(\d+) = (AttnTile<([\d, ]+)>|FlashWgmma);", src)
+    menu = re.findall(r"using A(\d+) = (AttnTile<([\d, ]+)>|FlashWgmma"
+                      r"|FlashWgmmaQuant);", src)
     assert [int(i) for i, *_ in menu] == list(range(len(kfa.TILES)))
-    for (_, _, simt), t in zip(menu, kfa.TILES):
+    for (_, name, simt), t in zip(menu, kfa.TILES):
         if simt:
             assert (t.kind, t.hd, t.bq, t.bkv, t.tm, t.tn) == \
                 ("simt", *map(int, simt.split(",")))
         else:
-            assert t == FLASH_WGMMA
+            assert t == {"FlashWgmma": FLASH_WGMMA,
+                         "FlashWgmmaQuant": FLASH_WGMMA_QUANT}[name]
 
 
 def test_flash_wrappers_reject_malformed_operands():
@@ -353,3 +360,143 @@ def test_flash_wrappers_reject_malformed_operands():
         kfa.flash_attention_quantized(
             q128.bfloat16(), kv128.to(torch.int8), kv128.to(torch.int8),
             torch.ones(1, 2, 8), torch.ones(1, 2, 8), True, FLASH_WGMMA)
+
+
+# ------------------------------------------- quantized wgmma flash tile --
+def _cu_struct(name):
+    """The ``static constexpr int`` members of struct ``name`` in
+    csrc/flash_attention.cu, evaluated in order (C++ integer division)."""
+    src = (Path(pplan.__file__).parents[1] / "csrc" /
+           "flash_attention.cu").read_text()
+    body = src.split(f"struct {name} {{", 1)[1].split("};", 1)[0]
+    env = {}
+    for decl in re.findall(r"static constexpr int ([^;]+);", body):
+        for item in re.split(r",\s*(?=\w+ =)", decl):
+            key, expr = (x.strip() for x in item.split("=", 1))
+            env[key] = eval(re.sub(r"(?<!/)/(?!/)", "//", expr), {}, dict(env))
+    return env
+
+
+@pytest.mark.parametrize("name", ["FlashWgmma", "FlashWgmmaQuant"])
+def test_wgmma_flash_tiles_mirror_the_cuda_source(name):
+    """Each wgmma menu entry's fields and shared memory are the .cu
+    struct's, and fit in 232,448 bytes; the quantized one serves int8 /
+    e4m3 K/V only, the native one native K/V only."""
+    cu = _cu_struct(name)
+    tile = FLASH_WGMMA if name == "FlashWgmma" else FLASH_WGMMA_QUANT
+    mask = tile.menu_fields()      # the fields flash_attention_tile writes
+    assert mask[0] == cu["kind"] and mask[1] == cu["dtypes"]
+    assert (tile.hd, tile.bq, tile.bkv, tile.tm, tile.tn) == \
+        (cu["hd"], cu["bq"], cu["bkv"], cu["tm"], cu["tn"])
+    assert tile.smem_bytes == cu["smem"] <= H100_SMEM_OPTIN
+    assert mask[7] == cu["kv"] and mask[8] == tile.smem_bytes
+    assert tile.kv == (("native",) if name == "FlashWgmma" else ("quantized",))
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("pages", [0, 1, 9, 32, 60, 200, 456, 1000])
+def test_bf16_quantized_hd128_takes_the_quantized_wgmma_tile(kv_dtype, pages):
+    """Every LWM grant with int8 / fp8 KV lowers attention blocks of at
+    least 128 x 128 (core/plan.py::lower_attn), so bf16 q at hd 128 runs
+    the quantized wgmma kernel at every prompt length; ops.attention
+    routes there too."""
+    plan = pplan.lower_attn(128, 2, pages, kv_dtype, 1)
+    assert plan.block_q >= 128 and plan.block_kv >= 128
+    for s in (1, 40, 333, 1024, 4096):
+        assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 128, s,
+                                      H100_SMEM_OPTIN, torch.bfloat16,
+                                      True) == FLASH_WGMMA_QUANT
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_quantized_fp32_and_other_head_dims_keep_simt(hd):
+    """fp32 q (any head dim) and bf16 q at hd 32 / 64 keep the simt
+    tiles with quantized K/V; below 128 x 128 blocks hd 128 does too."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tile = ops.legalize_attn_tile(512, 512, hd, 1024, H100_SMEM_OPTIN,
+                                      dtype, True)
+        want_wgmma = dtype == torch.bfloat16 and hd == 128
+        assert tile.kind == ("wgmma" if want_wgmma else "simt")
+        assert "quantized" in tile.kv
+    assert ops.legalize_attn_tile(64, 128, 128, 1024, H100_SMEM_OPTIN,
+                                  torch.bfloat16, True).kind == "simt"
+
+
+def test_quantized_wgmma_tile_rejects_what_it_cannot_launch():
+    """The quantized wgmma tile takes bf16 q with int8 / e4m3 K/V only."""
+    q = torch.zeros(1, 4, 8, 128)
+    kv = torch.zeros(1, 2, 8, 128)
+    ones = torch.ones(1, 2, 8)
+    with pytest.raises(TypeError):                  # native K/V
+        kfa.flash_attention(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), True,
+                            FLASH_WGMMA_QUANT)
+    with pytest.raises(TypeError):                  # fp32 q
+        kfa.flash_attention_quantized(q, kv.to(torch.int8), kv.to(torch.int8),
+                                      ones, ones, True, FLASH_WGMMA_QUANT)
+    before = dict(kfa.launches_quantized_by_kind)
+    got = kfa.flash_attention_quantized(q.bfloat16(), kv.to(torch.int8),
+                                        kv.to(torch.int8), ones, ones, True,
+                                        FLASH_WGMMA_QUANT)
+    assert got.dtype == torch.bfloat16            # the CPU: plain version
+    assert kfa.launches_quantized_by_kind == before
+
+
+def _folded_scales_flash(q, kq, vq, ks, vs, causal, bkv=128):
+    """The quantized wgmma kernel's cast points, in torch: the codes
+    exact in bf16; s = (q . code_k) * ks * hd^-0.5 in fp32 (the K scale
+    folded into the score columns); an online softmax over 128-key
+    tiles with fp32 m and l (l sums the fp32 p); p' = bf16(p * vs) (the
+    V scale folded into P before its bf16 rounding); O += p' . code_v in
+    fp32; O / l (l == 0 guarded) to bf16."""
+    B, H, S, hd = q.shape
+    g = H // kq.shape[1]
+    kc = kq.float().repeat_interleave(g, 1)
+    vc = vq.float().repeat_interleave(g, 1)
+    ksr, vsr = ks.repeat_interleave(g, 1), vs.repeat_interleave(g, 1)
+    qf = q.float()
+    Sk = kc.shape[2]
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    o = torch.zeros((B, H, S, hd))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, Sk, bkv):
+        kt, vt = kc[:, :, k0:k0 + bkv], vc[:, :, k0:k0 + bkv]
+        s = (qf @ kt.transpose(-1, -2)) * ksr[:, :, None, k0:k0 + bkv] \
+            * hd ** -0.5
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(kpos > qpos, torch.full_like(s, -1e30), s)
+        m_new = torch.maximum(m, s.max(-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = (p * vsr[:, :, None, k0:k0 + bkv]).bfloat16().float()
+        o = o * alpha[..., None] + pv @ vt
+        m = m_new
+    return (o / torch.where(l == 0, torch.ones_like(l), l)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_folded_scales_emulation_matches_pallas(kv_dtype, causal):
+    """The quantized wgmma kernel's rounding, emulated in torch (scales
+    folded into the scores and into P, P' rounded to bf16), against the
+    reference's dequant-fused Pallas kernel in interpret mode, bf16 q at
+    hd 128 with 128 x 128 blocks, at the bf16 tolerance of
+    tests/test_kernels.py::tol (2e-2); and against the port's plain
+    version, which chip_smoke.py holds the kernel to."""
+    B, H, Hkv, S, hd = 1, 4, 2, 256, 128
+    q, k, v = _arrays(9, (B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))
+    kq, ks = rquant.quantize_rows(jnp.asarray(k), kv_dtype)
+    vq, vs = rquant.quantize_rows(jnp.asarray(v), kv_dtype)
+    qj, qt = _jt(q, "bfloat16")
+    want = ref_flash_quantized(qj, kq, vq, ks[..., 0], vs[..., 0],
+                               causal=causal, block_q=128, block_kv=128)
+    kt, vt = _to_torch(kq), _to_torch(vq)
+    kst, vst = _to_torch(ks[..., 0]), _to_torch(vs[..., 0])
+    got = _folded_scales_flash(qt, kt, vt, kst, vst, causal)
+    tol = dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(kfa.flash_attention_quantized_plain(qt, kt, vt, kst, vst,
+                                                          causal)), **tol)

@@ -8,8 +8,10 @@ machine that has only PyTorch:
 
 Tolerances are tests/test_kernels.py::tol for the matmul (native and
 quantized) and FFN kernels (2e-2 bf16, 2e-3 fp32), tests/test_kernels.py's flash
-tolerances for attention (3e-2 bf16, 2e-3 fp32), and the fp32 one for
-ssd_chunk at both input types (its arithmetic and outputs are fp32).
+tolerances for attention (3e-2 bf16, 2e-3 fp32; the quantized wgmma
+kernel is held at 2e-2, the bar chip_smoke.py holds it to), and the fp32
+one for ssd_chunk at both input types and both kinds (its arithmetic and
+outputs are fp32).
 Each wrapper counts one launch per call.
 """
 import pytest
@@ -144,10 +146,10 @@ def test_cuda_cache_matmul_quant_matches_plain_version(dtype, kv):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain_versions(dtype):
     """The CUDA kernels against their plain versions on the card, ragged
-    shapes, every compiled tile of the dtype, native and quantized K/V
-    (the wgmma tile: bf16, native K/V, hd 128, bitwise on a repeat); the
-    fp32 quantized path bitwise equal to the native one on dequantized
-    K/V.  One launch per call on each counter."""
+    shapes, every compiled tile of the dtype with the K/V storage it
+    takes, native and quantized (the wgmma tiles: bf16, hd 128, bitwise
+    on a repeat); the fp32 quantized path bitwise equal to the native one
+    on dequantized K/V.  One launch per call on each counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
@@ -160,17 +162,20 @@ def test_cuda_flash_attention_matches_plain_versions(dtype):
         k = torch.randn((B, Hkv, S, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((B, Hkv, S, hd), generator=gen, device="cuda").to(dt)
         for causal in (True, False):
-            before = kfa.launches
-            kind = kfa.launches_by_kind[tile.kind]
-            got = kfa.flash_attention(q, k, v, causal, tile)
-            assert kfa.launches == before + 1
-            assert kfa.launches_by_kind[tile.kind] == kind + 1
-            torch.testing.assert_close(
-                got.float(), kfa.flash_attention_plain(q, k, v, causal).float(),
-                **FLASH_TOL[dtype])
-            if tile.kind == "wgmma":   # native bf16 only; bitwise repeat
-                assert torch.equal(got, kfa.flash_attention(q, k, v, causal,
-                                                            tile))
+            if "native" in tile.kv:
+                before = kfa.launches
+                kind = kfa.launches_by_kind[tile.kind]
+                got = kfa.flash_attention(q, k, v, causal, tile)
+                assert kfa.launches == before + 1
+                assert kfa.launches_by_kind[tile.kind] == kind + 1
+                torch.testing.assert_close(
+                    got.float(),
+                    kfa.flash_attention_plain(q, k, v, causal).float(),
+                    **FLASH_TOL[dtype])
+                if tile.kind == "wgmma":   # bitwise repeat
+                    assert torch.equal(got, kfa.flash_attention(q, k, v,
+                                                                causal, tile))
+            if "quantized" not in tile.kv:
                 continue
             for kv_dtype in ("int8", "fp8_e4m3"):
                 kq, ks = pquant.quantize_rows(k, kv_dtype)
@@ -183,6 +188,9 @@ def test_cuda_flash_attention_matches_plain_versions(dtype):
                     got.float(), kfa.flash_attention_quantized_plain(
                         q, kq, vq, ks[..., 0], vs[..., 0], causal).float(),
                     **FLASH_TOL[dtype])
+                if tile.kind == "wgmma":   # bitwise repeat
+                    assert torch.equal(got, kfa.flash_attention_quantized(
+                        q, kq, vq, ks[..., 0], vs[..., 0], causal, tile))
                 if dtype == "float32":
                     native = kfa.flash_attention(
                         q, pquant.dequantize_rows(kq, ks),
@@ -222,4 +230,91 @@ def test_cuda_ssd_chunk_matches_plain_version(dtype):
         torch.testing.assert_close(y, want_y, **MATMUL_TOL["float32"])
         torch.testing.assert_close(st, want_st, **MATMUL_TOL["float32"])
         y2, st2 = kssd.ssd_chunk(x, dts, A, Bm, Cm, q)
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+# the quantized wgmma flash kernel's shapes (B, H, Hkv, S, Sk, causal):
+# the prefill path's, ragged S and Sk, S != Sk, a short prompt
+FLASH_QUANT_SHAPES = ((2, 32, 4, 1024, 1024, True), (1, 8, 2, 333, 333, True),
+                      (1, 8, 2, 333, 333, False), (1, 8, 2, 200, 520, False),
+                      (1, 8, 2, 40, 40, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["int8", "fp8_e4m3"])
+def test_cuda_quantized_wgmma_flash_matches_plain_version(kv):
+    """The quantized wgmma flash kernel (bf16 q, int8 / e4m3 codes at hd
+    128) against the plain version at the bf16 tolerance, at the path's
+    and ragged shapes, bitwise on a repeat, one launch per call on the
+    wgmma counter; the fp32 quantized path stays on simt, bitwise equal
+    to the native kernel on the dequantized K/V."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    limit = ops.smem_limit(torch.device("cuda"))
+    for b, h, hkv, s, sk, causal in FLASH_QUANT_SHAPES:
+        q = torch.randn((b, h, s, 128), generator=gen, device="cuda")
+        k = torch.randn((b, hkv, sk, 128), generator=gen, device="cuda")
+        v = torch.randn((b, hkv, sk, 128), generator=gen, device="cuda")
+        kq, ks = pquant.quantize_rows(k, kv)
+        vq, vs = pquant.quantize_rows(v, kv)
+        ks, vs = ks[..., 0], vs[..., 0]
+        tile = ops.legalize_attn_tile(128, 128, 128, s, limit, torch.bfloat16,
+                                      True)
+        assert tile.kind == "wgmma" and tile.kv == ("quantized",)
+        qb = q.bfloat16()
+        before = kfa.launches_quantized_by_kind["wgmma"]
+        got = kfa.flash_attention_quantized(qb, kq, vq, ks, vs, causal, tile)
+        assert kfa.launches_quantized_by_kind["wgmma"] == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == qb.shape
+        torch.testing.assert_close(
+            got.float(), kfa.flash_attention_quantized_plain(
+                qb, kq, vq, ks, vs, causal).float(),
+            **MATMUL_TOL["bfloat16"])
+        assert torch.equal(got, kfa.flash_attention_quantized(
+            qb, kq, vq, ks, vs, causal, tile))
+        simt = ops.legalize_attn_tile(128, 128, 128, s, limit, torch.float32,
+                                      True)
+        assert simt.kind == "simt"
+        before = kfa.launches_quantized_by_kind["simt"]
+        got32 = kfa.flash_attention_quantized(q, kq, vq, ks, vs, causal, simt)
+        assert kfa.launches_quantized_by_kind["simt"] == before + 1
+        native = kfa.flash_attention(q, pquant.dequantize_rows(kq, ks[..., None]),
+                                     pquant.dequantize_rows(vq, vs[..., None]),
+                                     causal, simt)
+        assert torch.equal(got32, native)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_chunk_wgmma_matches_plain_version():
+    """ssd_chunk's wgmma kind (bf16) against the plain version at the
+    fp32 tolerance (2e-3): full width (P 64, N 128, B/C per batch row)
+    for chunks of 256, 128, 64, a tail of 44 and 1, each with several
+    chunks, and the reduced shape (P 32, N 16); one launch per call on
+    the wgmma counter; a second launch bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shapes = [(2, 32, 64, 128, q, 3 * q) for q in (256, 128, 64, 44, 1)]
+    shapes.append((2, 8, 32, 16, 32, 96))
+    for b, h, p, n, q, s in shapes:
+        assert ops.ssd_kind(torch.bfloat16, n, p) == "wgmma"
+        x = torch.randn((b * h, s, p), generator=gen, device="cuda").bfloat16()
+        dts = torch.nn.functional.softplus(
+            torch.randn((b * h, s), generator=gen, device="cuda"))
+        A = torch.randn((b * h,), generator=gen, device="cuda").abs() + 0.1
+        Bm = torch.randn((b, s, n), generator=gen, device="cuda").bfloat16()
+        Cm = torch.randn((b, s, n), generator=gen, device="cuda").bfloat16()
+        before = kssd.launches_by_kind["wgmma"]
+        y, st = kssd.ssd_chunk(x, dts, A, Bm, Cm, q, kind="wgmma")
+        assert kssd.launches_by_kind["wgmma"] == before + 1
+        assert y.dtype == st.dtype == torch.float32
+        want_y, want_st = kssd.ssd_chunk_plain(
+            x, dts, A, Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0),
+            q)
+        torch.testing.assert_close(y, want_y, **MATMUL_TOL["float32"])
+        torch.testing.assert_close(st, want_st, **MATMUL_TOL["float32"])
+        y2, st2 = kssd.ssd_chunk(x, dts, A, Bm, Cm, q, kind="wgmma")
         assert torch.equal(y, y2) and torch.equal(st, st2)

@@ -137,6 +137,156 @@ def test_smem_bytes_fit_the_h100_at_every_compiled_head_dim():
     assert kssd.smem_bytes(128, 64) == 101_632
 
 
+def test_ssd_kind_routes_bf16_to_wgmma_and_fp32_to_simt():
+    """bf16 takes the wgmma kind at full width (N 128, P 64) and at the
+    reduced width (N 16, P 32); fp32 keeps simt; bf16 with N off a
+    multiple of 16 or an uncompiled P keeps simt too."""
+    full = pbase.get_arch("mamba2-370m")
+    red = full.reduced()
+    for cfg in (full, red):
+        n, p = cfg.ssm_state, cfg.ssm_head_dim
+        assert ops.ssd_kind(torch.bfloat16, n, p) == "wgmma"
+        assert ops.ssd_kind(torch.float32, n, p) == "simt"
+    assert (full.ssm_state, full.ssm_head_dim) == (128, 64)
+    assert (red.ssm_state, red.ssm_head_dim) == (16, 32)
+    for n, p in ((8, 16), (24, 64), (128, 16), (512, 64)):
+        assert ops.ssd_kind(torch.bfloat16, n, p) == "simt"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_intra_chunk_passes_the_routed_kind(dtype, monkeypatch):
+    """ops.ssd_intra_chunk (the model's call) hands ssd_chunk the kind
+    ops.ssd_kind routes: wgmma for bf16, simt for fp32."""
+    seen = []
+    real = kssd.ssd_chunk
+
+    def spy(*args, kind="simt"):
+        seen.append(kind)
+        return real(*args, kind=kind)
+
+    monkeypatch.setattr(kssd, "ssd_chunk", spy)
+    dt_ = getattr(torch, dtype)
+    x, dt, A, Bm, Cm = map(_t, _chunk_inputs(4, 64, 32, 16, seed=5, G=2))
+    ops.ssd_intra_chunk(x.to(dt_), dt, A, Bm.to(dt_), Cm.to(dt_), 32)
+    assert seen == ["wgmma" if dtype == "bfloat16" else "simt"]
+
+
+def test_ssd_wgmma_kind_smem_and_rejections():
+    """The wgmma kind's shared memory (csrc/ssd_chunk.cu::
+    wgmma_smem_bytes: alignment, the two stripes, the larger role's
+    64-row swizzled bf16 boxes) fits the H100 up to N 256; the wrapper
+    raises for a kind it cannot launch, on any device."""
+    assert kssd.smem_bytes(128, 64, "wgmma") == 1024 + 2048 + 5 * 8192
+    assert kssd.smem_bytes(16, 32, "wgmma") == 1024 + 2048 + 3 * 8192
+    assert kssd.smem_bytes(kssd.MAX_WGMMA_STATE, 64, "wgmma") <= 232_448
+    x, dt, A, Bm, Cm = map(_t, _chunk_inputs(4, 64, 32, 16, seed=6))
+    with pytest.raises(TypeError):                    # fp32
+        kssd.ssd_chunk(x, dt, A, Bm, Cm, 32, kind="wgmma")
+    with pytest.raises(TypeError):                    # N not a multiple of 16
+        kssd.ssd_chunk(x.bfloat16(), dt, A, Bm[..., :8].bfloat16(),
+                       Cm[..., :8].bfloat16(), 32, kind="wgmma")
+    with pytest.raises(TypeError):                    # P not compiled
+        kssd.ssd_chunk(x[..., :16].bfloat16(), dt, A, Bm.bfloat16(),
+                       Cm.bfloat16(), 32, kind="wgmma")
+    with pytest.raises(ValueError):
+        kssd.ssd_chunk(x, dt, A, Bm, Cm, 32, kind="gemv")
+    before = dict(kssd.launches_by_kind)
+    y, st = kssd.ssd_chunk(x.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(),
+                           32, kind="wgmma")
+    assert y.dtype == st.dtype == torch.float32      # the CPU: plain version
+    assert kssd.launches_by_kind == before
+
+
+def _warp_scan_cum(dA):
+    """csrc/ssd_chunk.cu::chunk_cum_scan in torch fp32: lane l sums its
+    run of ceil(Q / 32) positions in order, a Hillis-Steele shuffle scan
+    over the 32 run totals, then each lane's prefix sums from the runs
+    before it.  dA [..., Q]."""
+    Q = dA.shape[-1]
+    per = -(-Q // 32)
+    pad = torch.zeros(dA.shape[:-1] + (32 * per,), dtype=torch.float32)
+    pad[..., :Q] = dA
+    runs = pad.reshape(dA.shape[:-1] + (32, per))
+    tot = torch.zeros(runs.shape[:-1])
+    for k in range(per):
+        tot = tot + runs[..., k]
+    inc = tot.clone()
+    off = 1
+    while off < 32:
+        up = torch.zeros_like(inc)
+        up[..., off:] = inc[..., :-off]
+        inc = torch.where(torch.arange(32) >= off, up + inc, inc)
+        off *= 2
+    acc = torch.zeros_like(inc)
+    acc[..., 1:] = inc[..., :-1]
+    out = torch.zeros_like(runs)
+    for k in range(per):
+        acc = acc + runs[..., k]
+        out[..., k] = acc
+    return out.reshape(pad.shape)[..., :Q]
+
+
+def _hi_lo(w, split=True):
+    hi = w.bfloat16().float()
+    return hi, (w - hi).bfloat16().float() if split else torch.zeros_like(w)
+
+
+def _ssd_wgmma_emulation(x, dt, A, B, C, chunk, split=True):
+    """The wgmma kind's cast points in torch: x, B, C bf16 values (exact
+    on the tensor cores); cum by the warp scan; W = (C B^T) o L o dt_j in
+    fp32 where i >= j; y = hi(W) x + lo(W) x; the state weights
+    B o (exp(cum_last - cum) dt) split alike (``split=False``: the bf16
+    weights alone).  Products of the bf16 halves with x are exact; sums
+    in fp32."""
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    n_c = S // chunk
+    xr = x.reshape(BH, n_c, chunk, P)
+    dtr = dt.reshape(BH, n_c, chunk)
+    Br = B.reshape(BH, n_c, chunk, N)
+    Cr = C.reshape(BH, n_c, chunk, N)
+    cum = _warp_scan_cum(-dtr * A[:, None, None])
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    diff = cum[..., :, None] - cum[..., None, :]
+    L = torch.exp(torch.where(tri, diff, torch.zeros_like(diff)))
+    w = torch.where(tri, (Cr @ Br.transpose(-1, -2)) * L * dtr[:, :, None, :],
+                    torch.zeros_like(diff))
+    hi, lo = _hi_lo(w, split)
+    y = (hi @ xr + lo @ xr).reshape(BH, S, P)
+    decay = torch.exp(cum[..., -1:] - cum) * dtr
+    hi, lo = _hi_lo(Br * decay[..., None], split)
+    states = hi.transpose(-1, -2) @ xr + lo.transpose(-1, -2) @ xr
+    return y, states
+
+
+@pytest.mark.parametrize("S,chunk", [(512, 256), (88, 44)],
+                         ids=["q256", "ragged_q44"])
+def test_hi_lo_split_emulation_matches_pallas(S, chunk):
+    """The wgmma kind's rounding (the warp-scan cum, W and the state
+    weights each split into bf16 hi + lo), emulated in torch at full
+    width (P 64, N 128), against the reference's Pallas ssd_chunk in
+    interpret mode on the same bf16-valued inputs, at the fp32 tolerance
+    the card holds the kernel to (2e-3); and against the port's plain
+    version.  Without the lo halves (bf16 weights alone) y misses the
+    tolerance: the split is what keeps the fp32 gate."""
+    x, dt, A, Bm, Cm = _chunk_inputs(2, S, 64, 128, seed=7)
+    x, Bm, Cm = (torch.from_numpy(a).bfloat16().float().numpy()
+                 for a in (x, Bm, Cm))
+    want_y, want_s = ref_ssd_chunk(*map(jnp.asarray, (x, dt, A, Bm, Cm)),
+                                   chunk)
+    got_y, got_s = _ssd_wgmma_emulation(*map(_t, (x, dt, A, Bm, Cm)), chunk)
+    plain_y, plain_s = kssd.ssd_chunk_plain(*map(_t, (x, dt, A, Bm, Cm)),
+                                            chunk)
+    tol = dict(rtol=2e-3, atol=2e-3)
+    for got, want, plain in ((got_y, want_y, plain_y),
+                             (got_s, want_s, plain_s)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), **tol)
+    hi_y, _ = _ssd_wgmma_emulation(*map(_t, (x, dt, A, Bm, Cm)), chunk,
+                                   split=False)
+    assert not np.allclose(hi_y.numpy(), np.asarray(want_y), **tol)
+
+
 # --------------------------------------------------------------- ssd --
 def _ssd_inputs(b, s, h, p, n, seed):
     rng = np.random.default_rng(seed)
