@@ -50,11 +50,25 @@ Phases, each printed as one JSON object with its seconds:
   scheduler (the reference's, copied) can grant at full width.  The
   kernels' launch counters are zeroed just before the run and read just
   after it; every cache_matmul launch must be of the gemv kind (so for
-  e2e, self and prefill: no simt launch on the bf16 path).  Then one LWM
-  decode epoch is profiled for where the time goes.
-* ``self``: serial against pipelined serving on the card, token streams
-  bitwise equal: full width (4 layers) in a starved pool, granted LWM,
-  and the reduced width in a pool where the scheduler grants LBM.
+  e2e, self and prefill: no simt launch on the bf16 path).  The
+  pipelined server dispatches every decode item and prompt chunk as a
+  captured CUDA graph; the record holds its captures, capture seconds,
+  graph pool bytes and program-cache counters.  Then three warm
+  ``run()`` calls of the same server (the resident alone), each of which
+  must build nothing (no capture, no LRU miss, ``epoch_compiles`` all
+  0), with their median tokens/s and spread; then one replayed decode
+  epoch is profiled for where the time goes.
+* ``self``: serial (eager) against pipelined (graphs) serving on the
+  card, token streams bitwise equal: full width (4 layers) in a starved
+  pool, granted LWM, its two residents one bucket, and the reduced width
+  in a pool where the scheduler grants LBM.
+* ``graphs``: graph replay against eager dispatch at full width cut to
+  4 layers: a yi-9b prompt tenant's chunks and epochs (native, then int8
+  KV), a resident alone and two as a bucket, a mamba2 prompt's chunk and
+  tail and its epochs; the eager run goes straight through the epoch /
+  prefill core on cloned caches, tokens and positions.  Tokens and every
+  cache buffer bitwise, the replay's launch counts equal the eager
+  run's, and each decode item's second replay captures nothing.
 * ``prefill``: slice 2's path.  ``make_prefill`` of full-width,
   full-depth yi-9b (2 prompts of 1024 tokens) plain, under the smallest
   LBM grant that lowers fused with native KV, and under 32-page LWM
@@ -68,8 +82,9 @@ Phases, each printed as one JSON object with its seconds:
   three 256-token prompt tenants arriving at distinct steps on one
   weight set, in a pool where the precision ladder must place them on
   native, fp8_e4m3 and (partially reserved) int8; rungs, reservations,
-  cache dtypes and page scales are gated.  One decode epoch is profiled
-  with a native and an int8 cache.
+  cache dtypes and page scales are gated.  Three warm runs (as serve's)
+  and a replayed decode epoch of the resident profiled; one decode epoch
+  is profiled eagerly with a native and an int8 cache.
 * ``ffn_quant``: slice 3's kernel path.  ``ops.planned_ffn_quant`` over
   the 48 layers' FFN weights quantized to int8 and to fp8, at 2 and 2048
   rows, under the serve_kv decode plan, the LWM@32p prefill plan and a
@@ -98,7 +113,8 @@ Phases, each printed as one JSON object with its seconds:
   16-step budgets, whose 3113-page state reservations both fit whole;
   free pages at each admission, tokens/s, TTFT per arrival and peak
   memory reported; counters zeroed just before the run and read just
-  after; one decode epoch and one prefill chunk profiled.
+  after; three warm runs (as serve's); one replayed decode epoch and one
+  prefill chunk profiled.
 * ``self_ssm``: serial against pipelined serving of full-width,
   full-depth mamba2 on the card: two residents and a 300-token arrival
   whose prompt chunks run ssd_chunk; token streams bitwise equal,
@@ -137,6 +153,11 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-3}     # tests/test_kernels.py::tol
 SERVE_PAGES = 1800     # an LBM grant (324 pages, where one exists) fits
 #                        before the arrival's KV reservation (1536 pages)
 SERVE_STEPS = 32
+# warm runs: more run() calls of a served server, each building nothing
+# (its programs were captured in the first run); their steps keep the
+# resident inside the 128-token window the cold run used, so every
+# program key repeats
+WARM_RUNS = 3
 ARRIVAL = dict(arrive_at=8.0, prompt_len=256, n_inferences=16)
 # serial vs pipelined: (width, pages).  Full width is granted LWM only, so
 # the starved full-width pool holds cache_matmul; block_fused_ffn's
@@ -147,7 +168,7 @@ PREFILL = dict(batch=2, prompt_len=1024, lwm_pages=32)
 # quantized-KV serving: batch 2, three 256-token arrivals with a 16-step
 # budget at distinct steps, beside a resident decoding for `steps` steps
 SERVE_KV = dict(batch=2, max_len=512, prompt_len=256, budget=16, steps=40,
-                arrive_at=(4.0, 8.0, 12.0))
+                warm_steps=24, arrive_at=(4.0, 8.0, 12.0))
 # Cosine bars of the quantized-KV prefill against the plain path.  int8:
 # tests/test_quant_decode.py's 0.999.  fp8_e4m3 keeps 3 mantissa bits, a
 # per-element error about three times int8's at hd 128; over 48 layers
@@ -181,6 +202,13 @@ SERVE_SSM = dict(batch=2, max_len=1024, pages=6500, steps=32, budget=16,
                  arrivals=((4.0, 512), (8.0, 300)))
 # serial == pipelined: two residents and an arrival (step, prompt tokens)
 SELF_SSM = dict(batch=2, max_len=512, steps=16, budget=8, arrival=(4.0, 300))
+# graph replay against eager dispatch, full width cut to 4 layers: yi-9b
+# residents (one alone, two as a bucket) and a prompt tenant per KV rung,
+# a mamba2 prompt tenant whose 300 tokens make a 256-token chunk and a
+# 44-token tail; each decode item is checked at two positions (capture,
+# then a replay of the same graph)
+GRAPHS = dict(layers=4, batch=2, max_len=512, prompt_len=384,
+              ssm_prompt_len=300, lwm_pages=32, k=4)
 # bf16 agreement of the chunk plans at full depth: each plan's 1 - cosine
 # against the 256-chunk plan within SSM_BF16_SPREAD times the control's
 # (the plain version vs the kernel at chunk 256; first readings on the
@@ -1006,25 +1034,10 @@ PREFILL_KERNELS = ("cache_matmul", "block_fused_ffn", "flash_attention",
 
 def _counters():
     """The six kernels' launch counters, by kernel name, and each split
-    by tile kind (``cache_matmul.gemv``, ``ssd_chunk.wgmma`` etc.)."""
-    from repro_torch.kernels import block_fused_ffn as kffn
-    from repro_torch.kernels import cache_matmul as kmm
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import ssd_scan as kssd
-    out = {"cache_matmul": kmm.launches, "block_fused_ffn": kffn.launches,
-           "flash_attention": kfa.launches,
-           "flash_attention_quantized": kfa.launches_quantized,
-           "cache_matmul_quant": kmm.launches_quant,
-           "ssd_chunk": kssd.launches}
-    for name, by_kind in (("cache_matmul", kmm.launches_by_kind),
-                          ("flash_attention", kfa.launches_by_kind),
-                          ("cache_matmul_quant", kmm.launches_quant_by_kind),
-                          ("block_fused_ffn", kffn.launches_by_kind),
-                          ("flash_attention_quantized",
-                           kfa.launches_quantized_by_kind),
-                          ("ssd_chunk", kssd.launches_by_kind)):
-        out.update({f"{name}.{k}": v for k, v in by_kind.items()})
-    return out
+    by tile kind (``cache_matmul.gemv``, ``ssd_chunk.wgmma`` etc.); a
+    replayed graph adds the launches its capture recorded."""
+    from repro_torch.kernels import counters as kcount
+    return kcount.snapshot()
 
 
 def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=(),
@@ -1051,18 +1064,8 @@ def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=(),
 
 
 def _zero_counters():
-    from repro_torch.kernels import block_fused_ffn as kffn
-    from repro_torch.kernels import cache_matmul as kmm
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import ssd_scan as kssd
-    kmm.launches = kffn.launches = kmm.launches_quant = 0
-    kfa.launches = kfa.launches_quantized = 0
-    kssd.launches = 0
-    for by_kind in (kmm.launches_by_kind, kfa.launches_by_kind,
-                    kmm.launches_quant_by_kind, kffn.launches_by_kind,
-                    kfa.launches_quantized_by_kind, kssd.launches_by_kind):
-        for k in by_kind:
-            by_kind[k] = 0
+    from repro_torch.kernels import counters as kcount
+    kcount.zero()
 
 
 def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
@@ -1184,6 +1187,8 @@ def _profile(run, annotations=()):
     top = [{"name": n[:80], "device_ms": us / 1e3, "calls": c,
             "share": us / total_us} for n, us, c, _ in rows[:12]]
     out = {"wall_ms": wall_ms, "kernels_only": kernels_only,
+           "kernel_launches": sum(r[2] for r in rows) if kernels_only
+           else "not measured",
            "device_ms": total_us / 1e3 if total_us else "not measured",
            "idle_share": (1 - total_us / 1e3 / wall_ms) if total_us else
            "not measured", "top": top}
@@ -1195,22 +1200,89 @@ def _profile(run, annotations=()):
     return out
 
 
-def _profile_epoch(srv, t, plan, k: int = 4):
-    """:func:`_profile` of one decode epoch of tenant ``t`` (its caches and
-    params as the run left them)."""
+def _profile_replay(srv, t, k: int = 4):
+    """:func:`_profile` of one decode epoch of tenant ``t`` as the server
+    dispatches it warm: one replay of its program for the item at its
+    position (a program not cached yet is captured in ``_profile``'s
+    warm-up call).  Each call puts the device position and the feedback
+    token back (two small copies), so every call replays the same
+    epoch."""
     import torch
-    epoch = srv._epoch_cores[t.cfg.name]
+    plan = srv._dec_plan(t, t.plans[-1])
+    item = ("single", t, plan, k)
+    token = t.token.clone()
+    host_ms = []
 
     def run():
-        kv = srv._kv_len(t.index + k)
-        toks, t.caches = epoch(t.params, t.caches, t.token, t.index, plan=plan,
-                               k=k, kv_len=kv)
-        t.token = toks[:, -1:]
-        t.index += k
+        t0 = time.perf_counter()
+        srv._fused_epoch_fn(item)()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        t.index_dev.sub_(k)
+        t.token.copy_(token)
         torch.cuda.synchronize()
 
-    return {"plan": plan.describe() if plan is not None else None, "steps": k,
-            **_profile(run)}
+    out = _profile(run)
+    # the host's part of a replayed epoch: the lookup and the replay call
+    # (the graph's launch), last of the three calls
+    return {"plan": plan.describe() if plan is not None else None,
+            "steps": k, "position": t.index, "replay_host_ms": host_ms[-1],
+            **out}
+
+
+def _warm_runs(srv, steps: int):
+    """:data:`WARM_RUNS` more ``run()`` calls of a served server (only its
+    residents are left): each must build nothing (``epoch_compiles`` all
+    0, no capture, no LRU miss or eviction).  Returns each run's
+    tokens/s, wall and host record, and the median tokens/s with its
+    spread ((max - min) / median)."""
+    runs = []
+    for _ in range(WARM_RUNS):
+        lru = (srv._fused_jits.misses, srv._prefill_jits.misses,
+               srv._fused_jits.evictions, srv._prefill_jits.evictions)
+        captures = srv._captures
+        out = srv.run(steps=steps)
+        h = out["host"]
+        if (h["epoch_compiles"] != [0] * h["epochs"]
+                or srv._captures != captures
+                or lru != (srv._fused_jits.misses, srv._prefill_jits.misses,
+                           srv._fused_jits.evictions,
+                           srv._prefill_jits.evictions)):
+            raise AssertionError(f"warm run built programs: {h}")
+        runs.append({"tokens_per_s": out["tokens_per_s"],
+                     "wall_s": out["wall_s"],
+                     "tokens_served": out["tokens_served"], "host": h})
+    rates = sorted(r["tokens_per_s"] for r in runs)
+    med = rates[len(rates) // 2]
+    return {"steps": steps, "runs": runs, "median_tokens_per_s": med,
+            "spread": (rates[-1] - rates[0]) / med if med else None}
+
+
+def _graph_pool_bytes(srv):
+    """Bytes the server's graph memory pool holds on the card (its
+    segments in the allocator's snapshot), or "not measured"."""
+    import torch
+    if srv._graph_pool is None:
+        return 0
+    try:
+        segs = torch.cuda.memory._snapshot()["segments"]
+    except (AttributeError, KeyError, RuntimeError):
+        return "not measured"
+    pool = tuple(srv._graph_pool)
+    return sum(s["total_size"] for s in segs
+               if tuple(s.get("segment_pool_id", ())) == pool)
+
+
+def _programs(srv, out):
+    """The server's program record: captures, capture seconds per graph,
+    the graph pool's bytes and the LRU counters."""
+    h = out["host"]
+    return {"captures": h["captures"], "capture_s": h["capture_s"],
+            "warmups": h["warmups"], "warmup_s": h["warmup_s"],
+            "capture_s_per_graph": (h["capture_s"] / h["captures"]
+                                    if h["captures"] else None),
+            "graph_pool_bytes": _graph_pool_bytes(srv),
+            "jit_cache": h["jit_cache"], "epoch_compiles": h["epoch_compiles"],
+            "departure_evictions": h["departure_evictions"]}
 
 
 def grantable_kinds(cfg, batch: int, pages: int):
@@ -1241,6 +1313,7 @@ def serve_main_path(cfg, dev, counters):
     _zero_counters()
     out = srv.run(steps=SERVE_STEPS)
     counters.update(_counters())
+    programs = _programs(srv, out)
     want_kinds = grantable_kinds(cfg, 2, SERVE_PAGES)
     need = {"cache_matmul"} | ({"block_fused_ffn"} if "LBM" in want_kinds
                                else set())
@@ -1273,11 +1346,12 @@ def serve_main_path(cfg, dev, counters):
            "launches": dict(counters),
            "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
            "tokens_per_s": out["tokens_per_s"], "dram_total": out["dram_bytes"],
-           "host": out["host"], "tenants": tenants,
+           "host": out["host"], "tenants": tenants, "programs": programs,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    resident = srv.tenants[0]
-    lwm = next(p for p in resident.plans if p.kind == "LWM")
-    res["profile"] = [_profile_epoch(srv, resident, lwm)]
+    res["warm"] = _warm_runs(srv, SERVE_STEPS)
+    res["graph_pool_bytes"] = _graph_pool_bytes(srv)
+    res["peak_memory_bytes_after_warm"] = torch.cuda.max_memory_allocated()
+    res["profile"] = [_profile_replay(srv, srv.tenants[0])]
     return res
 
 
@@ -1337,6 +1411,177 @@ def check_serial_pipelined(cfg, dev, layers: int = 4):
     if not any(r["kind"] == "LBM" for r in res.values()):
         raise AssertionError("self: no pool was granted LBM")
     return res
+
+
+# ------------------------------------------------------------- graphs --
+def _replay_vs_eager(srv, item):
+    """One decode item or prompt chunk of a pipelined server on the card:
+    the epoch core (or prefill core) runs eagerly, straight from the
+    model, on clones of its tenants' caches, feedback tokens and device
+    positions; then the server dispatches the item through its program
+    (captured on a miss, then replayed).  Returns whether the tokens,
+    every cache buffer, the feedback tokens and the positions are bitwise
+    equal, the captures it took, and the kernel launches of both runs
+    (the replay's from the counts its capture recorded)."""
+    import torch
+    from repro_torch.kernels import counters as kcount
+    kind = item[0]
+    if kind == "prefill":
+        _, t, _, n = item
+        group, plan, kv = [t], None, srv._kv_len(t.pf_pos + n)
+    else:
+        _, who, plan, n = item
+        group, kv = (who if kind == "bucket" else [who]), srv._item_kv(item)
+    clones = {t.tid: ([{name: b.clone() for name, b in c.items()}
+                       for c in t.caches], t.token.clone(),
+                      t.index_dev.clone(), srv._device_pos(t))
+              for t in group}
+    want = {}
+    before = kcount.snapshot()
+    for t in group:
+        caches, tok, idx, pos = clones[t.tid]
+        if kind == "prefill":
+            want[t.tid], _ = srv._prefill_cores[t.cfg.name](
+                t.params, caches, t.prompt_dev[:, pos:pos + n], idx, kv_len=kv)
+        else:
+            want[t.tid], _ = srv._epoch_cores[t.cfg.name](
+                t.params, caches, tok, idx, plan=plan, k=n, kv_len=kv)
+    eager = kcount.delta(before)
+    captures = srv._captures
+    before = kcount.snapshot()
+    if kind == "prefill":
+        srv._dispatch_prefill(item)
+    else:
+        srv._fused_epoch_fn(item)()
+        for t in group:
+            srv._advance(t, n)
+    replay = kcount.delta(before)
+    torch.cuda.synchronize()
+    same = True
+    for t in group:
+        caches, _, _, pos = clones[t.tid]
+        out = want[t.tid]
+        same &= (torch.equal(t.log[:, pos + n - out.shape[1]:pos + n], out)
+                 and torch.equal(t.token, out[:, -1:])
+                 and int(t.index_dev) == pos + n == srv._device_pos(t)
+                 and all(torch.equal(c[name], e[name])
+                         for c, e in zip(t.caches, caches) for name in c))
+    return {"kind": kind, "tenants": len(group), "position": pos, "steps": n,
+            "kv_len": kv, "plan": plan.describe() if plan is not None else None,
+            "kv_dtype": group[0].kv_dtype, "bitwise": bool(same),
+            "captured": srv._captures - captures, "launches": replay,
+            "eager_launches": eager}
+
+
+def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True):
+    """Graph replay against eager dispatch at full width (4 layers): in
+    a pipelined yi-9b server, a prompt tenant's chunks (256 + 128 tokens)
+    and its decode epochs with a native and, in a second server, an int8
+    cache, a resident's epochs alone and two residents' as a bucket; in a
+    mamba2 server a prompt tenant's 256-token chunk and 44-token tail and
+    its epochs.  Each decode item runs twice, at two positions: the first
+    captures (after a warm-up where its signature has none), the second
+    replays the same graph.  Every check must be bitwise in tokens and
+    every cache buffer, launch the kernels the eager run launches (by the
+    counts), and a second replay must capture nothing."""
+    from repro_torch.core.vmem import LANE
+    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.models.base import register
+    from repro_torch.sim.driver import TenantSpec
+    g = GRAPHS
+    k = g["k"]
+    res, checks = {}, []
+    for arch, kv_dtype, prompt_len in (
+            (cfg, "native", g["prompt_len"]), (cfg, "int8", g["prompt_len"]),
+            (ssm_cfg, "native", g["ssm_prompt_len"])):
+        cut = register(dataclasses.replace(
+            arch, name=f"{arch.name}-{g['layers']}layer",
+            num_layers=g["layers"]))
+        dense = arch.family != "ssm"
+        residents = [cut.name] * (3 if dense and kv_dtype == "native" else 0)
+        srv = MultiTenantServer(
+            residents, tenants=[TenantSpec(cut.name, prompt_len=prompt_len,
+                                           n_inferences=2 * k)],
+            batch=g["batch"], max_len=g["max_len"], total_pages=1 << 16,
+            epoch_len=k, device=dev, reduced=False, kv_dtype=kv_dtype)
+        plan = (_plan(cut, "LWM", g["lwm_pages"], LANE, kv_dtype) if dense
+                else None)
+        res_plan = (_plan(cut, "LWM", g["lwm_pages"], LANE) if dense
+                    else None)
+        *res_t, prompt_t = srv.tenants
+        while prompt_t.prefilling:    # chunks of 256, on the SSD grid
+            chunk = min(256, prompt_t.prompt_len - prompt_t.pf_pos)
+            checks.append(_replay_vs_eager(
+                srv, ("prefill", prompt_t, None, chunk)))
+        items = [("single", prompt_t, plan, k)]
+        if res_t:
+            items += [("single", res_t[0], res_plan, k),
+                      ("bucket", res_t[1:], res_plan, k)]
+        for item in items:     # capture, then a replay one epoch later
+            checks += [_replay_vs_eager(srv, item) for _ in range(2)]
+        res[f"{arch.name}/{kv_dtype}"] = {
+            "captures": srv._captures, "capture_s": srv._capture_s,
+            "graph_pool_bytes": _graph_pool_bytes(srv),
+            "warm_signatures": len(srv._warm_sigs)}
+        del srv, res_t, prompt_t
+        _release()
+    bad = [c for c in checks if not c["bitwise"]
+           or c["launches"] != c["eager_launches"]]
+    repeats = [c for c in checks if c["kind"] != "prefill"][1::2]
+    if any(c["captured"] for c in repeats):
+        bad.append("a second replay captured")
+    items = {c["kind"] for c in checks}
+    launches = Counter()
+    for c in checks:
+        launches.update(c["launches"])
+    if (bad or items != {"prefill", "single", "bucket"}
+            or not launches["cache_matmul"] or not launches["ssd_chunk"]):
+        raise AssertionError(f"graphs: {bad or items} ({dict(launches)}): "
+                             f"{checks}")
+    aot = _check_aot(cfg, dev)
+    if kinds:   # full width: the decode matmuls' gemv, ssd_chunk's wgmma
+        _gate_kinds({**dict.fromkeys(_counters(), 0), **launches}, "graphs",
+                    ("gemv",),
+                    ssd=("wgmma",))
+    return {"layers": g["layers"], "servers": res, "checks": checks,
+            "launches": dict(launches), "aot": aot, "bit_identical": True}
+
+
+def _check_aot(cfg, dev):
+    """``aot_warmup=True`` on the card (full width, 4 layers): two
+    residents and a prompt tenant served with and without it; the tokens
+    and choice traces must be equal, and the predicted programs (captured
+    before the first epoch, each warm-up at the tenants' positions then)
+    must be hits."""
+    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.sim.driver import TenantSpec
+    name = f"{cfg.name}-{GRAPHS['layers']}layer"
+    runs = {}
+    for aot in (False, True):
+        srv = MultiTenantServer(
+            [name, name], tenants=[TenantSpec(name, prompt_len=256,
+                                              n_inferences=8)],
+            batch=GRAPHS["batch"], max_len=GRAPHS["max_len"],
+            total_pages=1 << 16, epoch_len=GRAPHS["k"], device=dev,
+            reduced=False, aot_warmup=aot)
+        out = srv.run(steps=16)
+        runs[aot] = (out, srv._fused_jits.misses)
+        del srv
+        _release()
+    (plain, plain_misses), (warm, warm_misses) = runs[False], runs[True]
+    for tid, p in plain["tenants"].items():
+        w = warm["tenants"][tid]
+        if not np.array_equal(p["output"], w["output"]) or \
+                p["choices"] != w["choices"]:
+            raise AssertionError(f"aot: {tid} differs with aot_warmup")
+    if not warm["host"]["aot_compiled"] or warm_misses >= plain_misses:
+        raise AssertionError(f"aot: {warm['host']} misses {warm_misses} "
+                             f"vs {plain_misses}")
+    return {"aot_compiled": warm["host"]["aot_compiled"],
+            "fused_misses": {"plain": plain_misses, "aot": warm_misses},
+            "epoch_compiles": {"plain": plain["host"]["epoch_compiles"],
+                               "aot": warm["host"]["epoch_compiles"]},
+            "tokens_equal": True}
 
 
 # ------------------------------------------------------------ prefill --
@@ -1555,6 +1800,7 @@ def serve_kv_main_path(cfg, dev, counters, found):
     _zero_counters()
     out = srv.run(steps=steps)
     counters.update(_counters())
+    programs = _programs(srv, out)
     if counters["cache_matmul"] <= 0:
         raise AssertionError(f"serve_kv: cache_matmul never launched: {counters}")
     if seen_free != want_free:
@@ -1617,8 +1863,11 @@ def serve_kv_main_path(cfg, dev, counters, found):
            "plan_kinds": sorted(kinds), "launches": dict(counters),
            "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
            "tokens_per_s": out["tokens_per_s"], "dram_total": out["dram_bytes"],
-           "host": out["host"], "tenants": tenants,
+           "host": out["host"], "tenants": tenants, "programs": programs,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    res["warm"] = _warm_runs(srv, SERVE_KV["warm_steps"])
+    res["graph_pool_bytes"] = _graph_pool_bytes(srv)
+    res["profile_replay"] = _profile_replay(srv, resident)
     int8 = arrivals[2]
     plan = int8.plans[-1]                       # its last decode epoch's
     params = memo[0]
@@ -2118,6 +2367,7 @@ def serve_ssm_main_path(cfg, dev, counters):
     _zero_counters()
     out = srv.run(steps=steps)
     counters.update(_counters())
+    programs = _programs(srv, out)
     if counters["ssd_chunk"] <= 0:
         raise AssertionError(f"serve_ssm: ssd_chunk never launched: {counters}")
     _gate_kinds(counters, "serve_ssm", ssd=("wgmma",))
@@ -2154,9 +2404,12 @@ def serve_ssm_main_path(cfg, dev, counters):
            "wall_s": out["wall_s"], "tokens_per_s": out["tokens_per_s"],
            "dram_total": out["dram_bytes"], "host": out["host"],
            "tenants": tenants, "allocated_at_start_bytes": base,
+           "programs": programs,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    res["warm"] = _warm_runs(srv, steps)
+    res["graph_pool_bytes"] = _graph_pool_bytes(srv)
     params = resident.params
-    res["profile"] = {"decode_epoch": _profile_epoch(srv, resident, None),
+    res["profile"] = {"decode_epoch": _profile_replay(srv, resident),
                       "prefill_chunk": _profile_ssm_prefill_chunk(cfg, params,
                                                                   dev)}
     return res
@@ -2247,6 +2500,8 @@ def main() -> int:
     report["serve"] = _phase("serve", serve_main_path, cfg, dev, serve_counts)
     _release()
     report["self"] = _phase("self", check_serial_pipelined, cfg, dev)
+    _release()
+    report["graphs"] = _phase("graphs", check_graphs, cfg, ssm_cfg, dev)
     _release()
     report["prefill"] = _phase("prefill", prefill_main_path, cfg, dev,
                                prefill_counts)

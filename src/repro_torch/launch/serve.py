@@ -35,14 +35,62 @@ each arriving prompt tenant's reservation at every rung and takes the
 first that fits the free pool; per-page dequant scales recorded in the
 page table at the TTFT stamp).
 
-Execution is eager PyTorch.  Tokens and caches stay on the device
-through the loop, and nothing is read back to the host except at the
-TTFT stamp of a tenant's first token (and once after the run).  The
-epoch's work list keeps the reference's "bucket" items; this slice runs
-a bucket's tenants one after another, each through its own epoch.
+Execution.  The pipelined loop dispatches every decode item and every
+prompt chunk through a :class:`_CompiledEntry`, kept in a bounded LRU
+(:class:`_LruCache`, the reference's, with its counters).  On the card
+an entry holds one captured ``torch.cuda.CUDAGraph`` and a dispatch is
+one replay; on the CPU it holds the same function as an eager closure,
+and a dispatch calls it.  The serial loop (``pipeline=False``) stays
+eager: it is the oracle that pipelined serving is held to.  Where the
+reference compiles each epoch's decode work into one jitted program,
+this port deviates so:
+
+* Keys.  A decode item's key is the reference's per-item tuple (kind,
+  arch, plan, k, kv window) plus the ids of the tenants it decodes; a
+  prompt chunk's is (tid, chunk length, kv window).  A graph binds its
+  tenants' params, caches and buffers by address, so it serves those
+  tenants only, where the reference's programs take them as arguments.
+* One graph per item, not per epoch.  With tenant ids in the key, a
+  whole-epoch key would miss whenever any one tenant moved to another
+  window or plan, and n replays cost the host microseconds each.
+* A bucket runs its tenants' epochs in turn inside one graph
+  (``make_decode_epoch_batched``).  The params are not stacked (one
+  full-width yi-9b tenant's are ~17 GB) and the caches stay per tenant,
+  so the reference's ``_bucket_caches`` / ``_unstack_bucket`` have no
+  counterpart; ``_batched_params`` returns the group's params as a list.
+* ``warm_aot`` (``aot_warmup=True``) captures the predicted keys on the
+  run's own thread, before the first epoch and at a mid-run arrival,
+  not on a daemon thread beside live launches.
+
+Each tenant owns static device buffers, allocated at admission and
+freed at departure: the feedback token [B, 1], its position (a device
+int64 scalar) and a token log [B, max_len], where each epoch writes the
+token it decodes at each position.  A graph advances the position
+itself; the host keeps ``Tenant.index`` for scheduling, and the two
+agree after every dispatch.  The log is read back once, after the run
+(a departing tenant's served tokens are copied on the device first).
+Nothing a graph allocates outlives its replay, so one server's graphs
+share one memory pool.  A departure evicts every entry that names the
+tenant before its buffers are freed; these evictions are counted apart
+from the LRU's.
+
+Capture on the card.  The first capture of a signature (a key without
+its tenant ids) follows one eager run of the same function on the
+capture stream, which loads the kernels' libraries, sets their
+attributes and warms cuBLAS on that stream.  It runs on the tenants'
+own buffers with their feedback tokens, positions and SSM states copied
+aside and put back; the KV rows and log entries it writes lie at or
+past the position, where the replay writes them again before anything
+reads them.  Neither the warm-up's launches nor the capture's are
+counted: each replay adds the launch counts its capture recorded
+(``kernels/counters.py``).  A capture or replay that fails raises; on
+the card nothing falls back to eager dispatch.  Nothing reads the
+device back to the host except the TTFT stamp of a tenant's first
+token, and the log once after the run.
+
 Not ported here (raising ``NotImplementedError``): device meshes,
-prefix dedup, fault injection and preemption, overload admission, AOT
-warmup and grant lookahead (each with its quantized-KV part).
+prefix dedup, fault injection and preemption, overload admission and
+grant lookahead (each with its quantized-KV part).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU.  Without injected params / prompts the server draws params from a
@@ -55,12 +103,13 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.allocator import Selection
+from repro_torch.core.allocator import AHEAD_FRACTION, INF, Selection
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.mapping import MapperConfig
 from repro_torch.core.mct import MCT, ModelMapping
@@ -75,6 +124,7 @@ from repro_torch.core.types import (GemmDims, LayerKind, LayerSpec, ModelGraph,
 from repro_torch.core.vmem import (LANE, PAGE_BYTES, VMEM_PAGES,
                                    fused_ffn_pages, kv_row_bytes,
                                    lower_selection)
+from repro_torch.kernels import counters as kcount
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig, get_arch
 from repro_torch.models.ssm import CONV_K
@@ -163,6 +213,74 @@ def _prompt_tokens(spec: TenantSpec, i: int, cfg: ArchConfig,
                         dtype=np.int32)
 
 
+class _LruCache:
+    """Bounded LRU map for the server's program caches (the reference's
+    src/repro/launch/serve.py::_LruCache, without its lock: the port
+    builds programs on the run's own thread only): under churning tenant
+    mixes the key space grows without bound, so the coldest entry is
+    evicted past ``capacity``.  Every miss is one program build (here:
+    one capture on the card), so the hit/miss counters double as the
+    server's compile counter."""
+
+    def __init__(self, capacity: int):
+        self.capacity = int(capacity)
+        self._d: "OrderedDict" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key, default=None):
+        if key in self._d:
+            self._d.move_to_end(key)
+            self.hits += 1
+            return self._d[key]
+        self.misses += 1
+        return default
+
+    def peek(self, key, default=None):
+        """Counter-free lookup (no hit/miss accounting, no LRU touch)."""
+        return self._d.get(key, default)
+
+    def __setitem__(self, key, value) -> None:
+        self._d[key] = value
+        self._d.move_to_end(key)
+        while len(self._d) > self.capacity:
+            self._d.popitem(last=False)
+            self.evictions += 1
+
+    def pop(self, key, default=None):
+        return self._d.pop(key, default)
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    def keys(self):
+        return list(self._d.keys())
+
+
+class _CompiledEntry:
+    """One decode item's or prompt chunk's program: a captured
+    ``torch.cuda.CUDAGraph`` with the kernel launches its capture
+    recorded (``launches``, added to the counters at every replay), or,
+    where the server captures nothing (the CPU, the serial loop), the
+    eager closure itself."""
+
+    __slots__ = ("fn", "graph", "launches")
+
+    def __init__(self, fn: Callable[[], None], graph: Any = None,
+                 launches: Optional[Dict[str, int]] = None):
+        self.fn = fn
+        self.graph = graph
+        self.launches = launches or {}
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self.fn()
+        else:
+            self.graph.replay()
+            kcount.add(self.launches)
+
+
 @dataclasses.dataclass
 class Tenant:
     tid: str
@@ -171,16 +289,21 @@ class Tenant:
     caches: Any
     decode: Any        # one-step closure (serial reference path)
     task: TenantTask
-    token: Any         # [B, 1] device tensor: next input (feedback);
-    #                    None until a prompt tenant finishes prefill
-    index: int = 0
+    token: Any         # [B, 1] int64 device buffer: the next input
+    #                    (feedback), valid once ``fed``
+    index: int = 0     # host position (scheduling)
+    index_dev: Any = None  # the same position on the device (int64 [])
+    log: Any = None        # [B, max_len] int64 device buffer: the token
+    #                        decoded at each position
+    fed: bool = False      # decoding: a resident from admission, a prompt
+    #                        tenant from its first token on
     tokens_served: int = 0
     epochs_served: int = 0
     choices: List[str] = dataclasses.field(default_factory=list)
     plans: List[KernelPlan] = dataclasses.field(default_factory=list)
-    # decoded tokens, one [B, k] device tensor per epoch — read back to
-    # the host once, after the serving loop finishes
-    outputs: List[Any] = dataclasses.field(default_factory=list)
+    # a departed tenant's served tokens (a device copy of its log's),
+    # read back to the host once, after the serving loop finishes
+    outputs: Any = None
     # ---- continuous batching ----------------------------------------
     prompt: Optional[np.ndarray] = None   # [B, P] int32 host tokens
     prompt_dev: Any = None                # the same, on the device
@@ -249,7 +372,6 @@ class MultiTenantServer:
         for name, value, off in (
                 ("prefix_dedup", prefix_dedup, False),
                 ("lookahead", lookahead, False),
-                ("aot_warmup", aot_warmup, False),
                 ("faults", faults, None),
                 ("queue_limit", queue_limit, None),
                 ("queue_deadline_s", queue_deadline_s, None)):
@@ -260,6 +382,7 @@ class MultiTenantServer:
                              f"{KV_PRECISION_LADDER + ('auto',)}")
         self.device = torch.device(device)
         self.reduced = bool(reduced)
+        self.aot_warmup = bool(aot_warmup)
         self._params_fn = params_fn
         self._prompt_fn = prompt_fn or _prompt_tokens
         self.qos_targets = qos_targets or {}
@@ -289,14 +412,31 @@ class MultiTenantServer:
         # model closures, shared per arch
         self._step_fns: Dict[str, Any] = {}
         self._epoch_cores: Dict[str, Any] = {}
+        self._batched_cores: Dict[str, Any] = {}
         self._prefill_cores: Dict[str, Any] = {}
         self._groups: Dict[str, List[Tenant]] = {}
+        # programs: decode items and prompt chunks, the reference's LRU
+        # capacities; captured graphs on the card in the pipelined loop
+        self._fused_jits = _LruCache(capacity=64)
+        self._prefill_jits = _LruCache(capacity=16)
+        self._capture_graphs = self.device.type == "cuda" and self.pipeline
+        self._capture_stream = None
+        self._graph_pool = None
+        self._warm_sigs: set = set()
+        self._captures = 0
+        self._capture_s = 0.0
+        self._warmups = 0
+        self._warmup_s = 0.0
+        self._depart_evictions = 0
+        self._aot_compiled = 0
+        self._run_steps = 0
         # host-path instrumentation: per-epoch scheduling wall and
         # dispatch wall, and admission (param / cache materialization)
         self._sched_walls: List[float] = []
         self._device_walls: List[float] = []
         self._admit_walls: List[float] = []
         self._admit_wall = 0.0
+        self._epoch_compiles: List[int] = []
         self._batched_runs = 0
         self._oracle_runs = 0
         specs: List[TenantSpec] = [TenantSpec(aid) for aid in arch_ids or []]
@@ -398,10 +538,14 @@ class MultiTenantServer:
                 got = self.cache.alloc(tid + "#kv",
                                        min(want, self.cache.free_pages))
             t.kv_reserved = len(got or [])
-        else:
-            # seed-token flow: no prompt, decode from token i
-            t.token = torch.full((self.batch, 1), i % cfg.vocab_size,
-                                 dtype=torch.long, device=self.device)
+        # the static buffers every program of the tenant reads and writes
+        # (seed-token flow: no prompt, decode from token i)
+        t.token = torch.full((self.batch, 1), i % cfg.vocab_size,
+                             dtype=torch.long, device=self.device)
+        t.fed = spec.prompt_len <= 0
+        t.index_dev = torch.zeros((), dtype=torch.long, device=self.device)
+        t.log = torch.zeros((self.batch, self.max_len), dtype=torch.long,
+                            device=self.device)
         t.caches = init_caches(params, cfg, self.batch, self.max_len,
                                kv_dtype=t.kv_dtype, device=self.device)
         t.admitted_wall = due_wall if due_wall is not None else time.time()
@@ -409,6 +553,10 @@ class MultiTenantServer:
         self._groups.setdefault(cfg.name, []).append(t)
         self._epoch_cores.setdefault(cfg.name, M.make_decode_epoch(cfg))
         self._prefill_cores.setdefault(cfg.name, M.make_prefill_chunk(cfg))
+        if self.aot_warmup and self._run_steps > 0:
+            # mid-run arrival: capture its predicted decode programs
+            # while its prompt is still to prefill
+            self.warm_aot(self._run_steps)
         return t
 
     def _choose_kv_dtype(self, cfg: ArchConfig, spec: TenantSpec) -> str:
@@ -455,8 +603,11 @@ class MultiTenantServer:
 
     def _depart(self, t: Tenant) -> None:
         """The tenant leaves: its page grants, KV reservation and
-        allocator profiles return to the pool, and its device buffers
-        are released (outputs and traces stay for the result)."""
+        allocator profiles return to the pool, every program naming it is
+        evicted (a graph outliving its buffers would replay into freed
+        memory), and then its device buffers are released.  Its served
+        tokens are copied on the device first (outputs and traces stay
+        for the result)."""
         if t.departed:
             return
         t.departed = True
@@ -465,10 +616,29 @@ class MultiTenantServer:
             t.ptask.depart()
         self.cache.free(t.tid + "#kv", None)
         self._groups[t.cfg.name].remove(t)
+        self._evict_programs(t.tid)
+        t.outputs = self._served(t).clone()
         t.params = None
         t.caches = None
         t.prompt = None
         t.prompt_dev = None
+        t.token = t.index_dev = t.log = None
+
+    def _evict_programs(self, tid: str) -> None:
+        """Drop every decode and prefill entry whose key names ``tid``."""
+        for cache, tids in ((self._fused_jits, lambda key: key[5]),
+                            (self._prefill_jits, lambda key: key[:1])):
+            for key in cache.keys():
+                if tid in tids(key):
+                    cache.pop(key)
+                    self._depart_evictions += 1
+
+    def _served(self, t: Tenant) -> torch.Tensor:
+        """[B, n] device view of the tokens served so far: the log from
+        the first token (a prompt tenant's greedy token after its prompt,
+        at position prompt_len - 1) up to the host position."""
+        first = t.prompt_len - 1 if t.prompt_len > 0 else 0
+        return t.log[:, first:max(first, t.index)]
 
     def _process_departures(self) -> None:
         for t in self.tenants:
@@ -590,19 +760,19 @@ class MultiTenantServer:
         t.chunks.append(chunk)
         return ("prefill", t, plan, chunk)
 
-    def _finish_prefill(self, t: Tenant, token: torch.Tensor) -> None:
-        """The final chunk's greedy token flips the tenant to decode.
-        On the card a CUDA event marks the token for the TTFT stamp,
-        which the caller takes after the epoch's decode work is queued;
-        a quantized tenant's per-row scale maxima are taken on the
-        device and copied to pinned host memory ahead of the event."""
-        t.token = token
-        t.outputs.append(token)
+    def _finish_prefill(self, t: Tenant) -> None:
+        """The final chunk's greedy token (already in the tenant's token
+        buffer and log) flips the tenant to decode.  On the card a CUDA
+        event marks the token for the TTFT stamp, which the caller takes
+        after the epoch's decode work is queued; a quantized tenant's
+        per-row scale maxima are taken on the device and copied to pinned
+        host memory ahead of the event."""
+        t.fed = True
         t.tokens_served += self.batch
         t.index = t.prompt_len
         t.ptask.depart()
         rows = self._scale_rows(t)
-        if token.is_cuda:
+        if t.token.is_cuda:
             if rows is not None:
                 t.scale_rows = torch.empty(rows.shape, dtype=rows.dtype,
                                            pin_memory=True)
@@ -655,12 +825,10 @@ class MultiTenantServer:
         plan = self._lower_plan(t, sched, seq_block=t.prompt_len)
         t.plans.append(plan)
         t.chunks.append(t.prompt_len)
-        kv = self._kv_len(t.prompt_len)
-        tok, t.caches = self._prefill_cores[t.cfg.name](
-            t.params, t.caches, t.prompt_dev, 0, kv_len=kv)
+        self._prefill_fn(t, t.prompt_len, self._kv_len(t.prompt_len))()
         t.pf_computed += t.prompt_len
         t.pf_pos = t.prompt_len
-        self._finish_prefill(t, tok)
+        self._finish_prefill(t)
         self._stamp_ttft(t)
 
     def _sequential_prefills_due(self, now: float) -> None:
@@ -676,7 +844,7 @@ class MultiTenantServer:
     def _decodable(self, t: Tenant, steps: int) -> bool:
         """Active, past prefill, with budget/steps left — shared by
         admission gating, epoch planning and the serial loop."""
-        return (not t.departed and t.token is not None
+        return (not t.departed and t.fed
                 and self._remaining(t, steps) > 0)
 
     def _epoch_k(self, t: Tenant, steps: int) -> int:
@@ -893,34 +1061,339 @@ class MultiTenantServer:
         corresponding steps see identical attention shapes."""
         return min(self.max_len, -(-max(1, upto) // LANE) * LANE)
 
+    def _feed(self, t: Tenant, toks: torch.Tensor, advance: int) -> None:
+        """Device side of a dispatch: ``toks`` [B, n], the tokens decoded
+        at the last n of the ``advance`` positions from the tenant's
+        device position on, go to the log at those positions; the last
+        becomes the feedback token, and the position moves on.  Runs
+        inside a captured graph as well as eagerly."""
+        n = toks.shape[1]
+        pos = t.index_dev + (advance - n) + torch.arange(n,
+                                                         device=toks.device)
+        t.log.index_copy_(1, pos, toks)
+        t.token.copy_(toks[:, -1:])
+        t.index_dev += advance
+
+    def _prefill_body(self, t: Tenant, chunk: int, kv: int) -> None:
+        """One prompt chunk at the tenant's device position: its tokens
+        are gathered from the prompt there, run through the prefill core,
+        and the chunk's greedy token is fed."""
+        pos = t.index_dev + torch.arange(chunk, device=t.index_dev.device)
+        tok, _ = self._prefill_cores[t.cfg.name](
+            t.params, t.caches, t.prompt_dev.index_select(1, pos),
+            t.index_dev, kv_len=kv)
+        self._feed(t, tok, chunk)
+
+    def _prefill_fn(self, t: Tenant, chunk: int, kv: int) -> _CompiledEntry:
+        """The program of one (tenant, chunk length, kv window) prompt
+        chunk, from the prefill LRU (built and, on the card, captured on
+        a miss).  The reference keeps one jit per arch, whose own cache
+        keys (chunk, kv); a graph also binds the tenant."""
+        key = (t.tid, chunk, kv)
+        entry = self._prefill_jits.get(key)
+        if entry is None:
+            entry = self._compile(
+                lambda: self._prefill_body(t, chunk, kv),
+                ("prefill", t.cfg.name, t.kv_dtype, chunk, kv), [t], chunk)
+            self._prefill_jits[key] = entry
+        return entry
+
     def _dispatch_prefill(self, item: Tuple) -> Optional[Tenant]:
-        """Queue one prefill chunk on the device.  Returns the tenant
-        when this was its prompt's final chunk."""
+        """Queue one prefill chunk on the device (one replay).  Returns
+        the tenant when this was its prompt's final chunk."""
         _, t, _, chunk = item
-        kv = self._kv_len(t.pf_pos + chunk)
-        tok, t.caches = self._prefill_cores[t.cfg.name](
-            t.params, t.caches, t.prompt_dev[:, t.pf_pos:t.pf_pos + chunk],
-            t.pf_pos, kv_len=kv)
+        self._prefill_fn(t, chunk, self._kv_len(t.pf_pos + chunk))()
         t.pf_pos += chunk
         t.pf_computed += chunk
         if not t.prefilling:
-            self._finish_prefill(t, tok)
+            self._finish_prefill(t)
             return t
         return None
 
+    # --------------------------------------------------- decode programs --
+    def _item_kv(self, item: Tuple) -> int:
+        t0 = item[1][0] if item[0] == "bucket" else item[1]
+        return self._kv_len(t0.index + item[3])
+
+    def _fused_key(self, item: Tuple) -> Tuple:
+        """The program key of one decode item: the reference's per-item
+        (kind, arch, plan, k, kv) plus the ids of the tenants it decodes,
+        whose buffers the graph binds."""
+        kind, who, plan, k = item
+        group = who if kind == "bucket" else [who]
+        return (kind, group[0].cfg.name, plan, k, self._item_kv(item),
+                tuple(g.tid for g in group))
+
+    def _batched_params(self, group: List[Tenant]) -> List[Any]:
+        """The bucket's params, one entry per tenant: not stacked (a
+        stacked copy of full-width tenants would not fit on the card)."""
+        return [g.params for g in group]
+
+    def _decode_fn(self, key: Tuple) -> Callable[[], None]:
+        """The device work of one decode item, from its key alone (so
+        ``warm_aot`` can build programs for predicted keys): one tenant's
+        epoch, or a bucket's through the batched epoch, each tenant's
+        tokens fed to its own buffers."""
+        kind, name, plan, k, kv, tids = key
+        live = {t.tid: t for t in self.tenants if not t.departed}
+        group = [live[tid] for tid in tids]
+        if kind == "bucket":
+            core = self._batched_cores.setdefault(
+                name, M.make_decode_epoch_batched(group[0].cfg))
+            params = self._batched_params(group)
+
+            def run() -> None:
+                toks, _ = core(params, [g.caches for g in group],
+                               torch.stack([g.token for g in group]),
+                               torch.stack([g.index_dev for g in group]),
+                               plan=plan, k=k, kv_len=kv)
+                for g, tk in zip(group, toks):
+                    self._feed(g, tk, k)
+            return run
+        t = group[0]
+        core = self._epoch_cores[name]
+
+        def run() -> None:
+            toks, _ = core(t.params, t.caches, t.token, t.index_dev,
+                           plan=plan, k=k, kv_len=kv)
+            self._feed(t, toks, k)
+        return run
+
+    def _build_entry(self, key: Tuple) -> _CompiledEntry:
+        live = {t.tid: t for t in self.tenants if not t.departed}
+        group = [live[tid] for tid in key[5]]
+        sig = key[:5] + (len(group), group[0].kv_dtype)
+        return self._compile(self._decode_fn(key), sig, group, key[3])
+
+    def _fused_epoch_fn(self, item: Tuple) -> _CompiledEntry:
+        """The program of one decode item (single tenant or bucket), from
+        the decode LRU: in steady state the grants repeat and every item
+        is a hit.  The reference fuses all of an epoch's decode items into
+        one program; here each item is its own graph (see the module
+        docstring)."""
+        key = self._fused_key(item)
+        entry = self._fused_jits.get(key)
+        if entry is None:
+            entry = self._build_entry(key)
+            self._fused_jits[key] = entry
+        return entry
+
+    def compile_misses(self) -> int:
+        """Decode plus prefill program builds so far (each a capture on
+        the card)."""
+        return self._fused_jits.misses + self._prefill_jits.misses
+
+    # ----------------------------------------------------------- capture --
+    def _device_pos(self, t: Tenant) -> int:
+        """The tenant's device position, as the host knows it."""
+        return t.index if t.fed else t.pf_pos
+
+    def _warm_up(self, fn: Callable[[], None], tenants: List[Tenant],
+                 advance: int) -> None:
+        """Run ``fn`` once eagerly on the tenants' own buffers, on the
+        current (capture) stream, and put back what it changed that is
+        read before it is written: the feedback tokens, the positions and
+        an SSM tenant's recurrent state.  The KV rows and log entries it
+        writes lie in [position, position + advance), which the replay
+        writes again before anything reads them.  Its launches are not
+        counted."""
+        for t in tenants:
+            if self._device_pos(t) + advance > self.max_len:
+                raise ValueError(f"{t.tid}: warm-up at position "
+                                 f"{self._device_pos(t)} + {advance} past "
+                                 f"max_len {self.max_len}")
+        bufs = [b for t in tenants for b in
+                [t.token, t.index_dev] + ([leaf for c in t.caches
+                                           for leaf in c.values()]
+                                          if t.cfg.family == "ssm" else [])]
+        saved = [b.clone() for b in bufs]
+        before = kcount.snapshot()
+        fn()
+        kcount.add(kcount.delta(before), -1)
+        for b, v in zip(bufs, saved):
+            b.copy_(v)
+
+    def _compile(self, fn: Callable[[], None], sig: Tuple,
+                 tenants: List[Tenant], advance: int) -> _CompiledEntry:
+        """One program: the eager closure where the server captures
+        nothing, else ``fn`` captured into a CUDA graph on the server's
+        capture stream and memory pool, after a warm-up where ``sig`` has
+        none yet.  The launches the capture counted are taken back and
+        kept for the replays.  A failure raises."""
+        if not self._capture_graphs:
+            return _CompiledEntry(fn)
+        t0 = time.perf_counter()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        main = torch.cuda.current_stream(self.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            if sig not in self._warm_sigs:
+                w0 = time.perf_counter()
+                self._warm_up(fn, tenants, advance)
+                self._warm_sigs.add(sig)
+                self._warmups += 1
+                self._warmup_s += time.perf_counter() - w0
+            graph = torch.cuda.CUDAGraph()
+            before = kcount.snapshot()
+            graph.capture_begin(pool=self._graph_pool)
+            try:
+                fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass   # the capture is invalid already; report fn's error
+                raise
+            graph.capture_end()
+            launches = kcount.delta(before)
+            kcount.add(launches, -1)
+        main.wait_stream(stream)
+        if self._graph_pool is None:
+            self._graph_pool = graph.pool()
+        self._captures += 1
+        self._capture_s += time.perf_counter() - t0
+        return _CompiledEntry(fn, graph, launches)
+
+    # ------------------------------------------ AOT program precompile --
+    def _simulate_block_sels(self, task: TenantTask, now: float,
+                             budget: int) -> Optional[List[Selection]]:
+        """Pure what-if Algorithm 1 walk of one task's whole graph under a
+        FIXED page budget (copied from the reference): the grant sequence
+        the task would receive with ``budget`` pages available
+        throughout.  None when some layer cannot fit even its smallest
+        candidate."""
+        sels: List[Selection] = []
+        flag, held = False, 0
+        mapping = task.model.mapping
+        for l in range(task.model.num_layers):
+            mct = mapping.mcts[l]
+            blk = mapping.block_of(l)
+            if flag and mct.lbm is None:
+                return None   # same bail as the batched planner
+            if flag:
+                sel = Selection(mct.lbm, mct.lbm.p_need, INF)
+            elif (mapping.is_head_of_block(l) and mct.lbm is not None
+                    and mct.lbm.p_need < budget):
+                sel = Selection(
+                    mct.lbm, mct.lbm.p_need,
+                    now + task.model.block_t_est[blk] * AHEAD_FRACTION)
+            else:
+                m = mct.best_fit(budget)
+                sel = Selection(
+                    m, m.p_need,
+                    now + task.model.layer_t_est[l] * AHEAD_FRACTION)
+            if max(held, sel.p_cur) > budget:
+                return None
+            sels.append(sel)
+            if sel.candidate.kind == "LBM" and l < blk[1] - 1:
+                flag, held = True, max(held, sel.p_cur)
+            else:
+                flag, held = False, 0
+        return sels
+
+    def _enumerate_epoch_keys(self, steps: int) -> List[Tuple]:
+        """Predicted epoch keys for this run (the reference's walk): each
+        tenant's (k, kv) decode trajectory from its current position
+        (prefill epochs delay the start), its grant plan under the
+        current free pool, composed per epoch in tenant order with the
+        planner's bucketing predicate.  Each item is a program key of
+        :meth:`_fused_key`: the reference's item plus its tenant ids."""
+        preds: Dict[str, Tuple] = {}
+        for t in self.tenants:
+            if t.departed:
+                continue
+            sims = self._simulate_block_sels(t.task, 0.0,
+                                             self.cache.free_pages)
+            if sims is None:
+                continue
+            plan = self._dec_plan(
+                t, self._lower_plan(t, [(s, s.p_cur) for s in sims]))
+            start, idx = 0, t.index
+            if t.prompt is not None and not t.fed:
+                start = -(-(t.prompt_len - t.pf_pos) // self.prefill_block)
+                idx = t.prompt_len
+            rem = t.budget_left if t.budget_left is not None else steps
+            traj: List[Tuple[int, int]] = []
+            while rem > 0 and idx < self.max_len and len(traj) < 64:
+                k = min(self.epoch_len, rem, LANE - (idx % LANE))
+                if idx + k > self.max_len:
+                    break
+                traj.append((k, self._kv_len(idx + k)))
+                idx += k
+                rem -= k
+            preds[t.tid] = (plan, start, traj)
+        horizon = max((start + len(traj)
+                       for _, start, traj in preds.values()), default=0)
+        keys: List[Tuple] = []
+        seen = set()
+        for e in range(min(horizon, 128)):
+            per_tenant: Dict[str, Tuple] = {}
+            for tid, (plan, start, traj) in preds.items():
+                if start <= e < start + len(traj):
+                    per_tenant[tid] = (plan,) + traj[e - start]
+            if not per_tenant:
+                continue
+            key_items: List[Tuple] = []
+            done = set()
+            for t in self.tenants:
+                if t.tid in done or t.tid not in per_tenant:
+                    continue
+                plan, k, kv = per_tenant[t.tid]
+                group = self._groups[t.cfg.name]
+                bucketable = (
+                    len(group) >= 2
+                    and all(g.tid in per_tenant for g in group)
+                    and all(per_tenant[g.tid] == (plan, k, kv)
+                            for g in group)
+                    and len({g.kv_dtype for g in group}) == 1)
+                if bucketable:
+                    key_items.append(("bucket", t.cfg.name, plan, k, kv,
+                                      tuple(g.tid for g in group)))
+                    done.update(g.tid for g in group)
+                else:
+                    key_items.append(("single", t.cfg.name, plan, k, kv,
+                                      (t.tid,)))
+                    done.add(t.tid)
+            key = tuple(key_items)
+            if key and key not in seen:
+                seen.add(key)
+                keys.append(key)
+        return keys
+
+    def warm_aot(self, steps: int) -> None:
+        """Build (on the card: capture) the program of every decode item
+        of the predicted epochs before they exist, on the run's own
+        thread (the reference compiles on a daemon thread; a capture
+        beside live launches on the same card is not taken here).  A
+        prediction miss costs one unused capture; a hit means the epoch
+        finds its graph ready.  A failure raises."""
+        if not (self.pipeline and self.aot_warmup):
+            return
+        for epoch_key in self._enumerate_epoch_keys(steps):
+            for key in epoch_key:
+                if self._fused_jits.peek(key) is None:
+                    self._fused_jits[key] = self._build_entry(key)
+                    self._aot_compiled += 1
+
     def _dispatch_epoch(self, work: List[Tuple]) -> None:
         """Timed wrapper around the epoch dispatcher (the dispatch wall:
-        host time to queue the epoch's device work)."""
+        host time to queue the epoch's device work), with the epoch's
+        program builds (LRU misses)."""
         t0 = time.perf_counter()
+        m0 = self.compile_misses()
         try:
             self._dispatch_epoch_inner(work)
         finally:
             self._device_walls.append(time.perf_counter() - t0)
+            self._epoch_compiles.append(self.compile_misses() - m0)
 
     def _dispatch_epoch_inner(self, work: List[Tuple]) -> None:
         """Queue one epoch's work: the prefill chunks first, then every
-        decode item (a bucket's tenants one after another).  Nothing here
-        waits for the device except the TTFT stamps, taken last."""
+        decode item, one program each (a bucket's tenants in one).
+        Nothing here waits for the device except the TTFT stamps, taken
+        last."""
         finished = []
         for item in work:
             if item[0] == "prefill":
@@ -930,31 +1403,25 @@ class MultiTenantServer:
         for item in work:
             if item[0] == "prefill":
                 continue
-            kind, who, plan, k = item
+            self._fused_epoch_fn(item)()
+            kind, who, _, k = item
             for t in (who if kind == "bucket" else [who]):
-                kv = self._kv_len(t.index + k)
-                toks, t.caches = self._epoch_cores[t.cfg.name](
-                    t.params, t.caches, t.token, t.index, plan=plan, k=k,
-                    kv_len=kv)
-                t.token = toks[:, -1:]
-                t.outputs.append(toks)
                 self._advance(t, k)
         for t in finished:
             self._stamp_ttft(t)
 
     def _serve_one_step(self, t: Tenant, now: float) -> None:
         """Serial reference: schedule, charge, lower and run ONE decode
-        step."""
+        step, eagerly, on the tenant's buffers."""
         assert t.index < self.max_len, \
             f"{t.tid}: decode past max_len {self.max_len}"
         sched = self._schedule_block(t, now)
         plan = self._lower_plan(t, sched)
         t.plans.append(plan)
         kv = self._kv_len(t.index + 1)
-        nxt, t.caches = t.decode(t.params, t.caches, t.token, t.index,
-                                 plan=self._dec_plan(t, plan), kv_len=kv)
-        t.token = nxt[:, None]
-        t.outputs.append(nxt[:, None])
+        nxt, _ = t.decode(t.params, t.caches, t.token, t.index_dev,
+                          plan=self._dec_plan(t, plan), kv_len=kv)
+        self._feed(t, nxt[:, None], 1)
         self._advance(t, 1)
 
     def _resolve_qos(self, tid: str) -> Optional[float]:
@@ -985,11 +1452,13 @@ class MultiTenantServer:
         self._device_walls = []
         self._admit_walls = []
         self._admit_wall = 0.0
+        self._epoch_compiles = []
         self._batched_runs = 0
         self._oracle_runs = 0
+        self._run_steps = steps
         for t in self.tenants:
             t.run_steps = 0
-            if t.admitted_wall is None or not t.outputs:
+            if t.admitted_wall is None or t.tokens_served == 0:
                 t.admitted_wall = self._run_t0
         self._run_tokens_before = sum(t.tokens_served for t in self.tenants)
 
@@ -997,10 +1466,11 @@ class MultiTenantServer:
         self._begin_run(steps)
         t0 = self._run_t0
         if self.pipeline:
+            self.warm_aot(steps)   # no-op unless aot_warmup
             pending = self._plan_epoch(0.0, steps)
             while pending:
                 self._dispatch_epoch(pending)
-                # the epoch is still running on the device (eager
+                # the epoch is still running on the device (replays and
                 # launches are asynchronous): plan the next one now
                 pending = self._plan_epoch(time.time() - t0, steps)
         else:
@@ -1056,10 +1526,9 @@ class MultiTenantServer:
                         "kv_dtype": t.kv_dtype,
                         "prefill_computed": t.pf_computed,
                         "state": t.state,
-                        "output": (torch.cat([o.cpu() for o in t.outputs],
-                                             dim=-1).numpy().astype(np.int32)
-                                   if t.outputs else
-                                   np.zeros((self.batch, 0), np.int32))}
+                        "output": (self._served(t) if t.log is not None
+                                   else t.outputs).cpu().numpy().astype(
+                                       np.int32)}
                 for t in self.tenants
             },
             "mode": "pipelined" if self.pipeline else "serial",
@@ -1079,7 +1548,32 @@ class MultiTenantServer:
                 "sched_wall_s": sched,
                 "device_wall_s": device,
                 "admit_wall_s": float(sum(self._admit_walls)),
+                "sched_frac": sched / device if device > 0 else 0.0,
+                "epoch_sched_walls": [round(x, 6) for x in self._sched_walls],
+                "epoch_device_walls": [round(x, 6)
+                                       for x in self._device_walls],
+                "epoch_compiles": list(self._epoch_compiles),
                 "batched_runs": self._batched_runs,
                 "oracle_runs": self._oracle_runs,
+                "aot_compiled": self._aot_compiled,
+                # the reference counts the warm-up failures its daemon
+                # thread swallows; here a failure raises
+                "aot_failed": 0,
+                # since construction: captures (graphs built) and their
+                # host seconds (warm-ups included; the warm-ups apart), and
+                # the entries a departure evicted
+                "captures": self._captures,
+                "capture_s": self._capture_s,
+                "warmups": self._warmups,
+                "warmup_s": self._warmup_s,
+                "departure_evictions": self._depart_evictions,
+                "jit_cache": {
+                    "fused": {"hits": self._fused_jits.hits,
+                              "misses": self._fused_jits.misses,
+                              "evictions": self._fused_jits.evictions},
+                    "prefill": {"hits": self._prefill_jits.hits,
+                                "misses": self._prefill_jits.misses,
+                                "evictions": self._prefill_jits.evictions},
+                },
             },
         }

@@ -40,9 +40,10 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 
 
 def _mask_bias(q_len: int, kv_len: int, causal: bool, window: int,
-               q_offset: int = 0,
+               q_offset: Any = 0,
                device: Optional[torch.device] = None) -> torch.Tensor:
-    """[q_len, kv_len] additive bias; q_offset = absolute pos of query 0."""
+    """[q_len, kv_len] additive bias; q_offset = absolute pos of query 0
+    (a host int or a device int64 scalar)."""
     qpos = torch.arange(q_len, device=device)[:, None] + q_offset
     kpos = torch.arange(kv_len, device=device)[None, :]
     ok = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
@@ -54,11 +55,21 @@ def _mask_bias(q_len: int, kv_len: int, causal: bool, window: int,
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
+def _write_rows(buf: torch.Tensor, pos: torch.Tensor,
+                rows: torch.Tensor) -> None:
+    """``buf[:, pos] = rows`` at device positions.  ``index_copy_`` has no
+    float8 kernel, so 1-byte float codes are copied through a uint8 view
+    (the same bytes)."""
+    if buf.is_floating_point() and buf.element_size() == 1:
+        buf, rows = buf.view(torch.uint8), rows.view(torch.uint8)
+    buf.index_copy_(1, pos, rows)
+
+
 def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
         positions: Optional[torch.Tensor] = None,
         causal: bool = True,
         kv_cache: Optional[Dict[str, torch.Tensor]] = None,
-        cache_index: Optional[int] = None,
+        cache_index: Optional[torch.Tensor] = None,
         kv_len: Optional[int] = None,
         xattn_kv: Optional[torch.Tensor] = None,
         attn_plan: Optional[Any] = None,
@@ -66,14 +77,16 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     """GQA attention.
 
     x: [B, S, d].  kv_cache None -> self-attention over x.  With
-    kv_cache {"k","v"} [B, L, Hkv, hd] and ``cache_index`` (a host int,
-    the absolute position of x's first token) the S new tokens are
-    written into the cache IN PLACE at [cache_index, cache_index + S) and
-    attend causally over the cache prefix; the same cache dict is
-    returned.  A quantized cache (it has "k_scale" / "v_scale"
-    [B, L, Hkv, 1] fp32 leaves) gets the new rows quantized per row and
-    their codes and scales written in place; its read is sliced to the
-    window first and only then dequantized to x's dtype.  ``kv_len``
+    kv_cache {"k","v"} [B, L, Hkv, hd] and ``cache_index`` (a device
+    int64 scalar, the absolute position of x's first token) the S new
+    tokens are written into the cache IN PLACE at [cache_index,
+    cache_index + S) (``index_copy_`` along the sequence axis, so that a
+    captured CUDA graph reads the position at replay) and attend causally
+    over the cache prefix; the same cache dict is returned.  A quantized
+    cache (it has "k_scale" / "v_scale" [B, L, Hkv, 1] fp32 leaves) gets
+    the new rows quantized per row and their codes and scales written in
+    place; its read is sliced to the window first and only then
+    dequantized to x's dtype.  ``kv_len``
     bounds the read to the cache's first kv_len positions (positions
     past the index are masked anyway), so reads scale with the live
     prefix, not max_len.  Requires cache_index + S <= kv_len.
@@ -102,8 +115,9 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
             kv_name = kquant.kv_dtype_of(kv_cache["k"].dtype)
             new["k"], new["k_scale"] = kquant.quantize_rows(k, kv_name)
             new["v"], new["v_scale"] = kquant.quantize_rows(v, kv_name)
+        pos = cache_index + torch.arange(S, device=x.device)
         for name, rows in new.items():
-            kv_cache[name][:, cache_index:cache_index + S] = rows
+            _write_rows(kv_cache[name], pos, rows)
         new_cache = kv_cache
         window = {name: buf[:, :kv_len] for name, buf in kv_cache.items()}
         k, v = window["k"], window["v"]

@@ -1,9 +1,10 @@
 """Public model API of the ported slices (port of the serving and
 prefill entry points of src/repro/models/model.py): params, logit
 masking, greedy feedback, the one-shot prefill, and the decode-step /
-decode-epoch / prefill-chunk closures the server drives.  Eager
-PyTorch: the closures need no compilation and take their static
-arguments (plan, k, kv_len) per call."""
+decode-epoch / prefill-chunk closures the server drives.  The closures
+take their static arguments (plan, k, kv_len) per call and the position
+as a device int64 scalar (or a host int), so the server can capture one
+call as a CUDA graph and replay it at every position of its window."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -73,7 +74,7 @@ def make_prefill_chunk(cfg: ArchConfig):
     position, meaningful for the final chunk — and the caches)."""
     next_token = _greedy_next_token(cfg)
 
-    def serve_prefill_chunk(params, caches, tokens, index: int,
+    def serve_prefill_chunk(params, caches, tokens, index,
                             enc_out=None, kv_len: Optional[int] = None):
         _no_enc(enc_out)
         logits, caches = prefill_chunk(params, tokens, caches, index, cfg,
@@ -88,7 +89,7 @@ def make_decode_epoch(cfg: ArchConfig):
     :func:`make_decode_step` calls feeding each token back in."""
     next_token = _greedy_next_token(cfg)
 
-    def serve_decode_epoch(params, caches, token, index: int, enc_out=None,
+    def serve_decode_epoch(params, caches, token, index, enc_out=None,
                            plan=None, k: int = 1,
                            kv_len: Optional[int] = None):
         _no_enc(enc_out)
@@ -98,6 +99,35 @@ def make_decode_epoch(cfg: ArchConfig):
     return serve_decode_epoch
 
 
+def make_decode_epoch_batched(cfg: ArchConfig):
+    """Plan-bucketed batched epoch (port of the reference's
+    ``make_decode_epoch_batched``): tenants of one arch sharing a
+    KernelPlan decode as one call.  ``params`` and ``caches`` are lists
+    with one entry per tenant; ``token`` [n, B, 1] and ``index`` [n]
+    carry a leading tenant axis.  Returns (tokens [n, B, k], caches);
+    each tenant's slice is bit-identical to its own
+    :func:`make_decode_epoch` call.
+
+    The reference stacks the params and vmaps the epoch.  Here the call
+    runs each tenant's epoch in turn: at full width one yi-9b tenant's
+    bf16 params are ~17 GB, and a stacked copy of a bucket would not fit
+    beside the tenants on an 80 GB card.  Captured as one CUDA graph, the
+    bucket still costs the host one replay.  The caches stay per tenant
+    and are updated in place, so nothing is unstacked afterwards."""
+    next_token = _greedy_next_token(cfg)
+
+    def serve_decode_epoch_batched(params, caches, token, index,
+                                   enc_out=None, plan=None, k: int = 1,
+                                   kv_len: Optional[int] = None):
+        _no_enc(enc_out)
+        toks = [decode_epoch(p, token[i], c, index[i], cfg, k,
+                             next_token_fn=next_token, plan=plan,
+                             kv_len=kv_len)[0]
+                for i, (p, c) in enumerate(zip(params, caches))]
+        return torch.stack(toks), caches
+    return serve_decode_epoch_batched
+
+
 def make_decode_step(cfg: ArchConfig):
     """One-token serving step: (next token [B], caches).  ``plan``
     decides which Hopper kernel the step's FFNs run (an SSM step has
@@ -105,7 +135,7 @@ def make_decode_step(cfg: ArchConfig):
     prefix."""
     next_token = _greedy_next_token(cfg)
 
-    def serve_decode(params, caches, token, index: int, enc_out=None,
+    def serve_decode(params, caches, token, index, enc_out=None,
                      plan=None, kv_len: Optional[int] = None):
         _no_enc(enc_out)
         logits, caches = decode_step(params, token, caches, index, cfg,

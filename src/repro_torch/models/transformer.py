@@ -6,11 +6,14 @@ Layers are a Python list of per-layer param dicts, and the decode caches
 a list with one dict per layer: K/V for a dense layer, the recurrent
 state ``{conv, ssm}`` for a Mamba2 layer.  One plain Python loop over
 layers replaces both of the reference's unrolled and scanned variants.
-KV writes happen in place (slice assignment into the layer's buffers);
-a Mamba2 layer's new state replaces its entry.  Either way
-``decode_step`` / ``decode_epoch`` / ``prefill_chunk`` return the very
-cache list they were given, updated.  Positions and cache indices are
-host ints: the serving loop knows them without reading the device.
+Every cache write happens in place, into the buffers the caches held
+when they were made: K/V rows by ``index_copy_`` at the position, a
+Mamba2 layer's new state by ``copy_``.  ``decode_step`` /
+``decode_epoch`` / ``prefill_chunk`` return the very cache list they
+were given, updated.  The position is a device int64 scalar, as the
+reference's traced ``index`` is: a captured CUDA graph reads it (and
+every buffer) at replay, so the server replays one graph at every
+position of a window.  A host int is moved to the device first.
 
 Other families (MoE, hybrid, encoder-decoder, VLM) raise
 ``NotImplementedError`` until their slices are ported.
@@ -69,7 +72,7 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
 # ------------------------------------------------------------- blocks --
 def _dense_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  causal: bool = True, kv_cache=None,
-                 cache_index: Optional[int] = None,
+                 cache_index: Optional[torch.Tensor] = None,
                  kv_len: Optional[int] = None, positions=None, plan=None):
     h, new_cache = mha(p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
                        causal=causal, kv_cache=kv_cache,
@@ -128,6 +131,20 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
 
 
 # -------------------------------------------------------------- decode --
+def _as_index(index: Any, device: torch.device) -> torch.Tensor:
+    """The position as a device int64 scalar (a host int is copied)."""
+    if isinstance(index, torch.Tensor):
+        return index
+    return torch.tensor(index, dtype=torch.long, device=device)
+
+
+def _write_state(cache: dict, state: dict) -> None:
+    """A Mamba2 layer's new state into its cache buffers, in place (the
+    same values and dtypes: the buffers keep their addresses)."""
+    for name, value in state.items():
+        cache[name].copy_(value)
+
+
 def init_caches(params: Optional[Params], cfg: ArchConfig, batch: int,
                 max_len: int, kv_dtype: Optional[str] = None,
                 device: Any = None) -> Caches:
@@ -152,42 +169,45 @@ def init_caches(params: Optional[Params], cfg: ArchConfig, batch: int,
 
 
 def decode_step(params: Params, token: torch.Tensor, caches: Caches,
-                index: int, cfg: ArchConfig, plan=None,
+                index: Any, cfg: ArchConfig, plan=None,
                 kv_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Caches]:
-    """One decode step.  token: [B, 1] int; index: host int position.
-    ``plan`` (a core.plan.KernelPlan) runs each dense layer's FFN
-    through the Hopper kernel its grant lowered to (a Mamba2 layer's
-    O(1) step has no plan); ``kv_len`` bounds the attention read to the
-    live cache prefix (index < kv_len).  Returns (logits [B, 1, V] fp32,
+    """One decode step.  token: [B, 1] int; index: the position (a device
+    int64 scalar, or a host int).  ``plan`` (a core.plan.KernelPlan) runs
+    each dense layer's FFN through the Hopper kernel its grant lowered to
+    (a Mamba2 layer's O(1) step has no plan); ``kv_len`` bounds the
+    attention read to the live cache prefix (index < kv_len).  Returns (logits [B, 1, V] fp32,
     the caches, updated in place)."""
     _require_ported(cfg)
     x = embed(params["embed"], token)
-    positions = torch.full((1, 1), index, dtype=torch.long, device=x.device)
+    index = _as_index(index, x.device)
+    positions = index.reshape(1, 1)
     for g, lp in enumerate(params["layers"]):
         if cfg.family == "ssm":
-            x, caches[g] = _ssm_block(lp, x, cfg, state=caches[g],
-                                      decode=True)
+            x, state = _ssm_block(lp, x, cfg, state=caches[g], decode=True)
+            _write_state(caches[g], state)
             continue
-        x, caches[g] = _dense_block(lp, x, cfg, kv_cache=caches[g],
-                                    cache_index=index, kv_len=kv_len,
-                                    positions=positions, plan=plan)
+        x, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
+                            cache_index=index, kv_len=kv_len,
+                            positions=positions, plan=plan)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), caches
 
 
 def decode_epoch(params: Params, token: torch.Tensor, caches: Caches,
-                 index: int, cfg: ArchConfig, k: int, *,
+                 index: Any, cfg: ArchConfig, k: int, *,
                  next_token_fn: Callable[[torch.Tensor], torch.Tensor],
                  plan=None, kv_len: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Caches]:
     """K decode steps under one static plan, each output token fed back
     in (``next_token_fn(logits) -> [B]`` closes the loop).  token:
-    [B, 1]; index: host int start position.  Returns (tokens [B, k],
-    caches) and is bit-identical to k sequential :func:`decode_step`
-    calls: it is exactly that loop, with nothing read back to the host."""
+    [B, 1]; index: the start position (a device int64 scalar, or a host
+    int).  Returns (tokens [B, k], caches) and is bit-identical to k
+    sequential :func:`decode_step` calls: it is exactly that loop, with
+    nothing read back to the host."""
     toks = []
     tok = token
+    index = _as_index(index, token.device)
     for i in range(k):
         logits, caches = decode_step(params, tok, caches, index + i, cfg,
                                      plan=plan, kv_len=kv_len)
@@ -198,7 +218,7 @@ def decode_epoch(params: Params, token: torch.Tensor, caches: Caches,
 
 
 def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
-                  index: int, cfg: ArchConfig, kv_len: Optional[int] = None
+                  index: Any, cfg: ArchConfig, kv_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Caches]:
     """One cache-resuming prefill chunk: forward ``tokens`` [B, S] at
     absolute positions [index, index + S), writing their KV (or carrying
@@ -212,13 +232,15 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
     _require_ported(cfg)
     x = embed(params["embed"], tokens)
     S = x.shape[1]
+    index = _as_index(index, x.device)
     positions = (torch.arange(S, device=x.device)[None, :] + index)
     for g, lp in enumerate(params["layers"]):
         if cfg.family == "ssm":
-            x, caches[g] = _ssm_block(lp, x, cfg, state=caches[g])
+            x, state = _ssm_block(lp, x, cfg, state=caches[g])
+            _write_state(caches[g], state)
             continue
-        x, caches[g] = _dense_block(lp, x, cfg, kv_cache=caches[g],
-                                    cache_index=index, kv_len=kv_len,
-                                    positions=positions)
+        x, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
+                            cache_index=index, kv_len=kv_len,
+                            positions=positions)
     x = rms_norm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return unembed(params["embed"], x), caches

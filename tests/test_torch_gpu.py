@@ -318,3 +318,76 @@ def test_cuda_ssd_chunk_wgmma_matches_plain_version():
         torch.testing.assert_close(st, want_st, **MATMUL_TOL["float32"])
         y2, st2 = kssd.ssd_chunk(x, dts, A, Bm, Cm, q, kind="wgmma")
         assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+# ------------------------------------------------------- CUDA graphs --
+def _bf16(arch, name):
+    """A registered bf16 copy of the reduced config (the wgmma / gemv
+    kinds take bf16 only)."""
+    import dataclasses
+    from repro_torch.models.base import get_arch, register
+    return register(dataclasses.replace(get_arch(arch).reduced(), name=name,
+                                        dtype="bfloat16"))
+
+
+@pytest.mark.gpu
+def test_graph_replay_matches_eager_dispatch():
+    """chip_smoke.py's graphs phase at the reduced widths in bf16: a
+    server's captured programs (a prompt tenant's chunks and epochs with
+    a native and an int8 cache, a resident alone, two as a bucket, a
+    mamba2 prompt chunk, tail and epochs) against the epoch / prefill
+    cores run eagerly on cloned caches, tokens and positions, bitwise in
+    tokens and every cache buffer; replays count the eager run's launches
+    (cache_matmul and ssd_chunk among them; the tile kinds are held at
+    full width, in chip_smoke.py); a second replay of an item captures
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    out = chip_smoke.check_graphs(_bf16("yi-9b", "yi-9b-graphs"),
+                                  _bf16("mamba2-370m", "mamba2-graphs"),
+                                  "cuda", kinds=False)
+    assert out["bit_identical"] and len(out["checks"]) == 16
+
+
+@pytest.mark.gpu
+def test_graph_replay_adds_its_capture_launches():
+    """A warm server's program, replayed, adds exactly the launch counts
+    its capture recorded (the wrappers run no Python at replay), and a
+    second run() of the server captures nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import counters as kcount
+    from repro_torch.launch.serve import MultiTenantServer
+    cfg = _bf16("yi-9b", "yi-9b-graphs")
+    srv = MultiTenantServer([cfg.name], batch=2, max_len=64, epoch_len=4,
+                            device="cuda", reduced=False)
+    srv.run(8)
+    captures = srv._captures
+    assert captures > 0
+    out = srv.run(8)
+    assert srv._captures == captures
+    assert out["host"]["epoch_compiles"] == [0] * out["host"]["epochs"]
+    entry = srv._fused_jits.peek(srv._fused_jits.keys()[-1])
+    assert entry.graph is not None and entry.launches   # the FFN kernels
+    before = kcount.snapshot()
+    entry()
+    torch.cuda.synchronize()
+    assert kcount.delta(before) == entry.launches
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises():
+    """A capture that fails (here: a read back to the host inside it)
+    raises; nothing falls back to eager dispatch.  Kept last: the failed
+    capture leaves its stream's pool routing behind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch.serve import MultiTenantServer
+    srv = MultiTenantServer([_bf16("yi-9b", "yi-9b-graphs").name], batch=2,
+                            max_len=64, device="cuda", reduced=False)
+    t = srv.tenants[0]
+    with pytest.raises(RuntimeError):
+        srv._compile(lambda: float(t.index_dev.float().sum()), ("probe",),
+                     [t], 1)
+    assert srv._captures == 0

@@ -116,8 +116,7 @@ def test_port_serial_and_pipelined_bit_identical(runs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefix_dedup=True), dict(lookahead=True), dict(aot_warmup=True),
-    dict(faults=object()), dict(queue_limit=4), dict(queue_deadline_s=1.0),
+    dict(prefix_dedup=True), dict(lookahead=True), dict(faults=object()), dict(queue_limit=4), dict(queue_deadline_s=1.0),
     dict(kv_dtype="auto", queue_limit=4), dict(device=[object()])])
 def test_unported_server_features_raise(option):
     with pytest.raises(NotImplementedError):
