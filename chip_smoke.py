@@ -16,7 +16,8 @@ Phases, each printed as one JSON object with its seconds:
   card, in bf16 and fp32 (TF32 off): the matmul and FFN kernels at
   full-width yi-9b decode shapes, a 256-row prefill-sized shape and a
   ragged one; flash attention native and quantized (int8, fp8) at the
-  prefill path's shape, non-causal, ragged and at hd 32, with the fp32
+  prefill path's shape, the MoE prefill's (olmoe: 16 K/V heads for 16
+  query heads), non-causal, ragged and at hd 32, with the fp32
   quantized kernel bitwise equal to the native one on dequantized K/V;
   tiles and blocks lowered from full-width plans under several grants;
   cache_matmul_quant with int8 and fp8 codes at every compiled tile of
@@ -75,8 +76,9 @@ Phases, each printed as one JSON object with its seconds:
   grants with int8 and fp8 KV; counters zeroed just before and read just
   after one pass of the four (every block_fused_ffn launch and every
   quantized flash launch of the wgmma kind); gated against the plain
-  path on the card; timed, and profiled once per plan kind (LBM/native,
-  LWM/int8, LWM/fp8).
+  path on the card (int8 and fp8 also by cosine and against a control
+  with the plain attention, traced layer by layer); timed, and profiled
+  once per plan kind (LBM/native, LWM/int8, LWM/fp8).
 * ``serve_kv``: slice 3's serving path.  ``MultiTenantServer(kv_dtype=
   "auto")`` serves full-width, full-depth yi-9b: a resident tenant and
   three 256-token prompt tenants arriving at distinct steps on one
@@ -119,6 +121,44 @@ Phases, each printed as one JSON object with its seconds:
   full-depth mamba2 on the card: two residents and a 300-token arrival
   whose prompt chunks run ssd_chunk; token streams bitwise equal,
   choices and prefill chunks equal, ssd_chunk launched.
+
+* ``e2e_moe``: the MoE slice.  Full-width olmoe-1b-7b (64 experts of
+  d_ff 1024, top-8) cut to 4 layers, random weights from one seed:
+  ``make_prefill`` of a 40-token prompt under an LBM plan, an LWM native
+  plan and an LWM int8 plan (each expert's FFN through the plan's
+  kernels, every launch of the wgmma kind), then a teacher-forced decode
+  epoch (the gathered-expert path), on the card against the CPU with the
+  plain versions.
+* ``prefill_moe``: ``make_prefill`` of full-depth olmoe on 2 prompts of
+  1024 tokens (328 bucket rows an expert) plain, under the smallest LBM
+  grant that lowers fused at d_ff 1024, and 32-page LWM grants with
+  native and int8 KV, then ``make_prefill(cfg, serve=True)`` (2048
+  drop-free rows an expert) under the LWM plan; counters zeroed just
+  before and read just after the five calls (3,072 cache_matmul launches
+  under LWM, 1,024 block_fused_ffn under LBM, 16 flash), every launch of
+  the wgmma kind; each plan gated against the plain path (the int8 plan
+  also as the prefill phase's, its run and the control's compared layer
+  by layer: relative drift, routing flips, displaced tokens); timed warm
+  and profiled.  ``prefill`` and ``prefill_moe`` run one function.  The
+  kernels phase times cache_matmul at one expert's 328 and 2048 rows and
+  block_fused_ffn at its 328 rows.
+* ``serve_moe``: ``MultiTenantServer(["olmoe-1b-7b"], reduced=False)``,
+  full depth, batch 2, max_len 512, 32 steps: a resident and a
+  256-token arrival at step 8, in a 2600-page pool that holds the
+  arrival's 2048-page reservation.  The server's MoE path runs no
+  hand-written kernel (as the reference's: decode gathers the experts,
+  prompt chunks run the plain buckets), so its counters must stay 0.
+  Three warm runs and a replayed decode epoch profiled, with the expert
+  gather's share: ``serve``'s function with these arguments.
+* ``self_moe``: serial (eager) against pipelined (graphs) serving of two
+  olmoe residents at full width cut to 4 layers, bitwise, as a bucket.
+  The ``graphs`` phase holds an olmoe prompt tenant's chunks (256 + 128)
+  and epochs, a resident alone and two as a bucket, replay == eager.
+* ``serve_mix``: the reference CLI's default pool, yi-9b, olmoe-1b-7b
+  and mamba2-370m at full width, through ``repro_torch.launch.serve
+  .main`` in this process (``--full-width --arrivals 2 --prompt-len
+  256``, a pool that holds each arch's native reservation); its printed
+  lines, tokens/s, TTFTs and grant trace kept.
 
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -164,6 +204,7 @@ ARRIVAL = dict(arrive_at=8.0, prompt_len=256, n_inferences=16)
 # bitwise contract is held at the reduced width, where the scheduler
 # grants LBM.
 SELF_POOLS = (("full", 16), ("reduced", 64))
+# prefill and prefill_moe: make_prefill at 2 x 1024 tokens, full depth
 PREFILL = dict(batch=2, prompt_len=1024, lwm_pages=32)
 # quantized-KV serving: batch 2, three 256-token arrivals with a 16-step
 # budget at distinct steps, beside a resident decoding for `steps` steps
@@ -217,6 +258,21 @@ GRAPHS = dict(layers=4, batch=2, max_len=512, prompt_len=384,
 SSM_BF16_SPREAD = 3.0
 SSM_BF16_FLOOR = 1e-3
 SSM_BF16_COSINE = 0.98
+MOE_ARCH = "olmoe-1b-7b"
+# e2e_moe: 4 layers, a 40-token prompt (8 slots an expert: 16 bucket rows)
+MOE_E2E = dict(layers=4, batch=2, prompt_len=40, lwm_pages=32)
+# serve_moe (serve_main_path's arguments): a resident and an arrival at
+# step 8; the pool holds the arrival's native KV reservation (2048
+# pages) beside the grants
+SERVE_MOE = dict(batch=2, max_len=512, pages=2600, steps=32, arrival=ARRIVAL)
+SELF_MOE = dict(layers=4, batch=2, max_len=64, pages=1024, steps=12)
+# serve_mix: the reference CLI's default pool at full width; the pool
+# holds every arch's native reservation of one prompt beside the grants
+SERVE_MIX = dict(archs=("yi-9b", MOE_ARCH, "mamba2-370m"), arrivals=2,
+                 prompt_len=256, headroom=600)
+# the kernel of a decode step's expert-weight gather
+# (``params["gate"][top_e]``, PyTorch's indexing on dim 0)
+GATHER_KERNEL = "vectorized_gather_kernel"
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -397,9 +453,10 @@ def kernel_cases(cfg, dev):
     return rows
 
 
-def flash_cases(cfg, dev):
+def flash_cases(cfg, moe_cfg, dev):
     """flash_attention and flash_attention_quantized (int8, fp8) against
-    their plain versions: the prefill path's shape, a non-causal one,
+    their plain versions: the prefill path's shape, the MoE prefill's
+    (olmoe: as many K/V heads as query heads), a non-causal one,
     ragged S and Sk (also S != Sk), a short prompt and hd 32, with the
     tiles that plans under several grants legalize to (bf16 at hd 128:
     the wgmma kernels, native and quantized, bitwise on a repeat); bf16
@@ -417,6 +474,8 @@ def flash_cases(cfg, dev):
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     # (label, B, H, Hkv, S, hd, causal, Sk)
     shapes = (("path", B, H, Hkv, S, hd, True, S),
+              ("moe path", B, moe_cfg.num_heads, moe_cfg.num_kv_heads, S,
+               moe_cfg.hd, True, S),
               ("non-causal", 1, H, Hkv, 512, hd, False, 512),
               ("ragged", 1, 8, 2, 333, 64, True, 333),
               ("ragged non-causal", 1, 8, 2, 333, 64, False, 333),
@@ -655,13 +714,13 @@ def _plan(cfg, kind: str, pages: int, seq_block: int,
     from repro_torch.core.allocator import Selection
     from repro_torch.core.mct import MappingCandidate
     from repro_torch.core.plan import lower_selection
-    from repro_torch.launch.serve import _ffn_width
+    from repro_torch.launch.serve import _lower_width
     cand = MappingCandidate(kind=kind, p_need=pages, dram_bytes=0, flops=0,
                             loops=(), cache_map=(), usage_limit_bytes=0)
     eb = torch.tensor([], dtype=cfg.torch_dtype).element_size()
     plan = lower_selection(Selection(cand, pages, 0.0), pages,
                            seq_block=seq_block, d_model=cfg.d_model,
-                           d_ff=_ffn_width(cfg), dtype_bytes=eb,
+                           d_ff=_lower_width(cfg), dtype_bytes=eb,
                            head_dim=cfg.hd, ssm_chunk=cfg.ssm_chunk,
                            kv_dtype=kv_dtype)
     if plan.kind != kind:
@@ -682,6 +741,55 @@ def prefill_plans(cfg):
             "LWM/fp8_e4m3": _plan(cfg, "LWM", lwm, s, "fp8_e4m3")}
 
 
+def _ffn_timing(x, wg, wu, wd, plan, limit, reps: int):
+    """block_fused_ffn at one of the path's shapes (bf16) with the tile
+    ``plan``'s fused blocks legalize to, against the simt tile the fp32
+    rule picks at the same plan, timed in turns in this call, beside the
+    plain version and the unfused bf16 chain (a yardstick of several
+    calls); the kernel held against the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import block_fused_ffn as kffn
+    from repro_torch.kernels import ops
+    (s, d), f = x.shape, wg.shape[1]
+    ffn = plan.ffn
+    hop = ops.legalize_ffn_tile(ffn.block_s, ffn.block_f, s, limit, x.dtype,
+                                d, f)
+    # the simt tile the same plan gives fp32 (every bf16 call's before)
+    simt = ops.legalize_ffn_tile(ffn.block_s, ffn.block_f, s, limit,
+                                 torch.float32, d, f)
+    bound, by = _bound(2 * (2 * s * d + 3 * d * f), 6 * s * d * f, "bfloat16")
+    got = kffn.block_fused_ffn(x, wg, wu, wd, hop)
+    err, ok = _close(got, kffn.block_fused_ffn_plain(x, wg, wu, wd),
+                     "bfloat16")
+    repeat = bool(torch.equal(got, kffn.block_fused_ffn(x, wg, wu, wd, hop)))
+    del got
+    t = _turns_ms({"ms": lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop),
+                   "simt_ms": lambda: kffn.block_fused_ffn(x, wg, wu, wd,
+                                                           simt)}, reps)
+
+    def chain():         # several PyTorch calls: a yardstick, not a library
+        return torch.matmul(F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu),
+                            wd)
+
+    return {
+        "shape": [s, d, f], "plan": plan.describe(), "kind": hop.kind,
+        "hopper_tile": [hop.bs, hop.bf, hop.bk],
+        "simt_tile": [simt.bs, simt.bf, simt.bk], **t,
+        "tflops": 6 * s * d * f / t["ms"] / 1e9,
+        "plain_ms": _median_ms(
+            lambda: kffn.block_fused_ffn_plain(x, wg, wu, wd), reps),
+        "library_ms": None,
+        "chain_ms": _median_ms(chain, reps),
+        "chain": "yardstick, several calls: torch.matmul x3 with silu * mul, "
+                 "bf16, the hidden tensors through device memory",
+        "bound_ms": bound, "bound_by": by,
+        "partial_bytes": kffn.partial_bytes(hop, s, d, f),
+        "simt_partial_bytes": kffn.partial_bytes(simt, s, d, f),
+        "max_abs_err": err, "bitwise_repeat": repeat, "ok": ok and repeat,
+        "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+
+
 def prefill_timings(cfg, dev):
     """block_fused_ffn (LBM plan), cache_matmul's up and down GEMMs (LWM
     plan) and both flash kernels (the quantized one under the int8 and
@@ -690,7 +798,6 @@ def prefill_timings(cfg, dev):
     against its plain version on the same inputs."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant
@@ -707,40 +814,8 @@ def prefill_timings(cfg, dev):
     wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
     wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
     wd = _randn(gen, (f, d), dt, 1 / math.sqrt(f))
-    hop = ops.legalize_ffn_tile(lbm.ffn.block_s, lbm.ffn.block_f, B * S,
-                                limit, dt, d, f)
-    # the simt tile the same plan gives fp32 (every bf16 call's before)
-    simt = ops.legalize_ffn_tile(lbm.ffn.block_s, lbm.ffn.block_f, B * S,
-                                 limit, torch.float32, d, f)
-    bound, by = _bound(eb * (2 * B * S * d + 3 * d * f), 6 * B * S * d * f, dn)
-    got = kffn.block_fused_ffn(x, wg, wu, wd, hop)
-    err, ok = _close(got, kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
-    repeat = bool(torch.equal(got, kffn.block_fused_ffn(x, wg, wu, wd, hop)))
-    del got
-    t = _turns_ms({"ms": lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop),
-                   "simt_ms": lambda: kffn.block_fused_ffn(x, wg, wu, wd,
-                                                           simt)}, 10)
-
-    def chain():         # several PyTorch calls: a yardstick, not a library
-        return torch.matmul(F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu),
-                            wd)
-
-    out["block_fused_ffn.prefill"] = {
-        "shape": [B * S, d, f], "plan": lbm.describe(), "kind": hop.kind,
-        "hopper_tile": [hop.bs, hop.bf, hop.bk],
-        "simt_tile": [simt.bs, simt.bf, simt.bk], **t,
-        "tflops": 6 * B * S * d * f / t["ms"] / 1e9,
-        "plain_ms": _median_ms(
-            lambda: kffn.block_fused_ffn_plain(x, wg, wu, wd), 10),
-        "library_ms": None,
-        "chain_ms": _median_ms(chain, 10),
-        "chain": "yardstick, several calls: torch.matmul x3 with silu * mul, "
-                 "bf16, the hidden tensors through device memory",
-        "bound_ms": bound, "bound_by": by,
-        "partial_bytes": kffn.partial_bytes(hop, B * S, d, f),
-        "simt_partial_bytes": kffn.partial_bytes(simt, B * S, d, f),
-        "max_abs_err": err, "bitwise_repeat": repeat, "ok": ok and repeat,
-        "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+    out["block_fused_ffn.prefill"] = _ffn_timing(x, wg, wu, wd, lbm, limit,
+                                                  10)
     h = _randn(gen, (B * S, f), dt)
     for label, a, b, tile in (("up", x, wg, lwm.ffn.up_tile),
                               ("down", h, wd, lwm.ffn.down_tile)):
@@ -934,16 +1009,55 @@ def ssd_timings(ssm_cfg, dev):
     return out
 
 
-def check_kernels(cfg, ssm_cfg, dev):
+def moe_timings(moe_cfg, dev):
+    """cache_matmul and block_fused_ffn at olmoe-1b-7b's expert shapes:
+    one expert's bucket of ``make_prefill`` at 2 x 1024 tokens (G*C = 328
+    rows) and of ``make_prefill(cfg, serve=True)`` (2048 drop-free rows),
+    gate/up [rows, 2048] @ [2048, 1024] and down [rows, 1024] @ [1024,
+    2048] under the 32-page LWM plan (which both calls run), and the fused
+    FFN at 328 rows under the smallest fused LBM plan, both lowered at
+    d_ff 1024; the unfused bf16 chain as the fused FFN's yardstick."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import capacity
+    dt = torch.bfloat16
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    plans = moe_prefill_plans(moe_cfg)
+    lwm = plans["LWM/native"].ffn
+    B, S = PREFILL["batch"], PREFILL["prompt_len"]
+    d, f = moe_cfg.d_model, moe_cfg.d_ff
+    wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wd = _randn(gen, (f, d), dt, 1 / math.sqrt(f))
+    out = {}
+    for call, rows in (("moe", B * capacity(S, moe_cfg)),
+                       ("moe.serve", B * S)):
+        x = _randn(gen, (rows, d), dt)
+        h = _randn(gen, (rows, f), dt)
+        for label, a, b, tile in (("up", x, wg, lwm.up_tile),
+                                  ("down", h, wd, lwm.down_tile)):
+            out[f"cache_matmul.{call}.{label}"] = {
+                "plan": plans["LWM/native"].describe(),
+                **_matmul_timing(a, b, tile, limit, 30)}
+        if call == "moe":
+            out["block_fused_ffn.moe"] = _ffn_timing(
+                x, wg, wu, wd, plans["LBM/native"], limit, 30)
+    return out
+
+
+def check_kernels(cfg, ssm_cfg, moe_cfg, dev):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = (kernel_cases(cfg, dev) + flash_cases(cfg, dev)
+    rows = (kernel_cases(cfg, dev) + flash_cases(cfg, moe_cfg, dev)
             + quant_cases(cfg, dev) + ssd_cases(ssm_cfg, dev))
     bad = [r for r in rows if not r["ok"]]
     timings = kernel_timings(cfg, dev, batch=2, lwm_pages=32, lbm_pages=324)
     timings.update(prefill_timings(cfg, dev))
     timings.update(ssd_timings(ssm_cfg, dev))
+    timings.update(moe_timings(moe_cfg, dev))
     bad += [k for k, v in timings.items() if not v["ok"]]
     worst = {}
     for r in rows:
@@ -1139,7 +1253,7 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
 
 
 # -------------------------------------------------------------- serve --
-def _profile(run, annotations=()):
+def _profile(run, annotations=(), shares=()):
     """Device time by kernel of one call of ``run`` (warm, synchronised),
     under ``torch.profiler``, and the device's idle share against the
     same call timed on the host clock without the profiler.  Each name in
@@ -1147,7 +1261,9 @@ def _profile(run, annotations=()):
     device time of the kernels launched inside it (``kernel_ms``, from
     the range's host-side row) and the device span of the range
     (``span_ms``, which also holds the idle gaps while the host launches
-    its kernels); both are kept out of the kernel rows."""
+    its kernels); both are kept out of the kernel rows.  Each name in
+    ``shares`` gets the share of device time of every kernel whose name
+    holds it (``shares``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run()                                   # warm
@@ -1192,6 +1308,10 @@ def _profile(run, annotations=()):
            "device_ms": total_us / 1e3 if total_us else "not measured",
            "idle_share": (1 - total_us / 1e3 / wall_ms) if total_us else
            "not measured", "top": top}
+    if shares:
+        out["shares"] = {n: (sum(r[1] for r in rows if n in r[0]) / total_us
+                             if total_us else "not measured")
+                         for n in shares}
     if annotations:
         out["annotated"] = {
             n: {**a, "kernel_share": a["kernel_ms"] * 1e3 / total_us}
@@ -1200,13 +1320,13 @@ def _profile(run, annotations=()):
     return out
 
 
-def _profile_replay(srv, t, k: int = 4):
+def _profile_replay(srv, t, k: int = 4, shares=()):
     """:func:`_profile` of one decode epoch of tenant ``t`` as the server
     dispatches it warm: one replay of its program for the item at its
     position (a program not cached yet is captured in ``_profile``'s
     warm-up call).  Each call puts the device position and the feedback
     token back (two small copies), so every call replays the same
-    epoch."""
+    epoch.  ``shares`` as :func:`_profile`'s."""
     import torch
     plan = srv._dec_plan(t, t.plans[-1])
     item = ("single", t, plan, k)
@@ -1221,7 +1341,7 @@ def _profile_replay(srv, t, k: int = 4):
         t.token.copy_(token)
         torch.cuda.synchronize()
 
-    out = _profile(run)
+    out = _profile(run, shares=shares)
     # the host's part of a replayed epoch: the lookup and the replay call
     # (the graph's launch), last of the three calls
     return {"plan": plan.describe() if plan is not None else None,
@@ -1299,59 +1419,83 @@ def grantable_kinds(cfg, batch: int, pages: int):
     return {"LBM", "LWM"} if lbm else {"LWM"}
 
 
-def serve_main_path(cfg, dev, counters):
-    """Two full-width, full-depth yi-9b tenants through the port's
-    MultiTenantServer.  ``counters`` receives the kernels' launch counts
-    of this run: zeroed just before ``run``, read just after."""
+def serve_main_path(cfg, dev, counters, label: str = "serve",
+                    batch: int = 2, max_len: int = 512,
+                    pages: int = SERVE_PAGES, steps: int = SERVE_STEPS,
+                    arrival=ARRIVAL, kernels: bool = True, shares=()):
+    """Two full-width, full-depth tenants of ``cfg`` through the port's
+    MultiTenantServer: a resident and an ``arrival`` (a prompt and a
+    budget), whose native KV reservation the pool holds whole.
+    ``counters`` receives the kernels' launch counts of this run: zeroed
+    just before ``run``, read just after.  With ``kernels`` the FFN
+    kernels of the plans granted must have launched, cache_matmul of the
+    gemv kind (yi-9b); without, nothing may launch (olmoe-1b-7b: the
+    server's MoE path gathers its experts in decode and runs the plain
+    buckets in prompt chunks, as the reference's).  The plan kinds must
+    be those the scheduler can grant.  Then three warm runs, and one
+    replayed decode epoch of the resident profiled with the named
+    kernels' ``shares``."""
     import torch
-    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
     from repro_torch.sim.driver import TenantSpec
     torch.cuda.reset_peak_memory_stats()
-    srv = MultiTenantServer([cfg.name], tenants=[TenantSpec(cfg.name, **ARRIVAL)],
-                            batch=2, max_len=512, total_pages=SERVE_PAGES,
+    quote = _kv_reserve_pages(cfg, batch, arrival["prompt_len"])
+    srv = MultiTenantServer([cfg.name], tenants=[TenantSpec(cfg.name,
+                                                            **arrival)],
+                            batch=batch, max_len=max_len, total_pages=pages,
                             epoch_len=4, device=dev, reduced=False)
     _zero_counters()
-    out = srv.run(steps=SERVE_STEPS)
+    out = srv.run(steps=steps)
     counters.update(_counters())
     programs = _programs(srv, out)
-    want_kinds = grantable_kinds(cfg, 2, SERVE_PAGES)
-    need = {"cache_matmul"} | ({"block_fused_ffn"} if "LBM" in want_kinds
-                               else set())
-    if min(counters[k] for k in need) <= 0:
-        raise AssertionError(f"serve: a kernel never launched: {counters}")
-    _gate_kinds(counters, "serve", ("gemv",))
-    vocab = srv.tenants[0].cfg.vocab_size
+    want_kinds = grantable_kinds(cfg, batch, pages)
+    if kernels:
+        need = {"cache_matmul"} | ({"block_fused_ffn"} if "LBM" in want_kinds
+                                   else set())
+        if min(counters[k] for k in need) <= 0:
+            raise AssertionError(f"{label}: a kernel never launched: "
+                                 f"{counters}")
+        _gate_kinds(counters, label, ("gemv",))
+    elif any(counters.values()):
+        raise AssertionError(f"{label}: a kernel launched: {counters}")
     tenants = {}
     for t in srv.tenants:
         res = out["tenants"][t.tid]
         o = res["output"]
-        want = SERVE_STEPS if t.prompt_len == 0 else 1 + ARRIVAL["n_inferences"]
-        if o.shape != (2, want) or o.min() < 0 or o.max() >= vocab:
-            raise AssertionError(f"{t.tid}: output {o.shape} range "
-                                 f"[{o.min()}, {o.max()}], want (2, {want})")
-        plans = Counter(p.describe() for p in t.plans)
+        want = steps if t.prompt_len == 0 else 1 + arrival["n_inferences"]
+        problems = []
+        if o.shape != (batch, want) or o.min() < 0 or o.max() >= cfg.vocab_size:
+            problems.append(f"output {o.shape} [{o.min()}, {o.max()}], want "
+                            f"({batch}, {want})")
+        if t.prompt_len and not t.kv_wanted == t.kv_reserved == quote:
+            problems.append(f"reservation {t.kv_reserved} of {t.kv_wanted}, "
+                            f"quote {quote}")
+        if problems:
+            raise AssertionError(f"{label} {t.tid}: {problems}")
         tenants[t.tid] = {"tokens": res["tokens"], "ttft_s": res["ttft_s"],
                           "kv_wanted": res["kv_wanted"],
                           "kv_reserved": res["kv_reserved"],
                           "prefill_chunks": res["prefill_chunks"],
-                          "lbm_frac": res["lbm_frac"], "plans": dict(plans),
+                          "lbm_frac": res["lbm_frac"],
+                          "plans": dict(Counter(p.describe()
+                                                for p in t.plans)),
                           "first_tokens": o[0, :8].tolist()}
     kinds = {p.kind for t in srv.tenants for p in t.plans}
     if kinds != want_kinds:
-        raise AssertionError(f"serve: plan kinds {kinds}, the scheduler "
+        raise AssertionError(f"{label}: plan kinds {kinds}, the scheduler "
                              f"grants {want_kinds}")
     res = {"arch": cfg.name, "layers": srv.tenants[0].cfg.num_layers,
-           "total_pages": SERVE_PAGES, "batch": 2, "max_len": 512,
-           "steps": SERVE_STEPS, "plan_kinds": sorted(kinds),
+           "total_pages": pages, "quote": quote, "batch": batch,
+           "max_len": max_len, "steps": steps, "plan_kinds": sorted(kinds),
            "launches": dict(counters),
            "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
            "tokens_per_s": out["tokens_per_s"], "dram_total": out["dram_bytes"],
            "host": out["host"], "tenants": tenants, "programs": programs,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    res["warm"] = _warm_runs(srv, SERVE_STEPS)
+    res["warm"] = _warm_runs(srv, steps)
     res["graph_pool_bytes"] = _graph_pool_bytes(srv)
     res["peak_memory_bytes_after_warm"] = torch.cuda.max_memory_allocated()
-    res["profile"] = [_profile_replay(srv, srv.tenants[0])]
+    res["profile"] = [_profile_replay(srv, srv.tenants[0], shares=shares)]
     return res
 
 
@@ -1473,63 +1617,88 @@ def _replay_vs_eager(srv, item):
             "eager_launches": eager}
 
 
-def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True):
-    """Graph replay against eager dispatch at full width (4 layers): in
-    a pipelined yi-9b server, a prompt tenant's chunks (256 + 128 tokens)
-    and its decode epochs with a native and, in a second server, an int8
-    cache, a resident's epochs alone and two residents' as a bucket; in a
-    mamba2 server a prompt tenant's 256-token chunk and 44-token tail and
-    its epochs.  Each decode item runs twice, at two positions: the first
-    captures (after a warm-up where its signature has none), the second
-    replays the same graph.  Every check must be bitwise in tokens and
-    every cache buffer, launch the kernels the eager run launches (by the
-    counts), and a second replay must capture nothing."""
+def graph_checks(arch, dev, kv_dtype: str = "native", prompt_len=None):
+    """Replay against eager dispatch in one pipelined server of ``arch``
+    cut to :data:`GRAPHS`'s layers: a prompt tenant's chunks (chunks of
+    256) and its decode epochs, and for a dense or MoE arch with a native
+    cache a resident's epochs alone and two residents' as a bucket.  Each
+    decode item runs twice, at two positions: the first captures (after
+    a warm-up where its signature has none), the second replays the same
+    graph.  An MoE tenant's decode binds no plan (``_dec_plan``).
+    Returns the checks and the server's record."""
     from repro_torch.core.vmem import LANE
     from repro_torch.launch.serve import MultiTenantServer
     from repro_torch.models.base import register
     from repro_torch.sim.driver import TenantSpec
     g = GRAPHS
     k = g["k"]
-    res, checks = {}, []
-    for arch, kv_dtype, prompt_len in (
-            (cfg, "native", g["prompt_len"]), (cfg, "int8", g["prompt_len"]),
-            (ssm_cfg, "native", g["ssm_prompt_len"])):
-        cut = register(dataclasses.replace(
-            arch, name=f"{arch.name}-{g['layers']}layer",
-            num_layers=g["layers"]))
-        dense = arch.family != "ssm"
-        residents = [cut.name] * (3 if dense and kv_dtype == "native" else 0)
-        srv = MultiTenantServer(
-            residents, tenants=[TenantSpec(cut.name, prompt_len=prompt_len,
-                                           n_inferences=2 * k)],
-            batch=g["batch"], max_len=g["max_len"], total_pages=1 << 16,
-            epoch_len=k, device=dev, reduced=False, kv_dtype=kv_dtype)
-        plan = (_plan(cut, "LWM", g["lwm_pages"], LANE, kv_dtype) if dense
-                else None)
-        res_plan = (_plan(cut, "LWM", g["lwm_pages"], LANE) if dense
-                    else None)
-        *res_t, prompt_t = srv.tenants
-        while prompt_t.prefilling:    # chunks of 256, on the SSD grid
-            chunk = min(256, prompt_t.prompt_len - prompt_t.pf_pos)
-            checks.append(_replay_vs_eager(
-                srv, ("prefill", prompt_t, None, chunk)))
-        items = [("single", prompt_t, plan, k)]
-        if res_t:
-            items += [("single", res_t[0], res_plan, k),
-                      ("bucket", res_t[1:], res_plan, k)]
-        for item in items:     # capture, then a replay one epoch later
-            checks += [_replay_vs_eager(srv, item) for _ in range(2)]
-        res[f"{arch.name}/{kv_dtype}"] = {
-            "captures": srv._captures, "capture_s": srv._capture_s,
-            "graph_pool_bytes": _graph_pool_bytes(srv),
-            "warm_signatures": len(srv._warm_sigs)}
-        del srv, res_t, prompt_t
-        _release()
+    if prompt_len is None:
+        prompt_len = g["prompt_len"]
+    cut = register(dataclasses.replace(
+        arch, name=f"{arch.name}-{g['layers']}layer", num_layers=g["layers"]))
+    dense = arch.family != "ssm"
+    residents = [cut.name] * (3 if dense and kv_dtype == "native" else 0)
+    srv = MultiTenantServer(
+        residents, tenants=[TenantSpec(cut.name, prompt_len=prompt_len,
+                                       n_inferences=2 * k)],
+        batch=g["batch"], max_len=g["max_len"], total_pages=1 << 16,
+        epoch_len=k, device=dev, reduced=False, kv_dtype=kv_dtype)
+    planned = dense and not arch.is_moe
+    plan = (_plan(cut, "LWM", g["lwm_pages"], LANE, kv_dtype) if planned
+            else None)
+    res_plan = _plan(cut, "LWM", g["lwm_pages"], LANE) if planned else None
+    *res_t, prompt_t = srv.tenants
+    checks = []
+    while prompt_t.prefilling:    # chunks of 256, on the SSD grid
+        chunk = min(256, prompt_t.prompt_len - prompt_t.pf_pos)
+        checks.append(_replay_vs_eager(srv, ("prefill", prompt_t, None,
+                                             chunk)))
+    items = [("single", prompt_t, plan, k)]
+    if res_t:
+        items += [("single", res_t[0], res_plan, k),
+                  ("bucket", res_t[1:], res_plan, k)]
+    for item in items:     # capture, then a replay one epoch later
+        checks += [_replay_vs_eager(srv, item) for _ in range(2)]
+    rec = {"captures": srv._captures, "capture_s": srv._capture_s,
+           "graph_pool_bytes": _graph_pool_bytes(srv),
+           "warm_signatures": len(srv._warm_sigs)}
+    del srv, res_t, prompt_t
+    _release()
+    return checks, rec
+
+
+def _graph_faults(checks):
+    """The checks that are not bitwise or whose replay launched other
+    kernels than the eager run, and a second replay that captured."""
     bad = [c for c in checks if not c["bitwise"]
            or c["launches"] != c["eager_launches"]]
     repeats = [c for c in checks if c["kind"] != "prefill"][1::2]
     if any(c["captured"] for c in repeats):
         bad.append("a second replay captured")
+    return bad
+
+
+def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True, moe_cfg=None):
+    """Graph replay against eager dispatch at full width (4 layers), by
+    :func:`graph_checks`: in a pipelined yi-9b server a prompt tenant's
+    chunks (256 + 128 tokens) and epochs with a native and, in a second
+    server, an int8 cache, a resident's epochs alone and two residents'
+    as a bucket; in a mamba2 server a prompt tenant's 256-token chunk
+    and 44-token tail and its epochs; with ``moe_cfg``, the same items of
+    olmoe-1b-7b (native cache).  Every check must be bitwise in tokens
+    and every cache buffer, launch the kernels the eager run launches (by
+    the counts), and a second replay must capture nothing."""
+    g = GRAPHS
+    res, checks = {}, []
+    cases = [(cfg, "native", g["prompt_len"]), (cfg, "int8", g["prompt_len"]),
+             (ssm_cfg, "native", g["ssm_prompt_len"])]
+    if moe_cfg is not None:
+        cases.append((moe_cfg, "native", g["prompt_len"]))
+    for arch, kv_dtype, prompt_len in cases:
+        got, res[f"{arch.name}/{kv_dtype}"] = graph_checks(
+            arch, dev, kv_dtype, prompt_len)
+        checks += got
+    bad = _graph_faults(checks)
     items = {c["kind"] for c in checks}
     launches = Counter()
     for c in checks:
@@ -1599,84 +1768,176 @@ def _plain_quantized_attention(fn):
         kfa.flash_attention_quantized = kernel
 
 
-def prefill_main_path(cfg, dev, counters):
-    """Slice 2's path: ``make_prefill`` of full-width, full-depth yi-9b,
-    2 prompts of 1024 tokens from numpy, random weights from one seed,
-    under the four settings of :func:`prefill_plans`.  ``counters``
-    receives the launch counts of one pass of the four (zeroed just
-    before, read just after).  Gates: finite logits; LBM/native within
-    :func:`_gate` of the plain path; int8 and fp8 KV at the cosine bars
-    of :data:`PREFILL_COSINE` against the plain path's last-position
-    logits, and within :func:`_gate` of a control run that puts the
-    plain attention in place of the quantized kernel.  Then each setting
-    is timed warm on the host clock, and each plan kind profiled once."""
+def _layer_trace(fn):
+    """``fn()`` with each dense layer's attention output and output
+    recorded and, in an MoE layer, the experts each token was routed to
+    and those that the capacity buckets kept ([G, T, E] masks, taken from
+    ``moe_apply``'s own dispatch).  Returns (fn's result, one record per
+    layer in order)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    block, attention, dispatch = tr._dense_block, tr.mha, moe._dispatch
+    records, layer = [], {}
+
+    def traced_mha(*args, **kwargs):
+        out = attention(*args, **kwargs)
+        layer["attn"] = out[0]
+        return out
+
+    def traced_dispatch(x, top_e, C, E):
+        out = dispatch(x, top_e, C, E)
+        _, order, _, keep, tok = out
+        G, T, K = top_e.shape
+        expert = torch.gather(top_e.reshape(G, T * K), 1, order)
+        kept = torch.zeros((G, T * E), dtype=torch.bool, device=x.device)
+        kept.scatter_(1, tok * E + expert, keep)
+        routed = torch.nn.functional.one_hot(top_e, E).sum(-2) > 0
+        layer.update(routed=routed, kept=kept.reshape(G, T, E))
+        return out
+
+    def traced_block(*args, **kwargs):
+        out = block(*args, **kwargs)
+        records.append({"x": out[0], **layer})
+        layer.clear()
+        return out
+
+    tr._dense_block, tr.mha, moe._dispatch = (traced_block, traced_mha,
+                                              traced_dispatch)
+    try:
+        return fn(), records
+    finally:
+        tr._dense_block, tr.mha, moe._dispatch = block, attention, dispatch
+
+
+def _layer_divergence(got, want):
+    """Per layer, how far two traced runs drift apart: the attention
+    outputs' and the layer outputs' max |difference| over ``want``'s
+    largest value and, in an MoE layer, the tokens whose top-k experts
+    differ (``route_flips``) and those whose kept experts differ under
+    the same top-k (``displaced``: pushed out of, or let into, a full
+    bucket by another token's new route)."""
+    def rel(g, w):
+        w = w.float()
+        return float((g.float() - w).abs().max() / w.abs().max())
+
+    rows = []
+    for g, w in zip(got, want):
+        row = {"attn_rel_err": rel(g["attn"], w["attn"]),
+               "rel_err": rel(g["x"], w["x"])}
+        if "routed" in w:
+            flips = (g["routed"] != w["routed"]).any(-1)
+            moved = (g["kept"] != w["kept"]).any(-1) & ~flips
+            row.update(route_flips=int(flips.sum()), displaced=int(moved.sum()))
+        rows.append(row)
+    return rows
+
+
+def _min_cosine(got, want) -> float:
+    import torch
+    return float(torch.nn.functional.cosine_similarity(got, want,
+                                                       dim=-1).min())
+
+
+def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
+                      serve=(), profiled=("LBM/native", "LWM/int8",
+                                          "LWM/fp8_e4m3")):
+    """``make_prefill`` of a full-width, full-depth arch (yi-9b: slice
+    2's path; olmoe-1b-7b: the MoE slice's, one ``planned_ffn`` per
+    expert and layer under a plan), 2 prompts of 1024 tokens from numpy,
+    random weights from one seed, under ``plans`` (default: the four
+    settings of :func:`prefill_plans`), then ``make_prefill(cfg,
+    serve=True)`` under each plan named in ``serve``.  ``counters``
+    receives the launch counts of one pass of the calls (zeroed just
+    before, read just after); each call's own counts are kept too.
+    Gates: finite logits; every plan within :func:`_gate` of the plain
+    path of its ``serve``; a quantized-KV plan also at the cosine bar of
+    :data:`PREFILL_COSINE` against it, and within :func:`_gate` of a
+    control run that puts the plain attention in place of the quantized
+    kernel, the kernel's and the control's runs compared layer by layer
+    (:func:`_layer_divergence`); every bf16 launch of the wgmma kind.
+    Then each call is timed warm on the host clock, and those named in
+    ``profiled`` profiled once."""
     import torch
     from repro_torch.models import model as M
-    torch.cuda.reset_peak_memory_stats()
     B, S = PREFILL["batch"], PREFILL["prompt_len"]
+    V = cfg.vocab_size
     params = M.init_params(cfg, seed=2, device=dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, S))).long().to(dev)
-    prefill = M.make_prefill(cfg)
-    plans = prefill_plans(cfg)
+        0, V, (B, S))).long().to(dev)
+    plans = plans or prefill_plans(cfg)
+    calls = {name: (M.make_prefill(cfg), plan) for name, plan in plans.items()}
+    calls.update({f"serve/{n}": (M.make_prefill(cfg, serve=True), plans[n])
+                  for n in serve})
 
-    def call(plan):
-        out = prefill(params, {"tokens": toks}, plan)
+    def call(name):
+        fn, plan = calls[name]
+        out = fn(params, {"tokens": toks}, plan)
         torch.cuda.synchronize()
         return out
 
     _zero_counters()
-    logits, first_s = {}, {}
-    for name, plan in plans.items():
+    logits, first_s, per_call = {}, {}, {}
+    for name in calls:
+        before = _counters()
         t0 = time.perf_counter()
-        logits[name] = call(plan)[:, :cfg.vocab_size].float()
+        logits[name] = call(name)[:, :V].float()
         first_s[name] = time.perf_counter() - t0
+        per_call[name] = {k: v - before[k] for k, v in _counters().items()
+                          if v - before[k]}
     counters.update(_counters())
     if min(counters[k] for k in PREFILL_KERNELS) <= 0:
-        raise AssertionError(f"prefill: a kernel never launched: {counters}")
-    _gate_kinds(counters, "prefill", ("wgmma",), ("wgmma",), ("wgmma",),
+        raise AssertionError(f"{label}: a kernel never launched: {counters}")
+    _gate_kinds(counters, label, ("wgmma",), ("wgmma",), ("wgmma",),
                 flash_quantized=("wgmma",))
     bad = [n for n, lg in logits.items() if not bool(torch.isfinite(lg).all())]
     if bad:
-        raise AssertionError(f"prefill: non-finite logits under {bad}")
-    want = logits["plain"]
-
-    def cosine(lg):
-        return float(torch.nn.functional.cosine_similarity(lg, want,
-                                                           dim=-1).min())
-
-    gates = {"LBM/native": {**_gate(logits["LBM/native"], want, "prefill LBM"),
-                            "min_cosine": cosine(logits["LBM/native"])}}
-    for name in ("LWM/int8", "LWM/fp8_e4m3"):
-        kv = plans[name].kv_dtype
-        # control: the same plan and quantized K/V through the plain
+        raise AssertionError(f"{label}: non-finite logits under {bad}")
+    plain = {False: logits["plain"]}
+    if serve:
+        plain[True] = M.make_prefill(cfg, serve=True)(
+            params, {"tokens": toks})[:, :V].float()
+    gates = {}
+    for name, lg in logits.items():
+        if name == "plain":
+            continue
+        want = plain[name.startswith("serve/")]
+        gate = gates[name] = {**_gate(lg, want, f"{label} {name}"),
+                              "min_cosine": _min_cosine(lg, want)}
+        kv = calls[name][1].kv_dtype
+        if kv == "native":
+            continue
+        # the control: the same plan and quantized K/V through the plain
         # attention, so the kernel's share of the error shows apart from
         # the quantization's
-        control = _plain_quantized_attention(lambda p=plans[name]: call(p))
-        control = control[:, :cfg.vocab_size].float()
-        gates[name] = {"min_cosine": cosine(logits[name]),
-                       "min_cosine_bar": PREFILL_COSINE[kv],
-                       "control_min_cosine": cosine(control),
-                       "vs_control": _gate(logits[name], control,
-                                           f"prefill {name} vs control"),
-                       "max_abs_err": float((logits[name] - want).abs().max()),
-                       "greedy_agreement": float(
-                           (logits[name].argmax(-1) == want.argmax(-1))
-                           .float().mean())}
-        if gates[name]["min_cosine"] < PREFILL_COSINE[kv]:
-            raise AssertionError(f"prefill {name}: {gates[name]}")
+        _, traced = _layer_trace(lambda n=name: call(n))
+        control, control_traced = _layer_trace(
+            lambda n=name: _plain_quantized_attention(lambda: call(n)))
+        control = control[:, :V].float()
+        gate.update(min_cosine_bar=PREFILL_COSINE[kv],
+                    control_min_cosine=_min_cosine(control, want),
+                    control_max_abs_err=float((control - want).abs().max()),
+                    vs_control=_gate(lg, control,
+                                     f"{label} {name} vs control"),
+                    layers_vs_control=_layer_divergence(traced,
+                                                        control_traced))
+        del traced, control_traced
+        if gate["min_cosine"] < PREFILL_COSINE[kv]:
+            raise AssertionError(f"{label} {name}: {gate}")
+    torch.cuda.reset_peak_memory_stats()
     runs = {}
-    for name, plan in plans.items():
+    for name, (_, plan) in calls.items():
         t0 = time.perf_counter()
-        call(plan)
+        call(name)
         wall = time.perf_counter() - t0
         runs[name] = {"plan": plan.describe() if plan is not None else None,
                       "first_wall_s": first_s[name], "wall_s": wall,
-                      "tokens_per_s": B * S / wall}
+                      "tokens_per_s": B * S / wall,
+                      "launches": per_call[name]}
     peak = torch.cuda.max_memory_allocated()
-    profiles = {name: {"plan": plans[name].describe(),
-                       **_profile(lambda p=plans[name]: call(p))}
-                for name in ("LBM/native", "LWM/int8", "LWM/fp8_e4m3")}
+    profiles = {name: {"plan": runs[name]["plan"],
+                       **_profile(lambda n=name: call(n))}
+                for name in profiled}
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
             "prompt_len": S, "launches": dict(counters), "gates": gates,
             "runs": runs, "peak_memory_bytes": peak, "profile": profiles}
@@ -2463,6 +2724,160 @@ def check_serial_pipelined_ssm(cfg, dev, counters):
                              for tid, v in piped["tenants"].items()}}
 
 
+# ---------------------------------------------------------------- moe --
+def moe_prefill_plans(cfg, seq_block=None):
+    """The MoE prefill settings, lowered at the experts' d_ff: plain, the
+    smallest LBM grant that lowers fused at ``seq_block`` (default: the
+    prefill's prompt length), and 32-page LWM grants with native and
+    int8 KV."""
+    from repro_torch.core.vmem import fused_ffn_pages
+    s = seq_block or PREFILL["prompt_len"]
+    lwm = PREFILL["lwm_pages"]
+    lbm = fused_ffn_pages(s, cfg.d_model, cfg.d_ff, 2)
+    return {"plain": None,
+            "LBM/native": _plan(cfg, "LBM", lbm, s),
+            "LWM/native": _plan(cfg, "LWM", lwm, s),
+            "LWM/int8": _plan(cfg, "LWM", lwm, s, "int8")}
+
+
+def check_e2e_moe(cfg, dev):
+    """olmoe-1b-7b at full width cut to 4 layers, random weights from one
+    seed: ``make_prefill`` of a 40-token prompt (16 bucket rows an
+    expert) under an LBM plan, an LWM native plan and an LWM int8 plan,
+    each expert's FFN through the plan's kernels, then a prefill and a
+    teacher-forced decode epoch (the gathered-expert path), on the card
+    against the same entry points on the CPU with the plain versions and
+    the same weights.  Gate: :func:`_gate`; every bf16 kernel launch of
+    the wgmma kind."""
+    import torch
+    from repro_torch.core.vmem import LANE
+    from repro_torch.models import model as M
+    e = MOE_E2E
+    cfg = dataclasses.replace(cfg, num_layers=e["layers"])
+    plans = {k: v for k, v in moe_prefill_plans(cfg, LANE).items()
+             if v is not None}
+    rng = np.random.default_rng(4)
+    long_prompt = rng.integers(0, cfg.vocab_size, (e["batch"], e["prompt_len"]))
+    prompt = rng.integers(0, cfg.vocab_size, (e["batch"], 8))
+    forced = rng.integers(0, cfg.vocab_size, (e["batch"], 9))
+    prefill = M.make_prefill(cfg)
+
+    def run(params, device):
+        toks = torch.from_numpy(long_prompt).long().to(device)
+        pf = {name: prefill(params, {"tokens": toks}, p).float().cpu()
+              for name, p in plans.items()}
+        return pf, _e2e_run(cfg, params, device, prompt, forced,
+                            [plans["LWM/native"]])
+
+    params = M.init_params(cfg, seed=3, device=dev)
+    _zero_counters()
+    got_pf, got_dec = run(params, dev)
+    launches = _counters()
+    want_pf, want_dec = run(_to(params, "cpu"), "cpu")
+    del params
+    V = cfg.vocab_size
+    if min(launches[k] for k in PREFILL_KERNELS) <= 0:
+        raise AssertionError(f"e2e_moe: a kernel never launched: {launches}")
+    _gate_kinds(launches, "e2e_moe", ("wgmma",), ("wgmma",), ("wgmma",),
+                flash_quantized=("wgmma",))
+    return {"layers": e["layers"], "prompt_len": e["prompt_len"],
+            "plans": {n: p.describe() for n, p in plans.items()},
+            "prefill": {n: _gate(got_pf[n][..., :V], want_pf[n][..., :V],
+                                 f"e2e_moe prefill {n}") for n in plans},
+            "decode": _gate(got_dec[..., :V], want_dec[..., :V],
+                            "e2e_moe decode"),
+            "launches": launches}
+
+
+def check_serial_pipelined_moe(cfg, dev):
+    """Serial (eager, per step) and pipelined (graphs) serving of two
+    resident olmoe-1b-7b tenants at full width cut to 4 layers: token
+    streams bitwise equal; the pipelined run decodes them as one
+    bucket."""
+    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.models.base import register
+    m = SELF_MOE
+    cut = register(dataclasses.replace(cfg, name=f"{cfg.name}-"
+                                       f"{m['layers']}layer-self",
+                                       num_layers=m["layers"]))
+    outs, buckets = [], 0
+    for pipeline in (False, True):
+        srv = MultiTenantServer([cut.name, cut.name], batch=m["batch"],
+                                max_len=m["max_len"], total_pages=m["pages"],
+                                epoch_len=4, pipeline=pipeline, device=dev,
+                                reduced=False)
+        outs.append(srv.run(steps=m["steps"]))
+        if pipeline:
+            buckets = sum(1 for key in srv._fused_jits.keys()
+                          if key[0] == "bucket")
+        del srv
+        _release()
+    serial, piped = outs
+    for tid, s_ in serial["tenants"].items():
+        if not np.array_equal(s_["output"], piped["tenants"][tid]["output"]):
+            raise AssertionError(f"self_moe {tid}: serial and pipelined "
+                                 "tokens differ")
+    if not buckets:
+        raise AssertionError("self_moe: the residents never ran as a bucket")
+    return {"arch": cfg.name, **m, "bucket_programs": buckets,
+            "bit_identical": True,
+            "tokens": {tid: v["tokens"] for tid, v in piped["tenants"].items()},
+            "first_tokens": {tid: v["output"][0, :8].tolist()
+                             for tid, v in piped["tenants"].items()}}
+
+
+def serve_mix_main_path(dev, counters):
+    """The reference CLI's default pool through the port's CLI, in this
+    process: ``repro_torch.launch.serve.main`` with ``--full-width
+    --archs yi-9b olmoe-1b-7b mamba2-370m --arrivals 2 --prompt-len
+    256`` and a pool that holds each arch's native reservation of one
+    prompt beside :data:`SERVE_MIX`'s headroom.  Its printed lines are
+    kept.  ``counters`` receives the launch counts of the run (zeroed
+    just before, read just after): yi-9b's decode runs cache_matmul's
+    gemv tile and the mamba2 arrival's prompt chunks ssd_chunk."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as S
+    from repro_torch.models.base import get_arch
+    m = SERVE_MIX
+    pages = m["headroom"] + sum(
+        S._kv_reserve_pages(get_arch(a), 2, m["prompt_len"])
+        for a in m["archs"])
+    argv = ["--full-width", "--device", dev, "--archs", *m["archs"],
+            "--arrivals", str(m["arrivals"]), "--prompt-len",
+            str(m["prompt_len"]), "--pages", str(pages)]
+    buf = io.StringIO()
+    _zero_counters()
+    with contextlib.redirect_stdout(buf):
+        out = S.main(argv)
+    counters.update(_counters())
+    if counters["cache_matmul"] <= 0 or counters["ssd_chunk"] <= 0:
+        raise AssertionError(f"serve_mix: a kernel never launched: {counters}")
+    _gate_kinds(counters, "serve_mix", ("gemv",), ssd=("wgmma",))
+    tenants = {}
+    for tid, res in out["tenants"].items():
+        problems = []
+        if res["tokens"] <= 0:
+            problems.append("no tokens")
+        if res["prompt_len"] and (res["ttft_s"] is None or res["kv_reserved"]
+                                  != res["kv_wanted"]):
+            problems.append(f"ttft {res['ttft_s']} reservation "
+                            f"{res['kv_reserved']} of {res['kv_wanted']}")
+        if problems:
+            raise AssertionError(f"serve_mix {tid}: {problems}")
+        tenants[tid] = {k: res[k] for k in (
+            "tokens", "ttft_s", "prompt_len", "prefill_chunks", "kv_wanted",
+            "kv_reserved", "lbm_frac", "choices", "plans")}
+    return {"argv": argv, "pages": pages, "lines": buf.getvalue().splitlines(),
+            "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
+            "tokens_per_s": out["tokens_per_s"],
+            "p95_ttft_s": out["p95_ttft_s"], "launches": dict(counters),
+            "host": {k: out["host"][k] for k in (
+                "epochs", "sched_wall_s", "device_wall_s", "captures",
+                "capture_s", "epoch_compiles")},
+            "tenants": tenants}
+
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -2486,11 +2901,13 @@ def main() -> int:
     (OUT_DIR / "phases.jsonl").unlink(missing_ok=True)
     from repro_torch.models.base import get_arch
     cfg, ssm_cfg = get_arch("yi-9b"), get_arch(SSM_ARCH)
+    moe_cfg = get_arch(MOE_ARCH)
     dev = "cuda"
     report = {}
     report["device"] = _phase("device", device_info)
     report["build"] = _phase("build", build_kernels)
-    report["kernels"] = _phase("kernels", check_kernels, cfg, ssm_cfg, dev)
+    report["kernels"] = _phase("kernels", check_kernels, cfg, ssm_cfg,
+                               moe_cfg, dev)
     if report["kernels"]["failed"]:
         raise AssertionError(f"kernels disagree: {report['kernels']['failed']}")
     _release()
@@ -2501,7 +2918,8 @@ def main() -> int:
     _release()
     report["self"] = _phase("self", check_serial_pipelined, cfg, dev)
     _release()
-    report["graphs"] = _phase("graphs", check_graphs, cfg, ssm_cfg, dev)
+    report["graphs"] = _phase("graphs", check_graphs, cfg, ssm_cfg, dev,
+                              moe_cfg=moe_cfg)
     _release()
     report["prefill"] = _phase("prefill", prefill_main_path, cfg, dev,
                                prefill_counts)
@@ -2525,6 +2943,26 @@ def main() -> int:
     _release()
     report["self_ssm"] = _phase("self_ssm", check_serial_pipelined_ssm,
                                 ssm_cfg, dev, {})
+    _release()
+    report["e2e_moe"] = _phase("e2e_moe", check_e2e_moe, moe_cfg, dev)
+    _release()
+    prefill_moe_counts, serve_moe_counts, serve_mix_counts = {}, {}, {}
+    report["prefill_moe"] = _phase(
+        "prefill_moe", prefill_main_path, moe_cfg, dev, prefill_moe_counts,
+        label="prefill_moe", plans=moe_prefill_plans(moe_cfg),
+        serve=("LWM/native",),
+        profiled=("plain", "LBM/native", "LWM/native", "LWM/int8"))
+    _release()
+    report["serve_moe"] = _phase(
+        "serve_moe", serve_main_path, moe_cfg, dev, serve_moe_counts,
+        label="serve_moe", kernels=False, shares=(GATHER_KERNEL,),
+        **SERVE_MOE)
+    _release()
+    report["self_moe"] = _phase("self_moe", check_serial_pipelined_moe,
+                                moe_cfg, dev)
+    _release()
+    report["serve_mix"] = _phase("serve_mix", serve_mix_main_path, dev,
+                                 serve_mix_counts)
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"
@@ -2573,6 +3011,20 @@ def main() -> int:
         "launches": ffn_quant_counts["cache_matmul_quant.wgmma"],
         "max_abs_err": pf["max_abs_err"],
         **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
+    # the expert GEMMs and the fused expert FFN of the MoE prefill, each
+    # with the launches of the prefill_moe call that runs its shape
+    moe_runs = report["prefill_moe"]["runs"]
+    for i, label, run in ((0, "moe.up", "LWM/native"),
+                          (0, "moe.down", "LWM/native"),
+                          (0, "moe.serve.up", "serve/LWM/native"),
+                          (0, "moe.serve.down", "serve/LWM/native"),
+                          (1, "moe", "LBM/native")):
+        kernel = kernels[i]["name"]
+        pf = timings[f"{kernel}.{label}"]
+        kernels[i][label] = {
+            "launches": moe_runs[run]["launches"][f"{kernel}.wgmma"],
+            "max_abs_err": pf["max_abs_err"],
+            **{k: pf[k] for k in keys + ("kind",)}}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(report["device"]["nvidia_smi"])

@@ -44,9 +44,11 @@ def _tree(x: Any, fn):
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                       device: Any = "cuda") -> Dict[str, Any]:
-    """The port's params (dense and SSM families) from the reference's
-    numpy tree: the stacked ``layers`` (``ln1``/``attn``/``ln2``/``mlp``,
-    or ``ln1`` and ``mamba.{in_proj.w, conv_w, A_log, D, dt_bias,
+    """The port's params (dense, MoE and SSM families) from the
+    reference's numpy tree: the stacked ``layers``
+    (``ln1``/``attn``/``ln2``/``mlp``, an MoE ``mlp`` being
+    ``{router [L, d, E], gate / up [L, E, d, f], down [L, E, f, d]}``, or
+    ``ln1`` and ``mamba.{in_proj.w, conv_w, A_log, D, dt_bias,
     out_proj.w}``) become a list of per-layer dicts."""
     _require_ported(cfg)
     n = cfg.num_layers
@@ -62,7 +64,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
 def caches_from_numpy(tree: Any, cfg: ArchConfig,
                       device: Any = "cuda") -> List[Dict[str, torch.Tensor]]:
     """The port's decode caches (one dict per layer: K/V for the dense
-    family, the recurrent state ``{conv, ssm}`` for the SSM family) from
+    and MoE families, the recurrent state ``{conv, ssm}`` for the SSM family) from
     the reference's, leaves turned into numpy arrays: a tuple of
     per-layer dicts (stacks of at most ``_DECODE_UNROLL_MAX_GROUPS``
     groups) or one dict whose leaves stack the layers on axis 0 (deeper

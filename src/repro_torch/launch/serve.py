@@ -1,8 +1,8 @@
-"""Multi-tenant server, dense and SSM families (port of
-src/repro/launch/serve.py::MultiTenantServer).
+"""Multi-tenant server, dense, MoE and SSM families (port of
+src/repro/launch/serve.py::MultiTenantServer and its ``main`` CLI).
 
-Several LM tenants (dense decoders and Mamba2 stacks, mixed in one pool
-or not) share one device.  Each tenant's FFN block is a
+Several LM tenants (dense decoders, MoE decoders and Mamba2 stacks,
+mixed in one pool or not) share one device.  Each tenant's FFN block is a
 small :class:`~repro_torch.core.types.ModelGraph` mapped by the CaMDN
 core (LWM tile candidates per usage limit plus the fused-block LBM
 candidate), and every epoch the same :class:`TenantTask` /
@@ -18,7 +18,13 @@ step has no FFN, so its decode runs no plan (``_dec_plan``), and its
 grant reaches the device through its prefill: every prompt chunk scans
 through the ssd_chunk kernel, at chunk boundaries aligned to the SSD
 chunk (``_chunk_align``).  Its reservation prices the recurrent state,
-which is never quantized.
+which is never quantized.  An MoE tenant's attention and KV are a dense
+tenant's; its decode step runs the gathered-expert path, which ignores
+the plan (``_dec_plan``), and its prompt chunks run the plain drop-free
+buckets, as in the reference: no kernel of the server's MoE path is
+hand-written, and the grant governs its NEC charge, chunk length and
+plan trace.  Its grants are lowered at the experts' d_ff
+(``_lower_width``).
 
 The scheduling side is the reference's, line for line, on the copied
 core: the grant, plan and NEC traces of a scenario equal the
@@ -100,6 +106,7 @@ inject the reference's through ``params_fn`` / ``prompt_fn``.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import math
 import time
@@ -141,13 +148,21 @@ def _elem_bytes(cfg: ArchConfig) -> int:
 
 
 def _ffn_width(cfg: ArchConfig) -> int:
-    """The FFN width a tenant is scheduled and lowered at: d_ff, or
-    d_model for an arch with no FFN (full-width mamba2 has d_ff = 0; its
-    grant lowers only its SSD chunk and prefill chunk length).  The
-    reference builds its graph at this width but lowers grants and
-    quotes the fused working set at ``cfg.d_ff``: the same at every width
-    it serves, and a division by zero for d_ff = 0."""
+    """The FFN width a tenant is scheduled at, as the reference's
+    ``_ffn_graph`` and prefill-chunk lowering take it: max(d_ff,
+    d_model).  Grants are lowered, and the fused working set quoted, at
+    :func:`_lower_width` instead."""
     return max(cfg.d_ff, cfg.d_model)
+
+
+def _lower_width(cfg: ArchConfig) -> int:
+    """The FFN width a grant is lowered at and the LBM candidates quote
+    the fused kernel's working set at: ``cfg.d_ff``, the width the
+    kernels execute with (an olmoe expert's 1024 at d_model 2048), as in
+    the reference.  An arch with no FFN (full-width mamba2, d_ff = 0)
+    takes d_model, where the reference would divide by zero; its grant
+    lowers only its SSD chunk and prefill chunk length."""
+    return cfg.d_ff if cfg.d_ff > 0 else cfg.d_model
 
 
 def _ffn_graph(name: str, cfg: ArchConfig, seq_block: int) -> ModelGraph:
@@ -263,17 +278,22 @@ class _CompiledEntry:
     ``torch.cuda.CUDAGraph`` with the kernel launches its capture
     recorded (``launches``, added to the counters at every replay), or,
     where the server captures nothing (the CPU, the serial loop), the
-    eager closure itself."""
+    eager closure itself.  ``aot`` marks an entry ``warm_aot`` built
+    ahead of its first use; ``aot_hits`` counts its dispatches."""
 
-    __slots__ = ("fn", "graph", "launches")
+    __slots__ = ("fn", "graph", "launches", "aot", "aot_hits")
 
     def __init__(self, fn: Callable[[], None], graph: Any = None,
                  launches: Optional[Dict[str, int]] = None):
         self.fn = fn
         self.graph = graph
         self.launches = launches or {}
+        self.aot = False
+        self.aot_hits = 0
 
     def __call__(self) -> None:
+        if self.aot:
+            self.aot_hits += 1
         if self.graph is None:
             self.fn()
         else:
@@ -334,7 +354,8 @@ class Tenant:
 
 
 class MultiTenantServer:
-    """Decode across dense and SSM tenants with CaMDN page arbitration.
+    """Decode across dense, MoE and SSM tenants with CaMDN page
+    arbitration.
 
     The reference's constructor arguments keep their meaning.  Added:
     ``device`` (default ``"cuda"``), ``reduced`` (the reference always
@@ -649,11 +670,11 @@ class MultiTenantServer:
     def _align_lbm_to_vmem(self, tm: TenantModel, cfg: ArchConfig,
                            seq_block: int) -> None:
         """Make the LBM candidates quote the fused kernel's working set
-        at the tenant's FFN width, so that an admitted LBM grant always
-        lowers fused.  Copy-on-write: the mapping may be the process-wide
-        memoized instance."""
+        at the tenant's lowering width (:func:`_lower_width`), so that an
+        admitted LBM grant always lowers fused.  Copy-on-write: the
+        mapping may be the process-wide memoized instance."""
         eb = _elem_bytes(cfg)
-        need = fused_ffn_pages(seq_block, cfg.d_model, _ffn_width(cfg), eb)
+        need = fused_ffn_pages(seq_block, cfg.d_model, _lower_width(cfg), eb)
         mcts = []
         for mct in tm.mapping.mcts:
             if mct.lbm is not None and mct.lbm.p_need < need:
@@ -700,7 +721,8 @@ class MultiTenantServer:
     def _lower_plan(self, t: Tenant, sched: List[Tuple[Selection, int]],
                     seq_block: Optional[int] = None) -> KernelPlan:
         """Lower the block's granted selections into the KernelPlan the
-        decode step (or prefill chunk) executes, at the FFN width."""
+        decode step (or prefill chunk) executes, at the lowering width
+        (:func:`_lower_width`)."""
         cfg = t.cfg
         lbm = [(s, p) for s, p in sched if s.candidate.kind == "LBM"]
         sel, pages = lbm[0] if lbm else sched[0]
@@ -708,7 +730,7 @@ class MultiTenantServer:
                                        else None)
         return lower_selection(
             sel, pages, seq_block=seq_block or max(self.batch, LANE),
-            d_model=cfg.d_model, d_ff=_ffn_width(cfg),
+            d_model=cfg.d_model, d_ff=_lower_width(cfg),
             dtype_bytes=_elem_bytes(cfg), head_dim=cfg.hd,
             ssm_chunk=cfg.ssm_chunk, down_pages=down_pages,
             kv_dtype=t.kv_dtype)
@@ -730,9 +752,12 @@ class MultiTenantServer:
 
     def _dec_plan(self, t: Tenant, plan: KernelPlan) -> Optional[KernelPlan]:
         """The plan bound to the decode step: None for an SSM tenant,
-        whose O(1) recurrent step has no FFN.  The grant still governs its
-        prefill, the NEC charging and the recorded plan trace."""
-        if t.cfg.family == "ssm":
+        whose O(1) recurrent step has no FFN, and for an MoE tenant, whose
+        one token runs the gathered-expert path (``moe._decode_moe``): a
+        plan has no tiling freedom at one row.  The grant still governs
+        the NEC charging and the recorded plan trace (and an SSM
+        tenant's prefill)."""
+        if t.cfg.family == "ssm" or t.cfg.is_moe:
             return None
         return plan
 
@@ -1374,7 +1399,9 @@ class MultiTenantServer:
         for epoch_key in self._enumerate_epoch_keys(steps):
             for key in epoch_key:
                 if self._fused_jits.peek(key) is None:
-                    self._fused_jits[key] = self._build_entry(key)
+                    entry = self._build_entry(key)
+                    entry.aot = True
+                    self._fused_jits[key] = entry
                     self._aot_compiled += 1
 
     def _dispatch_epoch(self, work: List[Tuple]) -> None:
@@ -1559,6 +1586,8 @@ class MultiTenantServer:
                 # the reference counts the warm-up failures its daemon
                 # thread swallows; here a failure raises
                 "aot_failed": 0,
+                "aot_hits": sum(self._fused_jits.peek(k).aot_hits
+                                for k in self._fused_jits.keys()),
                 # since construction: captures (graphs built) and their
                 # host seconds (warm-ups included; the warm-ups apart), and
                 # the entries a departure evicted
@@ -1577,3 +1606,110 @@ class MultiTenantServer:
                 },
             },
         }
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """The reference's serving CLI (src/repro/launch/serve.py::main): the
+    same flags, defaults and printed ``[serve]`` lines, on the port's
+    server.  Added: ``--device`` (default ``cuda``) and ``--full-width``
+    (serve the full-width configs; the reference serves the reduced
+    ones).  ``--devices`` (fleet mode) and ``--lookahead`` raise
+    ``NotImplementedError``.  Returns the run's result.
+
+        python -m repro_torch.launch.serve --full-width
+    """
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--archs", nargs="+",
+                    default=["yi-9b", "olmoe-1b-7b", "mamba2-370m"])
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--pages", type=int, default=128)
+    ap.add_argument("--epoch-len", type=int, default=8,
+                    help="decode steps per scheduling epoch (grant hold)")
+    ap.add_argument("--serial", action="store_true",
+                    help="serial reference loop (schedule+dispatch per step)")
+    ap.add_argument("--arrivals", type=int, default=0,
+                    help="Poisson arrivals joining mid-run with prompts")
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="arrivals per logical second (steps_per_s=1)")
+    ap.add_argument("--prompt-len", type=int, default=256,
+                    help="prompt tokens per arriving tenant")
+    ap.add_argument("--decode-budget", type=int, default=16,
+                    help="decode steps an arrival serves before departing")
+    ap.add_argument("--admission", choices=["interleaved", "sequential"],
+                    default="interleaved")
+    ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--kv-dtype", default="native",
+                    choices=list(KV_PRECISION_LADDER) + ["auto"],
+                    help="KV cache storage precision (auto: downgrade "
+                         "per admission when the pool is tight)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="fleet mode (not yet ported: raises)")
+    ap.add_argument("--oracle-sched", action="store_true",
+                    help="force the per-tenant Algorithm 1 oracle "
+                         "(disable the batched epoch planner)")
+    ap.add_argument("--lookahead", action="store_true",
+                    help="predictive grant lookahead (not yet ported: "
+                         "raises)")
+    ap.add_argument("--aot", action="store_true",
+                    help="capture the predicted decode programs before "
+                         "the first epoch")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on")
+    ap.add_argument("--full-width", action="store_true",
+                    help="serve the full-width configs (default: reduced)")
+    args = ap.parse_args(argv)
+    if args.devices > 0:
+        raise NotImplementedError("fleet mode (--devices) not yet ported")
+    arrivals = None
+    if args.arrivals > 0:
+        arrivals = PoissonArrivals(
+            rate_per_s=args.arrival_rate, models=args.archs,
+            n_arrivals=args.arrivals, n_inferences=args.decode_budget,
+            prompt_len=args.prompt_len)
+    srv = MultiTenantServer(args.archs, total_pages=args.pages,
+                            epoch_len=args.epoch_len,
+                            pipeline=not args.serial,
+                            max_len=args.max_len,
+                            arrivals=arrivals,
+                            admission=args.admission,
+                            kv_dtype=args.kv_dtype,
+                            batch_sched=not args.oracle_sched,
+                            lookahead=args.lookahead,
+                            aot_warmup=args.aot,
+                            device=args.device,
+                            reduced=not args.full_width)
+    out = srv.run(args.steps)
+    for tid, info in out["tenants"].items():
+        ttft = (f", TTFT {info['ttft_s'] * 1e3:.0f}ms "
+                f"(chunks {info['prefill_chunks']})"
+                if info["ttft_s"] is not None else "")
+        kv = ""
+        if info["kv_wanted"]:
+            kv = f", kv {info['kv_reserved']}/{info['kv_wanted']}p"
+            if info["kv_dtype"] != "native":
+                kv += f" @{info['kv_dtype']}"
+            if info["kv_reserved"] < info["kv_wanted"]:
+                kv += " (degraded)"
+        print(f"[serve] {tid}: {info['tokens']} tokens, "
+              f"LBM {info['lbm_frac'] * 100:.0f}%, recent {info['choices']}, "
+              f"plans {info['plans']}{ttft}{kv}")
+    p95 = (f", p95 TTFT {out['p95_ttft_s'] * 1e3:.0f}ms"
+           if out["p95_ttft_s"] is not None else "")
+    print(f"[serve] {out['mode']}/{out['admission']} "
+          f"(K={out['epoch_len']}): {out['tokens_per_s']:.1f} tok/s total, "
+          f"{out['prefill_tokens']} prompt tokens{p95}, "
+          f"{out['dram_bytes'] / 2**20:.1f} MB modeled DRAM")
+    host = out.get("host") or {}
+    if host.get("epochs"):
+        print(f"[serve] host: sched {host['sched_wall_s'] * 1e3:.1f}ms vs "
+              f"device {host['device_wall_s'] * 1e3:.1f}ms "
+              f"({host['sched_frac'] * 100:.1f}%), "
+              f"{host['batched_runs']} batched / {host['oracle_runs']} "
+              f"oracle runs, compiles/epoch {host['epoch_compiles']}, "
+              f"aot {host['aot_compiled']} compiled "
+              f"({host['aot_hits']} hits)")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -44,18 +44,19 @@ def _no_enc(enc_out) -> None:
 def make_prefill(cfg: ArchConfig, serve: bool = False):
     """One-shot prefill: ``prefill(params, {"tokens": [B, S]}, plan)`` ->
     the last position's logits [B, V] (fp32).  ``plan`` (a
-    core.plan.KernelPlan) runs attention and FFNs through the kernels
-    its grant lowered to, and Mamba2 layers at its SSD chunk (through
-    the ssd_chunk kernel, as without a plan).  ``serve`` changes nothing
-    for the ported families: in the reference it selects drop-free MoE
-    buckets and the unrolled shallow-stack layer loop, and the port has
-    no MoE yet and one Python layer loop."""
-    del serve
+    core.plan.KernelPlan) runs attention and FFNs (each expert's, for
+    MoE) through the kernels its grant lowered to, and Mamba2 layers at
+    its SSD chunk (through the ssd_chunk kernel, as without a plan).
+    ``serve=True`` selects the serving semantics: drop-free MoE buckets,
+    as the chunked serving prefill routes (:func:`repro_torch.models
+    .transformer.prefill_chunk`).  The default keeps the dropping
+    capacity factor.  (In the reference ``serve`` also unrolls its
+    shallow-stack layer scan; the port has one Python layer loop.)"""
 
     def prefill(params, batch, plan=None):
         logits, _ = lm_forward(params, batch["tokens"], cfg,
                                embeds_prefix=batch.get("embeds_prefix"),
-                               plan=plan)
+                               plan=plan, serve_prefill=serve)
         return logits[:, -1, :]
     return prefill
 

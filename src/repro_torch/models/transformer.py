@@ -1,5 +1,5 @@
 """Decoder LM stacks: init, forward, cached decode and chunked prefill
-(port of the dense- and SSM-family paths of
+(port of the dense-, MoE- and SSM-family paths of
 src/repro/models/transformer.py).
 
 Layers are a Python list of per-layer param dicts, and the decode caches
@@ -15,7 +15,11 @@ reference's traced ``index`` is: a captured CUDA graph reads it (and
 every buffer) at replay, so the server replays one graph at every
 position of a window.  A host int is moved to the device first.
 
-Other families (MoE, hybrid, encoder-decoder, VLM) raise
+An MoE layer is a dense layer whose FFN is :func:`~repro_torch.models.moe
+.moe_apply`: decode takes its one-token fast path, a one-shot prefill
+and a prompt chunk its capacity buckets (drop-free where serving needs
+chunked == one-shot), and ``lm_forward`` returns the summed Switch aux
+loss.  Other families (hybrid, encoder-decoder, VLM) raise
 ``NotImplementedError`` until their slices are ported.
 """
 from __future__ import annotations
@@ -28,11 +32,12 @@ from repro_torch.models.attention import init_attention, init_kv_cache, mha
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, embed, ffn, init_embedding,
                                        init_ffn, init_norm, rms_norm, unembed)
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import (init_mamba2, init_ssm_state,
                                     mamba2_forward, ssd_decode_step)
 
 Caches = List[dict]
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -47,7 +52,8 @@ def init_dense_layer(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return {"ln1": init_norm(cfg.d_model, dt, dev),
             "attn": init_attention(gen, cfg),
             "ln2": init_norm(cfg.d_model, dt, dev),
-            "mlp": init_ffn(gen, cfg.d_model, cfg.d_ff, dt)}
+            "mlp": (init_moe(gen, cfg) if cfg.is_moe
+                    else init_ffn(gen, cfg.d_model, cfg.d_ff, dt))}
 
 
 def init_ssm_layer(gen: torch.Generator, cfg: ArchConfig) -> Params:
@@ -73,7 +79,10 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
 def _dense_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  causal: bool = True, kv_cache=None,
                  cache_index: Optional[torch.Tensor] = None,
-                 kv_len: Optional[int] = None, positions=None, plan=None):
+                 kv_len: Optional[int] = None, positions=None, plan=None,
+                 moe_fast: bool = True, moe_drop_free: bool = False):
+    """Attention and FFN (MoE for an MoE arch) of one layer: returns (x,
+    the updated cache, the layer's MoE aux loss, 0.0 without MoE)."""
     h, new_cache = mha(p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
                        causal=causal, kv_cache=kv_cache,
                        cache_index=cache_index, kv_len=kv_len,
@@ -81,8 +90,14 @@ def _dense_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                        attn_plan=plan.attn if plan is not None else None)
     x = x + h
     y = rms_norm(p["ln2"], x, cfg.norm_eps)
-    out = ffn(p["mlp"], y, plan=plan.ffn if plan is not None else None)
-    return x + out, new_cache
+    ffn_plan = plan.ffn if plan is not None else None
+    aux = 0.0
+    if cfg.is_moe:
+        out, aux = moe_apply(p["mlp"], y, cfg, plan=ffn_plan,
+                             decode_fast=moe_fast, drop_free=moe_drop_free)
+    else:
+        out = ffn(p["mlp"], y, plan=ffn_plan)
+    return x + out, new_cache, aux
 
 
 def _ssm_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state=None,
@@ -104,13 +119,20 @@ def _ssm_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state=None,
 def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                embeds_prefix: Optional[torch.Tensor] = None,
                remat: bool = False,
-               plan=None) -> Tuple[torch.Tensor, float]:
+               plan=None,
+               serve_prefill: bool = False) -> Tuple[torch.Tensor, Any]:
     """Prefill forward without a cache.  tokens: [B, S] -> (logits
-    [B, S, V] fp32, aux loss 0.0).  ``plan`` (a core.plan.KernelPlan)
-    runs every dense layer's causal self-attention through the flash
-    kernel with the plan's blocks and KV precision, and its FFN through
-    the kernel the grant lowered to (fused LBM or tiled LWM); a Mamba2
-    layer runs its SSD scan at the plan's chunk.  Patch/frame prefixes
+    [B, S, V] fp32, the summed MoE aux loss: an fp32 scalar for an MoE
+    arch, 0.0 otherwise).  ``plan`` (a core.plan.KernelPlan) runs every
+    dense layer's causal self-attention through the flash kernel with
+    the plan's blocks and KV precision, and its FFN (each expert's, for
+    MoE) through the kernel the grant lowered to (fused LBM or tiled
+    LWM); a Mamba2 layer runs its SSD scan at the plan's chunk.  MoE
+    layers run their capacity buckets even for one token;
+    ``serve_prefill`` makes them drop-free, as :func:`prefill_chunk`'s,
+    so the kept tokens do not depend on how a prompt is chunked.  The
+    reference's flag also unrolls its shallow-stack layer scan; the port
+    has one Python layer loop.  Patch/frame prefixes
     (``embeds_prefix``) and rematerialisation (``remat``) are not yet
     ported (raise)."""
     _require_ported(cfg)
@@ -121,13 +143,17 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
         raise NotImplementedError("remat (training) not yet ported")
     x = embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = 0.0
     for lp in params["layers"]:
         if cfg.family == "ssm":
             x, _ = _ssm_block(lp, x, cfg, plan=plan)
         else:
-            x, _ = _dense_block(lp, x, cfg, positions=positions, plan=plan)
+            x, _, a = _dense_block(lp, x, cfg, positions=positions, plan=plan,
+                                   moe_fast=False,
+                                   moe_drop_free=serve_prefill)
+            aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x), 0.0
+    return unembed(params["embed"], x), aux
 
 
 # -------------------------------------------------------------- decode --
@@ -187,9 +213,9 @@ def decode_step(params: Params, token: torch.Tensor, caches: Caches,
             x, state = _ssm_block(lp, x, cfg, state=caches[g], decode=True)
             _write_state(caches[g], state)
             continue
-        x, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
-                            cache_index=index, kv_len=kv_len,
-                            positions=positions, plan=plan)
+        x, _, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
+                               cache_index=index, kv_len=kv_len,
+                               positions=positions, plan=plan)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), caches
 
@@ -226,8 +252,9 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
     logits [B, 1, V] plus the caches.  As in the reference the chunk
     runs the plain path (no plan; an SSM layer scans at the
     architecture's chunk, whose segmentation a chunked prefill at
-    chunk-aligned boundaries preserves): the grant decides the chunk's
-    size and NEC charge, not its numerics.  Requires index + S <=
+    chunk-aligned boundaries preserves; an MoE layer routes through
+    drop-free buckets, even for a one-token chunk): the grant decides
+    the chunk's size and NEC charge, not its numerics.  Requires index + S <=
     max_len (and <= kv_len)."""
     _require_ported(cfg)
     x = embed(params["embed"], tokens)
@@ -239,8 +266,9 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
             x, state = _ssm_block(lp, x, cfg, state=caches[g])
             _write_state(caches[g], state)
             continue
-        x, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
-                            cache_index=index, kv_len=kv_len,
-                            positions=positions)
+        x, _, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
+                               cache_index=index, kv_len=kv_len,
+                               positions=positions, moe_fast=False,
+                               moe_drop_free=True)
     x = rms_norm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return unembed(params["embed"], x), caches

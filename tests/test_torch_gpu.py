@@ -376,6 +376,75 @@ def test_graph_replay_adds_its_capture_launches():
     assert kcount.delta(before) == entry.launches
 
 
+# ---------------------------------------------------------------- MoE --
+@pytest.mark.gpu
+def test_moe_graph_replay_matches_eager_dispatch():
+    """chip_smoke.py's olmoe graph checks at the reduced width in bf16:
+    a prompt tenant's chunks and epochs, a resident alone and two as a
+    bucket, each program's replay bitwise equal to the eager epoch /
+    prefill core on cloned caches, tokens and positions, with the eager
+    run's launch counts (none: the server's MoE path runs no kernel); a
+    second replay captures nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    checks, rec = chip_smoke.graph_checks(_bf16("olmoe-1b-7b", "olmoe-graphs"),
+                                          "cuda")
+    assert not chip_smoke._graph_faults(checks)
+    assert {c["kind"] for c in checks} == {"prefill", "single", "bucket"}
+    assert rec["captures"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["LBM", "LWM"])
+def test_moe_expert_launches_take_the_wgmma_kind(kind):
+    """A reduced bf16 olmoe ``make_prefill`` under a plan runs one
+    ``planned_ffn`` per expert and layer: 88 bucket rows an expert
+    (2 x 64 tokens), so the fused FFN (LBM) and the gate / up GEMMs
+    (LWM) launch their wgmma kinds, and the down GEMM the kind its
+    shape legalizes to (N = d_model 128 is below the wgmma tile's 256);
+    the logits within 2e-2 of the largest plain-path logit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from repro_torch.core.vmem import LANE
+    from repro_torch.kernels import counters as kcount
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import capacity
+    cfg = _bf16("olmoe-1b-7b", "olmoe-graphs")
+    plan = chip_smoke.moe_prefill_plans(cfg, LANE)[f"{kind}/native"]
+    params = M.init_params(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    rows = 2 * capacity(64, cfg)
+    assert rows == 88
+    n = cfg.num_layers * cfg.num_experts
+    before = kcount.snapshot()
+    got = M.make_prefill(cfg)(params, {"tokens": toks}, plan)
+    torch.cuda.synchronize()
+    launches = kcount.delta(before)
+    want = M.make_prefill(cfg)(params, {"tokens": toks})
+    if kind == "LBM":
+        assert launches.get("block_fused_ffn.wgmma") == n
+        assert not launches.get("cache_matmul")
+    else:
+        limit = ops.smem_limit(torch.device("cuda"))
+        d, f = cfg.d_model, cfg.d_ff
+        up = ops.legalize_matmul_tile(plan.ffn.up_tile, rows, limit,
+                                      torch.bfloat16, d, f)
+        down = ops.legalize_matmul_tile(plan.ffn.down_tile, rows, limit,
+                                        torch.bfloat16, f, d)
+        assert up.kind == "wgmma"
+        want_kinds = {}
+        for k, count in ((up.kind, 2 * n), (down.kind, n)):
+            want_kinds[k] = want_kinds.get(k, 0) + count
+        assert {k: launches.get(f"cache_matmul.{k}", 0)
+                for k in want_kinds} == want_kinds
+    tol = 2e-2 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
 @pytest.mark.gpu
 def test_capture_failure_raises():
     """A capture that fails (here: a read back to the host inside it)

@@ -1,5 +1,6 @@
-"""The port's device-index epochs, batched bucket epoch and program cache
-against the JAX package's, at reduced widths on the CPU.
+"""The port's device-index epochs (dense, int8 KV, mamba2 and MoE),
+batched bucket epoch and program cache against the JAX package's, at
+reduced widths on the CPU.
 
 On the card the server captures each decode item and prompt chunk as a
 CUDA graph; on the CPU the same entries hold eager closures, so the
@@ -32,7 +33,8 @@ from repro_torch.models import transformer as PT
 from repro_torch.sim.driver import TenantSpec as PSpec
 
 B, MAX_LEN, PROMPT, K = 2, 32, 8, 4
-CASES = [("yi-9b", "native"), ("yi-9b", "int8"), ("mamba2-370m", "native")]
+CASES = [("yi-9b", "native"), ("yi-9b", "int8"), ("mamba2-370m", "native"),
+         ("olmoe-1b-7b", "native")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,7 +125,7 @@ def test_device_index_epoch_matches_steps_bitwise(arch, kv):
     assert _caches_equal(pc, steps)
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "olmoe-1b-7b"])
 def test_batched_epoch_matches_single_and_reference(arch):
     """Mirrors test_serve_pipeline.py::
     test_bucketed_batched_decode_matches_single: two same-arch tenants
@@ -313,4 +315,5 @@ def test_aot_warmup_leaves_tokens_and_traces_unchanged():
         assert a["choices"] == p["choices"] and a["plans"] == p["plans"]
     assert aot["host"]["aot_compiled"] > 0 == plain["host"]["aot_compiled"]
     assert aot["host"]["aot_failed"] == 0
+    assert aot["host"]["aot_hits"] > 0 == plain["host"]["aot_hits"]
     assert srvs[1]._fused_jits.misses < srvs[0]._fused_jits.misses

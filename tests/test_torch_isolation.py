@@ -37,12 +37,13 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 
 def test_every_kernel_and_the_ssm_slice_are_covered():
-    """The sources above include the SSM slice's modules, and every CUDA
-    source the build compiles sits beside them."""
+    """The sources above include the SSM and MoE slices' modules, and
+    every CUDA source the build compiles sits beside them."""
     from repro_torch.kernels import build
     names = {p.relative_to(PORT).as_posix() for p in SOURCES
              if p.is_relative_to(PORT)}
-    assert {"models/ssm.py", "kernels/ssd_scan.py", "kernels/ops.py"} <= names
+    assert {"models/ssm.py", "models/moe.py", "kernels/ssd_scan.py",
+            "kernels/ops.py"} <= names
     assert "ssd_chunk" in build.SOURCES
     for name in build.SOURCES:
         assert (PORT / "csrc" / f"{name}.cu").is_file(), name

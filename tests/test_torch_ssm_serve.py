@@ -194,7 +194,7 @@ def test_auto_keeps_a_mamba2_arrival_native_like_reference():
 def test_full_width_mamba2_lowers_lbm_grants():
     """Full-width mamba2 has d_ff = 0.  Its FFN graph is built at
     d_model, and the port lowers its grants at that width too
-    (``_ffn_width``): an LBM grant lowers to a fused plan with the SSD
+    (``_lower_width``): an LBM grant lowers to a fused plan with the SSD
     chunk of the grant, where lowering at ``cfg.d_ff`` divides by zero.
     One full-width layer, a pool where LBM is granted, a 300-token prompt
     (one chunk: 256 + a 44-token tail segment)."""
