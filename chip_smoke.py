@@ -160,6 +160,39 @@ Phases, each printed as one JSON object with its seconds:
   256``, a pool that holds each arch's native reservation); its printed
   lines, tokens/s, TTFTs and grant trace kept.
 
+* ``serve_prefix``: the serve-feature slice.  The reference's ``prefix``
+  workload (3 chat sessions on 2 system prompts, 2 turns, 512-token
+  prefix, 128 tokens a turn) on full-width, full-depth yi-9b at batch 1,
+  served with prefix dedup on and off at a prefill chunk of 128 on one
+  weight memo, in a pool holding every reservation (:data:`SERVE_PREFIX`;
+  at full width a chunk of 256 lowers to 128, so it would repeat the
+  run): at least two warm arrivals, fewer prompt tokens computed with
+  dedup, each warm arrival's chunks covering its private suffix, on ==
+  off bitwise;
+  warm and cold TTFT, snapshot bytes, tokens/s and peak memory kept.
+  Then a full-prompt re-arrival on olmoe-1b-7b and on mamba2-370m: no
+  chunk, nothing computed, the producer's stream bit for bit.
+* ``serve_faults``: preempt / resume through a checkpoint (yi-9b native
+  and int8 KV, mamba2), each bitwise against an unfaulted run, with its
+  checkpoint bytes and ``recovery_s`` (the recapture included); the
+  prefix re-seed path on yi-9b, bitwise against its control; the
+  reference's overload burst on mamba2 (queue drained, deferrals and
+  sheds, every served tenant decoded, no exception caught); its faulted
+  schedule on mamba2 twice (equal logs, bitwise tokens, free pages
+  restored).  Parameters and pool derivations in :data:`SERVE_FAULTS`.
+* ``lookahead``: the reference's contested scenario at full width
+  (:data:`LOOKAHEAD`: an olmoe resident, two yi-9b arrivals), with and
+  without grant lookahead: at least one grant adjusted, none without,
+  the resident's grants differ between the runs, the same kernels of
+  the same kinds in both runs and bitwise tokens.  The adjusted grant
+  is the olmoe resident's, whose decode launches no plan-dependent
+  kernel, and the yi-9b arrivals' plans are the same in both runs, so
+  on the card the token gate holds by construction: what the phase
+  shows is the full-width pricing and the adjusted grant on the host.
+  Each new phase zeroes the counters before each server run and reads
+  them after it; yi-9b's decode runs cache_matmul's gemv tile, mamba2's
+  prompt chunks ssd_chunk.
+
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  With no CUDA device, or without the port's sources beside this
@@ -273,6 +306,62 @@ SERVE_MIX = dict(archs=("yi-9b", MOE_ARCH, "mamba2-370m"), arrivals=2,
 # the kernel of a decode step's expert-weight gather
 # (``params["gate"][top_e]``, PyTorch's indexing on dim 0)
 GATHER_KERNEL = "vectorized_gather_kernel"
+# serve_prefix: the reference's `prefix` benchmark workload
+# (benchmarks/run.py::serve_prefix_bench) on full-width yi-9b.  The
+# logical clock runs at 8 steps/s, not the reference's 4: at full width
+# the grants lower every prompt chunk to 128 tokens (the reference's
+# reduced width prefills in 256, and a chunk of 256 lowers to 128 as
+# well, so only 128 is run), so a producer's prefill takes twice the
+# epochs, and the arrival gaps must outlast it for the warm arrivals the
+# workload is built for (tests/test_torch_prefix.py shows the schedule
+# at both rates).  The pool holds every arrival's full reservation
+# (3 pages a token at batch 1) beside `headroom` pages of grants, so no
+# resident prefix is evicted mid-scenario.  Dedup on and off; the
+# full-prompt re-arrivals (the reference's
+# test_full_prompt_rearrival_skips_prefill) on olmoe and mamba2.
+SERVE_PREFIX = dict(
+    arch="yi-9b", sessions=dict(n_sessions=3, turns=2, n_prompts=2,
+                                prefix_len=512, turn_tokens=128, gap_s=2.0,
+                                n_inferences=8, seed=0),
+    batch=1, max_len=1024, epoch_len=8, steps_per_s=8.0, steps=24,
+    headroom=256, chunk=128,
+    rearrival=dict(archs=(MOE_ARCH, SSM_ARCH), prompt_len=256,
+                   n_inferences=6, max_len=512, at=(0.0, 4.0),
+                   steps_per_s=4.0))
+# serve_faults: the reference faults benchmark's scenarios
+# (benchmarks/run.py::serve_faults_bench, tests/test_faults.py).  Pools:
+# `pool_quotes` times the arch's full-width native quote of the prompt,
+# as the reference's 64 pages are 32 of its 2-page quotes (preempt /
+# resume and the faulted schedule); the burst's pool holds `burst_quotes`
+# reservations, half of the 8 its queue keeps (the reference's 8 pages
+# hold 4 of its 2-page quotes: "2x oversubscribed"); the pressure event
+# seizes three quarters of the pool (48 of 64 pages in the reference).
+SERVE_FAULTS = dict(
+    dense="yi-9b", ssm=SSM_ARCH, batch=1, max_len=128, epoch_len=4,
+    prompt_len=32, n_inferences=24, steps=24, pool_quotes=32,
+    preempt=dict(step=8, hold_epochs=2),
+    cases=(("yi-9b", "native"), ("yi-9b", "int8"), (SSM_ARCH, "native")),
+    reseed=dict(prompt_len=32, n_inferences=4, follow=8, warm_steps=8,
+                steps=16),
+    burst=dict(n=12, prompt_len=96, n_inferences=8, arrive_at=0.5,
+               queue_limit=8, queue_deadline_s=24.0, burst_quotes=4,
+               steps=16),
+    schedule=dict(pressure_step=4, straggler_step=12, straggler_hold=3,
+                  preempt_step=16, preempt_hold=1, arrivals=(0.0, 1.0),
+                  steps=32))
+# lookahead: the reference's contested scenario
+# (tests/test_alloc_batch.py::test_lookahead_adjusts_contested_grants
+# _without_changing_tokens) at full width: two yi-9b arrivals of 192
+# tokens at 3.0 and 3.25 s beside a resident, batch 1, max_len 256,
+# epoch 2.  The resident is olmoe-1b-7b: at full width the reference's
+# rule never adjusts a yi-9b resident (the NEC prices its stable grant
+# tens of MB an epoch above the aggressive one, the page thrash it saves
+# at most 5.6 MB; tests/test_torch_lookahead.py).  The pool holds both
+# arrivals' reservations and `spare` pages, fewer than the resident's
+# 164-page LBM grant: their reservations contest it.
+LOOKAHEAD = dict(resident=MOE_ARCH, arrival="yi-9b", prompt_len=192,
+                 n_inferences=8, resident_steps=24, arrive_at=(3.0, 3.25),
+                 batch=1, max_len=256, epoch_len=2, spare=32, steps=24)
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -2878,6 +2967,462 @@ def serve_mix_main_path(dev, counters):
             "tenants": tenants}
 
 
+# ----------------------------------------------------- serve features --
+def _params_memo(dev):
+    """A ``params_fn`` that makes each (config, param seed) weight set
+    once, so tenants that share a seed share one set (a full-width yi-9b
+    set is 17.6 GB).  ``params_fn.memo.clear()`` lets them go."""
+    from repro_torch.models import model as M
+    memo = {}
+
+    def params_fn(c, pkey):
+        if (c.name, pkey) not in memo:
+            memo[(c.name, pkey)] = M.init_params(c, pkey, dev)
+        return memo[(c.name, pkey)]
+    params_fn.memo = memo
+    return params_fn
+
+
+def _run_counted(srv, steps: int, counters):
+    """One ``run()`` of a server of the main path: the kernels' counters
+    zeroed just before it and read just after, added to ``counters``.
+    Returns (result, this run's counts)."""
+    _zero_counters()
+    out = srv.run(steps=steps)
+    counts = _counters()
+    for k, v in counts.items():
+        counters[k] = counters.get(k, 0) + v
+    return out, counts
+
+
+def _launched(counts, label: str, kernel: str, matmul=()):
+    """``kernel`` launched in the run; with ``matmul`` cache_matmul's
+    launches of those kinds only (:func:`_gate_kinds`)."""
+    if counts[kernel] <= 0:
+        raise AssertionError(f"{label}: {kernel} never launched: {counts}")
+    if matmul:
+        _gate_kinds(counts, label, matmul)
+
+
+def _kind_counts(counts):
+    return {k: v for k, v in counts.items() if "." in k and v}
+
+
+def _differing_outputs(a, b):
+    """Tenants whose token streams differ between two results."""
+    return [tid for tid in a["tenants"]
+            if not np.array_equal(a["tenants"][tid]["output"],
+                                  b["tenants"][tid]["output"])]
+
+
+def _wall_free(log):
+    return [{k: v for k, v in rec.items() if k not in ("recovery_s",
+                                                        "waited_s")}
+            for rec in log]
+
+
+def serve_prefix_main_path(dev, counters):
+    """The reference's ``prefix`` workload (:data:`SERVE_PREFIX`) through
+    the port's server at full width and depth: three chat sessions on
+    two system prompts, two turns each, served with prefix dedup on and
+    off at a prefill chunk of 128, on one weight memo.  Gates: at least
+    two warm arrivals, fewer prompt tokens computed with dedup, each
+    warm arrival's chunks covering exactly its private suffix, the token
+    streams on and off bitwise, yi-9b's decode through the gemv tile.
+    Then the full-prompt re-arrival on olmoe and mamba2: no chunk,
+    nothing computed, the producer's stream bit for bit."""
+    import torch
+    from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
+    from repro_torch.models.base import get_arch
+    from repro_torch.sim.driver import SessionArrivals, TenantSpec
+    sp = SERVE_PREFIX
+    arch = sp["arch"]
+
+    def specs():
+        return SessionArrivals(models=[arch], **sp["sessions"]).specs()
+    pages = sp["headroom"] + sum(
+        _kv_reserve_pages(get_arch(arch), sp["batch"], s.prompt_len)
+        for s in specs())
+    params_fn = _params_memo(dev)
+    runs, outs = {}, {}
+    chunk = sp["chunk"]
+    for on in (True, False):
+        label = f"serve_prefix dedup {'on' if on else 'off'}"
+        torch.cuda.reset_peak_memory_stats()
+        srv = MultiTenantServer(
+            [], tenants=specs(), prefix_dedup=on, prefill_chunk=chunk,
+            batch=sp["batch"], max_len=sp["max_len"], total_pages=pages,
+            epoch_len=sp["epoch_len"], steps_per_s=sp["steps_per_s"],
+            device=dev, reduced=False, params_fn=params_fn)
+        out, counts = _run_counted(srv, sp["steps"], counters)
+        _launched(counts, label, "cache_matmul", ("gemv",))
+        outs[on] = out
+        ten = out["tenants"]
+        warm = [tid for tid, i in ten.items() if i["prefix_hit"] > 0]
+        runs["on" if on else "off"] = {
+            "tenants": {tid: {k: i[k] for k in (
+                "prompt_len", "prefix_hit", "prefill_chunks",
+                "prefill_computed", "ttft_s", "tokens", "kv_reserved",
+                "kv_wanted")} for tid, i in ten.items()},
+            "warm": warm,
+            "warm_ttft_s": [ten[t]["ttft_s"] for t in warm],
+            "cold_ttft_s": [i["ttft_s"] for t, i in ten.items()
+                            if t not in warm],
+            "prefill_computed": out["prefill_computed"],
+            "prefill_tokens": out["prefill_tokens"],
+            "prefix": out["prefix"],
+            "snapshot_bytes": out["host"]["snapshot_bytes"],
+            "tokens_per_s": out["tokens_per_s"], "wall_s": out["wall_s"],
+            "tokens_served": out["tokens_served"],
+            "captures": out["host"]["captures"],
+            "capture_s": out["host"]["capture_s"],
+            "launches": _kind_counts(counts),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del srv
+        _release()
+    a, b = outs[True], outs[False]
+    warm = runs["on"]["warm"]
+    problems = []
+    if len(warm) < 2:
+        problems.append(f"{len(warm)} warm arrivals")
+    if not a["prefill_computed"] < b["prefill_computed"]:
+        problems.append(f"computed {a['prefill_computed']} on, "
+                        f"{b['prefill_computed']} off")
+    for tid in warm:
+        info = a["tenants"][tid]
+        if sum(info["prefill_chunks"]) != (info["prompt_len"]
+                                           - info["prefix_hit"]):
+            problems.append(f"{tid} chunks {info['prefill_chunks']}")
+    differ = _differing_outputs(a, b)
+    if differ:
+        problems.append(f"on != off for {differ}")
+    if problems:
+        raise AssertionError(f"serve_prefix: {problems}")
+    params_fn.memo.clear()
+    _release()
+    rr = sp["rearrival"]
+    rearrivals = {}
+    for rarch in rr["archs"]:
+        label = f"serve_prefix rearrival {rarch}"
+        quote = _kv_reserve_pages(get_arch(rarch), sp["batch"],
+                                  rr["prompt_len"])
+        tenants = [TenantSpec(rarch, arrive_at=at,
+                              n_inferences=rr["n_inferences"],
+                              prompt_len=rr["prompt_len"], param_seed=5,
+                              prompt_seed=7, prefix_len=rr["prompt_len"],
+                              prefix_seed=3) for at in rr["at"]]
+        torch.cuda.reset_peak_memory_stats()
+        srv = MultiTenantServer(
+            [], tenants=tenants, prefix_dedup=True, batch=sp["batch"],
+            max_len=rr["max_len"], total_pages=2 * quote + sp["headroom"],
+            epoch_len=sp["epoch_len"], steps_per_s=rr["steps_per_s"],
+            device=dev, reduced=False, params_fn=params_fn)
+        out, counts = _run_counted(srv, sp["steps"], counters)
+        if rarch == SSM_ARCH:
+            _launched(counts, label, "ssd_chunk")
+        prod, warm = (out["tenants"][f"t{i}:{rarch}"] for i in (0, 1))
+        problems = []
+        if (warm["prefix_hit"] != rr["prompt_len"] or warm["prefill_chunks"]
+                or warm["prefill_computed"] != 0
+                or warm["tokens"] != 1 + rr["n_inferences"]):
+            problems.append({k: warm[k] for k in (
+                "prefix_hit", "prefill_chunks", "prefill_computed",
+                "tokens")})
+        if not np.array_equal(prod["output"], warm["output"]):
+            problems.append("output differs from the producer's")
+        if problems:
+            raise AssertionError(f"{label}: {problems}")
+        rearrivals[rarch] = {
+            "pages": 2 * quote + sp["headroom"], "quote": quote,
+            "producer": {k: prod[k] for k in ("prefill_chunks", "ttft_s",
+                                              "tokens")},
+            "warm": {k: warm[k] for k in ("prefix_hit", "prefill_chunks",
+                                          "prefill_computed", "ttft_s",
+                                          "tokens")},
+            "snapshot_bytes": out["host"]["snapshot_bytes"],
+            "prefix": out["prefix"], "launches": _kind_counts(counts),
+            "first_tokens": warm["output"][0, :8].tolist(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del srv
+        params_fn.memo.clear()
+        _release()
+    return {"arch": arch, "pages": pages, "runs": runs,
+            "rearrival": rearrivals, "launches": dict(counters)}
+
+
+def serve_faults_main_path(dev, counters):
+    """Preemption and faults at full width and depth (:data:`SERVE_FAULTS`):
+    (a) preempt / resume through a snapshot checkpoint on yi-9b with
+    native and int8 KV and on mamba2, each against an unfaulted run of
+    the same server, bitwise; (b) the prefix re-seed path on yi-9b
+    against its control, bitwise; (c) the reference's overload burst on
+    mamba2 (no exception, the queue drained, deferrals and sheds, every
+    served tenant decoded); (d) the reference's faulted schedule
+    (pressure, straggler, preempt) on mamba2 twice: equal fault logs
+    (wall times out), tokens bitwise, the pool's free pages restored.
+    Checkpoints go to ``build/chip_smoke/ckpt``."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
+    from repro_torch.models.base import get_arch
+    from repro_torch.sim.driver import TenantSpec
+    from repro_torch.sim.faults import FaultEvent, FaultPlan
+    sf = SERVE_FAULTS
+    params_fn = _params_memo(dev)
+    ckpt_root = OUT_DIR / "ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    dense, ssm = sf["dense"], sf["ssm"]
+
+    def pool(arch, quotes=sf["pool_quotes"], prompt=sf["prompt_len"]):
+        return quotes * _kv_reserve_pages(get_arch(arch), sf["batch"], prompt)
+
+    def server(arch, pages, **kw):
+        return MultiTenantServer(
+            [], batch=sf["batch"], max_len=sf["max_len"],
+            epoch_len=sf["epoch_len"], total_pages=pages, device=dev,
+            reduced=False, params_fn=params_fn,
+            ckpt_dir=str(ckpt_root / arch), **kw)
+
+    def gate_kernels(counts, label, arch):
+        if arch == ssm:
+            _launched(counts, label, "ssd_chunk")
+        else:
+            _launched(counts, label, "cache_matmul", ("gemv",))
+
+    # (a) preempt -> resume through a checkpoint
+    preempt = {}
+    for arch, kv in sf["cases"]:
+        label = f"serve_faults preempt {arch}/{kv}"
+        outs = {}
+        for faulted in (False, True):
+            plan = (FaultPlan([FaultEvent(kind="preempt", **sf["preempt"])])
+                    if faulted else None)
+            srv = server(arch, pool(arch), kv_dtype=kv, faults=plan)
+            srv.enqueue([TenantSpec(arch, prompt_len=sf["prompt_len"],
+                                    n_inferences=sf["n_inferences"])])
+            out, counts = _run_counted(srv, sf["steps"], counters)
+            gate_kernels(counts, label, arch)
+            outs[faulted] = (out, counts, [p.describe()
+                                           for p in srv.tenants[0].plans])
+            del srv
+        (ref, ref_counts, ref_plans), (out, counts, plans) = (outs[False],
+                                                              outs[True])
+        (tid, info), = out["tenants"].items()
+        log = out["faults"]["log"]
+        problems = []
+        if [r["kind"] for r in log] != ["preempt", "resume"] or \
+                log[0]["mode"] != "snapshot":
+            problems.append(f"log {log}")
+        if info["preemptions"] != 1 or info["kv_dtype"] != (
+                kv if arch == dense else "native"):
+            problems.append({k: info[k] for k in ("preemptions", "kv_dtype")})
+        if _differing_outputs(ref, out):
+            problems.append("resumed stream differs from the unfaulted one")
+        if problems:
+            raise AssertionError(f"{label}: {problems}")
+        preempt[f"{arch}/{kv}"] = {
+            "pages": pool(arch), "log": _wall_free(log),
+            "recovery_s": out["faults"]["recovery_s"],
+            "checkpoint_bytes": out["faults"]["checkpoint_bytes"],
+            "preempt_evictions": out["host"]["preempt_evictions"],
+            "captures": [ref["host"]["captures"], out["host"]["captures"]],
+            "plans_equal": plans == ref_plans,
+            "plans": dict(Counter(plans)),
+            "launches": [_kind_counts(ref_counts), _kind_counts(counts)],
+            "tokens_per_s": [ref["tokens_per_s"], out["tokens_per_s"]],
+            "wall_s": [ref["wall_s"], out["wall_s"]],
+            "first_tokens": info["output"][0, :8].tolist()}
+    _release()
+
+    # (b) the prefix re-seed path
+    rs = sf["reseed"]
+    label = "serve_faults reseed"
+    base = TenantSpec(dense, prompt_len=rs["prompt_len"],
+                      n_inferences=rs["n_inferences"], param_seed=0,
+                      prompt_seed=1)
+    follow = dataclasses.replace(base, n_inferences=rs["follow"])
+    outs = []
+    for preempted in (False, True):
+        srv = server(dense, pool(dense), prefix_dedup=True)
+        srv.enqueue([dataclasses.replace(base)])
+        srv.run(steps=rs["warm_steps"])   # registers the full prompt
+        t = srv._admit_spec(dataclasses.replace(follow))
+        if t.prefix_hit != rs["prompt_len"]:
+            raise AssertionError(f"{label}: hit {t.prefix_hit}")
+        if preempted:
+            if not srv.preempt_tenant(t, resume_after_epochs=1):
+                raise AssertionError(f"{label}: not preempted")
+            mode = srv.fault_log.of_kind("preempt")[0]["mode"]
+            if mode != "prefix" or t.fed or t.caches is not None:
+                raise AssertionError(f"{label}: mode {mode}")
+        out, counts = _run_counted(srv, rs["steps"], counters)
+        gate_kernels(counts, label, dense)
+        outs.append((t, out, counts))
+        del srv
+    (t0, r_ctrl, c_ctrl), (t1, r, c) = outs
+    a, b = r_ctrl["tenants"][t0.tid]["output"], r["tenants"][t1.tid]["output"]
+    if t1.preemptions != 1 or not t1.recovery_s or a.shape != b.shape \
+            or not np.array_equal(a, b):
+        raise AssertionError(f"{label}: preemptions {t1.preemptions}, "
+                             f"outputs {a.shape} {b.shape} differ")
+    reseed = {"log": _wall_free(r["faults"]["log"]),
+              "recovery_s": r["faults"]["recovery_s"],
+              "checkpoint_bytes": r["faults"]["checkpoint_bytes"],
+              "snapshot_bytes": r["host"]["snapshot_bytes"],
+              "launches": [_kind_counts(c_ctrl), _kind_counts(c)],
+              "first_tokens": b[0, :8].tolist()}
+    params_fn.memo.clear()
+    _release()
+
+    # (c) the overload burst
+    bu = sf["burst"]
+    label = "serve_faults burst"
+    quote = _kv_reserve_pages(get_arch(ssm), sf["batch"], bu["prompt_len"])
+    pages = bu["burst_quotes"] * quote
+    srv = server(ssm, pages, queue_limit=bu["queue_limit"],
+                 queue_deadline_s=bu["queue_deadline_s"])
+    srv.enqueue([TenantSpec(ssm, prompt_len=bu["prompt_len"],
+                            n_inferences=bu["n_inferences"],
+                            arrive_at=bu["arrive_at"],
+                            qos_ms=(None if i % 3 == 0 else 50.0 * (i + 1)))
+                 for i in range(bu["n"])])
+    out, counts = _run_counted(srv, bu["steps"], counters)
+    gate_kernels(counts, label, ssm)
+    ov = out["overload"]
+    if (ov["queued"] != 0 or ov["deferrals"] <= 0 or ov["shed_count"] <= 0
+            or not out["tenants"]
+            or any(i["tokens"] <= 0 for i in out["tenants"].values())):
+        raise AssertionError(f"{label}: {ov}, tokens "
+                             f"{[i['tokens'] for i in out['tenants'].values()]}")
+    burst = {"pages": pages, "quote": quote, "deferrals": ov["deferrals"],
+             "shed_count": ov["shed_count"],
+             "shed": dict(Counter(s["reason"] for s in ov["shed"])),
+             "served": len(out["tenants"]),
+             "tokens": {tid: i["tokens"] for tid, i in out["tenants"].items()},
+             "ttft_s": [i["ttft_s"] for i in out["tenants"].values()],
+             "tokens_per_s": out["tokens_per_s"], "wall_s": out["wall_s"],
+             "launches": _kind_counts(counts)}
+    del srv
+    params_fn.memo.clear()
+    _release()
+
+    # (d) the faulted schedule, twice
+    sc = sf["schedule"]
+    label = "serve_faults schedule"
+    pages = pool(ssm)
+    runs = []
+    for _ in range(2):
+        plan = FaultPlan([
+            FaultEvent(step=sc["pressure_step"], kind="pool_pressure",
+                       pages=3 * pages // 4),
+            FaultEvent(step=sc["straggler_step"], kind="straggler",
+                       hold_epochs=sc["straggler_hold"]),
+            FaultEvent(step=sc["preempt_step"], kind="preempt",
+                       hold_epochs=sc["preempt_hold"])])
+        srv = server(ssm, pages, faults=plan)
+        free0 = srv.cache.free_pages
+        srv.enqueue([TenantSpec(ssm, prompt_len=sf["prompt_len"],
+                                n_inferences=sf["n_inferences"], arrive_at=at)
+                     for at in sc["arrivals"]])
+        out, counts = _run_counted(srv, sc["steps"], counters)
+        gate_kernels(counts, label, ssm)
+        runs.append((out, srv.cache.free_pages, free0, counts))
+        del srv
+    (a, free_a, free0_a, ca), (b, free_b, free0_b, cb) = runs
+    problems = []
+    if _wall_free(a["faults"]["log"]) != _wall_free(b["faults"]["log"]):
+        problems.append("fault logs differ")
+    if _differing_outputs(a, b):
+        problems.append(f"tokens differ: {_differing_outputs(a, b)}")
+    if (free_a, free_b) != (free0_a, free0_b):
+        problems.append(f"free pages {free0_a} -> {free_a}, "
+                        f"{free0_b} -> {free_b}")
+    if not {"pool_pressure", "straggler", "preempt", "resume"} <= {
+            r["kind"] for r in a["faults"]["log"]}:
+        problems.append(f"log {a['faults']['counts']}")
+    if problems:
+        raise AssertionError(f"{label}: {problems}")
+    schedule = {"pages": pages, "pressure_pages": 3 * pages // 4,
+                "log": _wall_free(a["faults"]["log"]),
+                "counts": a["faults"]["counts"],
+                "recovery_s": [a["faults"]["recovery_s"],
+                               b["faults"]["recovery_s"]],
+                "checkpoint_bytes": a["faults"]["checkpoint_bytes"],
+                "free_pages": free_a,
+                "launches": [_kind_counts(ca), _kind_counts(cb)]}
+    params_fn.memo.clear()
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    _release()
+    return {"preempt": preempt, "reseed": reseed, "burst": burst,
+            "schedule": schedule, "launches": dict(counters)}
+
+
+def lookahead_main_path(dev, counters):
+    """The reference's contested scenario at full width (:data:`LOOKAHEAD`),
+    served with and without grant lookahead on one weight memo.  Gates:
+    the lookahead adjusts at least one grant, none without it, and the
+    resident's grants differ between the runs; both runs launch the same
+    kernels of the same kinds (yi-9b's decode through the gemv tile),
+    and then their token streams are bitwise equal.  The adjusted grant
+    is the olmoe resident's, whose decode launches no plan-dependent
+    kernel, and the arrivals' plans do not change
+    (tests/test_torch_lookahead.py), so on the card the token gate holds
+    by construction."""
+    from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
+    from repro_torch.models.base import get_arch
+    from repro_torch.sim.driver import TenantSpec
+    la = LOOKAHEAD
+    quote = _kv_reserve_pages(get_arch(la["arrival"]), la["batch"],
+                              la["prompt_len"])
+    pages = len(la["arrive_at"]) * quote + la["spare"]
+    params_fn = _params_memo(dev)
+    runs, outs, resident = {}, {}, {}
+    for ahead in (True, False):
+        label = f"lookahead {'on' if ahead else 'off'}"
+        tenants = [TenantSpec(la["resident"], param_seed=0,
+                              n_inferences=la["resident_steps"])] + [
+            TenantSpec(la["arrival"], prompt_len=la["prompt_len"],
+                       n_inferences=la["n_inferences"], arrive_at=at,
+                       param_seed=0) for at in la["arrive_at"]]
+        srv = MultiTenantServer(
+            [], tenants=tenants, lookahead=ahead, batch=la["batch"],
+            max_len=la["max_len"], total_pages=pages,
+            epoch_len=la["epoch_len"], device=dev, reduced=False,
+            params_fn=params_fn)
+        out, counts = _run_counted(srv, la["steps"], counters)
+        _launched(counts, label, "cache_matmul", ("gemv",))
+        outs[ahead] = out
+        resident[ahead] = list(srv.tenants[0].choices)
+        runs["on" if ahead else "off"] = {
+            "lookahead_adjusted": out["host"]["lookahead_adjusted"],
+            "kinds": _kind_counts(counts),
+            "choices": {t.tid: t.choices[-8:] for t in srv.tenants},
+            "plans": {t.tid: dict(Counter(p.describe() for p in t.plans))
+                      for t in srv.tenants},
+            "dram_total": out["dram_bytes"],
+            "tokens_per_s": out["tokens_per_s"], "wall_s": out["wall_s"],
+            "ttft_s": {tid: i["ttft_s"] for tid, i in out["tenants"].items()}}
+        del srv
+    on, off = runs["on"], runs["off"]
+    problems = []
+    if on["lookahead_adjusted"] < 1 or off["lookahead_adjusted"] != 0:
+        problems.append(f"adjusted {on['lookahead_adjusted']} / "
+                        f"{off['lookahead_adjusted']}")
+    if resident[True] == resident[False]:
+        problems.append("the resident's grants are the same in both runs")
+    if set(on["kinds"]) != set(off["kinds"]):
+        problems.append(f"kinds {on['kinds']} / {off['kinds']}")
+    elif _differing_outputs(outs[True], outs[False]):
+        problems.append("tokens differ: "
+                        f"{_differing_outputs(outs[True], outs[False])}")
+    if problems:
+        raise AssertionError(f"lookahead: {problems}")
+    params_fn.memo.clear()
+    _release()
+    return {"pages": pages, "quote": quote, "runs": runs,
+            "launches": dict(counters)}
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -2963,6 +3508,14 @@ def main() -> int:
     _release()
     report["serve_mix"] = _phase("serve_mix", serve_mix_main_path, dev,
                                  serve_mix_counts)
+    _release()
+    report["serve_prefix"] = _phase("serve_prefix", serve_prefix_main_path,
+                                    dev, {})
+    _release()
+    report["serve_faults"] = _phase("serve_faults", serve_faults_main_path,
+                                    dev, {})
+    _release()
+    report["lookahead"] = _phase("lookahead", lookahead_main_path, dev, {})
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"

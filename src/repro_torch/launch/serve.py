@@ -76,9 +76,10 @@ itself; the host keeps ``Tenant.index`` for scheduling, and the two
 agree after every dispatch.  The log is read back once, after the run
 (a departing tenant's served tokens are copied on the device first).
 Nothing a graph allocates outlives its replay, so one server's graphs
-share one memory pool.  A departure evicts every entry that names the
-tenant before its buffers are freed; these evictions are counted apart
-from the LRU's.
+share one memory pool, which an anchor graph the server keeps holds
+alive when every program in it is evicted.  A departure evicts every
+entry that names the tenant before its buffers are freed; these
+evictions are counted apart from the LRU's.
 
 Capture on the card.  The first capture of a signature (a key without
 its tenant ids) follows one eager run of the same function on the
@@ -94,21 +95,63 @@ the card nothing falls back to eager dispatch.  Nothing reads the
 device back to the host except the TTFT stamp of a tenant's first
 token, and the log once after the run.
 
-Not ported here (raising ``NotImplementedError``): device meshes,
-prefix dedup, fault injection and preemption, overload admission and
-grant lookahead (each with its quantized-KV part).
+Serve features (the reference's, decision for decision): prefix-hash
+KV dedup (``prefix_dedup``: session prompts register their caches in
+the pool's ``PrefixIndex`` and later arrivals attach), predictive grant
+lookahead (``lookahead``), the overload ladder (``queue_limit``,
+``queue_deadline_s``, ``backoff``: shed, defer, admit), preemption with
+KV checkpoints (``preempt_tenant``, ``preemption_policy``,
+``ckpt_dir``) and deterministic fault injection (``faults``,
+``straggler_policy``).  Where they meet the card, this port deviates:
+
+* Seeding in place.  A prefix hit copies the entry's rows into the
+  tenant's own (fresh) buffers and sets its device position to the hit
+  length before any of its programs is captured; an SSM hit copies the
+  state into the state buffers.  A full hit writes the stored first
+  token into the feedback buffer and the log, as if prefill had run.
+* Snapshots.  A producer's snapshot is a device clone, queued after its
+  final prompt chunk and before its next epoch, cut to the prompt's
+  rows (the seeder reads only those); the index's entry holds its last
+  reference, so an eviction frees it.
+* Preemption evicts every program that names the tenant (counted apart
+  from departures' evictions, ``host["preempt_evictions"]``) before its
+  caches are dropped, and clears ``fed`` (which stands where the
+  reference tests ``token is not None``), so the tenant leaves the plan
+  and any bucket.  Its small static buffers (feedback token, position,
+  log) are kept.  A snapshot checkpoint copies the caches to the host,
+  which waits for the work in flight (as the reference's ``device_get``
+  does); this happens only at a preemption.  Resume allocates fresh
+  caches, restores into them, and the tenant's programs are captured
+  again at its next dispatch: ``recovery_s`` is stamped after that
+  dispatch, so on the card it includes the recapture.
+* Pricing width.  The overload ladder and the lookahead price an
+  arrival's KV reservation at the server's width (``reduced``), where
+  the reference always prices ``get_arch(aid).reduced()``: identical at
+  ``reduced=True``, and at full width the ladder reasons about the pages
+  the server will really reserve.
+
+Not ported here (raising ``NotImplementedError``): device meshes.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU.  Without injected params / prompts the server draws params from a
 seeded ``torch.Generator`` and prompts from ``np.random.default_rng``
-(the reference's threefry draws cannot be reproduced); parity tests
-inject the reference's through ``params_fn`` / ``prompt_fn``.
+(the reference's threefry draws cannot be reproduced): a session prompt
+(``prompt_seed`` set) slices its system prefix from the stream of
+``104729 + prefix_seed`` and its suffix from that of ``7919 +
+prompt_seed``, each drawn at the fixed width ``_PROMPT_CAP``, so a
+longer prompt with the same seeds extends a shorter one and sessions on
+one system prompt share its tokens, as the reference's do.  Parity
+tests inject the reference's params and prompts through ``params_fn`` /
+``prompt_fn``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import math
+import os
+import shutil
+import tempfile
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -116,28 +159,33 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.allocator import AHEAD_FRACTION, INF, Selection
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.mapping import MapperConfig
 from repro_torch.core.mct import MCT, ModelMapping
 from repro_torch.core.plan import KernelPlan, lower_prefill_chunk
 from repro_torch.core.policy import (KV_PRECISION_LADDER, CamdnPolicy,
-                                     ReplicaControl, choose_kv_dtype,
-                                     price_layer_batch)
-from repro_torch.core.runtime import (STATE_ADMITTED, STATE_RUNNING,
-                                      TenantModel, TenantTask)
+                                     QosPreemptionPolicy, ReplicaControl,
+                                     choose_kv_dtype, price_layer_batch,
+                                     project_epoch_dram)
+from repro_torch.core.runtime import (STATE_ADMITTED, STATE_PREEMPTED,
+                                      STATE_RESUMED, STATE_RUNNING,
+                                      STATE_SHED, TenantModel, TenantTask)
 from repro_torch.core.types import (GemmDims, LayerKind, LayerSpec, ModelGraph,
                                     ceil_div, elem_bytes)
 from repro_torch.core.vmem import (LANE, PAGE_BYTES, VMEM_PAGES,
                                    fused_ffn_pages, kv_row_bytes,
                                    lower_selection)
+from repro_torch.distributed.fault_tolerance import StragglerPolicy
 from repro_torch.kernels import counters as kcount
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig, get_arch
 from repro_torch.models.ssm import CONV_K
 from repro_torch.models.transformer import (PORTED_FAMILIES, init_caches,
-                                            num_groups)
-from repro_torch.sim.driver import PoissonArrivals, TenantSpec
+                                            num_groups, seed_caches_in_place)
+from repro_torch.sim.driver import BackoffPolicy, PoissonArrivals, TenantSpec
+from repro_torch.sim.faults import FaultEvent, FaultLog, FaultPlan
 
 ParamsFn = Callable[[ArchConfig, int], Any]
 PromptFn = Callable[[TenantSpec, int, ArchConfig, int], np.ndarray]
@@ -216,16 +264,52 @@ def _kv_reserve_pages(cfg: ArchConfig, batch: int, tokens: int,
     return ceil_div(kv + state, PAGE_BYTES) if tokens > 0 else 0
 
 
+# Session prompts slice fixed-width streams, so a longer prompt with the
+# same seeds extends a shorter one (the reference's cap)
+_PROMPT_CAP = 4096
+
+
 def _prompt_tokens(spec: TenantSpec, i: int, cfg: ArchConfig,
                    batch: int) -> np.ndarray:
-    """Deterministic prompt tokens for admission ``i`` (seeded numpy, not
-    the reference's threefry stream)."""
-    if spec.prompt_seed is not None:
-        raise NotImplementedError("session prompts (prefix dedup) not yet "
-                                  "ported; inject prompts with prompt_fn")
-    rng = np.random.default_rng(7919 + i)
-    return rng.integers(0, cfg.vocab_size, (batch, spec.prompt_len),
-                        dtype=np.int32)
+    """Deterministic prompt tokens for admission ``i`` (seeded numpy
+    streams keyed as the reference's threefry streams are, not their
+    values).  A legacy spec draws one admission-indexed stream shaped by
+    the prompt; a session spec (``prompt_seed`` set) joins the shared
+    system prefix of ``104729 + prefix_seed`` and the suffix of ``7919 +
+    prompt_seed``, each sliced from a ``_PROMPT_CAP``-wide draw."""
+    P = spec.prompt_len
+    if spec.prompt_seed is None:
+        rng = np.random.default_rng(7919 + i)
+        return rng.integers(0, cfg.vocab_size, (batch, P), dtype=np.int32)
+    pre_len = min(spec.prefix_len, P)
+    assert P <= _PROMPT_CAP, f"prompt_len {P} > cap {_PROMPT_CAP}"
+
+    def stream(seed):
+        return np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, _PROMPT_CAP), dtype=np.int32)
+    pre = stream(104729 + spec.prefix_seed)[:, :pre_len]
+    suf = stream(7919 + spec.prompt_seed)[:, :P - pre_len]
+    return np.ascontiguousarray(np.concatenate([pre, suf], axis=1))
+
+
+def _prefix_candidates(prompt: np.ndarray, prompt_len: int,
+                       align: int) -> List[Tuple[int, bytes]]:
+    """(kv_len, token_bytes) probe list for the PrefixIndex, longest
+    first: the full prompt, then every chunk-grid multiple below it."""
+    lens = [prompt_len]
+    lens += list(range((prompt_len - 1) // align * align, 0, -align))
+    return [(l, prompt[:, :l].tobytes()) for l in lens]
+
+
+def _params_key(spec: TenantSpec, kv_dtype: str) -> str:
+    """Prefix-index params identity: the param seed, suffixed with the
+    KV storage precision when quantized (a quantized snapshot is only
+    valid for a tenant decoding at the same precision)."""
+    key = f"ps{spec.param_seed}"
+    if kv_dtype != "native":
+        key += f"+kv:{kv_dtype}"
+    return key
+
 
 
 class _LruCache:
@@ -345,8 +429,21 @@ class Tenant:
     # and KV heads; copied to the host before the first-token event and
     # read at the TTFT stamp
     scale_rows: Optional[torch.Tensor] = None
+    # ---- prefix-hash KV dedup ---------------------------------------
     pf_computed: int = 0                  # prompt tokens prefilled
+    prefix_hit: int = 0                   # prompt tokens attached from index
+    prefix_key: Optional[str] = None      # attached entry (detach on depart)
+    dedup: Optional[Tuple[str, str]] = None   # (arch, params_key) when
+    #                                           eligible to register/attach
+    # ---- fault tolerance (preempt / resume) -------------------------
     state: str = STATE_ADMITTED
+    preemptions: int = 0
+    preempted_wall: Optional[float] = None   # until the first dispatch
+    #                                          after resume
+    resume_step: Optional[int] = None     # logical step to retry resume at
+    recovery_s: List[float] = dataclasses.field(default_factory=list)
+    ckpt_ref: Optional[Dict[str, Any]] = None   # snapshot handle while
+    #                                             PREEMPTED (mode + locator)
 
     @property
     def prefilling(self) -> bool:
@@ -361,8 +458,8 @@ class MultiTenantServer:
     ``device`` (default ``"cuda"``), ``reduced`` (the reference always
     serves ``get_arch(aid).reduced()``; False serves the full-width
     config), and the injection hooks ``params_fn(cfg, param_seed)`` and
-    ``prompt_fn(spec, admission_index, cfg, batch)``.  The reference
-    features this slice has not ported raise ``NotImplementedError``.
+    ``prompt_fn(spec, admission_index, cfg, batch)``.  A device mesh
+    raises ``NotImplementedError``.
     """
 
     def __init__(self, arch_ids: Optional[List[str]] = None, batch: int = 2,
@@ -380,9 +477,13 @@ class MultiTenantServer:
                  batch_sched: bool = True,
                  lookahead: bool = False,
                  aot_warmup: bool = False,
-                 faults: Any = None,
+                 faults: Optional[FaultPlan] = None,
+                 preemption_policy: Any = None,
+                 straggler_policy: Optional[StragglerPolicy] = None,
+                 ckpt_dir: Optional[str] = None,
                  queue_limit: Optional[int] = None,
                  queue_deadline_s: Optional[float] = None,
+                 backoff: Optional[BackoffPolicy] = None,
                  reduced: bool = True,
                  params_fn: Optional[ParamsFn] = None,
                  prompt_fn: Optional[PromptFn] = None):
@@ -390,14 +491,6 @@ class MultiTenantServer:
             raise ValueError(f"admission {admission!r}")
         if not isinstance(device, (str, torch.device)):
             raise NotImplementedError("device meshes not yet ported")
-        for name, value, off in (
-                ("prefix_dedup", prefix_dedup, False),
-                ("lookahead", lookahead, False),
-                ("faults", faults, None),
-                ("queue_limit", queue_limit, None),
-                ("queue_deadline_s", queue_deadline_s, None)):
-            if value != off:
-                raise NotImplementedError(f"{name} not yet ported")
         if kv_dtype not in KV_PRECISION_LADDER + ("auto",):
             raise ValueError(f"kv_dtype {kv_dtype!r}: want one of "
                              f"{KV_PRECISION_LADDER + ('auto',)}")
@@ -407,8 +500,10 @@ class MultiTenantServer:
         self._params_fn = params_fn
         self._prompt_fn = prompt_fn or _prompt_tokens
         self.qos_targets = qos_targets or {}
+        self.prefix_dedup = bool(prefix_dedup)
         self.kv_dtype = kv_dtype
         self.batch_sched = bool(batch_sched)
+        self.lookahead = bool(lookahead)
         self.epoch_len = max(1, int(epoch_len))
         self.pipeline = bool(pipeline)
         self.admission = admission
@@ -423,6 +518,7 @@ class MultiTenantServer:
         self.nec = self.control.nec
         self.alloc = self.control.alloc
         self.policy = self.control.policy
+        self.prefix = self.control.prefix
         total_pages = self.cache.config.num_pages
         self.mapper = _vmem_mapper(total_pages)
         self.tenants: List[Tenant] = []
@@ -442,6 +538,9 @@ class MultiTenantServer:
         self._prefill_jits = _LruCache(capacity=16)
         self._capture_graphs = self.device.type == "cuda" and self.pipeline
         self._capture_stream = None
+        # the graphs' shared memory pool, held alive by an anchor graph
+        # the server keeps (see _anchor_graph)
+        self._anchor = None
         self._graph_pool = None
         self._warm_sigs: set = set()
         self._captures = 0
@@ -449,8 +548,12 @@ class MultiTenantServer:
         self._warmups = 0
         self._warmup_s = 0.0
         self._depart_evictions = 0
+        self._preempt_evictions = 0
+        self._snapshot_bytes = 0      # prefix snapshots cloned on the device
+        self._ckpt_bytes = 0          # preemption checkpoints written
         self._aot_compiled = 0
         self._run_steps = 0
+        self._lookahead_adjusted = 0
         # host-path instrumentation: per-epoch scheduling wall and
         # dispatch wall, and admission (param / cache materialization)
         self._sched_walls: List[float] = []
@@ -460,6 +563,29 @@ class MultiTenantServer:
         self._epoch_compiles: List[int] = []
         self._batched_runs = 0
         self._oracle_runs = 0
+        # fault tolerance: a logical-clock fault schedule consumed at
+        # epoch boundaries; the straggler detector arms only under one,
+        # fed a logical per-epoch duration (deterministic on any host)
+        self.faults = faults
+        self.fault_log = FaultLog()
+        self.preemption_policy = preemption_policy or QosPreemptionPolicy()
+        self.straggler = straggler_policy or StragglerPolicy()
+        self._straggler_left = 0
+        self._straggler_factor = 1.0
+        self._ckpt_dir = ckpt_dir
+        self._ckpt_tmp = False      # _ckpt_dir is a temporary of ours
+        self._pressure_holds: List[List] = []   # [release_step, holder]
+        self._pressure_n = 0
+        # overload admission control: a bounded arrival queue and the
+        # deadline-aware defer / degrade / shed ladder (both off by
+        # default: admission is then immediate and best-effort)
+        self.queue_limit = queue_limit
+        self.queue_deadline_s = queue_deadline_s
+        self.backoff = backoff or (BackoffPolicy()
+                                   if queue_deadline_s is not None else None)
+        self.shed: List[Dict[str, Any]] = []
+        self.deferrals = 0
+        self._defer_attempts: Dict[int, Tuple[int, int]] = {}
         specs: List[TenantSpec] = [TenantSpec(aid) for aid in arch_ids or []]
         specs += list(tenants or [])
         if arrivals is not None:
@@ -474,8 +600,14 @@ class MultiTenantServer:
                 self.enqueue([spec])
 
     def enqueue(self, specs: List[TenantSpec]) -> None:
-        """Queue arrivals relative to the current logical clock."""
+        """Queue arrivals relative to the current logical clock.  With a
+        bounded queue (``queue_limit``), arrivals past capacity are shed
+        on the spot."""
         for spec in sorted(specs, key=lambda s: s.arrive_at):
+            if (self.queue_limit is not None
+                    and len(self._queue) >= self.queue_limit):
+                self._shed(spec, None, reason="queue_full")
+                continue
             step = self._clock + int(math.ceil(spec.arrive_at
                                                * self.steps_per_s))
             self._queue.append([spec, None, step])
@@ -505,11 +637,10 @@ class MultiTenantServer:
         aid = spec.model if isinstance(spec.model, str) else spec.model.name
         i = spec.seed if spec.seed is not None else self._n_admitted
         self._n_admitted += 1
-        arch = get_arch(aid)
-        if arch.family not in PORTED_FAMILIES:
-            raise NotImplementedError(f"{aid}: family {arch.family!r} not "
+        cfg = self._cfg(aid)
+        if cfg.family not in PORTED_FAMILIES:
+            raise NotImplementedError(f"{aid}: family {cfg.family!r} not "
                                       f"yet ported (have {PORTED_FAMILIES})")
-        cfg = arch.reduced() if self.reduced else arch
         pkey = spec.param_seed if spec.param_seed is not None else i
         params = (self._params_fn(cfg, pkey) if self._params_fn is not None
                   else M.init_params(cfg, pkey, self.device))
@@ -526,6 +657,7 @@ class MultiTenantServer:
         if spec.qos_ms is not None:
             self.qos_targets[tid] = spec.qos_ms * 1e-3
         t.qos_target = self._resolve_qos(tid)
+        hit = None
         if spec.prompt_len > 0:
             # the KV cache must hold the prompt plus every budgeted
             # decode step (a write past max_len is an error here)
@@ -552,13 +684,29 @@ class MultiTenantServer:
             want = _kv_reserve_pages(cfg, self.batch, spec.prompt_len,
                                      t.kv_dtype)
             t.kv_wanted = want
-            # best-effort reservation: degrade to what the pool can spare
-            # now; kv_reserved < kv_wanted records the degradation
-            got = self.cache.alloc(tid + "#kv", want)
+            shared: List[int] = []
+            if self._dedup_eligible(spec, cfg):
+                t.dedup = (cfg.name, _params_key(spec, t.kv_dtype))
+                hit = self._prefix_lookup(t)
+            if hit is not None:
+                # attach BEFORE allocating the private remainder: the
+                # refcount protects the matched chain from the pool
+                # pressure that allocation can trigger
+                t.prefix_key = hit.key
+                t.prefix_hit = hit.kv_len
+                self.prefix.attach(hit.key, tid)
+                shared = self.cache.share(self.prefix.chain_pages(hit),
+                                          tid + "#kv")
+            # best-effort reservation of the un-shared remainder: the
+            # pool's pressure hook may reclaim cold prefixes to meet it,
+            # else degrade to what the pool can spare now;
+            # kv_reserved < kv_wanted records the degradation
+            priv = max(0, want - len(shared))
+            got = self.cache.alloc(tid + "#kv", priv)
             if got is None:
                 got = self.cache.alloc(tid + "#kv",
-                                       min(want, self.cache.free_pages))
-            t.kv_reserved = len(got or [])
+                                       min(priv, self.cache.free_pages))
+            t.kv_reserved = len(shared) + len(got or [])
         # the static buffers every program of the tenant reads and writes
         # (seed-token flow: no prompt, decode from token i)
         t.token = torch.full((self.batch, 1), i % cfg.vocab_size,
@@ -569,11 +717,27 @@ class MultiTenantServer:
                             device=self.device)
         t.caches = init_caches(params, cfg, self.batch, self.max_len,
                                kv_dtype=t.kv_dtype, device=self.device)
+        if hit is not None:
+            # the shared rows into the tenant's own buffers, and its
+            # position to the hit, before any of its programs exists
+            seed_caches_in_place(cfg, t.caches, hit.payload["snap"],
+                                 hit.kv_len)
+            t.pf_pos = hit.kv_len
+            t.index_dev.fill_(hit.kv_len)
         t.admitted_wall = due_wall if due_wall is not None else time.time()
         self.tenants.append(t)
         self._groups.setdefault(cfg.name, []).append(t)
         self._epoch_cores.setdefault(cfg.name, M.make_decode_epoch(cfg))
         self._prefill_cores.setdefault(cfg.name, M.make_prefill_chunk(cfg))
+        if hit is not None and t.pf_pos >= t.prompt_len:
+            # full hit: the entry stored the producer's first token, so
+            # prefill is skipped; the buffers take the state a final
+            # chunk leaves (token fed back and logged at prompt_len - 1)
+            tok = hit.payload["token"]
+            t.token.copy_(tok)
+            t.log[:, t.prompt_len - 1:t.prompt_len].copy_(tok)
+            self._finish_prefill(t)
+            self._stamp_ttft(t)
         if self.aot_warmup and self._run_steps > 0:
             # mid-run arrival: capture its predicted decode programs
             # while its prompt is still to prefill
@@ -596,6 +760,42 @@ class MultiTenantServer:
                 for kv in KV_PRECISION_LADDER}
         return choose_kv_dtype(want, self.cache.free_pages)
 
+    def _cfg(self, aid: str) -> ArchConfig:
+        """The config the server serves ``aid`` at (its width): reduced,
+        as the reference's always is, or full width."""
+        arch = get_arch(aid)
+        return arch.reduced() if self.reduced else arch
+
+    def _dedup_eligible(self, spec: TenantSpec, cfg: ArchConfig) -> bool:
+        """Cross-tenant KV dedup preconditions (the reference's): the
+        server opted in, a session spec with decoupled param / prompt
+        identities, a prompt, and the interleaved pipelined path
+        (chunked prefill is what resumes mid-prompt)."""
+        return (self.prefix_dedup and self.pipeline
+                and self.admission == "interleaved"
+                and spec.param_seed is not None
+                and spec.prompt_seed is not None
+                and spec.prompt_len > 0 and cfg.family != "encdec")
+
+    def _prefix_lookup(self, t: Tenant):
+        """Longest usable resident prefix for an arriving prompt: a
+        partial hit on the tenant's chunk-alignment grid, or a full hit
+        that carries the stored first token; anything else walks up the
+        parent chain."""
+        arch, params_key = t.dedup
+        align = self._chunk_align(t.cfg)
+        cands = _prefix_candidates(t.prompt, t.prompt_len, align)
+        ent = self.prefix.lookup(arch, params_key, cands)
+        while ent is not None:
+            if ent.kv_len == t.prompt_len:
+                if ent.payload.get("token") is not None:
+                    return ent
+            elif ent.kv_len % align == 0:
+                return ent
+            ent = (self.prefix.entries.get(ent.parent)
+                   if ent.parent is not None else None)
+        return None
+
     def _due(self, item: List) -> bool:
         return item[2] <= self._clock
 
@@ -617,14 +817,111 @@ class MultiTenantServer:
             if busy:
                 return
         while self._queue and self._due(self._queue[0]):
+            spec, due_wall, arrive_step = self._queue[0]
+            # malformed / oversized prompts are shed at the door
+            bad = self._malformed(spec)
+            if bad is not None:
+                self._queue.pop(0)
+                self._shed(spec, due_wall, reason=bad)
+                continue
+            if self.queue_deadline_s is not None:
+                # the deadline runs from the ORIGINAL arrival step
+                orig = self._defer_attempts.get(id(spec),
+                                                (0, arrive_step))[1]
+                decision = self._overload_decision(spec, orig)
+                if decision == "defer":
+                    self._defer_head()
+                    continue
+                if decision == "shed":
+                    self._queue.pop(0)
+                    self._shed(spec, due_wall, reason="deadline")
+                    continue
             spec, due_wall, _ = self._queue.pop(0)
+            self._defer_attempts.pop(id(spec), None)
             a0 = time.perf_counter()
             self._admit_spec(spec, due_wall)
             self._admit_wall += time.perf_counter() - a0
 
+    def _malformed(self, spec: TenantSpec) -> Optional[str]:
+        """Reject-reason for a spec the server cannot serve (shed at
+        admission instead of raising mid-admission)."""
+        if spec.prompt_len < 0:
+            return "negative_prompt"
+        if spec.prompt_len > _PROMPT_CAP and spec.prompt_seed is not None:
+            return "prompt_over_cap"
+        if spec.prompt_len > 0:
+            need = spec.prompt_len + (spec.n_inferences or 0)
+            if need > self.max_len:
+                return "oversized_prompt"
+        return None
+
+    def _overload_decision(self, spec: TenantSpec,
+                           arrive_step: int) -> str:
+        """Deadline-aware backpressure ladder for one due arrival (the
+        reference's): ``admit`` when the pool can back the KV reservation
+        at the cheapest precision rung; else ``defer`` while the queue
+        deadline has slack; past it, ``shed`` if this is (one of) the
+        loosest-QoS arrivals waiting, else admit degraded.  The
+        reservation is priced at the server's width (the reference
+        prices the reduced config; the same at ``reduced=True``)."""
+        aid = (spec.model if isinstance(spec.model, str)
+               else spec.model.name)
+        cfg = self._cfg(aid)
+        if spec.prompt_len <= 0:
+            return "admit"
+        floor_kv = ("native" if cfg.family in ("ssm", "encdec")
+                    or self.kv_dtype == "native"
+                    else (self.kv_dtype if self.kv_dtype != "auto"
+                          else KV_PRECISION_LADDER[-1]))
+        want = _kv_reserve_pages(cfg, self.batch, spec.prompt_len, floor_kv)
+        if want <= self.cache.free_pages:
+            return "admit"
+        deadline = max(1, int(math.ceil(self.queue_deadline_s
+                                        * self.steps_per_s)))
+        if self._clock - arrive_step < deadline:
+            return "defer"
+        loose = (lambda s: math.inf if s.qos_ms is None else s.qos_ms)
+        if loose(spec) >= max(loose(it[0]) for it in self._queue):
+            return "shed"
+        return "admit"
+
+    def _defer_head(self) -> None:
+        """Push the head arrival back by a jittered backoff delay (its
+        due_wall stamp survives: the deferral counts against TTFT)."""
+        item = self._queue.pop(0)
+        spec = item[0]
+        att, orig = self._defer_attempts.get(id(spec), (0, item[2]))
+        self._defer_attempts[id(spec)] = (att + 1, orig)
+        delay = self.backoff.delay_s(att, key=orig)
+        item[2] = max(self._clock + 1,
+                      self._clock + int(math.ceil(delay * self.steps_per_s)))
+        self._queue.append(item)
+        self._queue.sort(key=lambda it: it[2])
+        self.deferrals += 1
+        self.fault_log.record(self._clock, "defer",
+                              model=str(getattr(spec.model, "name",
+                                                spec.model)),
+                              attempt=att + 1, retry_step=item[2])
+
+    def _shed(self, spec: TenantSpec, due_wall: Optional[float],
+              reason: str) -> None:
+        """Reject one arrival (overload or malformed): recorded, never
+        admitted."""
+        self._defer_attempts.pop(id(spec), None)
+        aid = (spec.model if isinstance(spec.model, str)
+               else getattr(spec.model, "name", str(spec.model)))
+        self.shed.append({
+            "model": aid, "state": STATE_SHED, "reason": reason,
+            "step": self._clock, "qos_ms": spec.qos_ms,
+            "prompt_len": spec.prompt_len,
+            "waited_s": (time.time() - due_wall
+                         if due_wall is not None else None)})
+        self.fault_log.record(self._clock, "shed", model=aid, reason=reason)
+
     def _depart(self, t: Tenant) -> None:
         """The tenant leaves: its page grants, KV reservation and
-        allocator profiles return to the pool, every program naming it is
+        allocator profiles return to the pool, its prefix attachment and
+        any parked checkpoint are dropped, every program naming it is
         evicted (a graph outliving its buffers would replay into freed
         memory), and then its device buffers are released.  Its served
         tokens are copied on the device first (outputs and traces stay
@@ -635,6 +932,18 @@ class MultiTenantServer:
         t.task.depart()
         if t.ptask is not None:
             t.ptask.depart()
+        if t.prefix_key is not None:
+            # refcount-- down the attached chain; the entries stay
+            # resident for the next warm arrival until pressure evicts
+            self.prefix.detach(t.prefix_key, t.tid)
+        if t.ckpt_ref is not None:
+            # departing while preempted: drop the parked checkpoint
+            if t.ckpt_ref.get("mode") == "snapshot":
+                shutil.rmtree(t.ckpt_ref["dir"], ignore_errors=True)
+            elif t.ckpt_ref.get("mode") == "prefix":
+                self.prefix.detach(t.ckpt_ref["key"], t.tid + "/preempt")
+            t.ckpt_ref = None
+            self._drop_ckpt_root()
         self.cache.free(t.tid + "#kv", None)
         self._groups[t.cfg.name].remove(t)
         self._evict_programs(t.tid)
@@ -645,14 +954,19 @@ class MultiTenantServer:
         t.prompt_dev = None
         t.token = t.index_dev = t.log = None
 
-    def _evict_programs(self, tid: str) -> None:
-        """Drop every decode and prefill entry whose key names ``tid``."""
+    def _evict_programs(self, tid: str, preempt: bool = False) -> None:
+        """Drop every decode and prefill entry whose key names ``tid``,
+        counted as a departure's evictions or, with ``preempt``, a
+        preemption's."""
         for cache, tids in ((self._fused_jits, lambda key: key[5]),
                             (self._prefill_jits, lambda key: key[:1])):
             for key in cache.keys():
                 if tid in tids(key):
                     cache.pop(key)
-                    self._depart_evictions += 1
+                    if preempt:
+                        self._preempt_evictions += 1
+                    else:
+                        self._depart_evictions += 1
 
     def _served(self, t: Tenant) -> torch.Tensor:
         """[B, n] device view of the tokens served so far: the log from
@@ -666,6 +980,243 @@ class MultiTenantServer:
             if (not t.departed and t.budget_left is not None
                     and t.budget_left <= 0 and not t.prefilling):
                 self._depart(t)
+
+    # --------------------------------------------- preempt / resume -----
+    def _ckpt_root(self) -> str:
+        if self._ckpt_dir is None:
+            self._ckpt_dir = tempfile.mkdtemp(prefix="repro_torch-preempt-")
+            self._ckpt_tmp = True
+        return self._ckpt_dir
+
+    def _drop_ckpt_root(self) -> None:
+        """Remove the temporary checkpoint root this server made (no
+        ``ckpt_dir`` given) once no parked snapshot lives in it."""
+        if self._ckpt_tmp and not any(
+                t.ckpt_ref is not None and t.ckpt_ref["mode"] == "snapshot"
+                for t in self.tenants):
+            shutil.rmtree(self._ckpt_dir, ignore_errors=True)
+            self._ckpt_dir, self._ckpt_tmp = None, False
+
+    def _select_victim(self) -> Optional[Tenant]:
+        """Policy-pluggable QoS-aware victim selection over the tenants
+        that can be preempted: decoding (``fed``, not mid-prefill), not
+        already preempted, not departed."""
+        cands = [(t.tid, t.qos_target,
+                  t.kv_reserved + t.task.held_pages, t.tokens_served)
+                 for t in self.tenants
+                 if not t.departed and t.state != STATE_PREEMPTED
+                 and t.fed and not t.prefilling]
+        tid = self.preemption_policy.select(cands)
+        if tid is None:
+            return None
+        return next(t for t in self.tenants if t.tid == tid)
+
+    def preempt_tenant(self, t: Tenant, resume_after_epochs: int = 1,
+                       reason: str = "fault") -> bool:
+        """Pause one decode tenant bit-preservingly: checkpoint its caches
+        and feedback token, free every page it holds, and schedule a
+        resume.  A tenant sitting exactly at the end of a registered
+        full-prompt entry checkpoints by a refcount hold on that entry
+        (``prefix`` mode, nothing copied); any other writes a checkpoint
+        (``snapshot`` mode, :func:`repro_torch.checkpoint.checkpoint.save`,
+        which waits for the device).  Then every program naming the
+        tenant is evicted before its caches are dropped, and ``fed`` is
+        cleared; the feedback token, position and log buffers stay."""
+        if (t.departed or t.state == STATE_PREEMPTED or t.prefilling
+                or not t.fed):
+            return False
+        ent = None
+        if t.dedup is not None and t.prompt is not None:
+            full_key = self.prefix.prefix_key(
+                t.dedup[0], t.dedup[1], t.prompt.tobytes())
+            ent = self.prefix.entries.get(full_key)
+        if (ent is not None and t.index == t.prompt_len
+                and ent.payload.get("token") is not None):
+            self.prefix.attach(ent.key, t.tid + "/preempt")
+            t.ckpt_ref = {"mode": "prefix", "key": ent.key}
+        else:
+            root = os.path.join(
+                self._ckpt_root(),
+                t.tid.replace("/", "_").replace(":", "_"))
+            step_dir = ckpt.save(root, t.index,
+                                 {"caches": t.caches, "token": t.token},
+                                 extra={"index": t.index, "pf_pos": t.pf_pos})
+            self._ckpt_bytes += ckpt.checkpoint_bytes(step_dir)
+            t.ckpt_ref = {"mode": "snapshot", "dir": root, "step": t.index}
+        self._evict_programs(t.tid, preempt=True)
+        # surrender the caches and every modeled page: decode grants, the
+        # KV reservation and the attached prefix chain's refcounts
+        t.task.preempt()
+        if t.prefix_key is not None:
+            self.prefix.detach(t.prefix_key, t.tid)
+            t.prefix_key = None
+        self.cache.free(t.tid + "#kv", None)
+        t.caches = None
+        t.fed = False
+        t.state = STATE_PREEMPTED
+        t.preemptions += 1
+        t.preempted_wall = time.time()
+        t.resume_step = (self._clock
+                         + max(1, resume_after_epochs) * self.epoch_len)
+        self.fault_log.record(self._clock, "preempt", tid=t.tid,
+                              mode=t.ckpt_ref["mode"], reason=reason,
+                              resume_step=t.resume_step)
+        return True
+
+    def _try_resume(self) -> None:
+        """Resume every preempted tenant whose resume step has passed
+        (at epoch boundaries, before planning)."""
+        for t in self.tenants:
+            if (not t.departed and t.state == STATE_PREEMPTED
+                    and t.resume_step is not None
+                    and self._clock >= t.resume_step):
+                self._resume_tenant(t)
+
+    def _resume_tenant(self, t: Tenant) -> bool:
+        """Rebuild a preempted tenant's device state bit-identically and
+        re-admit it to scheduling: fresh caches, restored from the
+        checkpoint or re-seeded from the prefix entry, the feedback token
+        put back, KV pages re-reserved (best-effort, as at admission).
+        Its programs are captured again at its next dispatch."""
+        ref = t.ckpt_ref
+        assert t.state == STATE_PREEMPTED and ref is not None, t.tid
+        want = t.kv_wanted
+        shared: List[int] = []
+        t.caches = init_caches(t.params, t.cfg, self.batch, self.max_len,
+                               kv_dtype=t.kv_dtype, device=self.device)
+        if ref["mode"] == "prefix":
+            ent = self.prefix.entries[ref["key"]]
+            self.prefix.attach(ref["key"], t.tid)
+            t.prefix_key = ref["key"]
+            shared = self.cache.share(self.prefix.chain_pages(ent),
+                                      t.tid + "#kv")
+            seed_caches_in_place(t.cfg, t.caches, ent.payload["snap"],
+                                 ent.kv_len)
+            t.token.copy_(ent.payload["token"])
+            self.prefix.detach(ref["key"], t.tid + "/preempt")
+        else:
+            tree, _ = ckpt.restore(ref["dir"], step=ref["step"],
+                                   device=self.device)
+            for dst, src in zip(t.caches, tree["caches"], strict=True):
+                for name, leaf in dst.items():
+                    leaf.copy_(src[name])
+            t.token.copy_(tree["token"])
+            shutil.rmtree(ref["dir"], ignore_errors=True)
+        priv = max(0, want - len(shared))
+        got = self.cache.alloc(t.tid + "#kv", priv)
+        if got is None:
+            got = self.cache.alloc(t.tid + "#kv",
+                                   min(priv, self.cache.free_pages))
+        t.kv_reserved = len(shared) + len(got or [])
+        t.ckpt_ref = None
+        self._drop_ckpt_root()
+        t.resume_step = None
+        t.task.resume()
+        t.fed = True
+        t.state = STATE_RESUMED
+        self.fault_log.record(self._clock, "resume", tid=t.tid,
+                              kv_reserved=t.kv_reserved)
+        return True
+
+    # --------------------------------------------- fault injection ------
+    def _apply_due_faults(self, steps: int) -> None:
+        """Epoch-boundary fault hook: release expired pressure holds,
+        then fire every due event of the installed plan."""
+        for h in list(self._pressure_holds):
+            if h[0] <= self._clock:
+                self.cache.free(h[1], None)
+                self._pressure_holds.remove(h)
+                self.fault_log.record(self._clock, "pressure_release",
+                                      holder=h[1])
+        if self.faults is None:
+            return
+        for e in self.faults.due(self._clock):
+            self.inject(e, steps)
+
+    def inject(self, e: FaultEvent, steps: int = 0) -> None:
+        """Apply one fault event now.  ``replica_kill`` is a fleet fault:
+        a single server ignores it."""
+        if e.kind == "pool_pressure":
+            holder = f"fault#p{self._pressure_n}"
+            self._pressure_n += 1
+            # allocate through the pool, so the pressure hook reclaims
+            # cold prefixes as a real grant burst would
+            got = self.cache.alloc(holder, e.pages)
+            if got is None:
+                got = self.cache.alloc(
+                    holder, min(e.pages, self.cache.free_pages))
+            self._pressure_holds.append(
+                [self._clock + max(1, e.hold_epochs) * self.epoch_len,
+                 holder])
+            self.fault_log.record(self._clock, "pool_pressure",
+                                  seized=len(got or []),
+                                  free_after=self.cache.free_pages)
+            if self.cache.free_pages == 0:
+                # the spike emptied the pool: preempt one victim so the
+                # co-tenants keep decoding
+                v = self._select_victim()
+                if v is not None:
+                    self.preempt_tenant(v, e.hold_epochs,
+                                        reason="pool_pressure")
+        elif e.kind == "straggler":
+            self._straggler_left = max(self._straggler_left,
+                                       max(1, e.hold_epochs))
+            self._straggler_factor = e.factor
+            self.fault_log.record(self._clock, "straggler",
+                                  epochs=e.hold_epochs, factor=e.factor)
+        elif e.kind == "bad_prompt":
+            spec = e.spec
+            if spec is None:
+                aid = e.target if isinstance(e.target, str) else "yi-9b"
+                spec = TenantSpec(aid, prompt_len=4 * self.max_len,
+                                  n_inferences=2)
+            self.fault_log.record(self._clock, "bad_prompt",
+                                  prompt_len=spec.prompt_len)
+            self._queue.append([spec, None, self._clock])
+            self._queue.sort(key=lambda it: it[2])
+        elif e.kind == "preempt":
+            t = None
+            if e.target is not None:
+                t = next((x for x in self.tenants if x.tid == e.target),
+                         None)
+            if t is None:
+                t = self._select_victim()
+            if t is not None:
+                self.preempt_tenant(t, e.hold_epochs, reason="injected")
+
+    def _observe_epoch(self) -> None:
+        """Feed the straggler detector one epoch: armed only under a
+        fault plan, fed a logical duration (1.0 per clean epoch, the
+        injected factor while a straggler is active).  A trip preempts
+        the policy's victim and resets the strike counter."""
+        if self.faults is None:
+            return
+        dt = 1.0
+        if self._straggler_left > 0:
+            self._straggler_left -= 1
+            dt = self._straggler_factor
+        if self.straggler.observe(len(self._device_walls), dt):
+            self.straggler.strikes = 0
+            v = self._select_victim()
+            self.fault_log.record(self._clock, "straggler_trip",
+                                  victim=v.tid if v else None)
+            if v is not None:
+                self.preempt_tenant(v, reason="straggler")
+
+    def _wake_steps(self) -> List[int]:
+        """Every future logical step that can create work while the
+        current epoch is idle: queued arrivals, scheduled resumes,
+        pressure-hold releases, unfired fault events."""
+        wake = [it[2] for it in self._queue]
+        wake += [t.resume_step for t in self.tenants
+                 if not t.departed and t.state == STATE_PREEMPTED
+                 and t.resume_step is not None]
+        wake += [h[0] for h in self._pressure_holds]
+        if self.faults is not None:
+            nxt = self.faults.peek_step()
+            if nxt is not None:
+                wake.append(nxt)
+        return wake
 
     def _align_lbm_to_vmem(self, tm: TenantModel, cfg: ArchConfig,
                            seq_block: int) -> None:
@@ -791,11 +1342,14 @@ class MultiTenantServer:
         event marks the token for the TTFT stamp, which the caller takes
         after the epoch's decode work is queued; a quantized tenant's
         per-row scale maxima are taken on the device and copied to pinned
-        host memory ahead of the event."""
+        host memory ahead of the event.  A dedup-eligible tenant
+        registers its prompt's caches in the prefix index."""
         t.fed = True
         t.tokens_served += self.batch
         t.index = t.prompt_len
         t.ptask.depart()
+        if t.dedup is not None:
+            self._register_prefix(t)
         rows = self._scale_rows(t)
         if t.token.is_cuda:
             if rows is not None:
@@ -806,6 +1360,49 @@ class MultiTenantServer:
             t.first_token_event.record()
         else:
             t.scale_rows = rows
+
+    def _register_prefix(self, t: Tenant) -> None:
+        """Producer side of the dedup (the reference's): publish the
+        finished prompt's caches as a chain of PrefixIndex entries at
+        chunk-grid granularity (SSM: the full-length entry only, its
+        state is cumulative), each holding the slice of the tenant's KV
+        reservation its length accounts for; the full-length entry also
+        stores the first token.  The payload is a device clone of the
+        caches, queued after the final chunk and before the next epoch
+        writes another row, cut to the prompt's rows (the seeder reads
+        no more); the entries hold its last reference."""
+        arch, params_key = t.dedup
+        full_key = self.prefix.prefix_key(arch, params_key,
+                                          t.prompt.tobytes())
+        if full_key in self.prefix.entries:
+            # identical prompt already published (this tenant may be a
+            # full hit itself): refresh its LRU stamp, no new copy
+            self.prefix.touch(full_key)
+            return
+        rows = slice(None) if t.cfg.family == "ssm" else slice(0, t.prompt_len)
+        snap = [{name: leaf[:, rows].clone() for name, leaf in layer.items()}
+                for layer in t.caches]
+        token = t.token.clone()
+        self._snapshot_bytes += sum(leaf.nbytes for layer in snap
+                                    for leaf in layer.values())
+        align = self._chunk_align(t.cfg)
+        if t.cfg.family in ("dense", "moe"):
+            bounds = list(range(align, t.prompt_len, align))
+            bounds.append(t.prompt_len)
+        else:
+            bounds = [t.prompt_len]
+        resv = sorted(self.cache.pages_of(t.tid + "#kv"))
+        parent, prev_pages = None, 0
+        for p in bounds:
+            budget = min(_kv_reserve_pages(t.cfg, self.batch, p,
+                                           t.kv_dtype),
+                         len(resv))
+            payload = {"snap": snap,
+                       "token": token if p == t.prompt_len else None}
+            parent = self.prefix.register(
+                arch, params_key, t.prompt[:, :p].tobytes(), p,
+                resv[prev_pages:budget], payload, parent=parent)
+            prev_pages = max(prev_pages, budget)
 
     def _stamp_ttft(self, t: Tenant) -> None:
         """The serving loop's one wait on the device: until the first
@@ -936,6 +1533,8 @@ class MultiTenantServer:
                 else:
                     flags[i], held[i] = False, 0
         ks = [self._epoch_k(t, steps) for t in run]
+        if self.lookahead:
+            self._lookahead_adjust(run, ks, sels, F)
         # --- one vectorized pricing pass over every (tenant, layer) ---
         items = [(tasks[i], sels[i][l].candidate, l)
                  for i in range(len(run)) for l in range(n_layers[i])]
@@ -976,6 +1575,71 @@ class MultiTenantServer:
             dec_plans[t.tid] = (self._dec_plan(t, plan), ks[i])
         return True
 
+    # ------------------------------------ predictive grant lookahead ----
+    def _upcoming_free_delta(self) -> int:
+        """Projected page-pool delta over the next epoch from events known
+        one epoch early on the logical clock (the reference's): queued
+        arrivals falling due claim their KV reservation (priced at the
+        server's width, where the reference prices the reduced config),
+        tenants whose budget expires free their reservation and grant
+        pages, prompts completing prefill start claiming grant pages."""
+        delta = 0
+        horizon = self._clock + self.epoch_len
+        for spec, _, step in self._queue:
+            if step > horizon:
+                break
+            if spec.prompt_len > 0:
+                aid = (spec.model if isinstance(spec.model, str)
+                       else spec.model.name)
+                kv = self.kv_dtype if self.kv_dtype != "auto" else "native"
+                delta -= _kv_reserve_pages(self._cfg(aid), self.batch,
+                                           spec.prompt_len, kv)
+        for t in self.tenants:
+            if t.departed:
+                continue
+            if (t.budget_left is not None
+                    and 0 < t.budget_left <= self.epoch_len):
+                delta += self.cache.allocated_pages(t.tid + "#kv")
+                delta += t.task.held_pages
+            if t.prefilling and t.prompt_len - t.pf_pos <= self.prefill_block:
+                delta -= min(m.p_need
+                             for m in t.task.model.mapping.mcts[0].lwms)
+        return delta
+
+    def _lookahead_adjust(self, run: List[Tenant], ks: List[int],
+                          sels: List[List[Selection]], F: int) -> None:
+        """Predictive grant lookahead (the reference's): for the tenants
+        whose grants would not survive the projected next-epoch pool,
+        compare the NEC-priced DRAM of staying on the aggressive grant
+        now and being forced down next epoch (plus the thrashed pages)
+        against taking the stable grant for both epochs, and keep the
+        cheaper.  Mutates only the not-yet-committed selections."""
+        delta = self._upcoming_free_delta()
+        if delta >= 0:
+            return
+        F_next = max(0, F + delta)
+        contested = []
+        for i in range(len(run)):
+            need = max((s.p_cur for s in sels[i]), default=0)
+            if need > F_next:
+                contested.append((need - F_next, i))
+        contested.sort(reverse=True)
+        for shortfall, i in contested[:4]:
+            task = run[i].task
+            stable = self._simulate_block_sels(task, 0.0, F_next)
+            if stable is None:
+                continue
+            cur_cands = [s.candidate for s in sels[i]]
+            stable_cands = [s.candidate for s in stable]
+            k = ks[i]
+            stay = (project_epoch_dram(task, cur_cands, k)
+                    + project_epoch_dram(task, stable_cands, k)
+                    + shortfall * PAGE_BYTES * 2)
+            switch = 2 * project_epoch_dram(task, stable_cands, k)
+            if switch < stay:
+                sels[i] = stable
+                self._lookahead_adjusted += 1
+
     def _plan_epoch(self, now: float, steps: int) -> List[Tuple]:
         """Timed wrapper around the epoch planner (host scheduling wall,
         admission apart)."""
@@ -998,6 +1662,8 @@ class MultiTenantServer:
         batched Algorithm 1 when its preconditions hold, else through
         the per-tenant oracle."""
         while True:
+            self._apply_due_faults(steps)
+            self._try_resume()
             self._admit_due(steps)
             self._process_departures()
             if not self.pipeline or self.admission == "sequential":
@@ -1062,14 +1728,20 @@ class MultiTenantServer:
             self._clock += self.epoch_len
             if work:
                 return work
-            # idle gap: fast-forward to the next queued arrival
-            wake = [it[2] for it in self._queue]
+            # idle gap: fast-forward to the next wake-up source (queued
+            # arrival, scheduled resume, pressure release, fault event)
+            wake = self._wake_steps()
             if not wake:
                 return work
             self._clock = max(self._clock, min(wake))
 
     # ------------------------------------------------------- execution --
     def _advance(self, t: Tenant, k: int) -> None:
+        if t.preempted_wall is not None:
+            # the first dispatch after a resume (its programs captured
+            # again) ends the tenant's recovery
+            t.recovery_s.append(time.time() - t.preempted_wall)
+            t.preempted_wall = None
         t.index += k
         t.tokens_served += self.batch * k
         t.epochs_served += 1
@@ -1254,6 +1926,8 @@ class MultiTenantServer:
         main = torch.cuda.current_stream(self.device)
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
+            if self._anchor is None:
+                self._anchor = self._anchor_graph()
             if sig not in self._warm_sigs:
                 w0 = time.perf_counter()
                 self._warm_up(fn, tenants, advance)
@@ -1275,11 +1949,24 @@ class MultiTenantServer:
             launches = kcount.delta(before)
             kcount.add(launches, -1)
         main.wait_stream(stream)
-        if self._graph_pool is None:
-            self._graph_pool = graph.pool()
         self._captures += 1
         self._capture_s += time.perf_counter() - t0
         return _CompiledEntry(fn, graph, launches)
+
+    def _anchor_graph(self) -> Tuple[Any, torch.Tensor]:
+        """A one-kernel graph the server keeps for its lifetime, captured
+        first into a new pool that every program then shares.  A pool
+        lives while some graph uses it, on the device and on the pinned
+        host side alike, and a capture into a pool whose last graph is
+        gone fails: the anchor keeps it alive when every program in it
+        has been evicted (a preemption, the last departure)."""
+        buf = torch.zeros(1, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        buf.add_(1)
+        graph.capture_end()
+        self._graph_pool = graph.pool()
+        return graph, buf
 
     # ------------------------------------------ AOT program precompile --
     def _simulate_block_sels(self, task: TenantTask, now: float,
@@ -1396,8 +2083,13 @@ class MultiTenantServer:
         finds its graph ready.  A failure raises."""
         if not (self.pipeline and self.aot_warmup):
             return
+        # a preempted tenant has no caches to bind: its programs are
+        # captured again at its first dispatch after the resume
+        parked = {t.tid for t in self.tenants if t.state == STATE_PREEMPTED}
         for epoch_key in self._enumerate_epoch_keys(steps):
             for key in epoch_key:
+                if parked.intersection(key[5]):
+                    continue
                 if self._fused_jits.peek(key) is None:
                     entry = self._build_entry(key)
                     entry.aot = True
@@ -1415,6 +2107,7 @@ class MultiTenantServer:
         finally:
             self._device_walls.append(time.perf_counter() - t0)
             self._epoch_compiles.append(self.compile_misses() - m0)
+            self._observe_epoch()
 
     def _dispatch_epoch_inner(self, work: List[Tuple]) -> None:
         """Queue one epoch's work: the prefill chunks first, then every
@@ -1480,6 +2173,7 @@ class MultiTenantServer:
         self._admit_walls = []
         self._admit_wall = 0.0
         self._epoch_compiles = []
+        self._lookahead_adjusted = 0
         self._batched_runs = 0
         self._oracle_runs = 0
         self._run_steps = steps
@@ -1503,13 +2197,15 @@ class MultiTenantServer:
         else:
             while True:
                 now = time.time() - t0
+                self._apply_due_faults(steps)
+                self._try_resume()
                 self._admit_due(steps)
                 self._process_departures()
                 self._sequential_prefills_due(now)
                 runnable = [t for t in self.tenants
                             if self._decodable(t, steps)]
                 if not runnable:
-                    wake = [it[2] for it in self._queue]
+                    wake = self._wake_steps()
                     if wake:
                         self._clock = max(self._clock + 1, min(wake))
                         continue
@@ -1551,8 +2247,11 @@ class MultiTenantServer:
                         "kv_wanted": t.kv_wanted,
                         "kv_reserved": t.kv_reserved,
                         "kv_dtype": t.kv_dtype,
+                        "prefix_hit": t.prefix_hit,
                         "prefill_computed": t.pf_computed,
                         "state": t.state,
+                        "preemptions": t.preemptions,
+                        "recovery_s": list(t.recovery_s),
                         "output": (self._served(t) if t.log is not None
                                    else t.outputs).cpu().numpy().astype(
                                        np.int32)}
@@ -1567,7 +2266,10 @@ class MultiTenantServer:
             "page_util": self.page_utilization(),
             "tokens_per_s": served / wall if wall > 0 else 0.0,
             "prefill_tokens": sum(t.pf_pos for t in self.tenants),
+            # tokens prefilled on the device: the gap to prefill_tokens
+            # is what prefix dedup saved
             "prefill_computed": sum(t.pf_computed for t in self.tenants),
+            "prefix": self.prefix.stats(),
             "p95_ttft_s": (float(np.percentile(ttfts, 95)) if ttfts
                            else None),
             "host": {
@@ -1582,6 +2284,7 @@ class MultiTenantServer:
                 "epoch_compiles": list(self._epoch_compiles),
                 "batched_runs": self._batched_runs,
                 "oracle_runs": self._oracle_runs,
+                "lookahead_adjusted": self._lookahead_adjusted,
                 "aot_compiled": self._aot_compiled,
                 # the reference counts the warm-up failures its daemon
                 # thread swallows; here a failure raises
@@ -1596,6 +2299,10 @@ class MultiTenantServer:
                 "warmups": self._warmups,
                 "warmup_s": self._warmup_s,
                 "departure_evictions": self._depart_evictions,
+                # entries a preemption evicted (its tenant's caches go),
+                # and the bytes of the prefix snapshots cloned
+                "preempt_evictions": self._preempt_evictions,
+                "snapshot_bytes": self._snapshot_bytes,
                 "jit_cache": {
                     "fused": {"hits": self._fused_jits.hits,
                               "misses": self._fused_jits.misses,
@@ -1605,6 +2312,21 @@ class MultiTenantServer:
                                 "evictions": self._prefill_jits.evictions},
                 },
             },
+            "overload": {
+                "deferrals": self.deferrals,
+                "shed": list(self.shed),
+                "shed_count": len(self.shed),
+                "queued": len(self._queue),
+            },
+            "faults": {
+                "counts": self.fault_log.counts(),
+                "log": list(self.fault_log.records),
+                "preemptions": sum(t.preemptions for t in self.tenants),
+                "recovery_s": [r for t in self.tenants
+                               for r in t.recovery_s],
+                # bytes on disk of the snapshot checkpoints written
+                "checkpoint_bytes": self._ckpt_bytes,
+            },
         }
 
 
@@ -1613,8 +2335,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     same flags, defaults and printed ``[serve]`` lines, on the port's
     server.  Added: ``--device`` (default ``cuda``) and ``--full-width``
     (serve the full-width configs; the reference serves the reduced
-    ones).  ``--devices`` (fleet mode) and ``--lookahead`` raise
-    ``NotImplementedError``.  Returns the run's result.
+    ones).  ``--devices`` (fleet mode) raises ``NotImplementedError``.
+    Returns the run's result.
 
         python -m repro_torch.launch.serve --full-width
     """
@@ -1648,8 +2370,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     help="force the per-tenant Algorithm 1 oracle "
                          "(disable the batched epoch planner)")
     ap.add_argument("--lookahead", action="store_true",
-                    help="predictive grant lookahead (not yet ported: "
-                         "raises)")
+                    help="predictive grant lookahead against next-epoch "
+                         "pool pressure (changes grants)")
     ap.add_argument("--aot", action="store_true",
                     help="capture the predicted decode programs before "
                          "the first epoch")

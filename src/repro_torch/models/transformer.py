@@ -194,6 +194,50 @@ def init_caches(params: Optional[Params], cfg: ArchConfig, batch: int,
             for _ in range(num_groups(cfg))]
 
 
+
+def seed_caches_in_place(cfg: ArchConfig, caches: Caches, snapshot: Caches,
+                         prefix_len: int) -> Caches:
+    """Seed a tenant's own cache buffers from a shared prefix, in place
+    (the buffers keep their addresses, so programs that bind them stay
+    valid): dense and MoE copy rows ``[0, prefix_len)`` of every K/V
+    leaf (codes and fp32 scale leaves alike, all ``[B, T, Hkv, .]``,
+    time on axis 1) and leave the rows past the prefix as they are; SSM
+    adopts the snapshot's recurrent state wholesale (only valid at the
+    snapshot's exact length).  ``snapshot`` is a cache list some tenant
+    of the same geometry filled through at least ``prefix_len`` tokens;
+    its K/V leaves may hold only those rows.  Returns ``caches``."""
+    _require_ported(cfg)
+    for dst, src in zip(caches, snapshot, strict=True):
+        for name, leaf in dst.items():
+            if cfg.family == "ssm":
+                leaf.copy_(src[name])
+            else:
+                leaf[:, :prefix_len].copy_(src[name][:, :prefix_len])
+    return caches
+
+
+def seed_caches_from_prefix(cfg: ArchConfig, batch: int, max_len: int,
+                            snapshot: Caches, prefix_len: int,
+                            kv_dtype: Optional[str] = None,
+                            device: Any = None) -> Caches:
+    """Fresh decode caches pre-seeded with a shared KV prefix
+    (src/repro/models/transformer.py::seed_caches_from_prefix):
+    :func:`init_caches` buffers (zero K/V, scale leaves of ones) with
+    :func:`seed_caches_in_place` applied, so the result equals the cache
+    a cold tenant holds after prefilling the same ``prefix_len`` tokens.
+    ``kv_dtype`` must be the snapshot's precision.  The device defaults
+    to the snapshot's.  Hybrid and encoder-decoder archs raise, as their
+    families do.  The server seeds its tenants' own buffers with
+    :func:`seed_caches_in_place` (its graphs bind them); this fresh-cache
+    form is the reference's API, kept for callers and parity tests."""
+    _require_ported(cfg)
+    if device is None:
+        device = next(iter(snapshot[0].values())).device
+    fresh = init_caches(None, cfg, batch, max_len, kv_dtype=kv_dtype,
+                        device=device)
+    return seed_caches_in_place(cfg, fresh, snapshot, prefix_len)
+
+
 def decode_step(params: Params, token: torch.Tensor, caches: Caches,
                 index: Any, cfg: ArchConfig, plan=None,
                 kv_len: Optional[int] = None

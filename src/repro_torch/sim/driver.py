@@ -1,6 +1,7 @@
-# Copy of TenantSpec and PoissonArrivals from src/repro/sim/driver.py
-# (lines 53-114): the arrival vocabulary the serving port accepts.  Only
-# these two stdlib dataclasses are taken from that module.
+# Copy of TenantSpec, PoissonArrivals, BackoffPolicy and SessionArrivals
+# from src/repro/sim/driver.py (lines 53-114 and 117-182): the arrival
+# and backoff vocabulary the serving port accepts.  Only these four
+# stdlib dataclasses are taken from that module.
 """Arrival vocabulary shared by the simulator and the serving path."""
 from __future__ import annotations
 
@@ -72,4 +73,72 @@ class PoissonArrivals:
             out.append(TenantSpec(rng.choice(self.models), arrive_at=t,
                                   n_inferences=self.n_inferences,
                                   prompt_len=self.prompt_len))
+        return out
+
+
+@dataclasses.dataclass
+class BackoffPolicy:
+    """Deterministic jittered exponential backoff for deferred
+    admissions.  When the serving layer's overload control *defers* an
+    arrival (bounded queue, pool can't back even the cheapest KV
+    reservation), the retry delay is ``base_s * factor**attempt`` capped
+    at ``max_s``, scaled down by up to ``jitter`` — the jitter draw is a
+    pure function of ``(seed, attempt, key)``, so replays are
+    bit-identical while co-arriving retries still de-synchronize."""
+    base_s: float = 1.0
+    factor: float = 2.0
+    max_s: float = 8.0
+    jitter: float = 0.5
+    seed: int = 0
+
+    def delay_s(self, attempt: int, key: int = 0) -> float:
+        d = min(self.base_s * self.factor ** max(0, attempt), self.max_s)
+        rng = random.Random(self.seed * 1_000_003 + attempt * 8191 + key)
+        return d * (1.0 - self.jitter * rng.random())
+
+
+@dataclasses.dataclass
+class SessionArrivals:
+    """Session-replay workload: ``n_sessions`` chat sessions share
+    ``n_prompts`` system prompts (session s uses prompt ``s % n_prompts``
+    as its first ``prefix_len`` tokens) and re-arrive for ``turns``
+    turns.  Turn t's prompt is the *whole* turn-(t-1) prompt extended by
+    ``turn_tokens`` fresh tokens — exactly the traffic shape prefix-hash
+    KV dedup targets: the first arrival per system prompt prefills it
+    cold, every later arrival (same prompt, or a later turn of any
+    session on it) attaches to resident pages and prefills only its
+    private suffix.  All sessions of one system prompt share
+    ``param_seed`` (same model instance — dedup's precondition)."""
+    models: List[str]
+    n_sessions: int = 4
+    turns: int = 2
+    n_prompts: int = 2
+    prefix_len: int = 256
+    turn_tokens: int = 128
+    gap_s: float = 2.0               # inter-arrival gap
+    n_inferences: Optional[int] = 8
+    param_seed: int = 11
+    seed: int = 0
+
+    def specs(self) -> List[TenantSpec]:
+        rng = random.Random(self.seed)
+        out: List[TenantSpec] = []
+        t = 0.0
+        # arrivals interleave turns round-robin so warm re-arrivals land
+        # while earlier sessions' prefixes are still resident
+        for turn in range(self.turns):
+            for s in range(self.n_sessions):
+                prompt_id = s % self.n_prompts
+                t += self.gap_s * (0.5 + rng.random())
+                out.append(TenantSpec(
+                    # arch follows the system prompt: dedup needs every
+                    # session on one prompt to share arch AND params
+                    self.models[prompt_id % len(self.models)],
+                    arrive_at=t,
+                    n_inferences=self.n_inferences,
+                    prompt_len=self.prefix_len + (turn + 1) * self.turn_tokens,
+                    param_seed=self.param_seed + prompt_id,
+                    prompt_seed=1000 * self.seed + s,
+                    prefix_len=self.prefix_len,
+                    prefix_seed=prompt_id))
         return out

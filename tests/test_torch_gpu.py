@@ -445,6 +445,90 @@ def test_moe_expert_launches_take_the_wgmma_kind(kind):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+# ----------------------------------------------------- serve features --
+@pytest.mark.gpu
+def test_checkpoint_roundtrip_on_the_card(tmp_path):
+    """Card tensors of every cache dtype through the checkpoint: each
+    leaf comes back on the card with its dtype, shape and bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint import checkpoint as ckpt
+    g = torch.Generator(device="cuda").manual_seed(0)
+    r = torch.randn((2, 8, 4, 16), generator=g, device="cuda")
+    tree = {"caches": [{"k": r.to(torch.bfloat16), "v": r * 3},
+                       {"k": r.to(torch.float8_e4m3fn),
+                        "k_scale": r[..., :1].abs(),
+                        "q": (r * 40).to(torch.int8)}],
+            "token": torch.arange(2, device="cuda").reshape(2, 1)}
+    ckpt.save(str(tmp_path), 3, tree)
+    back, _ = ckpt.restore(str(tmp_path), device="cuda")
+    want, _ = ckpt._flatten(tree)
+    got, _ = ckpt._flatten(back)
+    for a, b in zip(want, got):
+        assert b.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _serve_features_server(cfg, **kw):
+    from repro_torch.launch.serve import MultiTenantServer
+    return MultiTenantServer([], batch=1, max_len=128, epoch_len=4,
+                             total_pages=64, device="cuda", reduced=False,
+                             **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch, kv", [("yi-9b", "native"), ("yi-9b", "int8"),
+                                      ("mamba2-370m", "native")])
+def test_preempt_resume_replays_bitwise_on_the_card(arch, kv, tmp_path):
+    """chip_smoke.py's serve_faults (a) at the reduced width in bf16: a
+    pipelined server (captured graphs) preempted at step 8 and resumed
+    two epochs later decodes bit for bit as an unfaulted one; the
+    preemption evicts the tenant's programs, and the resume captures
+    them again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.sim.driver import TenantSpec
+    from repro_torch.sim.faults import FaultEvent, FaultPlan
+    cfg = _bf16(arch, f"{arch}-faults")
+    outs = []
+    for plan in (None, FaultPlan([FaultEvent(step=8, kind="preempt",
+                                             hold_epochs=2)])):
+        srv = _serve_features_server(cfg, kv_dtype=kv, faults=plan,
+                                     ckpt_dir=str(tmp_path))
+        srv.enqueue([TenantSpec(cfg.name, prompt_len=32, n_inferences=24)])
+        outs.append(srv.run(24))
+    ref, out = outs
+    (tid, info), = out["tenants"].items()
+    assert info["preemptions"] == 1
+    assert torch.equal(torch.from_numpy(info["output"]),
+                       torch.from_numpy(ref["tenants"][tid]["output"]))
+    assert out["host"]["preempt_evictions"] > 0
+    assert out["host"]["captures"] > ref["host"]["captures"]
+    assert out["faults"]["checkpoint_bytes"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m"])
+def test_full_prompt_rearrival_bitwise_on_the_card(arch):
+    """A full-prompt re-arrival on the card, captured graphs: the seeded
+    tenant skips prefill and decodes the producer's stream bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.sim.driver import TenantSpec
+    cfg = _bf16(arch, f"{arch}-prefix")
+    specs = [TenantSpec(cfg.name, arrive_at=at, n_inferences=6,
+                        prompt_len=64, param_seed=5, prompt_seed=7,
+                        prefix_len=64, prefix_seed=3) for at in (0.0, 4.0)]
+    srv = _serve_features_server(cfg, tenants=specs, prefix_dedup=True,
+                                 steps_per_s=4.0)
+    out = srv.run(24)
+    prod, warm = (out["tenants"][f"t{i}:{cfg.name}"] for i in (0, 1))
+    assert warm["prefix_hit"] == 64 and warm["prefill_chunks"] == []
+    assert warm["prefill_computed"] == 0
+    assert (prod["output"] == warm["output"]).all()
+    assert out["host"]["snapshot_bytes"] > 0
+
+
 @pytest.mark.gpu
 def test_capture_failure_raises():
     """A capture that fails (here: a read back to the host inside it)

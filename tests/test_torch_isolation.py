@@ -1,6 +1,8 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package (``repro``), and ``chip_smoke.py`` prints
-no result without a card or without the port beside it."""
+neither JAX, nor the JAX package (``repro``), nor ``msgpack`` (the
+reference checkpoint's leaf format, absent on the card's machine), and
+``chip_smoke.py`` prints no result without a card or without the port
+beside it."""
 import ast
 import importlib
 import inspect
@@ -15,7 +17,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "repro")
+FORBIDDEN = ("jax", "repro", "msgpack")
 
 
 def _forbidden(name: str) -> bool:
@@ -37,13 +39,15 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 
 def test_every_kernel_and_the_ssm_slice_are_covered():
-    """The sources above include the SSM and MoE slices' modules, and
-    every CUDA source the build compiles sits beside them."""
+    """The sources above include the SSM and MoE slices' modules and the
+    serve features' (checkpoint, straggler detector, fault schedule),
+    and every CUDA source the build compiles sits beside them."""
     from repro_torch.kernels import build
     names = {p.relative_to(PORT).as_posix() for p in SOURCES
              if p.is_relative_to(PORT)}
     assert {"models/ssm.py", "models/moe.py", "kernels/ssd_scan.py",
-            "kernels/ops.py"} <= names
+            "kernels/ops.py", "checkpoint/checkpoint.py",
+            "distributed/fault_tolerance.py", "sim/faults.py"} <= names
     assert "ssd_chunk" in build.SOURCES
     for name in build.SOURCES:
         assert (PORT / "csrc" / f"{name}.cu").is_file(), name
@@ -56,12 +60,35 @@ def test_every_kernel_and_the_ssm_slice_are_covered():
     ("repro_torch.bridge", "params_from_numpy"),
     ("repro_torch.bridge", "caches_from_numpy"),
     ("repro_torch.launch.serve", "MultiTenantServer"),
+    ("repro_torch.checkpoint.checkpoint", "restore"),
 ])
 def test_entry_points_run_on_the_card_unless_told(module, name):
     """Every entry point that places tensors defaults to ``"cuda"``: the
     CPU is used only where the caller names it."""
     fn = getattr(importlib.import_module(module), name)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_serve_features_keep_the_card_default(tmp_path):
+    """A server built with every serve feature's argument (none of them
+    names a device) still serves on the card; only the CPU-free parts
+    run here (no tenant is admitted)."""
+    from repro_torch.distributed.fault_tolerance import StragglerPolicy
+    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.sim.driver import BackoffPolicy
+    from repro_torch.sim.faults import FaultEvent, FaultPlan
+    srv = MultiTenantServer(
+        [], prefix_dedup=True, lookahead=True,
+        faults=FaultPlan([FaultEvent(step=4, kind="preempt")]),
+        preemption_policy=None, straggler_policy=StragglerPolicy(),
+        ckpt_dir=str(tmp_path), queue_limit=4, queue_deadline_s=1.0,
+        backoff=BackoffPolicy())
+    assert srv.device.type == "cuda"
+    params = inspect.signature(MultiTenantServer).parameters
+    for name in ("prefix_dedup", "lookahead", "faults", "preemption_policy",
+                 "straggler_policy", "ckpt_dir", "queue_limit",
+                 "queue_deadline_s", "backoff"):
+        assert name in params, name
 
 
 def _env():

@@ -128,9 +128,7 @@ def test_port_serial_and_pipelined_bit_identical(runs):
         assert s["tokens"] == p["tokens"]
 
 
-@pytest.mark.parametrize("option", [
-    dict(prefix_dedup=True), dict(lookahead=True), dict(faults=object()), dict(queue_limit=4), dict(queue_deadline_s=1.0),
-    dict(kv_dtype="auto", queue_limit=4), dict(device=[object()])])
+@pytest.mark.parametrize("option", [dict(device=[object()])])
 def test_unported_server_features_raise(option):
     with pytest.raises(NotImplementedError):
         PS.MultiTenantServer(["yi-9b"], **{"device": "cpu", **option})
@@ -416,7 +414,7 @@ def test_cli_prints_reference_lines(capsys):
     assert len(lines) == len(tids) + 2
 
 
-@pytest.mark.parametrize("argv", [["--devices", "2"], ["--lookahead"]])
+@pytest.mark.parametrize("argv", [["--devices", "2"]])
 def test_cli_unported_flags_raise(argv):
     with pytest.raises(NotImplementedError):
         PS.main(["--device", "cpu", "--steps", "1"] + argv)
