@@ -193,6 +193,35 @@ Phases, each printed as one JSON object with its seconds:
   them after it; yi-9b's decode runs cache_matmul's gemv tile, mamba2's
   prompt chunks ssd_chunk.
 
+* ``e2e_hybrid``: the hybrid slice, zamba2-2.7b (54 layers: 9 groups of
+  5 Mamba2 layers and one shared attention + FFN block, d_model 2560,
+  d_ff 10240, 80 SSM heads, state 64, sliding window 4096) cut to one
+  group, random weights from one seed: ``make_prefill`` of a 300-token
+  prompt under an LBM plan with native KV and an LWM plan with int8 KV,
+  then a prefill and two teacher-forced decode epochs with native, int8
+  and fp8 caches, on the card with the kernels against the CPU with the
+  plain versions (:data:`HYBRID_E2E`).
+* ``prefill_hybrid``: ``make_prefill`` of full-depth zamba2 on 2 prompts
+  of 1024 tokens plain, under the LBM grant of the widest fused block
+  (1184 pages), and 32-page LWM grants with native and int8 KV: the
+  shared FFN through block_fused_ffn / cache_matmul, 45 ssd_chunk
+  launches a call, every launch wgmma; no flash kernel (the sliding
+  window keeps attention plain, as in the reference).  In bf16 each plan
+  is held relative to a control (the plain path with ssd_chunk's plain
+  version), and on an fp32 copy of the weights within 2e-2 of plain;
+  timed and profiled.  ``prefill``'s function.
+* ``serve_hybrid``: ``serve``'s function on full-depth zamba2
+  (:data:`SERVE_HYBRID`: a resident and a 256-token arrival, a pool of
+  the arrival's reservation and an LBM grant's pages): 27 gemv launches
+  a decode step (9 groups x 3), ssd_chunk in the prompt chunk, three
+  warm runs, a replayed epoch profiled; then a full-prompt re-arrival
+  of 64 tokens (fewer than the 80 SSM heads), bitwise as the cold
+  producer.
+* ``self_hybrid``: serial == pipelined at one group, two residents and a
+  300-token int8 arrival (:data:`SELF_HYBRID`).  The ``graphs`` phase
+  holds zamba2's items at one group too, and the kernels phase times
+  the kernels at its shapes (``hybrid_timings``).
+
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  With no CUDA device, or without the port's sources beside this
@@ -362,6 +391,31 @@ SERVE_FAULTS = dict(
 LOOKAHEAD = dict(resident=MOE_ARCH, arrival="yi-9b", prompt_len=192,
                  n_inferences=8, resident_steps=24, arrive_at=(3.0, 3.25),
                  batch=1, max_len=256, epoch_len=2, spare=32, steps=24)
+# the hybrid slice: zamba2-2.7b (54 layers: 9 groups of 5 Mamba2 layers
+# and the shared attention + FFN block; d_model 2560, d_ff 10240, 80 SSM
+# heads of P 64, state 64, sliding window 4096)
+HYBRID_ARCH = "zamba2-2.7b"
+# e2e_hybrid: one group (6 layers); a 300-token prompt (a 256-token SSD
+# chunk and a 44-token tail) under the e2e phase's LBM and LWM grants
+HYBRID_E2E = dict(batch=2, prompt_len=300, lbm_pages=324, lwm_pages=32)
+# serve_hybrid (serve_main_path's arguments but the pool): a resident
+# and a 256-token arrival at step 8, in a pool of the arrival's native
+# reservation (_kv_reserve_pages: 5127 pages) and `headroom` pages, as
+# many as an LBM grant at 128 rows claims (the serve phase's 324; at full
+# width the scheduler has no LBM candidate, as for yi-9b); then a
+# full-prompt re-arrival of a 64-token prompt, shorter than the 80 SSM
+# heads that the snapshot of the state must keep whole
+SERVE_HYBRID = dict(batch=2, max_len=512, steps=32, arrival=ARRIVAL,
+                    headroom=324,
+                    rearrival=dict(prompt_len=64, n_inferences=6, max_len=256,
+                                   at=(0.0, 4.0), steps_per_s=4.0,
+                                   epoch_len=8, steps=24))
+# self_hybrid: serial == pipelined at one group, two residents and a
+# 300-token arrival with an int8 cache (its K/V dicts carry scale leaves,
+# its Mamba2 dicts do not: the first-token stamp reads the scales of the
+# K/V dicts only)
+SELF_HYBRID = dict(batch=2, max_len=512, steps=16, budget=8, arrival=(4.0, 300),
+                   pages=1 << 16, kv_dtype="int8", matmul=("gemv",))
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -1053,48 +1107,95 @@ def ssd_work(b, h, s, p, n, q, eb):
     return nbytes, flops
 
 
-def ssd_timings(ssm_cfg, dev):
-    """ssd_chunk at the SSM paths' shapes (bf16, full-width mamba2, B/C
-    per batch row): the prefill phase's (B 2, S 1024) at each chunk its
-    grants lower, and a serving prompt chunk (B 2, S 256); the routed
-    kind (wgmma) timed in turns against the simt kind (``simt_ms``),
-    plain and bound, checked against the plain version and bitwise on a
-    repeat."""
+def _ssd_timing(gen, b, h, s, p, n, q):
+    """ssd_chunk at one shape (bf16, B/C per batch row): the routed kind
+    timed in turns against the simt kind (``simt_ms``), plain and bound,
+    checked against the plain version and bitwise on a repeat."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as kssd
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    b, h = SSM_PREFILL["batch"], ssm_cfg.ssm_heads
-    p, n = ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
-    out = {}
-    for label, s, q in (("prefill", SSM_PREFILL["prompt_len"], 256),
-                        ("prefill.q128", SSM_PREFILL["prompt_len"], 128),
-                        ("prefill.q64", SSM_PREFILL["prompt_len"], 64),
-                        ("serve_chunk", 256, 256)):
-        ops_in = _ssd_inputs(gen, b, h, s, p, n, torch.bfloat16)
-        kind = ops.ssd_kind(torch.bfloat16, n, p)
-        y, st = kssd.ssd_chunk(*ops_in, q, kind=kind)
-        want_y, want_st = _ssd_plain(*ops_in, q)
-        ey, oky = _close(y, want_y, "float32")
-        es, oks = _close(st, want_st, "float32")
-        y2, st2 = kssd.ssd_chunk(*ops_in, q, kind=kind)
-        repeat = bool(torch.equal(y, y2) and torch.equal(st, st2))
-        del y, st, y2, st2
-        bound, by = _bound(*ssd_work(b, h, s, p, n, q, 2), "bfloat16")
-        x, dt, A, Bm, Cm = ops_in
-        Bw, Cw = Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0)
-        t = _turns_ms({"ms": lambda: kssd.ssd_chunk(*ops_in, q, kind=kind),
-                       "simt_ms": lambda: kssd.ssd_chunk(*ops_in, q,
-                                                         kind="simt")})
-        out[f"ssd_chunk.{label}"] = {
-            "shape": [b, h, s, p, n], "chunk": q, "kind": kind, **t,
+    ops_in = _ssd_inputs(gen, b, h, s, p, n, torch.bfloat16)
+    kind = ops.ssd_kind(torch.bfloat16, n, p)
+    y, st = kssd.ssd_chunk(*ops_in, q, kind=kind)
+    want_y, want_st = _ssd_plain(*ops_in, q)
+    ey, oky = _close(y, want_y, "float32")
+    es, oks = _close(st, want_st, "float32")
+    y2, st2 = kssd.ssd_chunk(*ops_in, q, kind=kind)
+    repeat = bool(torch.equal(y, y2) and torch.equal(st, st2))
+    del y, st, y2, st2
+    bound, by = _bound(*ssd_work(b, h, s, p, n, q, 2), "bfloat16")
+    x, dt, A, Bm, Cm = ops_in
+    Bw, Cw = Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0)
+    t = _turns_ms({"ms": lambda: kssd.ssd_chunk(*ops_in, q, kind=kind),
+                   "simt_ms": lambda: kssd.ssd_chunk(*ops_in, q,
+                                                     kind="simt")})
+    return {"shape": [b, h, s, p, n], "chunk": q, "kind": kind, **t,
             "plain_ms": _median_ms(
                 lambda: kssd.ssd_chunk_plain(x, dt, A, Bw, Cw, q)),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
             "max_abs_err": max(ey, es), "bitwise_repeat": repeat,
             "ok": oky and oks and repeat,
             "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+
+
+def ssd_timings(ssm_cfg, dev):
+    """ssd_chunk at the SSM paths' shapes (bf16, full-width mamba2): the
+    prefill phase's (B 2, S 1024) at each chunk its grants lower, and a
+    serving prompt chunk (B 2, S 256), by :func:`_ssd_timing`."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b, h = SSM_PREFILL["batch"], ssm_cfg.ssm_heads
+    p, n = ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
+    return {f"ssd_chunk.{label}": _ssd_timing(gen, b, h, s, p, n, q)
+            for label, s, q in (("prefill", SSM_PREFILL["prompt_len"], 256),
+                                ("prefill.q128", SSM_PREFILL["prompt_len"],
+                                 128),
+                                ("prefill.q64", SSM_PREFILL["prompt_len"], 64),
+                                ("serve_chunk", 256, 256))}
+
+
+def hybrid_timings(hybrid_cfg, dev):
+    """The kernels at full-width zamba2-2.7b's shapes (bf16): cache_matmul's
+    gemv at decode (2 x 2560 @ 2560 x 10240 and 2 x 10240 @ 10240 x 2560,
+    the e2e phase's LWM@32p plan) and its wgmma tile at the prefill's
+    2048 rows (the 32-page LWM prefill plan), block_fused_ffn at 2048 x
+    2560, d_ff 10240 (the prefill's LBM plan, beside the unfused chain),
+    and ssd_chunk at the prefill's B 2, S 1024, 80 heads, P 64, N 64,
+    chunk 256."""
+    import torch
+    from repro_torch.core.vmem import LANE
+    from repro_torch.kernels import ops
+    dt = torch.bfloat16
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cfg = hybrid_cfg
+    d, f = cfg.d_model, cfg.d_ff
+    B, S = PREFILL["batch"], PREFILL["prompt_len"]
+    decode = _plan(cfg, "LWM", HYBRID_E2E["lwm_pages"], LANE)
+    plans = hybrid_prefill_plans(cfg)
+    wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wd = _randn(gen, (f, d), dt, 1 / math.sqrt(f))
+    out = {}
+    x, h = _randn(gen, (B, d), dt), _randn(gen, (B, f), dt)
+    for label, a, b, tile in (("up", x, wg, decode.ffn.up_tile),
+                              ("down", h, wd, decode.ffn.down_tile)):
+        out[f"cache_matmul.hybrid.{label}"] = {
+            "plan": decode.describe(), **_matmul_timing(a, b, tile, limit,
+                                                        30)}
+    x = _randn(gen, (B * S, d), dt)
+    lwm = plans["LWM/native"]
+    out["cache_matmul.hybrid.prefill.up"] = {
+        "plan": lwm.describe(),
+        **_matmul_timing(x, wg, lwm.ffn.up_tile, limit, 10)}
+    out["block_fused_ffn.hybrid"] = _ffn_timing(x, wg, wu, wd,
+                                                plans["LBM/native"], limit, 10)
+    del x, wg, wu, wd
+    out["ssd_chunk.hybrid"] = _ssd_timing(
+        gen, B, cfg.ssm_heads, S, cfg.ssm_head_dim, cfg.ssm_state,
+        cfg.ssm_chunk)
     return out
 
 
@@ -1136,7 +1237,7 @@ def moe_timings(moe_cfg, dev):
     return out
 
 
-def check_kernels(cfg, ssm_cfg, moe_cfg, dev):
+def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, dev):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1147,6 +1248,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, dev):
     timings.update(prefill_timings(cfg, dev))
     timings.update(ssd_timings(ssm_cfg, dev))
     timings.update(moe_timings(moe_cfg, dev))
+    timings.update(hybrid_timings(hybrid_cfg, dev))
     bad += [k for k, v in timings.items() if not v["ok"]]
     worst = {}
     for r in rows:
@@ -1311,20 +1413,10 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
     want, want_pf, want_kv = run(_to(params, "cpu"), "cpu")
     del params
     V = cfg.vocab_size
-    quantized = {}
-    for name in KV_CACHES:
-        g, w = got_kv[name][..., :V], want_kv[name][..., :V]
-        gate = _gate(g, w, f"e2e decode {name} cache")
-        cos = float(torch.nn.functional.cosine_similarity(
-            g, got[..., :V], dim=-1).min())
-        if gate["greedy_agreement"] != 1.0 or cos < PREFILL_COSINE[name]:
-            raise AssertionError(f"e2e {name} cache: greedy "
-                                 f"{gate['greedy_agreement']}, cosine {cos}")
-        quantized[name] = {**gate, "min_cosine_vs_native": cos,
-                           "min_cosine_bar": PREFILL_COSINE[name]}
     res = {"layers": layers, "positions": int(got.shape[1]),
            "decode": _gate(got[..., :V], want[..., :V], "e2e decode"),
-           "decode_quantized_kv": quantized,
+           "decode_quantized_kv": _quantized_gates(got, got_kv, want_kv, V,
+                                                   "e2e"),
            "prefill": {p.describe(): _gate(g[..., :V], w[..., :V],
                                            f"e2e prefill {p.describe()}")
                        for p, g, w in zip(pf_plans, got_pf, want_pf)},
@@ -1339,6 +1431,26 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
         raise AssertionError(f"e2e: no wgmma block_fused_ffn launch: "
                              f"{launches}")
     return res
+
+
+def _quantized_gates(got, got_kv, want_kv, V: int, label: str):
+    """The decode logits with each quantized cache of :data:`KV_CACHES`:
+    within :func:`_gate` of the CPU's, the greedy tokens equal, and at
+    the cosine bar of :data:`PREFILL_COSINE` against the native cache's
+    logits on the card."""
+    import torch
+    out = {}
+    for name in KV_CACHES:
+        g, w = got_kv[name][..., :V], want_kv[name][..., :V]
+        gate = _gate(g, w, f"{label} decode {name} cache")
+        cos = float(torch.nn.functional.cosine_similarity(
+            g, got[..., :V], dim=-1).min())
+        if gate["greedy_agreement"] != 1.0 or cos < PREFILL_COSINE[name]:
+            raise AssertionError(f"{label} {name} cache: greedy "
+                                 f"{gate['greedy_agreement']}, cosine {cos}")
+        out[name] = {**gate, "min_cosine_vs_native": cos,
+                     "min_cosine_bar": PREFILL_COSINE[name]}
+    return out
 
 
 # -------------------------------------------------------------- serve --
@@ -1708,9 +1820,10 @@ def _replay_vs_eager(srv, item):
 
 def graph_checks(arch, dev, kv_dtype: str = "native", prompt_len=None):
     """Replay against eager dispatch in one pipelined server of ``arch``
-    cut to :data:`GRAPHS`'s layers: a prompt tenant's chunks (chunks of
-    256) and its decode epochs, and for a dense or MoE arch with a native
-    cache a resident's epochs alone and two residents' as a bucket.  Each
+    cut to :data:`GRAPHS`'s layers (a hybrid arch to one group: its
+    ``attn_every`` layers): a prompt tenant's chunks (chunks of 256) and
+    its decode epochs, and for an arch with attention and a native cache
+    a resident's epochs alone and two residents' as a bucket.  Each
     decode item runs twice, at two positions: the first captures (after
     a warm-up where its signature has none), the second replays the same
     graph.  An MoE tenant's decode binds no plan (``_dec_plan``).
@@ -1723,8 +1836,9 @@ def graph_checks(arch, dev, kv_dtype: str = "native", prompt_len=None):
     k = g["k"]
     if prompt_len is None:
         prompt_len = g["prompt_len"]
+    layers = arch.attn_every if arch.family == "hybrid" else g["layers"]
     cut = register(dataclasses.replace(
-        arch, name=f"{arch.name}-{g['layers']}layer", num_layers=g["layers"]))
+        arch, name=f"{arch.name}-{layers}layer", num_layers=layers))
     dense = arch.family != "ssm"
     residents = [cut.name] * (3 if dense and kv_dtype == "native" else 0)
     srv = MultiTenantServer(
@@ -1767,14 +1881,17 @@ def _graph_faults(checks):
     return bad
 
 
-def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True, moe_cfg=None):
+def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True, moe_cfg=None,
+                 hybrid_cfg=None):
     """Graph replay against eager dispatch at full width (4 layers), by
     :func:`graph_checks`: in a pipelined yi-9b server a prompt tenant's
     chunks (256 + 128 tokens) and epochs with a native and, in a second
     server, an int8 cache, a resident's epochs alone and two residents'
     as a bucket; in a mamba2 server a prompt tenant's 256-token chunk
     and 44-token tail and its epochs; with ``moe_cfg``, the same items of
-    olmoe-1b-7b (native cache).  Every check must be bitwise in tokens
+    olmoe-1b-7b (native cache); with ``hybrid_cfg``, zamba2-2.7b cut to
+    one group: a prompt tenant's 256-token chunk and 44-token tail, its
+    epochs, a resident alone and two as a bucket (native cache).  Every check must be bitwise in tokens
     and every cache buffer, launch the kernels the eager run launches (by
     the counts), and a second replay must capture nothing."""
     g = GRAPHS
@@ -1783,6 +1900,8 @@ def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True, moe_cfg=None):
              (ssm_cfg, "native", g["ssm_prompt_len"])]
     if moe_cfg is not None:
         cases.append((moe_cfg, "native", g["prompt_len"]))
+    if hybrid_cfg is not None:
+        cases.append((hybrid_cfg, "native", g["ssm_prompt_len"]))
     for arch, kv_dtype, prompt_len in cases:
         got, res[f"{arch.name}/{kv_dtype}"] = graph_checks(
             arch, dev, kv_dtype, prompt_len)
@@ -1928,6 +2047,11 @@ def _min_cosine(got, want) -> float:
                                                        dim=-1).min())
 
 
+# the kinds every bf16 launch of the dense and MoE prefill must take
+PREFILL_KINDS = dict(matmul=("wgmma",), flash=("wgmma",), ffn=("wgmma",),
+                     flash_quantized=("wgmma",))
+
+
 def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
                       serve=(), profiled=("LBM/native", "LWM/int8",
                                           "LWM/fp8_e4m3")):
@@ -1941,16 +2065,28 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
     before, read just after); each call's own counts are kept too.
     Gates: finite logits; every plan within :func:`_gate` of the plain
     path of its ``serve``; a quantized-KV plan also at the cosine bar of
-    :data:`PREFILL_COSINE` against it, and within :func:`_gate` of a
-    control run that puts the plain attention in place of the quantized
-    kernel, the kernel's and the control's runs compared layer by layer
-    (:func:`_layer_divergence`); every bf16 launch of the wgmma kind.
-    Then each call is timed warm on the host clock, and those named in
-    ``profiled`` profiled once."""
+    :data:`PREFILL_COSINE` against it, and, where its call launched the
+    quantized flash kernel, within :func:`_gate` of a control run that
+    puts the plain attention in place of that kernel, the kernel's and
+    the control's runs compared layer by layer
+    (:func:`_layer_divergence`); each of the arch's kernels launched,
+    every bf16 launch of the wgmma kind (:func:`_gate_kinds`).  A hybrid
+    arch (zamba2-2.7b) launches :data:`HYBRID_KERNELS` (its sliding
+    window keeps attention plain, no flash kernel runs; its Mamba2
+    layers run ssd_chunk), and its bf16 plans are held relative to a
+    control, the plain path with ssd_chunk's plain version
+    (:func:`_relative_gate`: 45 random bf16 Mamba2 layers grow a
+    rounding difference past :func:`_gate`'s bar), and on an fp32 copy
+    of the weights each plan within :func:`_gate` of the plain path with
+    its greedy tokens equal.  Then each call is timed warm on the host
+    clock, and those named in ``profiled`` profiled once."""
     import torch
     from repro_torch.models import model as M
     B, S = PREFILL["batch"], PREFILL["prompt_len"]
     V = cfg.vocab_size
+    hybrid = cfg.family == "hybrid"
+    kernels, kinds = ((HYBRID_KERNELS, HYBRID_KINDS) if hybrid
+                      else (PREFILL_KERNELS, PREFILL_KINDS))
     params = M.init_params(cfg, seed=2, device=dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, V, (B, S))).long().to(dev)
@@ -1975,10 +2111,9 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
         per_call[name] = {k: v - before[k] for k, v in _counters().items()
                           if v - before[k]}
     counters.update(_counters())
-    if min(counters[k] for k in PREFILL_KERNELS) <= 0:
+    if min(counters[k] for k in kernels) <= 0:
         raise AssertionError(f"{label}: a kernel never launched: {counters}")
-    _gate_kinds(counters, label, ("wgmma",), ("wgmma",), ("wgmma",),
-                flash_quantized=("wgmma",))
+    _gate_kinds(counters, label, **kinds)
     bad = [n for n, lg in logits.items() if not bool(torch.isfinite(lg).all())]
     if bad:
         raise AssertionError(f"{label}: non-finite logits under {bad}")
@@ -1987,15 +2122,25 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
         plain[True] = M.make_prefill(cfg, serve=True)(
             params, {"tokens": toks})[:, :V].float()
     gates = {}
+    if hybrid:
+        gates["control"] = _agreement(
+            _plain_ssd_chunk(lambda: call("plain"))[:, :V].float(),
+            plain[False])
     for name, lg in logits.items():
         if name == "plain":
             continue
         want = plain[name.startswith("serve/")]
-        gate = gates[name] = {**_gate(lg, want, f"{label} {name}"),
-                              "min_cosine": _min_cosine(lg, want)}
+        if not hybrid:
+            gate = {**_gate(lg, want, f"{label} {name}"),
+                    "min_cosine": _min_cosine(lg, want)}
+        else:
+            gate = _relative_gate(lg, want, gates["control"],
+                                  f"{label} {name}")
+        gates[name] = gate
         kv = calls[name][1].kv_dtype
-        if kv == "native":
-            continue
+        if kv == "native" or not per_call[name].get(
+                "flash_attention_quantized"):
+            continue        # nothing quantized (a sliding window: plain)
         # the control: the same plan and quantized K/V through the plain
         # attention, so the kernel's share of the error shows apart from
         # the quantization's
@@ -2013,6 +2158,20 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
         del traced, control_traced
         if gate["min_cosine"] < PREFILL_COSINE[kv]:
             raise AssertionError(f"{label} {name}: {gate}")
+    if hybrid:
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = _to_dtype(params, torch.float32)
+        l32 = {name: M.make_prefill(c32)(p32, {"tokens": toks}, plan)[
+            :, :V].float() for name, (_, plan) in calls.items()}
+        del p32
+        for name, lg in l32.items():
+            if name == "plain":
+                continue
+            gate = gates[name]["fp32"] = _gate(
+                lg, l32["plain"], f"{label} {name} fp32")
+            if gate["greedy_agreement"] != 1.0:
+                raise AssertionError(f"{label} {name} fp32: {gate}")
+        del l32
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     for name, (_, plan) in calls.items():
@@ -2559,6 +2718,23 @@ def _agreement(got, want):
                                       .float().mean())}
 
 
+def _relative_gate(got, want, control, label: str):
+    """bf16 agreement of ``got`` with ``want`` held relative to a
+    control's (``control``: :func:`_agreement` of a run that sums in
+    another order at the same plan): 1 - cosine within
+    :data:`SSM_BF16_SPREAD` times the control's, or
+    :data:`SSM_BF16_FLOOR` where the control agrees closer, and the
+    control's cosine at least :data:`SSM_BF16_COSINE`."""
+    gate = _agreement(got, want)
+    limit = max(SSM_BF16_SPREAD * (1.0 - control["min_cosine"]),
+                SSM_BF16_FLOOR)
+    gate["limit_one_minus_cosine"] = limit
+    if (control["min_cosine"] < SSM_BF16_COSINE
+            or 1.0 - gate["min_cosine"] > limit):
+        raise AssertionError(f"{label}: {gate}, control {control}")
+    return gate
+
+
 def _plain_ssd_chunk(fn):
     """``fn()`` with ssd_chunk's plain version in place of the kernel (a
     control run: it launches no ssd_chunk)."""
@@ -2620,17 +2796,11 @@ def prefill_ssm_main_path(cfg, dev, counters):
     if bad:
         raise AssertionError(f"prefill_ssm: non-finite logits at chunks {bad}")
     want = logits[256]
-    gates = {"bf16": {f"chunk{q}_vs_256": _agreement(logits[q], want)
-                      for q in (128, 64)}}
     control = _agreement(_plain_ssd_chunk(lambda: call(plans[256])), want)
+    gates = {"bf16": {f"chunk{q}_vs_256": _relative_gate(
+        logits[q], want, control, f"prefill_ssm bf16 chunk {q}")
+        for q in (128, 64)}}
     gates["bf16"]["control_plain_vs_kernel_chunk256"] = control
-    spread = max(SSM_BF16_SPREAD * (1.0 - control["min_cosine"]),
-                 SSM_BF16_FLOOR)
-    gates["bf16"]["limit_one_minus_cosine"] = spread
-    if control["min_cosine"] < SSM_BF16_COSINE or any(
-            1.0 - gates["bf16"][f"chunk{q}_vs_256"]["min_cosine"] > spread
-            for q in (128, 64)):
-        raise AssertionError(f"prefill_ssm bf16: {gates['bf16']}")
     c32 = dataclasses.replace(cfg, dtype="float32")
     p32 = _to_dtype(params, torch.float32)
     l32 = {q: call(plan, c32, p32) for q, plan in plans.items()}
@@ -2766,48 +2936,69 @@ def serve_ssm_main_path(cfg, dev, counters):
 
 
 def check_serial_pipelined_ssm(cfg, dev, counters):
-    """Serial (per-step) and pipelined (epoch) serving of full-width,
-    full-depth mamba2 on the card, in the :data:`SELF_SSM` pool: two
-    residents and a prompt tenant arriving mid-run, whose prompt chunks
-    run ssd_chunk (the residents' O(1) decode steps are plain torch, as
-    in the reference).  Bitwise-equal token streams, equal choice traces
-    and prefill chunks.  ``counters`` receives the launch counts of the
-    two runs (zeroed just before, read just after); ssd_chunk must have
-    launched."""
+    """Serial (per-step) and pipelined (epoch) serving on the card, in
+    the pool of the arch's spec (:data:`SELF_SSM`: full-width,
+    full-depth mamba2 in the serve_ssm pool; :data:`SELF_HYBRID`:
+    zamba2 cut to one group): two residents and a prompt tenant arriving
+    mid-run at the spec's KV precision, whose prompt chunks run
+    ssd_chunk (mamba2's O(1) decode steps are plain torch, as in the
+    reference; zamba2's shared block runs cache_matmul's ``matmul``
+    kinds).  Bitwise-equal token streams, equal choice traces and
+    prefill chunks.  A quantized arrival's first-token stamp must have
+    read its cache scales.  ``counters`` receives the launch counts of
+    the two runs (zeroed just before, read just after); ssd_chunk must
+    have launched."""
     from repro_torch.launch.serve import MultiTenantServer
     from repro_torch.sim.driver import TenantSpec
-    at, prompt_len = SELF_SSM["arrival"]
-    spec = TenantSpec(cfg.name, arrive_at=at, prompt_len=prompt_len,
-                      n_inferences=SELF_SSM["budget"])
-    outs = []
+    hybrid = cfg.family == "hybrid"
+    label = "self_hybrid" if hybrid else "self_ssm"
+    s = {"pages": SERVE_SSM["pages"], "kv_dtype": "native", "matmul": (),
+         **(SELF_HYBRID if hybrid else SELF_SSM)}
+    at, prompt_len = s["arrival"]
+    arrival = TenantSpec(cfg.name, arrive_at=at, prompt_len=prompt_len,
+                         n_inferences=s["budget"])
+    outs, scaled = [], []
     _zero_counters()
     for pipeline in (False, True):
-        srv = MultiTenantServer([cfg.name, cfg.name], tenants=[spec],
-                                batch=SELF_SSM["batch"],
-                                max_len=SELF_SSM["max_len"],
-                                total_pages=SERVE_SSM["pages"], epoch_len=4,
-                                pipeline=pipeline, device=dev, reduced=False)
-        outs.append((srv.run(steps=SELF_SSM["steps"]),
-                     {t.tid: list(t.chunks) for t in srv.tenants}))
+        srv = MultiTenantServer([cfg.name, cfg.name], tenants=[arrival],
+                                batch=s["batch"], max_len=s["max_len"],
+                                total_pages=s["pages"], epoch_len=4,
+                                pipeline=pipeline, device=dev, reduced=False,
+                                kv_dtype=s["kv_dtype"])
+        scale_rows = srv._scale_rows
+
+        def spy(t, scale_rows=scale_rows):
+            rows = scale_rows(t)
+            scaled.append(rows is not None)
+            return rows
+
+        srv._scale_rows = spy
+        outs.append((srv.run(steps=s["steps"]),
+                     {t.tid: list(t.chunks) for t in srv.tenants},
+                     {t.tid: t.kv_dtype for t in srv.tenants}))
         del srv
     counters.update(_counters())
     if counters["ssd_chunk"] <= 0:
-        raise AssertionError(f"self_ssm: ssd_chunk never launched: {counters}")
-    _gate_kinds(counters, "self_ssm", ssd=("wgmma",))
-    (serial, serial_chunks), (piped, piped_chunks) = outs
+        raise AssertionError(f"{label}: ssd_chunk never launched: {counters}")
+    _gate_kinds(counters, label, s["matmul"], ssd=("wgmma",))
+    (serial, serial_chunks, kv), (piped, piped_chunks, _) = outs
+    if s["kv_dtype"] != "native" and not (any(scaled) and s["kv_dtype"]
+                                          in kv.values()):
+        raise AssertionError(f"{label}: no {s['kv_dtype']} tenant's scales "
+                             f"were read: {kv}")
     if serial_chunks != piped_chunks:
-        raise AssertionError(f"self_ssm: prefill chunks differ: "
+        raise AssertionError(f"{label}: prefill chunks differ: "
                              f"{serial_chunks} vs {piped_chunks}")
-    for tid, s in serial["tenants"].items():
+    for tid, o in serial["tenants"].items():
         p = piped["tenants"][tid]
-        if not np.array_equal(s["output"], p["output"]):
-            raise AssertionError(f"self_ssm {tid}: serial and pipelined "
+        if not np.array_equal(o["output"], p["output"]):
+            raise AssertionError(f"{label} {tid}: serial and pipelined "
                                  "tokens differ")
-        if s["choices"] != p["choices"]:
-            raise AssertionError(f"self_ssm {tid}: choices differ")
-    return {"arch": cfg.name, "layers": cfg.num_layers, **SELF_SSM,
+        if o["choices"] != p["choices"]:
+            raise AssertionError(f"{label} {tid}: choices differ")
+    return {"arch": cfg.name, "layers": cfg.num_layers, **s,
             "bit_identical": True, "launches": dict(counters),
-            "prefill_chunks": piped_chunks,
+            "prefill_chunks": piped_chunks, "kv_dtypes": kv,
             "tokens": {tid: v["tokens"] for tid, v in piped["tenants"].items()},
             "first_tokens": {tid: v["output"][0, :8].tolist()
                              for tid, v in piped["tenants"].items()}}
@@ -3034,7 +3225,7 @@ def serve_prefix_main_path(dev, counters):
     import torch
     from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
     from repro_torch.models.base import get_arch
-    from repro_torch.sim.driver import SessionArrivals, TenantSpec
+    from repro_torch.sim.driver import SessionArrivals
     sp = SERVE_PREFIX
     arch = sp["arch"]
 
@@ -3100,54 +3291,71 @@ def serve_prefix_main_path(dev, counters):
         raise AssertionError(f"serve_prefix: {problems}")
     params_fn.memo.clear()
     _release()
-    rr = sp["rearrival"]
+    rr = {"batch": sp["batch"], "epoch_len": sp["epoch_len"],
+          "steps": sp["steps"], **sp["rearrival"]}
     rearrivals = {}
     for rarch in rr["archs"]:
         label = f"serve_prefix rearrival {rarch}"
-        quote = _kv_reserve_pages(get_arch(rarch), sp["batch"],
-                                  rr["prompt_len"])
-        tenants = [TenantSpec(rarch, arrive_at=at,
-                              n_inferences=rr["n_inferences"],
-                              prompt_len=rr["prompt_len"], param_seed=5,
-                              prompt_seed=7, prefix_len=rr["prompt_len"],
-                              prefix_seed=3) for at in rr["at"]]
-        torch.cuda.reset_peak_memory_stats()
-        srv = MultiTenantServer(
-            [], tenants=tenants, prefix_dedup=True, batch=sp["batch"],
-            max_len=rr["max_len"], total_pages=2 * quote + sp["headroom"],
-            epoch_len=sp["epoch_len"], steps_per_s=rr["steps_per_s"],
-            device=dev, reduced=False, params_fn=params_fn)
-        out, counts = _run_counted(srv, sp["steps"], counters)
+        rearrivals[rarch], counts = _rearrival(
+            get_arch(rarch), rr, sp["headroom"], dev, counters, params_fn,
+            label)
         if rarch == SSM_ARCH:
             _launched(counts, label, "ssd_chunk")
-        prod, warm = (out["tenants"][f"t{i}:{rarch}"] for i in (0, 1))
-        problems = []
-        if (warm["prefix_hit"] != rr["prompt_len"] or warm["prefill_chunks"]
-                or warm["prefill_computed"] != 0
-                or warm["tokens"] != 1 + rr["n_inferences"]):
-            problems.append({k: warm[k] for k in (
-                "prefix_hit", "prefill_chunks", "prefill_computed",
-                "tokens")})
-        if not np.array_equal(prod["output"], warm["output"]):
-            problems.append("output differs from the producer's")
-        if problems:
-            raise AssertionError(f"{label}: {problems}")
-        rearrivals[rarch] = {
-            "pages": 2 * quote + sp["headroom"], "quote": quote,
-            "producer": {k: prod[k] for k in ("prefill_chunks", "ttft_s",
-                                              "tokens")},
-            "warm": {k: warm[k] for k in ("prefix_hit", "prefill_chunks",
-                                          "prefill_computed", "ttft_s",
-                                          "tokens")},
-            "snapshot_bytes": out["host"]["snapshot_bytes"],
-            "prefix": out["prefix"], "launches": _kind_counts(counts),
-            "first_tokens": warm["output"][0, :8].tolist(),
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-        del srv
         params_fn.memo.clear()
         _release()
     return {"arch": arch, "pages": pages, "runs": runs,
             "rearrival": rearrivals, "launches": dict(counters)}
+
+
+def _rearrival(cfg, rr, headroom: int, dev, counters, params_fn, label: str):
+    """A full-prompt re-arrival (the reference's
+    test_full_prompt_rearrival_skips_prefill) at full width: two session
+    tenants of ``cfg`` with one weight set and one prompt of
+    ``rr["prompt_len"]`` tokens, arriving at ``rr["at"]`` with prefix
+    dedup on, in a pool of both native reservations and ``headroom``
+    pages.  The second must hit the first's full-length entry: no chunk,
+    nothing computed, and the producer's (cold) stream bit for bit.
+    Returns (its record, the run's counts)."""
+    import torch
+    from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
+    from repro_torch.sim.driver import TenantSpec
+    quote = _kv_reserve_pages(cfg, rr["batch"], rr["prompt_len"])
+    tenants = [TenantSpec(cfg.name, arrive_at=at,
+                          n_inferences=rr["n_inferences"],
+                          prompt_len=rr["prompt_len"], param_seed=5,
+                          prompt_seed=7, prefix_len=rr["prompt_len"],
+                          prefix_seed=3) for at in rr["at"]]
+    torch.cuda.reset_peak_memory_stats()
+    srv = MultiTenantServer(
+        [], tenants=tenants, prefix_dedup=True, batch=rr["batch"],
+        max_len=rr["max_len"], total_pages=2 * quote + headroom,
+        epoch_len=rr["epoch_len"], steps_per_s=rr["steps_per_s"],
+        device=dev, reduced=False, params_fn=params_fn)
+    out, counts = _run_counted(srv, rr["steps"], counters)
+    prod, warm = (out["tenants"][f"t{i}:{cfg.name}"] for i in (0, 1))
+    problems = []
+    if (warm["prefix_hit"] != rr["prompt_len"] or warm["prefill_chunks"]
+            or warm["prefill_computed"] != 0
+            or warm["tokens"] != rr["batch"] * (1 + rr["n_inferences"])):
+        problems.append({k: warm[k] for k in (
+            "prefix_hit", "prefill_chunks", "prefill_computed", "tokens")})
+    if not np.array_equal(prod["output"], warm["output"]):
+        problems.append("output differs from the producer's")
+    if problems:
+        raise AssertionError(f"{label}: {problems}")
+    rec = {"pages": 2 * quote + headroom, "quote": quote,
+           "prompt_len": rr["prompt_len"], "batch": rr["batch"],
+           "producer": {k: prod[k] for k in ("prefill_chunks", "ttft_s",
+                                             "tokens")},
+           "warm": {k: warm[k] for k in ("prefix_hit", "prefill_chunks",
+                                         "prefill_computed", "ttft_s",
+                                         "tokens")},
+           "snapshot_bytes": out["host"]["snapshot_bytes"],
+           "prefix": out["prefix"], "launches": _kind_counts(counts),
+           "first_tokens": warm["output"][0, :8].tolist(),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del srv
+    return rec, counts
 
 
 def serve_faults_main_path(dev, counters):
@@ -3423,6 +3631,139 @@ def lookahead_main_path(dev, counters):
     return {"pages": pages, "quote": quote, "runs": runs,
             "launches": dict(counters)}
 
+# ------------------------------------------------------------- hybrid --
+def hybrid_prefill_plans(cfg):
+    """The hybrid prefill's settings: plain, the LBM grant at which the
+    fused block reaches its widest at d_ff 10240 (block_f 1024: a larger
+    grant lowers the same plan; core/plan.py::lower_ffn), and 32-page
+    LWM grants with native and int8 KV, all at the prompt length."""
+    from repro_torch.core.types import ceil_div
+    from repro_torch.core.vmem import (PAGE_BYTES, fused_ffn_block_s,
+                                       fused_ffn_vmem_bytes)
+    s, lwm = PREFILL["prompt_len"], PREFILL["lwm_pages"]
+    widest = min(cfg.d_ff, 1024)
+    lbm = ceil_div(fused_ffn_vmem_bytes(fused_ffn_block_s(s, 2), widest,
+                                        cfg.d_model, 2), PAGE_BYTES)
+    plans = {"plain": None, "LBM/native": _plan(cfg, "LBM", lbm, s),
+             "LWM/native": _plan(cfg, "LWM", lwm, s),
+             "LWM/int8": _plan(cfg, "LWM", lwm, s, "int8")}
+    if plans["LBM/native"].ffn.block_f != widest:
+        raise AssertionError(f"LBM@{lbm}p: {plans['LBM/native'].describe()}")
+    return plans
+
+
+# every bf16 launch of the hybrid prefill: the shared block's FFN and the
+# Mamba2 layers' SSD scan (no flash kernel: the sliding window keeps the
+# attention plain, as in the reference)
+HYBRID_KERNELS = ("cache_matmul", "block_fused_ffn", "ssd_chunk")
+HYBRID_KINDS = dict(matmul=("wgmma",), ffn=("wgmma",), ssd=("wgmma",))
+
+
+def check_e2e_hybrid(cfg, dev):
+    """Full-width zamba2-2.7b cut to one group (5 Mamba2 layers and the
+    shared attention + FFN block): the card with the kernels against the
+    CPU with the plain versions, same weights and tokens.
+    ``make_prefill`` of a 300-token prompt (a 256-token SSD chunk and a
+    44-token tail) under an LBM plan with native KV and an LWM plan with
+    int8 KV (the shared FFN through block_fused_ffn's and cache_matmul's
+    wgmma tiles, the scan through ssd_chunk), then a prefill and two
+    teacher-forced decode epochs of 4 steps (LBM: the fused FFN's decode
+    tile, LWM: cache_matmul's gemv) with a native, an int8 and an fp8
+    cache.  Gated by :func:`_gate`; the prefills' greedy tokens equal, the
+    quantized caches by :func:`_quantized_gates`."""
+    import torch
+    from repro_torch.core.vmem import LANE
+    from repro_torch.models import model as M
+    e = HYBRID_E2E
+    cfg = dataclasses.replace(cfg, num_layers=cfg.attn_every)
+    plans = [_plan(cfg, "LBM", e["lbm_pages"], LANE),
+             _plan(cfg, "LWM", e["lwm_pages"], LANE)]
+    pf_plans = [plans[0], _plan(cfg, "LWM", e["lwm_pages"], LANE, "int8")]
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab_size, (e["batch"], 8))
+    forced = rng.integers(0, cfg.vocab_size, (e["batch"], 9))
+    long_prompt = rng.integers(0, cfg.vocab_size,
+                               (e["batch"], e["prompt_len"]))
+    prefill = M.make_prefill(cfg)
+
+    def run(params, device):
+        toks = torch.from_numpy(long_prompt).long().to(device)
+        pf = [prefill(params, {"tokens": toks}, p).float().cpu()
+              for p in pf_plans]
+        kv = {name: _e2e_run(cfg, params, device, prompt, forced, plans, name)
+              for name in KV_CACHES}
+        return _e2e_run(cfg, params, device, prompt, forced, plans), pf, kv
+
+    params = M.init_params(cfg, seed=1, device=dev)
+    _zero_counters()
+    got, got_pf, got_kv = run(params, dev)
+    launches = _counters()
+    want, want_pf, want_kv = run(_to(params, "cpu"), "cpu")
+    del params
+    V = cfg.vocab_size
+    prefills = {}
+    for p, g, w in zip(pf_plans, got_pf, want_pf):
+        label = f"e2e_hybrid prefill {p.describe()}"
+        gate = prefills[p.describe()] = _gate(g[..., :V], w[..., :V], label)
+        if gate["greedy_agreement"] != 1.0:
+            raise AssertionError(f"{label}: {gate}")
+    if min(launches[k] for k in HYBRID_KERNELS) <= 0:
+        raise AssertionError(f"e2e_hybrid: a kernel never launched: "
+                             f"{launches}")
+    # the LBM decode epochs run block_fused_ffn's simt decode tile (2
+    # rows), make_prefill's 600 rows its wgmma tile
+    _gate_kinds(launches, "e2e_hybrid", ("gemv", "wgmma"), ssd=("wgmma",))
+    if launches["block_fused_ffn.wgmma"] <= 0:
+        raise AssertionError(f"e2e_hybrid: no wgmma block_fused_ffn launch: "
+                             f"{launches}")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "prompt_len": e["prompt_len"], "positions": int(got.shape[1]),
+            "plans": [p.describe() for p in plans], "prefill": prefills,
+            "decode": _gate(got[..., :V], want[..., :V], "e2e_hybrid decode"),
+            "decode_quantized_kv": _quantized_gates(got, got_kv, want_kv, V,
+                                                    "e2e_hybrid"),
+            "launches": _kind_counts(launches)}
+
+
+def serve_hybrid_main_path(cfg, dev, counters):
+    """The hybrid slice's serving path: :func:`serve_main_path` on
+    full-width, full-depth zamba2-2.7b (:data:`SERVE_HYBRID`: a resident
+    and a 256-token arrival in a pool of the arrival's native
+    reservation and an LBM grant's pages).  Its decode binds the plan,
+    so the shared block's FFN runs cache_matmul's gemv tile: 3 launches
+    a group and decode step (9 groups: 27), none in prompt chunks, which
+    scan through ssd_chunk.  ``counters`` receives the serving run's
+    counts.  Then the full-prompt re-arrival of a 64-token prompt
+    (:func:`_rearrival`): shorter than the 80 SSM heads, so a snapshot
+    cut along the state's head axis would seed a wrong state."""
+    from repro_torch.launch.serve import _kv_reserve_pages
+    from repro_torch.models.transformer import num_groups
+    sh = SERVE_HYBRID
+    arrival = sh["arrival"]
+    pages = sh["headroom"] + _kv_reserve_pages(cfg, sh["batch"],
+                                               arrival["prompt_len"])
+    res = serve_main_path(cfg, dev, counters, label="serve_hybrid",
+                          batch=sh["batch"], max_len=sh["max_len"],
+                          pages=pages, steps=sh["steps"], arrival=arrival)
+    _launched(counters, "serve_hybrid", "ssd_chunk")
+    _gate_kinds(counters, "serve_hybrid", ("gemv",), ssd=("wgmma",))
+    decode_steps = sh["steps"] + arrival["n_inferences"]
+    per_step = 3 * num_groups(cfg)
+    if res["plan_kinds"] != ["LWM"] or (counters["cache_matmul.gemv"]
+                                        != per_step * decode_steps):
+        raise AssertionError(f"serve_hybrid: {counters['cache_matmul.gemv']} "
+                             f"gemv launches, want {per_step} x "
+                             f"{decode_steps} decode steps")
+    res["gemv_per_decode_step"] = counters["cache_matmul.gemv"] / decode_steps
+    _release()
+    rr = {"batch": sh["batch"], **sh["rearrival"]}
+    label = "serve_hybrid rearrival"
+    res["rearrival"], counts = _rearrival(cfg, rr, sh["headroom"], dev, {},
+                                          _params_memo(dev), label)
+    _launched(counts, label, "ssd_chunk", ("gemv",))
+    return res
+
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -3444,15 +3785,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     (OUT_DIR / "phases.jsonl").unlink(missing_ok=True)
-    from repro_torch.models.base import get_arch
+    from repro_torch.models.base import get_arch, register
     cfg, ssm_cfg = get_arch("yi-9b"), get_arch(SSM_ARCH)
-    moe_cfg = get_arch(MOE_ARCH)
+    moe_cfg, hybrid_cfg = get_arch(MOE_ARCH), get_arch(HYBRID_ARCH)
     dev = "cuda"
     report = {}
     report["device"] = _phase("device", device_info)
     report["build"] = _phase("build", build_kernels)
     report["kernels"] = _phase("kernels", check_kernels, cfg, ssm_cfg,
-                               moe_cfg, dev)
+                               moe_cfg, hybrid_cfg, dev)
     if report["kernels"]["failed"]:
         raise AssertionError(f"kernels disagree: {report['kernels']['failed']}")
     _release()
@@ -3464,7 +3805,7 @@ def main() -> int:
     report["self"] = _phase("self", check_serial_pipelined, cfg, dev)
     _release()
     report["graphs"] = _phase("graphs", check_graphs, cfg, ssm_cfg, dev,
-                              moe_cfg=moe_cfg)
+                              moe_cfg=moe_cfg, hybrid_cfg=hybrid_cfg)
     _release()
     report["prefill"] = _phase("prefill", prefill_main_path, cfg, dev,
                                prefill_counts)
@@ -3516,6 +3857,25 @@ def main() -> int:
                                     dev, {})
     _release()
     report["lookahead"] = _phase("lookahead", lookahead_main_path, dev, {})
+    _release()
+    report["e2e_hybrid"] = _phase("e2e_hybrid", check_e2e_hybrid, hybrid_cfg,
+                                  dev)
+    _release()
+    prefill_hybrid_counts, serve_hybrid_counts = {}, {}
+    report["prefill_hybrid"] = _phase(
+        "prefill_hybrid", prefill_main_path, hybrid_cfg, dev,
+        prefill_hybrid_counts, label="prefill_hybrid",
+        plans=hybrid_prefill_plans(hybrid_cfg),
+        profiled=("plain", "LBM/native", "LWM/native", "LWM/int8"))
+    _release()
+    report["serve_hybrid"] = _phase("serve_hybrid", serve_hybrid_main_path,
+                                    hybrid_cfg, dev, serve_hybrid_counts)
+    _release()
+    one_group = register(dataclasses.replace(
+        hybrid_cfg, name=f"{HYBRID_ARCH}-{hybrid_cfg.attn_every}layer",
+        num_layers=hybrid_cfg.attn_every))
+    report["self_hybrid"] = _phase("self_hybrid", check_serial_pipelined_ssm,
+                                   one_group, dev, {})
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"
@@ -3578,6 +3938,24 @@ def main() -> int:
             "launches": moe_runs[run]["launches"][f"{kernel}.wgmma"],
             "max_abs_err": pf["max_abs_err"],
             **{k: pf[k] for k in keys + ("kind",)}}
+    # zamba2-2.7b's shapes, each with the launches of the phase that ran
+    # it: the shared FFN's decode gemv (serve_hybrid), its prefill GEMM
+    # and fused FFN and the SSD scan (prefill_hybrid, its four calls)
+    for i, label, timing, launches in (
+            (0, "hybrid", "cache_matmul.hybrid.up",
+             serve_hybrid_counts["cache_matmul.gemv"]),
+            (0, "hybrid.down", "cache_matmul.hybrid.down",
+             serve_hybrid_counts["cache_matmul.gemv"]),
+            (0, "hybrid.prefill", "cache_matmul.hybrid.prefill.up",
+             prefill_hybrid_counts["cache_matmul.wgmma"]),
+            (1, "hybrid", "block_fused_ffn.hybrid",
+             prefill_hybrid_counts["block_fused_ffn.wgmma"]),
+            (5, "hybrid", "ssd_chunk.hybrid",
+             prefill_hybrid_counts["ssd_chunk.wgmma"])):
+        t = timings[timing]
+        kernels[i][label] = {"launches": launches,
+                             "max_abs_err": t["max_abs_err"],
+                             **{k: t[k] for k in keys + ("kind", "simt_ms")}}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(report["device"]["nvidia_smi"])

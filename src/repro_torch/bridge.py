@@ -2,8 +2,9 @@
 
 The reference's params are a nested dict whose leaves the caller has
 turned into numpy arrays (``np.asarray`` on each JAX leaf); per-layer
-leaves are stacked on axis 0 (``transformer.py::_stack_init``).  The
-port keeps one dict per layer, so the stack is split.  bf16 and fp8
+leaves are stacked on axis 0 (``transformer.py::_stack_init``; a hybrid
+stack's Mamba2 leaves on axes 0 and 1, groups and layers).  The port
+keeps one dict per layer, so the stack is split.  bf16 and fp8
 leaves arrive as ``ml_dtypes`` arrays, which ``torch.from_numpy``
 rejects: they are viewed as same-width unsigned integers and then
 reinterpreted.  This module imports neither JAX nor the JAX package.
@@ -44,39 +45,65 @@ def _tree(x: Any, fn):
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                       device: Any = "cuda") -> Dict[str, Any]:
-    """The port's params (dense, MoE and SSM families) from the
-    reference's numpy tree: the stacked ``layers``
-    (``ln1``/``attn``/``ln2``/``mlp``, an MoE ``mlp`` being
+    """The port's params from the reference's numpy tree: the stacked
+    ``layers`` (``ln1``/``attn``/``ln2``/``mlp``, an MoE ``mlp`` being
     ``{router [L, d, E], gate / up [L, E, d, f], down [L, E, f, d]}``, or
     ``ln1`` and ``mamba.{in_proj.w, conv_w, A_log, D, dt_bias,
-    out_proj.w}``) become a list of per-layer dicts."""
+    out_proj.w}``) become a list of per-layer dicts.  A hybrid stack's
+    ``layers.ssm`` leaves are ``[G, attn_every - 1, ...]``: they become
+    one ``{"ssm": [layer, ...]}`` dict per group, and its unstacked
+    ``shared_attn`` one dense layer dict."""
     _require_ported(cfg)
-    n = cfg.num_layers
     leaf = lambda a: tensor_from_numpy(a, device)  # noqa: E731
-    return {
-        "embed": _tree(tree["embed"], leaf),
-        "final_norm": _tree(tree["final_norm"], leaf),
-        "layers": [_tree(tree["layers"], lambda a, g=g: leaf(np.asarray(a)[g]))
-                   for g in range(n)],
-    }
+    out = {"embed": _tree(tree["embed"], leaf),
+           "final_norm": _tree(tree["final_norm"], leaf)}
+    G = num_groups(cfg)
+    if cfg.family == "hybrid":
+        n_ssm = cfg.attn_every - 1
+        out["layers"] = [
+            {"ssm": [_tree(tree["layers"]["ssm"],
+                           lambda a, g=g, j=j: leaf(np.asarray(a)[g, j]))
+                     for j in range(n_ssm)]}
+            for g in range(G)]
+        out["shared_attn"] = _tree(tree["shared_attn"], leaf)
+    else:
+        out["layers"] = [_tree(tree["layers"],
+                               lambda a, g=g: leaf(np.asarray(a)[g]))
+                         for g in range(G)]
+    return out
+
+
+def _group_layers(group: Dict[str, Any], cfg: ArchConfig) -> List[dict]:
+    """One reference hybrid group's caches, ``{"ssm": {conv, ssm}`` stacked
+    over its Mamba2 layers, ``"attn": K/V}``, as the port's per-layer
+    dicts in execution order."""
+    n_ssm = cfg.attn_every - 1
+    states = [{k: np.asarray(v)[j] for k, v in group["ssm"].items()}
+              for j in range(n_ssm)]
+    return states + [dict(group["attn"])]
 
 
 def caches_from_numpy(tree: Any, cfg: ArchConfig,
                       device: Any = "cuda") -> List[Dict[str, torch.Tensor]]:
-    """The port's decode caches (one dict per layer: K/V for the dense
-    and MoE families, the recurrent state ``{conv, ssm}`` for the SSM family) from
-    the reference's, leaves turned into numpy arrays: a tuple of
-    per-layer dicts (stacks of at most ``_DECODE_UNROLL_MAX_GROUPS``
-    groups) or one dict whose leaves stack the layers on axis 0 (deeper
-    stacks).  Native K/V, int8 and fp8 codes (by bit view), fp32 scale
-    leaves and SSM states all carry over bit-exactly."""
+    """The port's decode caches (one dict per layer, in execution order:
+    K/V for an attention layer, the recurrent state ``{conv, ssm}`` for a
+    Mamba2 layer) from the reference's, leaves turned into numpy arrays:
+    a tuple of per-group dicts (stacks of at most
+    ``_DECODE_UNROLL_MAX_GROUPS`` groups) or one dict whose leaves stack
+    the groups on axis 0 (deeper stacks).  A hybrid group is ``{"ssm":
+    states stacked over its Mamba2 layers, "attn": K/V}`` in either form.
+    Native K/V, int8 and fp8 codes (by bit view), fp32 scale leaves and
+    SSM states all carry over bit-exactly."""
     _require_ported(cfg)
     n = num_groups(cfg)
     if isinstance(tree, dict):
-        tree = [{k: np.asarray(v)[g] for k, v in tree.items()}
+        tree = [_tree(tree, lambda a, g=g: np.asarray(a)[g])
                 for g in range(n)]
     if len(tree) != n:
         raise ValueError(f"bridge: {len(tree)} cache groups, {cfg.name} "
                          f"has {n}")
+    if cfg.family == "hybrid":
+        tree = [layer for group in tree
+                for layer in _group_layers(group, cfg)]
     return [{k: tensor_from_numpy(v, device) for k, v in layer.items()}
             for layer in tree]

@@ -1,9 +1,10 @@
-"""Multi-tenant server, dense, MoE and SSM families (port of
+"""Multi-tenant server, dense, MoE, SSM and hybrid families (port of
 src/repro/launch/serve.py::MultiTenantServer and its ``main`` CLI).
 
-Several LM tenants (dense decoders, MoE decoders and Mamba2 stacks,
-mixed in one pool or not) share one device.  Each tenant's FFN block is a
-small :class:`~repro_torch.core.types.ModelGraph` mapped by the CaMDN
+Several LM tenants (dense decoders, MoE decoders, Mamba2 stacks and
+Zamba2-style hybrids, mixed in one pool or not) share one device.  Each
+tenant's FFN block is a small
+:class:`~repro_torch.core.types.ModelGraph` mapped by the CaMDN
 core (LWM tile candidates per usage limit plus the fused-block LBM
 candidate), and every epoch the same :class:`TenantTask` /
 :class:`CamdnPolicy` state machine as the reference grants pages from
@@ -24,7 +25,16 @@ the plan (``_dec_plan``), and its prompt chunks run the plain drop-free
 buckets, as in the reference: no kernel of the server's MoE path is
 hand-written, and the grant governs its NEC charge, chunk length and
 plan trace.  Its grants are lowered at the experts' d_ff
-(``_lower_width``).
+(``_lower_width``).  A hybrid tenant holds both kinds of cache (per
+group, its Mamba2 states and the K/V of the shared attention block,
+see :mod:`repro_torch.models.transformer`): its decode binds the plan,
+as a dense tenant's does, so the shared block's FFN runs the planned
+kernels; its prompt chunks align to the SSD chunk and scan through
+ssd_chunk; its reservation prices both; and, its state being
+cumulative, its prefix entry is registered at full length only.  Every
+loop over a tenant's caches decides per leaf, by the leaf's name
+(``KV_LEAVES`` have a time axis, the recurrent ``conv`` / ``ssm`` do
+not), never by family.
 
 The scheduling side is the reference's, line for line, on the copied
 core: the grant, plan and NEC traces of a scenario equal the
@@ -182,8 +192,9 @@ from repro_torch.kernels import counters as kcount
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig, get_arch
 from repro_torch.models.ssm import CONV_K
-from repro_torch.models.transformer import (PORTED_FAMILIES, init_caches,
-                                            num_groups, seed_caches_in_place)
+from repro_torch.models.transformer import (KV_LEAVES, PORTED_FAMILIES,
+                                            init_caches, num_groups,
+                                            seed_caches_in_place)
 from repro_torch.sim.driver import BackoffPolicy, PoissonArrivals, TenantSpec
 from repro_torch.sim.faults import FaultEvent, FaultLog, FaultPlan
 
@@ -250,12 +261,15 @@ def _kv_reserve_pages(cfg: ArchConfig, batch: int, tokens: int,
     rows, priced at the tenant's storage precision ``kv_dtype`` plus the
     per-row fp32 scales a quantized cache carries; an SSM layer's state
     (conv window in the compute dtype, fp32 recurrent state) is O(1) in
-    the prompt."""
+    the prompt.  A hybrid stack carries both: one K/V per group and the
+    state of each of its ``attn_every - 1`` Mamba2 layers."""
     eb = _elem_bytes(cfg)
     quantized = kv_dtype != "native"
     kv_eb = elem_bytes(kv_dtype) if quantized else eb
     G = num_groups(cfg)
-    kv_groups, ssm_groups = (0, G) if cfg.family == "ssm" else (G, 0)
+    kv_groups = G if cfg.family != "ssm" else 0
+    ssm_groups = {"ssm": G, "hybrid": G * (cfg.attn_every - 1)}.get(
+        cfg.family, 0)
     row = kv_row_bytes(cfg.num_kv_heads, cfg.hd, kv_eb, scaled=quantized)
     kv = kv_groups * batch * tokens * row
     state = ssm_groups * batch * (
@@ -749,10 +763,11 @@ class MultiTenantServer:
         server policy pins the rung; ``auto`` prices the full reservation
         at every rung of the precision ladder and takes the first that
         fits the pool's free pages now (the ladder bottom when none
-        does).  Resident (no-prompt) tenants stay native, and so does an
-        SSM tenant: its decode carries recurrent fp state, not
-        row-addressed KV."""
-        if cfg.family == "ssm":
+        does).  Resident (no-prompt) tenants stay native, and so do an
+        SSM tenant (its decode carries recurrent fp state, not
+        row-addressed KV) and an encoder-decoder one, as in the
+        reference."""
+        if cfg.family in ("ssm", "encdec"):
             return "native"
         if self.kv_dtype != "auto":
             return self.kv_dtype
@@ -1314,9 +1329,9 @@ class MultiTenantServer:
 
     def _chunk_align(self, cfg: ArchConfig) -> int:
         """Interior prefill-chunk boundaries stay on the LANE grid, and
-        for SSM archs also on SSD chunk boundaries: lcm(LANE, ssm_chunk),
-        the segmentation chunked == one-shot needs."""
-        if cfg.family == "ssm" and cfg.ssm_chunk > 0:
+        for SSM and hybrid archs also on SSD chunk boundaries: lcm(LANE,
+        ssm_chunk), the segmentation chunked == one-shot needs."""
+        if cfg.family in ("ssm", "hybrid") and cfg.ssm_chunk > 0:
             return LANE * cfg.ssm_chunk // math.gcd(LANE, cfg.ssm_chunk)
         return LANE
 
@@ -1369,8 +1384,9 @@ class MultiTenantServer:
         reservation its length accounts for; the full-length entry also
         stores the first token.  The payload is a device clone of the
         caches, queued after the final chunk and before the next epoch
-        writes another row, cut to the prompt's rows (the seeder reads
-        no more); the entries hold its last reference."""
+        writes another row, its K/V leaves cut to the prompt's rows (the
+        seeder reads no more; recurrent leaves have no time axis and are
+        cloned whole); the entries hold its last reference."""
         arch, params_key = t.dedup
         full_key = self.prefix.prefix_key(arch, params_key,
                                           t.prompt.tobytes())
@@ -1379,8 +1395,9 @@ class MultiTenantServer:
             # full hit itself): refresh its LRU stamp, no new copy
             self.prefix.touch(full_key)
             return
-        rows = slice(None) if t.cfg.family == "ssm" else slice(0, t.prompt_len)
-        snap = [{name: leaf[:, rows].clone() for name, leaf in layer.items()}
+        snap = [{name: (leaf[:, :t.prompt_len] if name in KV_LEAVES
+                        else leaf).clone()
+                 for name, leaf in layer.items()}
                 for layer in t.caches]
         token = t.token.clone()
         self._snapshot_bytes += sum(leaf.nbytes for layer in snap
@@ -1414,11 +1431,12 @@ class MultiTenantServer:
 
     def _scale_rows(self, t: Tenant) -> Optional[torch.Tensor]:
         """[pf_pos] fp32: each live prompt row's largest dequant scale
-        over every layer's K and V, batch rows and KV heads; None for a
-        native cache."""
+        over every attention layer's K and V, batch rows and KV heads;
+        None for a native cache."""
         if t.kv_dtype == "native" or t.caches is None or t.pf_pos <= 0:
             return None
         leaves = torch.stack([c[name][:, :t.pf_pos] for c in t.caches
+                              if "k_scale" in c
                               for name in ("k_scale", "v_scale")])
         return leaves.amax(dim=(0, 1, 3, 4))
 
@@ -1890,7 +1908,8 @@ class MultiTenantServer:
         """Run ``fn`` once eagerly on the tenants' own buffers, on the
         current (capture) stream, and put back what it changed that is
         read before it is written: the feedback tokens, the positions and
-        an SSM tenant's recurrent state.  The KV rows and log entries it
+        every recurrent leaf (``conv``, ``ssm``) of an SSM or hybrid
+        tenant's caches.  The KV rows and log entries it
         writes lie in [position, position + advance), which the replay
         writes again before anything reads them.  Its launches are not
         counted."""
@@ -1900,9 +1919,9 @@ class MultiTenantServer:
                                  f"{self._device_pos(t)} + {advance} past "
                                  f"max_len {self.max_len}")
         bufs = [b for t in tenants for b in
-                [t.token, t.index_dev] + ([leaf for c in t.caches
-                                           for leaf in c.values()]
-                                          if t.cfg.family == "ssm" else [])]
+                [t.token, t.index_dev] + [leaf for c in t.caches
+                                          for name, leaf in c.items()
+                                          if name not in KV_LEAVES]]
         saved = [b.clone() for b in bufs]
         before = kcount.snapshot()
         fn()

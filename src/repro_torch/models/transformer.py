@@ -1,11 +1,25 @@
 """Decoder LM stacks: init, forward, cached decode and chunked prefill
-(port of the dense-, MoE- and SSM-family paths of
+(port of the dense-, MoE-, SSM- and hybrid-family paths of
 src/repro/models/transformer.py).
 
 Layers are a Python list of per-layer param dicts, and the decode caches
-a list with one dict per layer: K/V for a dense layer, the recurrent
-state ``{conv, ssm}`` for a Mamba2 layer.  One plain Python loop over
-layers replaces both of the reference's unrolled and scanned variants.
+a list with one dict per layer: K/V for an attention layer, the
+recurrent state ``{conv, ssm}`` for a Mamba2 layer.  One plain Python
+loop over layers replaces both of the reference's unrolled and scanned
+variants.
+
+A hybrid (Zamba2-style) stack is ``num_layers / attn_every`` groups of
+``attn_every - 1`` Mamba2 layers followed by one attention + FFN block
+whose weights every group shares.  Its params mirror the reference's
+tree: ``layers`` is a list with one ``{"ssm": [Mamba2 layer, ...]}``
+dict per group, and ``shared_attn`` one dense layer, stored once.  Its
+caches are the flat per-layer list in execution order: each group's
+Mamba2 states, then that group's own K/V (the weights are shared, the
+K/V is not).  So every loop over the caches that treats a dict by its
+leaves' names (K/V leaves ``KV_LEAVES`` have a time axis, ``conv`` and
+``ssm`` do not) holds for every family, and the i-th cache belongs to
+the i-th layer that :func:`_layers` yields.
+
 Every cache write happens in place, into the buffers the caches held
 when they were made: K/V rows by ``index_copy_`` at the position, a
 Mamba2 layer's new state by ``copy_``.  ``decode_step`` /
@@ -19,12 +33,12 @@ An MoE layer is a dense layer whose FFN is :func:`~repro_torch.models.moe
 .moe_apply`: decode takes its one-token fast path, a one-shot prefill
 and a prompt chunk its capacity buckets (drop-free where serving needs
 chunked == one-shot), and ``lm_forward`` returns the summed Switch aux
-loss.  Other families (hybrid, encoder-decoder, VLM) raise
+loss.  Other families (encoder-decoder, VLM) raise
 ``NotImplementedError`` until their slices are ported.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -37,7 +51,9 @@ from repro_torch.models.ssm import (init_mamba2, init_ssm_state,
                                     mamba2_forward, ssd_decode_step)
 
 Caches = List[dict]
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the leaves of an attention layer's cache: [B, T, Hkv, .], time on axis 1
+KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -61,18 +77,56 @@ def init_ssm_layer(gen: torch.Generator, cfg: ArchConfig) -> Params:
             "mamba": init_mamba2(gen, cfg)}
 
 
+def init_hybrid_group(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """A hybrid group's own layers: ``attn_every - 1`` Mamba2 layers (the
+    attention block is the shared one, stored once in ``shared_attn``)."""
+    return {"ssm": [init_ssm_layer(gen, cfg)
+                    for _ in range(cfg.attn_every - 1)]}
+
+
 def num_groups(cfg: ArchConfig) -> int:
+    """Layer groups: ``num_layers / attn_every`` for a hybrid stack, one
+    layer a group otherwise."""
+    if cfg.family == "hybrid":
+        if cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} not "
+                             f"a multiple of attn_every {cfg.attn_every}")
+        return cfg.num_layers // cfg.attn_every
     return cfg.num_layers
+
+
+def is_attention_layer(cfg: ArchConfig, i: int) -> bool:
+    """Whether layer ``i`` (execution order) attends and caches K/V: every
+    layer of a dense or MoE stack, none of an SSM stack, the last of
+    each hybrid group."""
+    if cfg.family == "hybrid":
+        return i % cfg.attn_every == cfg.attn_every - 1
+    return cfg.family != "ssm"
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random params on ``gen``'s device, drawn in a fixed order."""
     _require_ported(cfg)
     dt = cfg.torch_dtype
-    layer = init_ssm_layer if cfg.family == "ssm" else init_dense_layer
-    return {"embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt),
-            "layers": [layer(gen, cfg) for _ in range(num_groups(cfg))],
-            "final_norm": init_norm(cfg.d_model, dt, gen.device)}
+    layer = {"ssm": init_ssm_layer,
+             "hybrid": init_hybrid_group}.get(cfg.family, init_dense_layer)
+    params = {"embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt),
+              "layers": [layer(gen, cfg) for _ in range(num_groups(cfg))],
+              "final_norm": init_norm(cfg.d_model, dt, gen.device)}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = init_dense_layer(gen, cfg)
+    return params
+
+
+def _layers(params: Params, cfg: ArchConfig) -> Iterator[Params]:
+    """Every layer's params in execution order: a hybrid group's Mamba2
+    layers, then the shared attention block, group after group."""
+    if cfg.family != "hybrid":
+        yield from params["layers"]
+        return
+    for group in params["layers"]:
+        yield from group["ssm"]
+        yield params["shared_attn"]
 
 
 # ------------------------------------------------------------- blocks --
@@ -144,8 +198,8 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     x = embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = 0.0
-    for lp in params["layers"]:
-        if cfg.family == "ssm":
+    for i, lp in enumerate(_layers(params, cfg)):
+        if not is_attention_layer(cfg, i):
             x, _ = _ssm_block(lp, x, cfg, plan=plan)
         else:
             x, _, a = _dense_block(lp, x, cfg, positions=positions, plan=plan,
@@ -174,45 +228,47 @@ def _write_state(cache: dict, state: dict) -> None:
 def init_caches(params: Optional[Params], cfg: ArchConfig, batch: int,
                 max_len: int, kv_dtype: Optional[str] = None,
                 device: Any = None) -> Caches:
-    """One cache dict per layer.  Dense: K/V at ``kv_dtype`` (None /
-    "native": the compute dtype; "int8" / "fp8_e4m3": codes plus per-row
-    fp32 scale leaves, see
-    :func:`~repro_torch.models.attention.init_kv_cache`).  SSM: the zero
-    recurrent state ``{conv, ssm}`` (the conv window in the compute
-    dtype, the state in fp32), never quantized, whatever ``kv_dtype``
-    says, and independent of ``max_len``.  The device defaults to the
+    """One cache dict per layer, in execution order.  An attention layer:
+    K/V at ``kv_dtype`` (None / "native": the compute dtype; "int8" /
+    "fp8_e4m3": codes plus per-row fp32 scale leaves, see
+    :func:`~repro_torch.models.attention.init_kv_cache`).  A Mamba2
+    layer: the zero recurrent state ``{conv, ssm}`` (the conv window in
+    the compute dtype, the state in fp32), never quantized, whatever
+    ``kv_dtype`` says, and independent of ``max_len``.  A hybrid stack
+    holds both (see the module docstring).  The device defaults to the
     params' device (``"cuda"`` without params)."""
     _require_ported(cfg)
     if device is None:
         device = (params["embed"]["table"].device if params is not None
                   else "cuda")
-    if cfg.family == "ssm":
-        return [init_ssm_state(cfg, batch, device)
-                for _ in range(num_groups(cfg))]
+    num_groups(cfg)     # a hybrid stack must divide into groups
     return [init_kv_cache(cfg, batch, max_len, kv_dtype=kv_dtype,
                           device=device)
-            for _ in range(num_groups(cfg))]
-
+            if is_attention_layer(cfg, i)
+            else init_ssm_state(cfg, batch, device)
+            for i in range(cfg.num_layers)]
 
 
 def seed_caches_in_place(cfg: ArchConfig, caches: Caches, snapshot: Caches,
                          prefix_len: int) -> Caches:
     """Seed a tenant's own cache buffers from a shared prefix, in place
     (the buffers keep their addresses, so programs that bind them stay
-    valid): dense and MoE copy rows ``[0, prefix_len)`` of every K/V
-    leaf (codes and fp32 scale leaves alike, all ``[B, T, Hkv, .]``,
-    time on axis 1) and leave the rows past the prefix as they are; SSM
-    adopts the snapshot's recurrent state wholesale (only valid at the
-    snapshot's exact length).  ``snapshot`` is a cache list some tenant
-    of the same geometry filled through at least ``prefix_len`` tokens;
-    its K/V leaves may hold only those rows.  Returns ``caches``."""
+    valid), leaf by leaf: a K/V leaf (``KV_LEAVES``: codes and fp32 scale
+    leaves alike, all ``[B, T, Hkv, .]``, time on axis 1) gets rows
+    ``[0, prefix_len)`` and keeps the rows past the prefix as they are;
+    a recurrent leaf (``conv``, ``ssm``) adopts the snapshot's state
+    wholesale (only valid at the snapshot's exact length, so an SSM or
+    hybrid snapshot seeds only at its full length).  ``snapshot`` is a
+    cache list some tenant of the same geometry filled through at least
+    ``prefix_len`` tokens; its K/V leaves may hold only those rows.
+    Returns ``caches``."""
     _require_ported(cfg)
     for dst, src in zip(caches, snapshot, strict=True):
         for name, leaf in dst.items():
-            if cfg.family == "ssm":
-                leaf.copy_(src[name])
-            else:
+            if name in KV_LEAVES:
                 leaf[:, :prefix_len].copy_(src[name][:, :prefix_len])
+            else:
+                leaf.copy_(src[name])
     return caches
 
 
@@ -226,8 +282,8 @@ def seed_caches_from_prefix(cfg: ArchConfig, batch: int, max_len: int,
     :func:`seed_caches_in_place` applied, so the result equals the cache
     a cold tenant holds after prefilling the same ``prefix_len`` tokens.
     ``kv_dtype`` must be the snapshot's precision.  The device defaults
-    to the snapshot's.  Hybrid and encoder-decoder archs raise, as their
-    families do.  The server seeds its tenants' own buffers with
+    to the snapshot's.  Encoder-decoder archs raise, as their family
+    does.  The server seeds its tenants' own buffers with
     :func:`seed_caches_in_place` (its graphs bind them); this fresh-cache
     form is the reference's API, kept for callers and parity tests."""
     _require_ported(cfg)
@@ -245,15 +301,16 @@ def decode_step(params: Params, token: torch.Tensor, caches: Caches,
     """One decode step.  token: [B, 1] int; index: the position (a device
     int64 scalar, or a host int).  ``plan`` (a core.plan.KernelPlan) runs
     each dense layer's FFN through the Hopper kernel its grant lowered to
-    (a Mamba2 layer's O(1) step has no plan); ``kv_len`` bounds the
-    attention read to the live cache prefix (index < kv_len).  Returns (logits [B, 1, V] fp32,
-    the caches, updated in place)."""
+    (a Mamba2 layer's O(1) step has no plan; a hybrid stack's shared
+    block runs it); ``kv_len`` bounds the attention read to the live
+    cache prefix (index < kv_len).  Returns (logits [B, 1, V] fp32, the
+    caches, updated in place)."""
     _require_ported(cfg)
     x = embed(params["embed"], token)
     index = _as_index(index, x.device)
     positions = index.reshape(1, 1)
-    for g, lp in enumerate(params["layers"]):
-        if cfg.family == "ssm":
+    for g, lp in enumerate(_layers(params, cfg)):
+        if not is_attention_layer(cfg, g):
             x, state = _ssm_block(lp, x, cfg, state=caches[g], decode=True)
             _write_state(caches[g], state)
             continue
@@ -305,8 +362,8 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
     S = x.shape[1]
     index = _as_index(index, x.device)
     positions = (torch.arange(S, device=x.device)[None, :] + index)
-    for g, lp in enumerate(params["layers"]):
-        if cfg.family == "ssm":
+    for g, lp in enumerate(_layers(params, cfg)):
+        if not is_attention_layer(cfg, g):
             x, state = _ssm_block(lp, x, cfg, state=caches[g])
             _write_state(caches[g], state)
             continue

@@ -529,6 +529,96 @@ def test_full_prompt_rearrival_bitwise_on_the_card(arch):
     assert out["host"]["snapshot_bytes"] > 0
 
 
+# ------------------------------------------------------------- hybrid --
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions_at_hybrid_shapes():
+    """The kernels at full-width zamba2-2.7b's shapes, bf16, the tiles
+    the plans legalize to: cache_matmul's gemv at the shared FFN's decode
+    GEMMs (2 x 2560 @ 2560 x 10240, 2 x 10240 @ 10240 x 2560) and its
+    wgmma tile at 2048 rows, block_fused_ffn's wgmma tile at 2048 x 2560,
+    d_ff 10240, and ssd_chunk's wgmma kind at 80 heads, P 64, N 64, chunk
+    256 (B/C per batch row); each against its plain version at the
+    tolerances above, one launch on its kind's counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.plan import lower_ffn
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    limit = ops.smem_limit(torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    d, f, bf16 = 2560, 10240, torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(bf16)
+
+    lwm = lower_ffn(128, d, f, 2, 32, want_fused=False)
+    for m, kind in ((2, "gemv"), (2048, "wgmma")):
+        for tile, k, n in ((lwm.up_tile, d, f), (lwm.down_tile, f, d)):
+            hop = ops.legalize_matmul_tile(tile, m, limit, bf16, k, n)
+            assert hop.kind == kind
+            a, b = rand(m, k), rand(k, n, scale=k ** -0.5)
+            before = kmm.launches_by_kind[kind]
+            got = kmm.cache_matmul(a, b, hop)
+            assert kmm.launches_by_kind[kind] == before + 1
+            torch.testing.assert_close(got, kmm.cache_matmul_plain(a, b),
+                                       **MATMUL_TOL["bfloat16"])
+    lbm = lower_ffn(1024, d, f, 2, 1184, want_fused=True)
+    tile = ops.legalize_ffn_tile(lbm.block_s, lbm.block_f, 2048, limit, bf16,
+                                 d, f)
+    assert tile.kind == "wgmma"
+    x = rand(2048, d)
+    wg, wu = rand(d, f, scale=d ** -0.5), rand(d, f, scale=d ** -0.5)
+    wd = rand(f, d, scale=f ** -0.5)
+    torch.testing.assert_close(kffn.block_fused_ffn(x, wg, wu, wd, tile),
+                               kffn.block_fused_ffn_plain(x, wg, wu, wd),
+                               **MATMUL_TOL["bfloat16"])
+    b, h, p, n, q, s = 2, 80, 64, 64, 256, 512
+    assert ops.ssd_kind(bf16, n, p) == "wgmma"
+    xs = rand(b * h, s, p)
+    dts = torch.nn.functional.softplus(
+        torch.randn((b * h, s), generator=gen, device="cuda"))
+    A = torch.randn((b * h,), generator=gen, device="cuda").abs() + 0.1
+    Bm, Cm = rand(b, s, n), rand(b, s, n)
+    y, st = kssd.ssd_chunk(xs, dts, A, Bm, Cm, q, kind="wgmma")
+    want_y, want_st = kssd.ssd_chunk_plain(
+        xs, dts, A, Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0), q)
+    torch.testing.assert_close(y, want_y, **MATMUL_TOL["float32"])
+    torch.testing.assert_close(st, want_st, **MATMUL_TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_hybrid_one_group_e2e_on_the_card():
+    """chip_smoke.py's e2e_hybrid: full-width zamba2-2.7b cut to one
+    group, the card with the kernels against the CPU with the plain
+    versions (prefill under LBM / LWM-int8 plans, teacher-forced decode
+    with native, int8 and fp8 caches), at chip_smoke's gates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from repro_torch.models.base import get_arch
+    out = chip_smoke.check_e2e_hybrid(get_arch("zamba2-2.7b"), "cuda")
+    assert out["layers"] == 6
+    assert out["launches"]["ssd_chunk.wgmma"] > 0
+
+
+@pytest.mark.gpu
+def test_hybrid_graph_replay_matches_eager_dispatch():
+    """chip_smoke.py's zamba2 graph checks at the reduced width in bf16,
+    one group: a prompt tenant's chunks and epochs, a resident alone and
+    two as a bucket, each replay bitwise equal to the eager core on
+    cloned caches (K/V and Mamba2 states), with its launch counts; a
+    second replay captures nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    checks, rec = chip_smoke.graph_checks(_bf16("zamba2-2.7b", "zamba2-graphs"),
+                                          "cuda", prompt_len=300)
+    assert not chip_smoke._graph_faults(checks)
+    assert {c["kind"] for c in checks} == {"prefill", "single", "bucket"}
+    assert rec["captures"] > 0
+
+
 @pytest.mark.gpu
 def test_capture_failure_raises():
     """A capture that fails (here: a read back to the host inside it)

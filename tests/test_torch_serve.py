@@ -136,7 +136,7 @@ def test_unported_server_features_raise(option):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
-        PS.MultiTenantServer(["zamba2-2.7b"], device="cpu")
+        PS.MultiTenantServer(["whisper-tiny"], device="cpu")
 
 
 def _candidates(tm):

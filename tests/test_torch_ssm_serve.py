@@ -153,7 +153,7 @@ def test_mixed_pool_serial_and_pipelined_bit_identical(mixed_runs):
     _assert_serial_equals_pipelined(pipe_out, serial_out)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "yi-9b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "yi-9b", "zamba2-2.7b"])
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
 def test_kv_reserve_pages_equal_reference(arch, reduced):
     rcfg, pcfg = ref_arch(arch), port_arch(arch)
@@ -169,6 +169,10 @@ def test_kv_reserve_pages_equal_reference(arch, reduced):
         # O(1) state: 48 layers x 2 rows of conv window and fp32 state
         assert PS._kv_reserve_pages(pcfg, 2, 512) == 3113
         assert PS._kv_reserve_pages(pcfg, 2, 300, "int8") == 3113
+    if arch == "zamba2-2.7b" and not reduced:
+        # 9 groups of K/V and 45 Mamba2 states
+        assert PS._kv_reserve_pages(pcfg, 2, 1024) == 9447
+        assert PS._kv_reserve_pages(pcfg, 2, 1024, "int8") == 6711
 
 
 def test_auto_keeps_a_mamba2_arrival_native_like_reference():
