@@ -222,6 +222,42 @@ Phases, each printed as one JSON object with its seconds:
   holds zamba2's items at one group too, and the kernels phase times
   the kernels at its shapes (``hybrid_timings``).
 
+* ``e2e_encdec``: the encoder-decoder slice, whisper-tiny at full width
+  and depth (:data:`ENCDEC_E2E`): ``make_prefill`` of 2 x (1500 frames +
+  448 decoder tokens) plain, under the smallest fused LBM grant and an
+  LWM@32p grant (the decoder's flash attention at hd 64 on the simt
+  tile, its FFN at 896 rows on the wgmma tiles; the encoder and the
+  cross-attention plain, as in the reference), then two teacher-forced
+  decode epochs over the encoder output (LBM@34p: the fused FFN's 2-row
+  simt tile; LWM@3p: the gemv), on the card against the CPU with the
+  plain versions on the same weights (fp32 there); every simt launch
+  named in the kinds gate.
+* ``serve_encdec``: ``serve``'s function on whisper (:data:`SERVE_ENCDEC`:
+  a resident and a 64-token arrival, a pool of the arrival's quote and
+  the decode FFN's LBM candidate): decode granted LBM (block_fused_ffn's
+  simt decode tile, 4 launches a step) and LWM (gemv), each tenant's
+  zero ``enc`` read by every cross-attention; three warm runs, a
+  replayed epoch profiled with the share of the cross-attention K/V
+  projections over the 1500 frames.
+* ``self_encdec``: serial == pipelined on whisper, two residents (one
+  bucket, each with its own ``enc``) and a 64-token arrival
+  (:data:`SELF_ENCDEC`).  The ``graphs`` phase holds whisper's items
+  too, and the kernels phase holds flash attention at whisper's and
+  llava's prefill shapes against the plain version and times the
+  kernels at both archs' shapes (``encdec_vlm_timings``).
+* ``e2e_vlm``: the VLM slice, llava-next-mistral-7b cut to 4 layers
+  (:data:`VLM_E2E`): ``make_prefill`` of 2 x (576 patch embeddings + 40
+  tokens) under an LBM plan (native KV) and an LWM@32p int8 plan, every
+  launch wgmma, card against CPU (fp32 there).
+* ``prefill_vlm``: ``prefill``'s function on full-depth llava-next, 2 x
+  (576 patches + 1024 tokens) = 1600 positions: plain, the smallest
+  fused LBM grant at d_ff 14336, LWM@32p native and int8 (held by cosine
+  and against a plain-attention control); every launch wgmma; timed and
+  profiled.
+* ``serve_vlm``: ``serve``'s function on full-depth llava-next
+  (:data:`SERVE_VLM`: a resident and a 256-token arrival, the pool the
+  arrival's quote and 324 pages): every decode launch of the gemv kind.
+
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  With no CUDA device, or without the port's sources beside this
@@ -416,6 +452,43 @@ SERVE_HYBRID = dict(batch=2, max_len=512, steps=32, arrival=ARRIVAL,
 # K/V dicts only)
 SELF_HYBRID = dict(batch=2, max_len=512, steps=16, budget=8, arrival=(4.0, 300),
                    pages=1 << 16, kv_dtype="int8", matmul=("gemv",))
+# the encoder-decoder and VLM slice.  whisper-tiny: 4 encoder and 4
+# decoder layers, d_model 384, 6 heads of 64, d_ff 1536, vocab 51865
+# (padded to 51968), 1500 frames; llava-next-mistral-7b: the Mistral-7B
+# decoder (32 layers, d_model 4096, 32 / 8 heads of 128, d_ff 14336,
+# vocab 32000) and 576 patch embeddings (one 24 x 24 tile)
+ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "llava-next-mistral-7b"
+# e2e_encdec: full depth, make_prefill of 2 x (1500 frames + 448 decoder
+# tokens, whisper's decoder context) plain, under the smallest fused LBM
+# grant at 448 rows and an LWM@32p grant; two teacher-forced decode
+# epochs under the grants serve_encdec's decode gets (LBM@34p: the fused
+# FFN's simt decode tile; LWM@3p: cache_matmul's gemv)
+ENCDEC_E2E = dict(batch=2, prompt_len=448, lwm_pages=32, decode_lbm_pages=34,
+                  decode_lwm_pages=3)
+# serve_encdec (serve_main_path's arguments but the pool): a resident and
+# a 64-token arrival at step 8, batch 2, max_len 448, in a pool of the
+# arrival's native quote and the decode FFN's LBM candidate (24 + 15
+# pages, _lbm_pool): the resident is granted LBM alone and LWM beside the
+# arrival, so decode runs the fused FFN's simt tile and cache_matmul's gemv
+SERVE_ENCDEC = dict(batch=2, max_len=448, steps=32,
+                    arrival=dict(arrive_at=8.0, prompt_len=64,
+                                 n_inferences=16))
+# self_encdec: serial == pipelined, two whisper residents (one bucket in
+# the first epoch, each with its own enc buffer) and a 64-token arrival,
+# in a pool where every decode is granted LBM (the fused FFN's simt
+# decode tile).  In serve_encdec's contended pool the serial loop's
+# per-step grants differ from the pipelined loop's per-epoch ones, so
+# the two would run different kernels
+SELF_ENCDEC = dict(batch=2, max_len=448, steps=16, budget=8, arrival=(4.0, 64),
+                   pages=1 << 16, kernels=("block_fused_ffn",),
+                   kinds=dict(ffn=("simt",)), bucket=True)
+# e2e_vlm: 4 layers, make_prefill of 2 x (576 patches + 40 tokens) under
+# an LBM plan (native KV) and an LWM@32p int8 plan
+VLM_E2E = dict(layers=4, batch=2, prompt_len=40, lwm_pages=32)
+# serve_vlm: serve's arguments, in a pool of the arrival's native quote
+# and the serve phase's 324 pages of headroom (no LBM candidate at full
+# width, as for yi-9b)
+SERVE_VLM = dict(batch=2, max_len=512, steps=32, arrival=ARRIVAL, headroom=324)
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -596,10 +669,12 @@ def kernel_cases(cfg, dev):
     return rows
 
 
-def flash_cases(cfg, moe_cfg, dev):
+def flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg):
     """flash_attention and flash_attention_quantized (int8, fp8) against
     their plain versions: the prefill path's shape, the MoE prefill's
-    (olmoe: as many K/V heads as query heads), a non-causal one,
+    (olmoe: as many K/V heads as query heads), whisper's decoder prefill
+    (2 x 448 positions, 6 heads of 64) and llava's (2 x 1600 positions,
+    32 / 8 heads of 128), a non-causal one,
     ragged S and Sk (also S != Sk), a short prompt and hd 32, with the
     tiles that plans under several grants legalize to (bf16 at hd 128:
     the wgmma kernels, native and quantized, bitwise on a repeat); bf16
@@ -619,6 +694,12 @@ def flash_cases(cfg, moe_cfg, dev):
     shapes = (("path", B, H, Hkv, S, hd, True, S),
               ("moe path", B, moe_cfg.num_heads, moe_cfg.num_kv_heads, S,
                moe_cfg.hd, True, S),
+              ("encdec path", B, encdec_cfg.num_heads,
+               encdec_cfg.num_kv_heads, ENCDEC_E2E["prompt_len"],
+               encdec_cfg.hd, True, ENCDEC_E2E["prompt_len"]),
+              ("vlm path", B, vlm_cfg.num_heads, vlm_cfg.num_kv_heads,
+               vlm_cfg.num_patches + S, vlm_cfg.hd, True,
+               vlm_cfg.num_patches + S),
               ("non-causal", 1, H, Hkv, 512, hd, False, 512),
               ("ragged", 1, 8, 2, 333, 64, True, 333),
               ("ragged non-causal", 1, 8, 2, 333, 64, False, 333),
@@ -940,11 +1021,8 @@ def prefill_timings(cfg, dev):
     rows), with the tiles the prefill phase's plans lower to, each held
     against its plain version on the same inputs."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
-    from repro_torch.kernels import quant
-    dt, dn, eb = torch.bfloat16, "bfloat16", 2
+    dt = torch.bfloat16
     limit = ops.smem_limit(torch.device(dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -969,69 +1047,83 @@ def prefill_timings(cfg, dev):
     q = _randn(gen, (B, H, S, hd), dt)
     k = _randn(gen, (B, Hkv, S, hd), dt)
     v = _randn(gen, (B, Hkv, S, hd), dt)
-    flops = 2 * B * H * S * S * hd               # causal: half of 4*B*H*S*Sk*hd
-    qo_bytes = 2 * eb * B * H * S * hd           # q read, O written
-    tile = ops.legalize_attn_tile(lbm.attn.block_q, lbm.attn.block_kv, hd, S,
-                                  limit, dt)
-    # the simt tile the same plan gives fp32 (every bf16 call's before)
-    simt = ops.legalize_attn_tile(lbm.attn.block_q, lbm.attn.block_kv, hd, S,
-                                  limit, torch.float32)
-    bound, by = _bound(qo_bytes + 2 * eb * B * Hkv * S * hd, flops, dn)
-    got = kfa.flash_attention(q, k, v, True, tile)
-    err, ok = _close(got, kfa.flash_attention_plain(q, k, v, True), dn)
-    repeat = bool(torch.equal(got, kfa.flash_attention(q, k, v, True, tile)))
-    t = _turns_ms({"ms": lambda: kfa.flash_attention(q, k, v, True, tile),
-                   "simt_ms": lambda: kfa.flash_attention(q, k, v, True, simt)})
-    out["flash_attention"] = {
-        "shape": [B, H, Hkv, S, hd], "plan": [lbm.attn.block_q,
-                                               lbm.attn.block_kv],
-        "kind": tile.kind, "hopper_tile": [tile.bq, tile.bkv],
-        "simt_tile": [simt.bq, simt.bkv], **t,
-        "tflops": flops / t["ms"] / 1e9,
-        "plain_ms": _median_ms(lambda: kfa.flash_attention_plain(q, k, v, True)),
-        "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
-        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-        "bitwise_repeat": repeat, "ok": ok and repeat}
-    out["flash_attention"]["speedup_vs_simt"] = t["simt_ms"] / t["ms"]
-    out["flash_attention"]["vs_library"] = (t["ms"] /
-                                            out["flash_attention"]["library_ms"])
-    # the quantized kernel under the LWM/int8 and LWM/fp8 plans: the tile
-    # they legalize to in turns against the simt tile the same plan gives
-    # fp32 (every quantized call's before the quantized wgmma kernel)
+    out["flash_attention"] = _flash_timing(q, k, v, lbm.attn, limit)
+    # the quantized kernel under the LWM/int8 and LWM/fp8 plans
     for name in ("LWM/int8", "LWM/fp8_e4m3"):
         plan = plans[name]
-        kq, ks = quant.quantize_rows(k, plan.kv_dtype)
-        vq, vs = quant.quantize_rows(v, plan.kv_dtype)
-        ks, vs = ks[..., 0], vs[..., 0]
-        tile = ops.legalize_attn_tile(plan.attn.block_q, plan.attn.block_kv,
-                                      hd, S, limit, dt, True)
-        simt = ops.legalize_attn_tile(plan.attn.block_q, plan.attn.block_kv,
-                                      hd, S, limit, torch.float32, True)
-        bound, by = _bound(qo_bytes + 2 * B * Hkv * S * (hd + 4), flops, dn)
-        got = kfa.flash_attention_quantized(q, kq, vq, ks, vs, True, tile)
-        err, ok = _close(got, kfa.flash_attention_quantized_plain(
-            q, kq, vq, ks, vs, True), dn)
-        repeat = bool(torch.equal(got, kfa.flash_attention_quantized(
-            q, kq, vq, ks, vs, True, tile)))
-        del got
-        t = _turns_ms({"ms": lambda: kfa.flash_attention_quantized(
-                           q, kq, vq, ks, vs, True, tile),
-                       "simt_ms": lambda: kfa.flash_attention_quantized(
-                           q, kq, vq, ks, vs, True, simt)})
         key = "flash_attention_quantized" + (
             "" if plan.kv_dtype == "int8" else f".{plan.kv_dtype}")
-        out[key] = {
-            "shape": [B, H, Hkv, S, hd], "kv": plan.kv_dtype,
-            "kind": tile.kind, "plan": [plan.attn.block_q, plan.attn.block_kv],
-            "hopper_tile": [tile.bq, tile.bkv],
-            "simt_tile": [simt.bq, simt.bkv], **t,
-            "tflops": flops / t["ms"] / 1e9,
-            "plain_ms": _median_ms(lambda: kfa.flash_attention_quantized_plain(
-                q, kq, vq, ks, vs, True)),
-            "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "max_abs_err": err, "bitwise_repeat": repeat, "ok": ok and repeat,
-            "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+        out[key] = _flash_timing(q, k, v, plan.attn, limit, plan.kv_dtype)
+    return out
+
+
+def _flash_timing(q, k, v, attn, limit, kv_dtype: str = "native",
+                  reps: int = 30):
+    """Causal flash attention at one of the path's shapes (bf16 q [B, H,
+    S, hd], K/V [B, Hkv, S, hd]) with the tile the plan's attention
+    blocks ``attn`` legalize to, timed in turns against the simt tile
+    the same plan gives fp32 (every bf16 call's before the wgmma
+    kernels; the same tile where the head dim has no wgmma tile), beside
+    the plain version and, for native K/V, SDPA.  A quantized
+    ``kv_dtype`` runs flash_attention_quantized on K/V quantized per
+    row.  The kernel is held against its plain version on the timed
+    inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant
+    B, H, S, hd = q.shape
+    Hkv = k.shape[1]
+    quantized = kv_dtype != "native"
+    tile = ops.legalize_attn_tile(attn.block_q, attn.block_kv, hd, S, limit,
+                                  q.dtype, quantized)
+    simt = ops.legalize_attn_tile(attn.block_q, attn.block_kv, hd, S, limit,
+                                  torch.float32, quantized)
+    flops = 2 * B * H * S * S * hd           # causal: half of 4*B*H*S*Sk*hd
+    qo_bytes = 2 * 2 * B * H * S * hd        # q read, O written
+    kv_bytes = (2 * B * Hkv * S * (hd + 4) if quantized    # codes, scales
+                else 2 * 2 * B * Hkv * S * hd)
+    bound, by = _bound(qo_bytes + kv_bytes, flops, "bfloat16")
+    library = None
+    if quantized:
+        kq, ks = quant.quantize_rows(k, kv_dtype)
+        vq, vs = quant.quantize_rows(v, kv_dtype)
+        ks, vs = ks[..., 0], vs[..., 0]
+
+        def run(tl):
+            return kfa.flash_attention_quantized(q, kq, vq, ks, vs, True, tl)
+
+        def plain():
+            return kfa.flash_attention_quantized_plain(q, kq, vq, ks, vs, True)
+    else:
+        def run(tl):
+            return kfa.flash_attention(q, k, v, True, tl)
+
+        def plain():
+            return kfa.flash_attention_plain(q, k, v, True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    got = run(tile)
+    err, ok = _close(got, plain(), "bfloat16")
+    repeat = bool(torch.equal(got, run(tile)))
+    del got
+    t = _turns_ms({"ms": lambda: run(tile), "simt_ms": lambda: run(simt)},
+                  reps)
+    out = {"shape": [B, H, Hkv, S, hd], "kv": kv_dtype,
+           "plan": [attn.block_q, attn.block_kv], "kind": tile.kind,
+           "hopper_tile": [tile.bq, tile.bkv],
+           "simt_tile": [simt.bq, simt.bkv],
+           **t, "tflops": flops / t["ms"] / 1e9,
+           "plain_ms": _median_ms(plain, reps),
+           "library_ms": _median_ms(library, reps) if library else None,
+           "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+           "bitwise_repeat": repeat, "ok": ok and repeat,
+           "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+    if library:
+        out["vs_library"] = t["ms"] / out["library_ms"]
     return out
 
 
@@ -1199,6 +1291,83 @@ def hybrid_timings(hybrid_cfg, dev):
     return out
 
 
+def encdec_vlm_timings(encdec_cfg, vlm_cfg, dev):
+    """The kernels at the encoder-decoder and VLM shapes (bf16).
+    whisper-tiny: its decode FFN (2 x 384, d_ff 1536) under serve_encdec's
+    grants, cache_matmul's gemv (LWM@3p) and block_fused_ffn's 8-row simt
+    tile (LBM@34p); its fused FFN at e2e_encdec's 896 prefill rows (the
+    wgmma tile) and causal flash attention at hd 64 over 2 x 448 decoder
+    positions, 6 heads (the simt tile: no wgmma tile at hd 64), against
+    SDPA.  llava-next: its decode gemv (2 x 4096 @ 4096 x 14336 and 2 x
+    14336 @ 14336 x 4096, LWM@32p), and at prefill_vlm's 2 x (576 + 1024)
+    = 3200 rows the LWM@32p GEMM, the fused FFN at d_ff 14336 (the
+    smallest fused grant) and causal GQA flash attention at S 1600, 32 /
+    8 heads of 128 (wgmma), native and int8."""
+    import torch
+    from repro_torch.core.vmem import LANE
+    from repro_torch.kernels import ops
+    dt = torch.bfloat16
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    out = {}
+    cfg, e = encdec_cfg, ENCDEC_E2E
+    d, f = cfg.d_model, cfg.d_ff
+    B, S = e["batch"], e["prompt_len"]
+    lwm = _plan(cfg, "LWM", e["decode_lwm_pages"], LANE)
+    lbm = _plan(cfg, "LBM", e["decode_lbm_pages"], LANE)
+    wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wd = _randn(gen, (f, d), dt, 1 / math.sqrt(f))
+    x = _randn(gen, (B, d), dt)
+    out["cache_matmul.encdec.up"] = {
+        "plan": lwm.describe(),
+        **_matmul_timing(x, wg, lwm.ffn.up_tile, limit, 30)}
+    out["block_fused_ffn.encdec.decode"] = _ffn_timing(x, wg, wu, wd, lbm,
+                                                       limit, 30)
+    pf = encdec_prefill_plans(cfg)["LBM/native"]
+    x = _randn(gen, (B * S, d), dt)
+    out["block_fused_ffn.encdec.prefill"] = _ffn_timing(x, wg, wu, wd, pf,
+                                                        limit, 30)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = _randn(gen, (B, H, S, hd), dt)
+    k = _randn(gen, (B, Hkv, S, hd), dt)
+    v = _randn(gen, (B, Hkv, S, hd), dt)
+    out["flash_attention.encdec"] = _flash_timing(q, k, v, pf.attn, limit)
+    cfg = vlm_cfg
+    d, f = cfg.d_model, cfg.d_ff
+    B, S = PREFILL["batch"], cfg.num_patches + PREFILL["prompt_len"]
+    plans = vlm_prefill_plans(cfg)
+    decode = _plan(cfg, "LWM", VLM_E2E["lwm_pages"], LANE)
+    wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
+    wd = _randn(gen, (f, d), dt, 1 / math.sqrt(f))
+    x, h = _randn(gen, (B, d), dt), _randn(gen, (B, f), dt)
+    for label, a, b, tile in (("up", x, wg, decode.ffn.up_tile),
+                              ("down", h, wd, decode.ffn.down_tile)):
+        out[f"cache_matmul.vlm.{label}"] = {
+            "plan": decode.describe(), **_matmul_timing(a, b, tile, limit,
+                                                        30)}
+    x = _randn(gen, (B * S, d), dt)
+    lwm = plans["LWM/native"]
+    out["cache_matmul.vlm.prefill.up"] = {
+        "plan": lwm.describe(),
+        **_matmul_timing(x, wg, lwm.ffn.up_tile, limit, 10)}
+    out["block_fused_ffn.vlm"] = _ffn_timing(x, wg, wu, wd,
+                                             plans["LBM/native"], limit, 10)
+    del x, h, wg, wu, wd
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = _randn(gen, (B, H, S, hd), dt)
+    k = _randn(gen, (B, Hkv, S, hd), dt)
+    v = _randn(gen, (B, Hkv, S, hd), dt)
+    out["flash_attention.vlm"] = _flash_timing(q, k, v,
+                                               plans["LBM/native"].attn, limit)
+    int8 = plans["LWM/int8"]
+    out["flash_attention_quantized.vlm"] = _flash_timing(
+        q, k, v, int8.attn, limit, int8.kv_dtype)
+    return out
+
+
 def moe_timings(moe_cfg, dev):
     """cache_matmul and block_fused_ffn at olmoe-1b-7b's expert shapes:
     one expert's bucket of ``make_prefill`` at 2 x 1024 tokens (G*C = 328
@@ -1237,11 +1406,13 @@ def moe_timings(moe_cfg, dev):
     return out
 
 
-def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, dev):
+def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg,
+                  dev):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = (kernel_cases(cfg, dev) + flash_cases(cfg, moe_cfg, dev)
+    rows = (kernel_cases(cfg, dev)
+            + flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg)
             + quant_cases(cfg, dev) + ssd_cases(ssm_cfg, dev))
     bad = [r for r in rows if not r["ok"]]
     timings = kernel_timings(cfg, dev, batch=2, lwm_pages=32, lbm_pages=324)
@@ -1249,6 +1420,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, dev):
     timings.update(ssd_timings(ssm_cfg, dev))
     timings.update(moe_timings(moe_cfg, dev))
     timings.update(hybrid_timings(hybrid_cfg, dev))
+    timings.update(encdec_vlm_timings(encdec_cfg, vlm_cfg, dev))
     bad += [k for k, v in timings.items() if not v["ok"]]
     worst = {}
     for r in rows:
@@ -1293,7 +1465,12 @@ class _Forced:
         return self.tokens[:, self.i]
 
 
-def _e2e_run(cfg, params, dev, prompt, forced, plans, kv_dtype="native"):
+def _e2e_run(cfg, params, dev, prompt, forced, plans, kv_dtype="native",
+             enc=None):
+    """A prefill of ``prompt`` and a teacher-forced decode epoch of 4 steps
+    under each of ``plans`` (an encoder-decoder's cross-attention over
+    ``enc``): the prefill's and every step's last-position logits, fp32,
+    copied to the host."""
     import torch
     from repro_torch.models.transformer import (decode_epoch, init_caches,
                                                 prefill_chunk)
@@ -1301,13 +1478,14 @@ def _e2e_run(cfg, params, dev, prompt, forced, plans, kv_dtype="native"):
                          device=dev)
     toks = torch.from_numpy(prompt).long().to(dev)
     forced_t = torch.from_numpy(forced).long().to(dev)
-    logits, caches = prefill_chunk(params, toks, caches, 0, cfg)
+    logits, caches = prefill_chunk(params, toks, caches, 0, cfg, enc)
     out = [logits[:, -1].float()]
     feed = _Forced(forced_t)
     index, k = prompt.shape[1], 4
     for plan in plans:
         _, caches = decode_epoch(params, forced_t[:, feed.i:feed.i + 1], caches,
-                                 index, cfg, k, next_token_fn=feed, plan=plan)
+                                 index, cfg, k, next_token_fn=feed,
+                                 enc_out=enc, plan=plan)
         index += k
     out += feed.logits
     return torch.stack(out, 1).cpu()
@@ -1347,13 +1525,13 @@ def _counters():
 
 def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=(),
                 flash_quantized=(), ssd=()):
-    """Every bf16 launch of the path ran the new kinds: no cache_matmul
+    """Every bf16 launch of the path ran the kinds named: no cache_matmul
     launch of the ``simt`` kind, each kind of ``matmul`` launched; where
-    ``flash`` names ``wgmma``, no native flash launch of the simt kind
-    and some of the wgmma kernel; likewise ``ffn`` for block_fused_ffn,
+    ``flash`` names kinds, each of them launched and none of the simt
+    kind unless ``simt`` is named (whisper's hd-64 flash and 2-row fused
+    FFN have only simt tiles); likewise ``ffn`` for block_fused_ffn,
     ``quant`` for cache_matmul_quant, ``flash_quantized`` for
-    flash_attention_quantized and ``ssd`` for ssd_chunk (each kind named
-    launched, none of the simt kind)."""
+    flash_attention_quantized and ``ssd`` for ssd_chunk."""
     bad = [k for k in matmul if counters[f"cache_matmul.{k}"] <= 0]
     if counters["cache_matmul.simt"]:
         bad.append("cache_matmul.simt")
@@ -1362,7 +1540,7 @@ def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=(),
                         ("flash_attention_quantized", flash_quantized),
                         ("ssd_chunk", ssd)):
         bad += [f"{name}.{k}" for k in kinds if counters[f"{name}.{k}"] <= 0]
-        if kinds and counters[f"{name}.simt"]:
+        if kinds and "simt" not in kinds and counters[f"{name}.simt"]:
             bad.append(f"{name}.simt")
     if bad:
         raise AssertionError(f"{label}: kinds {bad} wrong: {counters}")
@@ -1623,7 +1801,8 @@ def grantable_kinds(cfg, batch: int, pages: int):
 def serve_main_path(cfg, dev, counters, label: str = "serve",
                     batch: int = 2, max_len: int = 512,
                     pages: int = SERVE_PAGES, steps: int = SERVE_STEPS,
-                    arrival=ARRIVAL, kernels: bool = True, shares=()):
+                    arrival=ARRIVAL, kernels: bool = True, shares=(),
+                    ffn=()):
     """Two full-width, full-depth tenants of ``cfg`` through the port's
     MultiTenantServer: a resident and an ``arrival`` (a prompt and a
     budget), whose native KV reservation the pool holds whole.
@@ -1633,9 +1812,10 @@ def serve_main_path(cfg, dev, counters, label: str = "serve",
     gemv kind (yi-9b); without, nothing may launch (olmoe-1b-7b: the
     server's MoE path gathers its experts in decode and runs the plain
     buckets in prompt chunks, as the reference's).  The plan kinds must
-    be those the scheduler can grant.  Then three warm runs, and one
-    replayed decode epoch of the resident profiled with the named
-    kernels' ``shares``."""
+    be those the scheduler can grant; ``ffn`` names the block_fused_ffn
+    kinds the path must launch (:func:`_gate_kinds`).  Then three warm
+    runs, and one replayed decode epoch of the resident profiled with
+    the named kernels' ``shares``."""
     import torch
     from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
     from repro_torch.sim.driver import TenantSpec
@@ -1656,7 +1836,7 @@ def serve_main_path(cfg, dev, counters, label: str = "serve",
         if min(counters[k] for k in need) <= 0:
             raise AssertionError(f"{label}: a kernel never launched: "
                                  f"{counters}")
-        _gate_kinds(counters, label, ("gemv",))
+        _gate_kinds(counters, label, ("gemv",), ffn=ffn)
     elif any(counters.values()):
         raise AssertionError(f"{label}: a kernel launched: {counters}")
     tenants = {}
@@ -1787,10 +1967,12 @@ def _replay_vs_eager(srv, item):
         caches, tok, idx, pos = clones[t.tid]
         if kind == "prefill":
             want[t.tid], _ = srv._prefill_cores[t.cfg.name](
-                t.params, caches, t.prompt_dev[:, pos:pos + n], idx, kv_len=kv)
+                t.params, caches, t.prompt_dev[:, pos:pos + n], idx, t.enc,
+                kv_len=kv)
         else:
             want[t.tid], _ = srv._epoch_cores[t.cfg.name](
-                t.params, caches, tok, idx, plan=plan, k=n, kv_len=kv)
+                t.params, caches, tok, idx, t.enc, plan=plan, k=n,
+                kv_len=kv)
     eager = kcount.delta(before)
     captures = srv._captures
     before = kcount.snapshot()
@@ -1882,7 +2064,7 @@ def _graph_faults(checks):
 
 
 def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True, moe_cfg=None,
-                 hybrid_cfg=None):
+                 hybrid_cfg=None, encdec_cfg=None):
     """Graph replay against eager dispatch at full width (4 layers), by
     :func:`graph_checks`: in a pipelined yi-9b server a prompt tenant's
     chunks (256 + 128 tokens) and epochs with a native and, in a second
@@ -1891,9 +2073,13 @@ def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True, moe_cfg=None,
     and 44-token tail and its epochs; with ``moe_cfg``, the same items of
     olmoe-1b-7b (native cache); with ``hybrid_cfg``, zamba2-2.7b cut to
     one group: a prompt tenant's 256-token chunk and 44-token tail, its
-    epochs, a resident alone and two as a bucket (native cache).  Every check must be bitwise in tokens
-    and every cache buffer, launch the kernels the eager run launches (by
-    the counts), and a second replay must capture nothing."""
+    epochs, a resident alone and two as a bucket (native cache); with
+    ``encdec_cfg``, whisper-tiny's (4 decoder layers): a prompt tenant's
+    chunks and epochs, a resident alone and two as a bucket, each
+    tenant's cross-attention over its own ``enc``.  Every check must be
+    bitwise in tokens and every cache buffer, launch the kernels the eager
+    run launches (by the counts), and a second replay must capture
+    nothing."""
     g = GRAPHS
     res, checks = {}, []
     cases = [(cfg, "native", g["prompt_len"]), (cfg, "int8", g["prompt_len"]),
@@ -1902,6 +2088,8 @@ def check_graphs(cfg, ssm_cfg, dev, kinds: bool = True, moe_cfg=None,
         cases.append((moe_cfg, "native", g["prompt_len"]))
     if hybrid_cfg is not None:
         cases.append((hybrid_cfg, "native", g["ssm_prompt_len"]))
+    if encdec_cfg is not None:
+        cases.append((encdec_cfg, "native", g["prompt_len"]))
     for arch, kv_dtype, prompt_len in cases:
         got, res[f"{arch.name}/{kv_dtype}"] = graph_checks(
             arch, dev, kv_dtype, prompt_len)
@@ -2054,7 +2242,7 @@ PREFILL_KINDS = dict(matmul=("wgmma",), flash=("wgmma",), ffn=("wgmma",),
 
 def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
                       serve=(), profiled=("LBM/native", "LWM/int8",
-                                          "LWM/fp8_e4m3")):
+                                          "LWM/fp8_e4m3"), prefix: int = 0):
     """``make_prefill`` of a full-width, full-depth arch (yi-9b: slice
     2's path; olmoe-1b-7b: the MoE slice's, one ``planned_ffn`` per
     expert and layer under a plan), 2 prompts of 1024 tokens from numpy,
@@ -2078,8 +2266,11 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
     (:func:`_relative_gate`: 45 random bf16 Mamba2 layers grow a
     rounding difference past :func:`_gate`'s bar), and on an fp32 copy
     of the weights each plan within :func:`_gate` of the plain path with
-    its greedy tokens equal.  Then each call is timed warm on the host
-    clock, and those named in ``profiled`` profiled once."""
+    its greedy tokens equal.  With ``prefix`` (llava-next: its 576
+    patches) each prompt carries that many patch embeddings from numpy
+    before its tokens, so the calls run prefix + 1024 positions.  Then
+    each call is timed warm on the host clock, and those named in
+    ``profiled`` profiled once."""
     import torch
     from repro_torch.models import model as M
     B, S = PREFILL["batch"], PREFILL["prompt_len"]
@@ -2090,6 +2281,12 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
     params = M.init_params(cfg, seed=2, device=dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, V, (B, S))).long().to(dev)
+    batch = {"tokens": toks}
+    if prefix:
+        batch["embeds_prefix"] = torch.from_numpy(
+            np.random.default_rng(3).standard_normal(
+                (B, prefix, cfg.d_model), dtype=np.float32)).to(
+                    dev, cfg.torch_dtype)
     plans = plans or prefill_plans(cfg)
     calls = {name: (M.make_prefill(cfg), plan) for name, plan in plans.items()}
     calls.update({f"serve/{n}": (M.make_prefill(cfg, serve=True), plans[n])
@@ -2097,7 +2294,7 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
 
     def call(name):
         fn, plan = calls[name]
-        out = fn(params, {"tokens": toks}, plan)
+        out = fn(params, batch, plan)
         torch.cuda.synchronize()
         return out
 
@@ -2120,7 +2317,7 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
     plain = {False: logits["plain"]}
     if serve:
         plain[True] = M.make_prefill(cfg, serve=True)(
-            params, {"tokens": toks})[:, :V].float()
+            params, batch)[:, :V].float()
     gates = {}
     if hybrid:
         gates["control"] = _agreement(
@@ -2180,14 +2377,15 @@ def prefill_main_path(cfg, dev, counters, label: str = "prefill", plans=None,
         wall = time.perf_counter() - t0
         runs[name] = {"plan": plan.describe() if plan is not None else None,
                       "first_wall_s": first_s[name], "wall_s": wall,
-                      "tokens_per_s": B * S / wall,
+                      "tokens_per_s": B * (prefix + S) / wall,
                       "launches": per_call[name]}
     peak = torch.cuda.max_memory_allocated()
     profiles = {name: {"plan": runs[name]["plan"],
                        **_profile(lambda n=name: call(n))}
                 for name in profiled}
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
-            "prompt_len": S, "launches": dict(counters), "gates": gates,
+            "prompt_len": S, "prefix": prefix,
+            "launches": dict(counters), "gates": gates,
             "runs": runs, "peak_memory_bytes": peak, "profile": profiles}
 
 
@@ -2939,21 +3137,26 @@ def check_serial_pipelined_ssm(cfg, dev, counters):
     """Serial (per-step) and pipelined (epoch) serving on the card, in
     the pool of the arch's spec (:data:`SELF_SSM`: full-width,
     full-depth mamba2 in the serve_ssm pool; :data:`SELF_HYBRID`:
-    zamba2 cut to one group): two residents and a prompt tenant arriving
-    mid-run at the spec's KV precision, whose prompt chunks run
+    zamba2 cut to one group; :data:`SELF_ENCDEC`: full-depth whisper
+    granted LBM): two residents and a prompt tenant
+    arriving mid-run at the spec's KV precision, whose prompt chunks run
     ssd_chunk (mamba2's O(1) decode steps are plain torch, as in the
     reference; zamba2's shared block runs cache_matmul's ``matmul``
-    kinds).  Bitwise-equal token streams, equal choice traces and
-    prefill chunks.  A quantized arrival's first-token stamp must have
-    read its cache scales.  ``counters`` receives the launch counts of
-    the two runs (zeroed just before, read just after); ssd_chunk must
-    have launched."""
+    kinds; whisper's prompt chunks run plain and its decode the spec's
+    ``kernels`` and ``kinds``, its residents one bucket where the spec
+    says ``bucket``).  Bitwise-equal token streams, equal choice traces
+    and prefill chunks.  A quantized arrival's first-token stamp must
+    have read its cache scales.  ``counters`` receives the launch counts
+    of the two runs (zeroed just before, read just after); the spec's
+    kernels (ssd_chunk by default) must have launched."""
     from repro_torch.launch.serve import MultiTenantServer
     from repro_torch.sim.driver import TenantSpec
-    hybrid = cfg.family == "hybrid"
-    label = "self_hybrid" if hybrid else "self_ssm"
+    label = f"self_{cfg.family}"
     s = {"pages": SERVE_SSM["pages"], "kv_dtype": "native", "matmul": (),
-         **(SELF_HYBRID if hybrid else SELF_SSM)}
+         "kernels": ("ssd_chunk",), "kinds": dict(ssd=("wgmma",)),
+         "bucket": False,
+         **{"ssm": SELF_SSM, "hybrid": SELF_HYBRID,
+            "encdec": SELF_ENCDEC}[cfg.family]}
     at, prompt_len = s["arrival"]
     arrival = TenantSpec(cfg.name, arrive_at=at, prompt_len=prompt_len,
                          n_inferences=s["budget"])
@@ -2976,11 +3179,16 @@ def check_serial_pipelined_ssm(cfg, dev, counters):
         outs.append((srv.run(steps=s["steps"]),
                      {t.tid: list(t.chunks) for t in srv.tenants},
                      {t.tid: t.kv_dtype for t in srv.tenants}))
+        buckets = sum(key[0] == "bucket" for key in srv._fused_jits.keys())
         del srv
     counters.update(_counters())
-    if counters["ssd_chunk"] <= 0:
-        raise AssertionError(f"{label}: ssd_chunk never launched: {counters}")
-    _gate_kinds(counters, label, s["matmul"], ssd=("wgmma",))
+    for kernel in s["kernels"]:
+        if counters[kernel] <= 0:
+            raise AssertionError(f"{label}: {kernel} never launched: "
+                                 f"{counters}")
+    _gate_kinds(counters, label, s["matmul"], **s["kinds"])
+    if s["bucket"] and not buckets:
+        raise AssertionError(f"{label}: the residents never ran as a bucket")
     (serial, serial_chunks, kv), (piped, piped_chunks, _) = outs
     if s["kv_dtype"] != "native" and not (any(scaled) and s["kv_dtype"]
                                           in kv.values()):
@@ -2997,6 +3205,7 @@ def check_serial_pipelined_ssm(cfg, dev, counters):
         if o["choices"] != p["choices"]:
             raise AssertionError(f"{label} {tid}: choices differ")
     return {"arch": cfg.name, "layers": cfg.num_layers, **s,
+            "bucket_programs": buckets,
             "bit_identical": True, "launches": dict(counters),
             "prefill_chunks": piped_chunks, "kv_dtypes": kv,
             "tokens": {tid: v["tokens"] for tid, v in piped["tenants"].items()},
@@ -3764,6 +3973,238 @@ def serve_hybrid_main_path(cfg, dev, counters):
     return res
 
 
+# ------------------------------------------------- encoder-decoder, VLM --
+def _lbm_pool(cfg, batch: int, prompt_len: int) -> int:
+    """A pool of an arrival's native KV quote and the smallest LBM
+    candidate of the decode FFN (whisper-tiny: 24 + 15 pages at 64
+    tokens): one tenant at a time is granted LBM."""
+    from repro_torch.launch import serve as S
+    tm = S._tenant_model(S._ffn_graph(cfg.name, cfg, seq_block=batch),
+                         S._vmem_mapper(1 << 16))
+    lbm = min(m.lbm.p_need for m in tm.mapping.mcts if m.lbm is not None)
+    return S._kv_reserve_pages(cfg, batch, prompt_len) + lbm
+
+
+def encdec_prefill_plans(cfg):
+    """e2e_encdec's make_prefill settings at the decoder's 448 positions:
+    plain, the smallest LBM grant that lowers fused, and LWM@32p."""
+    from repro_torch.core.vmem import fused_ffn_pages
+    e = ENCDEC_E2E
+    s = e["prompt_len"]
+    return {"plain": None,
+            "LBM/native": _plan(cfg, "LBM",
+                                fused_ffn_pages(s, cfg.d_model, cfg.d_ff, 2),
+                                s),
+            "LWM/native": _plan(cfg, "LWM", e["lwm_pages"], s)}
+
+
+def vlm_prefill_plans(cfg):
+    """prefill_vlm's settings at 576 patches + 1024 tokens = 1600
+    positions: plain, the smallest LBM grant that lowers fused at d_ff
+    14336, and LWM@32p with native and with int8 KV."""
+    from repro_torch.core.vmem import fused_ffn_pages
+    s, lwm = cfg.num_patches + PREFILL["prompt_len"], PREFILL["lwm_pages"]
+    return {"plain": None,
+            "LBM/native": _plan(cfg, "LBM",
+                                fused_ffn_pages(s, cfg.d_model, cfg.d_ff, 2),
+                                s),
+            "LWM/native": _plan(cfg, "LWM", lwm, s),
+            "LWM/int8": _plan(cfg, "LWM", lwm, s, "int8")}
+
+
+def _fp32_reference(cfg, params):
+    """The config and a host copy of ``params`` in fp32 (the same bf16
+    values): the plain versions' reference for the slice's e2e phases,
+    where bf16 GEMMs on the host CPU would take minutes."""
+    import torch
+    return (dataclasses.replace(cfg, dtype="float32"),
+            _to_dtype(_to(params, "cpu"), torch.float32))
+
+
+def check_e2e_encdec(cfg, dev):
+    """Full-width, full-depth whisper-tiny (4 encoder and 4 decoder
+    layers): the card with the kernels against the CPU with the plain
+    versions, on the same weights (in fp32 there: :func:`_fp32_reference`).
+    ``make_prefill`` of 2 x (1500 frames + 448 decoder tokens) plain and
+    under :func:`encdec_prefill_plans` (the decoder's self-attention
+    through flash attention at hd 64, simt; the FFN at 896 rows through
+    block_fused_ffn's or cache_matmul's wgmma tile; the encoder and the
+    cross-attention plain, as in the reference), then a prefill and two
+    teacher-forced decode epochs over the encoder's output under the
+    grants serve_encdec's decode gets (LBM@34p: the fused FFN's 2-row
+    simt tile; LWM@3p: cache_matmul's gemv).  Gated by :func:`_gate`; the
+    kinds by :func:`_gate_kinds`, the simt tiles named."""
+    import torch
+    from repro_torch.core.vmem import LANE
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import encode
+    e = ENCDEC_E2E
+    B, S, V = e["batch"], e["prompt_len"], cfg.vocab_size
+    pf_plans = encdec_prefill_plans(cfg)
+    dec_plans = [_plan(cfg, "LBM", e["decode_lbm_pages"], LANE),
+                 _plan(cfg, "LWM", e["decode_lwm_pages"], LANE)]
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, V, (B, S))
+    frames = rng.standard_normal((B, cfg.enc_len, cfg.d_model),
+                                 dtype=np.float32)
+    prompt = rng.integers(0, V, (B, 8))
+    forced = rng.integers(0, V, (B, 9))
+
+    def run(c, params, device):
+        batch = {"tokens": torch.from_numpy(toks).long().to(device),
+                 "embeds_prefix": torch.from_numpy(frames).to(
+                     device, c.torch_dtype)}
+        prefill, pf, counts = M.make_prefill(c), {}, {}
+        for name, plan in pf_plans.items():
+            before = _counters()
+            pf[name] = prefill(params, batch, plan).float().cpu()
+            counts[name] = {k: v - before[k] for k, v in _counters().items()
+                            if v - before[k]}
+        enc = encode(params, batch["embeds_prefix"], c)
+        return pf, _e2e_run(c, params, device, prompt, forced, dec_plans,
+                            enc=enc), counts
+
+    params = M.init_params(cfg, seed=1, device=dev)
+    _zero_counters()
+    got_pf, got, per_call = run(cfg, params, dev)
+    launches = _counters()
+    want_pf, want, _ = run(*_fp32_reference(cfg, params), "cpu")
+    del params
+    prefill = {name: _gate(got_pf[name][..., :V], want_pf[name][..., :V],
+                           f"e2e_encdec prefill {name}")
+               for name in pf_plans}
+    _gate_kinds(launches, "e2e_encdec", ("gemv", "wgmma"), flash=("simt",),
+                ffn=("wgmma", "simt"))
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "enc_layers": cfg.enc_layers, "frames": cfg.enc_len,
+            "prompt_len": S, "batch": B, "reference": "cpu fp32",
+            "prefill_plans": {n: p.describe() if p is not None else None
+                              for n, p in pf_plans.items()},
+            "decode_plans": [p.describe() for p in dec_plans],
+            "prefill": prefill,
+            "decode": _gate(got[..., :V], want[..., :V], "e2e_encdec decode"),
+            "launches": dict(launches), "prefill_launches": per_call}
+
+
+def _xattn_kv_share(cfg, batch: int, dev, profile):
+    """The share of a replayed decode epoch's device time (``profile``,
+    :func:`_profile_replay`'s) that the cross-attention K/V projections
+    over the encoder's frames take: one step's projections (K and V of
+    every decoder layer, [batch x 1500, 384] @ [384, 384] each, as
+    ``mha`` runs them) timed alone, times the epoch's steps, over the
+    epoch's device time."""
+    import torch
+    from repro_torch.models.layers import linear
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    dt, d = cfg.torch_dtype, cfg.d_model
+    enc = _randn(gen, (batch, cfg.enc_len, d), dt)
+    w = [{"w": _randn(gen, (d, cfg.num_kv_heads * cfg.hd), dt,
+                      1 / math.sqrt(d))} for _ in range(2 * cfg.num_layers)]
+
+    def step():
+        for wi in w:
+            linear(wi, enc)
+    ms = _median_ms(step)
+    total = profile["device_ms"]
+    return {"step_ms": ms, "epoch_steps": profile["steps"],
+            "gemms_per_step": len(w),
+            "share": (ms * profile["steps"] / total
+                      if isinstance(total, float) else "not measured")}
+
+
+def serve_encdec_main_path(cfg, dev, counters):
+    """The encoder-decoder slice's serving path: :func:`serve_main_path` on
+    full-width, full-depth whisper-tiny (:data:`SERVE_ENCDEC`: a resident
+    and a 64-token arrival, in a pool of the arrival's quote and the
+    decode FFN's LBM candidate).  Decode is granted LBM (block_fused_ffn,
+    its 8-row simt tile: 4 launches a decode step, one a layer) and LWM
+    beside the arrival (cache_matmul's gemv); the prompt chunk runs
+    plain.  Every tenant's cross-attention reads its ``enc``.  The
+    replayed epoch's profile gets the share of the per-step
+    cross-attention K/V projections (:func:`_xattn_kv_share`)."""
+    se = SERVE_ENCDEC
+    arrival = se["arrival"]
+    pages = _lbm_pool(cfg, se["batch"], arrival["prompt_len"])
+    res = serve_main_path(cfg, dev, counters, label="serve_encdec",
+                          batch=se["batch"], max_len=se["max_len"],
+                          pages=pages, steps=se["steps"], arrival=arrival,
+                          ffn=("simt",))
+    res["xattn_kv"] = _xattn_kv_share(cfg, se["batch"], dev,
+                                      res["profile"][0])
+    fused = counters["block_fused_ffn.simt"]
+    if res["plan_kinds"] != ["LBM", "LWM"] or fused % cfg.num_layers:
+        raise AssertionError(f"serve_encdec: plans {res['plan_kinds']}, "
+                             f"{fused} fused launches for "
+                             f"{cfg.num_layers} layers")
+    res["fused_per_decode_step"] = cfg.num_layers
+    res["lbm_decode_steps"] = fused // cfg.num_layers
+    return res
+
+
+def check_e2e_vlm(cfg, dev):
+    """Full-width llava-next cut to :data:`VLM_E2E`'s 4 layers: the card
+    with the kernels against the CPU with the plain versions, on the same
+    weights (in fp32 there: :func:`_fp32_reference`).  ``make_prefill``
+    of 2 x (576 patch embeddings + 40 tokens) under an LBM plan with
+    native KV and an LWM@32p plan with int8 KV, every launch of the
+    wgmma kind (the GEMMs and the fused FFN at 1232 rows, flash native
+    and quantized at hd 128).  Gated by :func:`_gate`."""
+    import torch
+    from repro_torch.core.vmem import LANE, fused_ffn_pages
+    from repro_torch.models import model as M
+    e = VLM_E2E
+    cfg = dataclasses.replace(cfg, num_layers=e["layers"])
+    B, V, P = e["batch"], cfg.vocab_size, cfg.num_patches
+    plans = {"LBM/native": _plan(cfg, "LBM", fused_ffn_pages(
+                 LANE, cfg.d_model, cfg.d_ff, 2), LANE),
+             "LWM/int8": _plan(cfg, "LWM", e["lwm_pages"], LANE, "int8")}
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, V, (B, e["prompt_len"]))
+    patches = rng.standard_normal((B, P, cfg.d_model), dtype=np.float32)
+
+    def run(c, params, device):
+        batch = {"tokens": torch.from_numpy(toks).long().to(device),
+                 "embeds_prefix": torch.from_numpy(patches).to(
+                     device, c.torch_dtype)}
+        return {n: M.make_prefill(c)(params, batch, p).float().cpu()
+                for n, p in plans.items()}
+
+    params = M.init_params(cfg, seed=1, device=dev)
+    _zero_counters()
+    got = run(cfg, params, dev)
+    launches = _counters()
+    want = run(*_fp32_reference(cfg, params), "cpu")
+    del params
+    gates = {n: _gate(got[n][..., :V], want[n][..., :V], f"e2e_vlm {n}")
+             for n in plans}
+    if min(launches[k] for k in PREFILL_KERNELS) <= 0:
+        raise AssertionError(f"e2e_vlm: a kernel never launched: {launches}")
+    _gate_kinds(launches, "e2e_vlm", **PREFILL_KINDS)
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+            "patches": P, "prompt_len": e["prompt_len"],
+            "positions": P + e["prompt_len"], "reference": "cpu fp32",
+            "plans": {n: p.describe() for n, p in plans.items()},
+            "prefill": gates, "launches": _kind_counts(launches)}
+
+
+def serve_vlm_main_path(cfg, dev, counters):
+    """The VLM slice's serving path: :func:`serve_main_path` on full-width,
+    full-depth llava-next with the serve phase's arguments
+    (:data:`SERVE_VLM`), in a pool of the arrival's native quote and 324
+    pages.  Its prompt serves through the dense decoder, as the
+    reference's; every decode launch is cache_matmul's gemv (no LBM
+    candidate at full width)."""
+    from repro_torch.launch.serve import _kv_reserve_pages
+    sv = SERVE_VLM
+    arrival = sv["arrival"]
+    pages = sv["headroom"] + _kv_reserve_pages(cfg, sv["batch"],
+                                               arrival["prompt_len"])
+    return serve_main_path(cfg, dev, counters, label="serve_vlm",
+                           batch=sv["batch"], max_len=sv["max_len"],
+                           pages=pages, steps=sv["steps"], arrival=arrival)
+
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -3788,12 +4229,13 @@ def main() -> int:
     from repro_torch.models.base import get_arch, register
     cfg, ssm_cfg = get_arch("yi-9b"), get_arch(SSM_ARCH)
     moe_cfg, hybrid_cfg = get_arch(MOE_ARCH), get_arch(HYBRID_ARCH)
+    encdec_cfg, vlm_cfg = get_arch(ENCDEC_ARCH), get_arch(VLM_ARCH)
     dev = "cuda"
     report = {}
     report["device"] = _phase("device", device_info)
     report["build"] = _phase("build", build_kernels)
     report["kernels"] = _phase("kernels", check_kernels, cfg, ssm_cfg,
-                               moe_cfg, hybrid_cfg, dev)
+                               moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg, dev)
     if report["kernels"]["failed"]:
         raise AssertionError(f"kernels disagree: {report['kernels']['failed']}")
     _release()
@@ -3805,7 +4247,8 @@ def main() -> int:
     report["self"] = _phase("self", check_serial_pipelined, cfg, dev)
     _release()
     report["graphs"] = _phase("graphs", check_graphs, cfg, ssm_cfg, dev,
-                              moe_cfg=moe_cfg, hybrid_cfg=hybrid_cfg)
+                              moe_cfg=moe_cfg, hybrid_cfg=hybrid_cfg,
+                              encdec_cfg=encdec_cfg)
     _release()
     report["prefill"] = _phase("prefill", prefill_main_path, cfg, dev,
                                prefill_counts)
@@ -3876,6 +4319,27 @@ def main() -> int:
         num_layers=hybrid_cfg.attn_every))
     report["self_hybrid"] = _phase("self_hybrid", check_serial_pipelined_ssm,
                                    one_group, dev, {})
+    _release()
+    report["e2e_encdec"] = _phase("e2e_encdec", check_e2e_encdec, encdec_cfg,
+                                  dev)
+    _release()
+    serve_encdec_counts, prefill_vlm_counts, serve_vlm_counts = {}, {}, {}
+    report["serve_encdec"] = _phase("serve_encdec", serve_encdec_main_path,
+                                    encdec_cfg, dev, serve_encdec_counts)
+    _release()
+    report["self_encdec"] = _phase("self_encdec", check_serial_pipelined_ssm,
+                                   encdec_cfg, dev, {})
+    _release()
+    report["e2e_vlm"] = _phase("e2e_vlm", check_e2e_vlm, vlm_cfg, dev)
+    _release()
+    report["prefill_vlm"] = _phase(
+        "prefill_vlm", prefill_main_path, vlm_cfg, dev, prefill_vlm_counts,
+        label="prefill_vlm", plans=vlm_prefill_plans(vlm_cfg),
+        prefix=vlm_cfg.num_patches,
+        profiled=("plain", "LBM/native", "LWM/native", "LWM/int8"))
+    _release()
+    report["serve_vlm"] = _phase("serve_vlm", serve_vlm_main_path, vlm_cfg,
+                                 dev, serve_vlm_counts)
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"
@@ -3952,6 +4416,37 @@ def main() -> int:
              prefill_hybrid_counts["block_fused_ffn.wgmma"]),
             (5, "hybrid", "ssd_chunk.hybrid",
              prefill_hybrid_counts["ssd_chunk.wgmma"])):
+        t = timings[timing]
+        kernels[i][label] = {"launches": launches,
+                             "max_abs_err": t["max_abs_err"],
+                             **{k: t[k] for k in keys + ("kind", "simt_ms")}}
+    # whisper-tiny's and llava-next's shapes, each with the launches of
+    # the phase that ran it: the decode gemv and the fused FFN's simt
+    # decode tile (serve_encdec, serve_vlm), whisper's fused FFN at 896
+    # rows and hd-64 flash (e2e_encdec's calls), llava's prefill GEMM,
+    # fused FFN and flash kernels at 1600 positions (prefill_vlm)
+    e2e_encdec = report["e2e_encdec"]["launches"]
+    for i, label, timing, launches in (
+            (0, "encdec", "cache_matmul.encdec.up",
+             serve_encdec_counts["cache_matmul.gemv"]),
+            (0, "vlm", "cache_matmul.vlm.up",
+             serve_vlm_counts["cache_matmul.gemv"]),
+            (0, "vlm.down", "cache_matmul.vlm.down",
+             serve_vlm_counts["cache_matmul.gemv"]),
+            (0, "vlm.prefill", "cache_matmul.vlm.prefill.up",
+             prefill_vlm_counts["cache_matmul.wgmma"]),
+            (1, "encdec.decode", "block_fused_ffn.encdec.decode",
+             serve_encdec_counts["block_fused_ffn.simt"]),
+            (1, "encdec.prefill", "block_fused_ffn.encdec.prefill",
+             e2e_encdec["block_fused_ffn.wgmma"]),
+            (1, "vlm", "block_fused_ffn.vlm",
+             prefill_vlm_counts["block_fused_ffn.wgmma"]),
+            (2, "encdec", "flash_attention.encdec",
+             e2e_encdec["flash_attention.simt"]),
+            (2, "vlm", "flash_attention.vlm",
+             prefill_vlm_counts["flash_attention.wgmma"]),
+            (3, "vlm", "flash_attention_quantized.vlm",
+             prefill_vlm_counts["flash_attention_quantized.wgmma"])):
         t = timings[timing]
         kernels[i][label] = {"launches": launches,
                              "max_abs_err": t["max_abs_err"],

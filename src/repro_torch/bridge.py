@@ -52,7 +52,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     out_proj.w}``) become a list of per-layer dicts.  A hybrid stack's
     ``layers.ssm`` leaves are ``[G, attn_every - 1, ...]``: they become
     one ``{"ssm": [layer, ...]}`` dict per group, and its unstacked
-    ``shared_attn`` one dense layer dict."""
+    ``shared_attn`` one dense layer dict.  An encoder-decoder's
+    ``encoder.layers`` (stacked over ``enc_layers``) and ``xattn``
+    (``{ln, attn}`` stacked over the decoder layers) become lists of
+    per-layer dicts too, beside ``encoder.final_norm``."""
     _require_ported(cfg)
     leaf = lambda a: tensor_from_numpy(a, device)  # noqa: E731
     out = {"embed": _tree(tree["embed"], leaf),
@@ -67,10 +70,21 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
             for g in range(G)]
         out["shared_attn"] = _tree(tree["shared_attn"], leaf)
     else:
-        out["layers"] = [_tree(tree["layers"],
-                               lambda a, g=g: leaf(np.asarray(a)[g]))
-                         for g in range(G)]
+        out["layers"] = _unstack(tree["layers"], G, leaf)
+    if cfg.family == "encdec":
+        out["encoder"] = {
+            "layers": _unstack(tree["encoder"]["layers"], cfg.enc_layers,
+                               leaf),
+            "final_norm": _tree(tree["encoder"]["final_norm"], leaf)}
+        out["xattn"] = _unstack(tree["xattn"], G, leaf)
     return out
+
+
+def _unstack(tree: Dict[str, Any], n: int, leaf) -> List[Dict[str, Any]]:
+    """A tree whose leaves stack ``n`` layers on axis 0 as a list of
+    ``n`` per-layer trees."""
+    return [_tree(tree, lambda a, g=g: leaf(np.asarray(a)[g]))
+            for g in range(n)]
 
 
 def _group_layers(group: Dict[str, Any], cfg: ArchConfig) -> List[dict]:
@@ -93,7 +107,9 @@ def caches_from_numpy(tree: Any, cfg: ArchConfig,
     the groups on axis 0 (deeper stacks).  A hybrid group is ``{"ssm":
     states stacked over its Mamba2 layers, "attn": K/V}`` in either form.
     Native K/V, int8 and fp8 codes (by bit view), fp32 scale leaves and
-    SSM states all carry over bit-exactly."""
+    SSM states all carry over bit-exactly.  An encoder-decoder's caches
+    are its decoder layers' self-attention K/V, as a dense stack's (the
+    cross-attention keeps no cache)."""
     _require_ported(cfg)
     n = num_groups(cfg)
     if isinstance(tree, dict):

@@ -1,8 +1,9 @@
-"""Multi-tenant server, dense, MoE, SSM and hybrid families (port of
+"""Multi-tenant server, every model family (port of
 src/repro/launch/serve.py::MultiTenantServer and its ``main`` CLI).
 
-Several LM tenants (dense decoders, MoE decoders, Mamba2 stacks and
-Zamba2-style hybrids, mixed in one pool or not) share one device.  Each
+Several LM tenants (dense decoders, MoE decoders, Mamba2 stacks,
+Zamba2-style hybrids, Whisper-style encoder-decoders and LLaVA-style
+VLMs, mixed in one pool or not) share one device.  Each
 tenant's FFN block is a small
 :class:`~repro_torch.core.types.ModelGraph` mapped by the CaMDN
 core (LWM tile candidates per usage limit plus the fused-block LBM
@@ -34,7 +35,16 @@ ssd_chunk; its reservation prices both; and, its state being
 cumulative, its prefix entry is registered at full length only.  Every
 loop over a tenant's caches decides per leaf, by the leaf's name
 (``KV_LEAVES`` have a time axis, the recurrent ``conv`` / ``ssm`` do
-not), never by family.
+not), never by family.  An encoder-decoder tenant holds a fixed encoder
+output ``enc`` [batch, enc_len, d_model], zeros in the compute dtype
+(the reference's frontend is a stub), allocated once at admission on
+the server's device and freed at departure; its decode items and prompt
+chunks pass it to every cross-attention, and its graphs bind it like
+the tenant's other buffers (a bucket passes its tenants' own ``enc``
+buffers, unstacked).  Its KV stays native and it never takes part in
+prefix dedup, as in the reference.  A VLM tenant serves its prompt
+tokens through the dense decoder, as the reference's (the patch prefix
+is a ``make_prefill`` input, not a serving one).
 
 The scheduling side is the reference's, line for line, on the copied
 core: the grant, plan and NEC traces of a scenario equal the
@@ -140,7 +150,8 @@ KV checkpoints (``preempt_tenant``, ``preemption_policy``,
   ``reduced=True``, and at full width the ladder reasons about the pages
   the server will really reserve.
 
-Not ported here (raising ``NotImplementedError``): device meshes.
+Not ported here (raising ``NotImplementedError``): device meshes and the
+fleet (the CLI's ``--devices``).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU.  Without injected params / prompts the server draws params from a
@@ -192,9 +203,8 @@ from repro_torch.kernels import counters as kcount
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig, get_arch
 from repro_torch.models.ssm import CONV_K
-from repro_torch.models.transformer import (KV_LEAVES, PORTED_FAMILIES,
-                                            init_caches, num_groups,
-                                            seed_caches_in_place)
+from repro_torch.models.transformer import (KV_LEAVES, init_caches,
+                                            num_groups, seed_caches_in_place)
 from repro_torch.sim.driver import BackoffPolicy, PoissonArrivals, TenantSpec
 from repro_torch.sim.faults import FaultEvent, FaultLog, FaultPlan
 
@@ -409,6 +419,8 @@ class Tenant:
     task: TenantTask
     token: Any         # [B, 1] int64 device buffer: the next input
     #                    (feedback), valid once ``fed``
+    enc: Any = None    # encdec: [B, enc_len, d] fixed encoder output,
+    #                    built once at admission, freed at departure
     index: int = 0     # host position (scheduling)
     index_dev: Any = None  # the same position on the device (int64 [])
     log: Any = None        # [B, max_len] int64 device buffer: the token
@@ -465,7 +477,7 @@ class Tenant:
 
 
 class MultiTenantServer:
-    """Decode across dense, MoE and SSM tenants with CaMDN page
+    """Decode across tenants of every family with CaMDN page
     arbitration.
 
     The reference's constructor arguments keep their meaning.  Added:
@@ -652,9 +664,6 @@ class MultiTenantServer:
         i = spec.seed if spec.seed is not None else self._n_admitted
         self._n_admitted += 1
         cfg = self._cfg(aid)
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(f"{aid}: family {cfg.family!r} not "
-                                      f"yet ported (have {PORTED_FAMILIES})")
         pkey = spec.param_seed if spec.param_seed is not None else i
         params = (self._params_fn(cfg, pkey) if self._params_fn is not None
                   else M.init_params(cfg, pkey, self.device))
@@ -665,8 +674,11 @@ class MultiTenantServer:
                            self.mapper)
         self._align_lbm_to_vmem(tm, cfg, max(self.batch, LANE))
         task = TenantTask(tid, tm, self.cache, self.nec, self.policy)
+        enc = (torch.zeros((self.batch, cfg.enc_len, cfg.d_model),
+                           dtype=cfg.torch_dtype, device=self.device)
+               if cfg.family == "encdec" else None)
         t = Tenant(tid, cfg, params, None, self._step_fns[cfg.name], task,
-                   token=None)
+                   token=None, enc=enc)
         t.budget_left = spec.n_inferences
         if spec.qos_ms is not None:
             self.qos_targets[tid] = spec.qos_ms * 1e-3
@@ -967,7 +979,7 @@ class MultiTenantServer:
         t.caches = None
         t.prompt = None
         t.prompt_dev = None
-        t.token = t.index_dev = t.log = None
+        t.token = t.index_dev = t.log = t.enc = None
 
     def _evict_programs(self, tid: str, preempt: bool = False) -> None:
         """Drop every decode and prefill entry whose key names ``tid``,
@@ -1796,7 +1808,7 @@ class MultiTenantServer:
         pos = t.index_dev + torch.arange(chunk, device=t.index_dev.device)
         tok, _ = self._prefill_cores[t.cfg.name](
             t.params, t.caches, t.prompt_dev.index_select(1, pos),
-            t.index_dev, kv_len=kv)
+            t.index_dev, t.enc, kv_len=kv)
         self._feed(t, tok, chunk)
 
     def _prefill_fn(self, t: Tenant, chunk: int, kv: int) -> _CompiledEntry:
@@ -1856,12 +1868,14 @@ class MultiTenantServer:
             core = self._batched_cores.setdefault(
                 name, M.make_decode_epoch_batched(group[0].cfg))
             params = self._batched_params(group)
+            enc = ([g.enc for g in group] if group[0].enc is not None
+                   else None)
 
             def run() -> None:
                 toks, _ = core(params, [g.caches for g in group],
                                torch.stack([g.token for g in group]),
                                torch.stack([g.index_dev for g in group]),
-                               plan=plan, k=k, kv_len=kv)
+                               enc, plan=plan, k=k, kv_len=kv)
                 for g, tk in zip(group, toks):
                     self._feed(g, tk, k)
             return run
@@ -1869,7 +1883,7 @@ class MultiTenantServer:
         core = self._epoch_cores[name]
 
         def run() -> None:
-            toks, _ = core(t.params, t.caches, t.token, t.index_dev,
+            toks, _ = core(t.params, t.caches, t.token, t.index_dev, t.enc,
                            plan=plan, k=k, kv_len=kv)
             self._feed(t, toks, k)
         return run
@@ -2158,7 +2172,7 @@ class MultiTenantServer:
         plan = self._lower_plan(t, sched)
         t.plans.append(plan)
         kv = self._kv_len(t.index + 1)
-        nxt, _ = t.decode(t.params, t.caches, t.token, t.index_dev,
+        nxt, _ = t.decode(t.params, t.caches, t.token, t.index_dev, t.enc,
                           plan=self._dec_plan(t, plan), kv_len=kv)
         self._feed(t, nxt[:, None], 1)
         self._advance(t, 1)
@@ -2354,10 +2368,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     same flags, defaults and printed ``[serve]`` lines, on the port's
     server.  Added: ``--device`` (default ``cuda``) and ``--full-width``
     (serve the full-width configs; the reference serves the reduced
-    ones).  ``--devices`` (fleet mode) raises ``NotImplementedError``.
-    Returns the run's result.
+    ones; every family: ``--archs whisper-tiny`` or
+    ``llava-next-mistral-7b`` too).  ``--devices`` (fleet mode) raises
+    ``NotImplementedError``.  Returns the run's result.
 
         python -m repro_torch.launch.serve --full-width
+        python -m repro_torch.launch.serve --full-width \
+            --archs whisper-tiny llava-next-mistral-7b
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", nargs="+",

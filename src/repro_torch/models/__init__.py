@@ -1,1 +1,2 @@
-"""Model stack of the port (dense family in this slice)."""
+"""Model stack of the port: dense, MoE, SSM, hybrid, encoder-decoder
+and VLM families."""

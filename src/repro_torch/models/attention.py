@@ -8,9 +8,10 @@ under an attention plan: cache-free causal self-attention then runs
 through the flash-attention kernel with the plan's blocks and KV
 precision (``kernels/ops.py::attention``).  A quantized cache stores
 per-row codes and fp32 scales; the cached path dequantizes the live
-window in plain ops, as the reference's does.  Not yet ported, and
-raising ``NotImplementedError`` rather than computing something else:
-cross-attention.
+window in plain ops, as the reference's does.  Cross-attention (an
+encoder-decoder's decoder over the encoder output) is plain too: K and
+V projected from ``xattn_kv`` at every call, no RoPE, no mask and no
+cache.
 """
 from __future__ import annotations
 
@@ -92,15 +93,21 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     prefix, not max_len.  Requires cache_index + S <= kv_len.
     ``attn_plan`` (core.plan.AttnPlan) routes cache-free causal
     self-attention through the flash kernel with the plan's block sizes
-    and KV precision.
+    and KV precision.  Cross-attention: ``xattn_kv`` [B, L_enc, d] (the
+    encoder output) gives K and V, with no RoPE on q or k, no mask and
+    no cache update (the cache and plan arguments are ignored).
     """
-    if xattn_kv is not None:
-        raise NotImplementedError("cross-attention not yet ported")
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q = _split_heads(linear(params["wq"], x), H, hd)          # [B,S,H,hd]
+    if xattn_kv is not None:
+        k = _split_heads(linear(params["wk"], xattn_kv), Hkv, hd)
+        v = _split_heads(linear(params["wv"], xattn_kv), Hkv, hd)
+        bias = torch.zeros((S, k.shape[1]), dtype=torch.float32,
+                           device=x.device)
+        return _attend(params, q, k, v, bias, x.dtype), None
     k = _split_heads(linear(params["wk"], x), Hkv, hd)
     v = _split_heads(linear(params["wv"], x), Hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -138,18 +145,25 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
             ctx = ctx.transpose(1, 2).reshape(B, S, H * hd)
             return linear(params["wo"], ctx.to(x.dtype)), None
         bias = _mask_bias(S, S, causal, cfg.sliding_window, device=x.device)
+    return _attend(params, q, k, v, bias, x.dtype), new_cache
 
-    # grouped heads: fold the group dim into the contractions; fp32
-    # products and sums, as the reference's preferred_element_type
-    groups = H // Hkv
-    qg = q.reshape(B, S, Hkv, groups, hd)
+
+def _attend(params: Params, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, bias: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Plain GQA attention of q [B, S, H, hd] over k, v [B, L, Hkv, hd]
+    with an additive ``bias`` [S, L], then the output projection.  The
+    group dim is folded into the contractions; fp32 products and sums,
+    as the reference's preferred_element_type."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
     scores = scores * (hd ** -0.5) + bias
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
     ctx = torch.einsum("bkgqs,bskh->bqkgh", probs.float(),
-                       v.float()).to(x.dtype)
-    ctx = ctx.reshape(B, S, H * hd)
-    return linear(params["wo"], ctx), new_cache
+                       v.float()).to(dtype)
+    return linear(params["wo"], ctx.reshape(B, S, H * hd))
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -36,17 +36,16 @@ def mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                        torch.full_like(logits, -1e30))
 
 
-def _no_enc(enc_out) -> None:
-    if enc_out is not None:
-        raise NotImplementedError("encoder-decoder serving not yet ported")
-
-
 def make_prefill(cfg: ArchConfig, serve: bool = False):
     """One-shot prefill: ``prefill(params, {"tokens": [B, S]}, plan)`` ->
-    the last position's logits [B, V] (fp32).  ``plan`` (a
-    core.plan.KernelPlan) runs attention and FFNs (each expert's, for
-    MoE) through the kernels its grant lowered to, and Mamba2 layers at
-    its SSD chunk (through the ssd_chunk kernel, as without a plan).
+    the last position's logits [B, V] (fp32).  The batch may carry
+    ``embeds_prefix`` [B, P, d]: a VLM's patch embeddings, prepended to
+    the tokens (the last position is the last token's), or an
+    encoder-decoder's audio frames, which the encoder runs over.
+    ``plan`` (a core.plan.KernelPlan) runs attention and FFNs (each
+    expert's, for MoE) through the kernels its grant lowered to, and
+    Mamba2 layers at its SSD chunk (through the ssd_chunk kernel, as
+    without a plan).
     ``serve=True`` selects the serving semantics: drop-free MoE buckets,
     as the chunked serving prefill routes (:func:`repro_torch.models
     .transformer.prefill_chunk`).  The default keeps the dropping
@@ -77,9 +76,8 @@ def make_prefill_chunk(cfg: ArchConfig):
 
     def serve_prefill_chunk(params, caches, tokens, index,
                             enc_out=None, kv_len: Optional[int] = None):
-        _no_enc(enc_out)
         logits, caches = prefill_chunk(params, tokens, caches, index, cfg,
-                                       kv_len=kv_len)
+                                       enc_out=enc_out, kv_len=kv_len)
         return next_token(logits)[:, None], caches
     return serve_prefill_chunk
 
@@ -93,10 +91,9 @@ def make_decode_epoch(cfg: ArchConfig):
     def serve_decode_epoch(params, caches, token, index, enc_out=None,
                            plan=None, k: int = 1,
                            kv_len: Optional[int] = None):
-        _no_enc(enc_out)
         return decode_epoch(params, token, caches, index, cfg, k,
-                            next_token_fn=next_token, plan=plan,
-                            kv_len=kv_len)
+                            next_token_fn=next_token, enc_out=enc_out,
+                            plan=plan, kv_len=kv_len)
     return serve_decode_epoch
 
 
@@ -114,16 +111,19 @@ def make_decode_epoch_batched(cfg: ArchConfig):
     bf16 params are ~17 GB, and a stacked copy of a bucket would not fit
     beside the tenants on an 80 GB card.  Captured as one CUDA graph, the
     bucket still costs the host one replay.  The caches stay per tenant
-    and are updated in place, so nothing is unstacked afterwards."""
+    and are updated in place, so nothing is unstacked afterwards.
+    ``enc_out`` (an encoder-decoder's) is indexed by tenant: a list of
+    each tenant's own encoder output, or a stacked [n, B, L, d] tensor
+    as the reference's."""
     next_token = _greedy_next_token(cfg)
 
     def serve_decode_epoch_batched(params, caches, token, index,
                                    enc_out=None, plan=None, k: int = 1,
                                    kv_len: Optional[int] = None):
-        _no_enc(enc_out)
         toks = [decode_epoch(p, token[i], c, index[i], cfg, k,
-                             next_token_fn=next_token, plan=plan,
-                             kv_len=kv_len)[0]
+                             next_token_fn=next_token,
+                             enc_out=enc_out[i] if enc_out is not None
+                             else None, plan=plan, kv_len=kv_len)[0]
                 for i, (p, c) in enumerate(zip(params, caches))]
         return torch.stack(toks), caches
     return serve_decode_epoch_batched
@@ -138,8 +138,8 @@ def make_decode_step(cfg: ArchConfig):
 
     def serve_decode(params, caches, token, index, enc_out=None,
                      plan=None, kv_len: Optional[int] = None):
-        _no_enc(enc_out)
         logits, caches = decode_step(params, token, caches, index, cfg,
-                                     plan=plan, kv_len=kv_len)
+                                     enc_out=enc_out, plan=plan,
+                                     kv_len=kv_len)
         return next_token(logits), caches
     return serve_decode

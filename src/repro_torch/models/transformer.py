@@ -33,11 +33,23 @@ An MoE layer is a dense layer whose FFN is :func:`~repro_torch.models.moe
 .moe_apply`: decode takes its one-token fast path, a one-shot prefill
 and a prompt chunk its capacity buckets (drop-free where serving needs
 chunked == one-shot), and ``lm_forward`` returns the summed Switch aux
-loss.  Other families (encoder-decoder, VLM) raise
-``NotImplementedError`` until their slices are ported.
+loss.
+
+A VLM (LLaVA-style) is the dense stack; ``lm_forward``'s
+``embeds_prefix`` (the patch embeddings of the stub frontend) is
+concatenated before the token embeddings, and the logits cover both.
+An encoder-decoder (Whisper-style) stack adds ``encoder`` (a list of
+dense layers run bidirectionally over the frame embeddings, and its
+``final_norm``) and ``xattn``, one ``{ln, attn}`` cross-attention block
+per decoder layer; :func:`_layer_pairs` yields each decoder layer with
+its block.  Its decoder stream is the tokens only, and ``decode_step`` /
+``decode_epoch`` / ``prefill_chunk`` take the encoder output
+``enc_out`` [B, L_enc, d], which each layer's cross-attention projects
+to K/V at every call (no cross-attention cache, as in the reference).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
@@ -51,7 +63,7 @@ from repro_torch.models.ssm import (init_mamba2, init_ssm_state,
                                     mamba2_forward, ssd_decode_step)
 
 Caches = List[dict]
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the leaves of an attention layer's cache: [B, T, Hkv, .], time on axis 1
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 
@@ -115,6 +127,14 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
               "final_norm": init_norm(cfg.d_model, dt, gen.device)}
     if cfg.family == "hybrid":
         params["shared_attn"] = init_dense_layer(gen, cfg)
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "layers": [init_dense_layer(gen, cfg)
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": init_norm(cfg.d_model, dt, gen.device)}
+        params["xattn"] = [{"ln": init_norm(cfg.d_model, dt, gen.device),
+                            "attn": init_attention(gen, cfg)}
+                           for _ in range(num_groups(cfg))]
     return params
 
 
@@ -129,20 +149,37 @@ def _layers(params: Params, cfg: ArchConfig) -> Iterator[Params]:
         yield params["shared_attn"]
 
 
+def _layer_pairs(params: Params, cfg: ArchConfig
+                 ) -> Iterator[Tuple[Params, Optional[Params]]]:
+    """:func:`_layers`, each with its cross-attention block
+    (``params["xattn"]``: an encoder-decoder's decoder layers; None for
+    every other family)."""
+    return zip(_layers(params, cfg),
+               params.get("xattn") or itertools.repeat(None))
+
+
 # ------------------------------------------------------------- blocks --
 def _dense_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  causal: bool = True, kv_cache=None,
                  cache_index: Optional[torch.Tensor] = None,
-                 kv_len: Optional[int] = None, positions=None, plan=None,
+                 kv_len: Optional[int] = None, positions=None,
+                 xattn_kv: Optional[torch.Tensor] = None,
+                 xp: Optional[Params] = None, plan=None,
                  moe_fast: bool = True, moe_drop_free: bool = False):
-    """Attention and FFN (MoE for an MoE arch) of one layer: returns (x,
-    the updated cache, the layer's MoE aux loss, 0.0 without MoE)."""
+    """Attention, the cross-attention residual over ``xattn_kv`` where
+    ``xp`` (an encoder-decoder's decoder layer) is given, and the FFN (MoE
+    for an MoE arch) of one layer: returns (x, the updated cache, the
+    layer's MoE aux loss, 0.0 without MoE)."""
     h, new_cache = mha(p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
                        causal=causal, kv_cache=kv_cache,
                        cache_index=cache_index, kv_len=kv_len,
                        positions=positions,
                        attn_plan=plan.attn if plan is not None else None)
     x = x + h
+    if xp is not None:
+        hx, _ = mha(xp["attn"], rms_norm(xp["ln"], x, cfg.norm_eps), cfg,
+                    causal=False, xattn_kv=xattn_kv)
+        x = x + hx
     y = rms_norm(p["ln2"], x, cfg.norm_eps)
     ffn_plan = plan.ffn if plan is not None else None
     aux = 0.0
@@ -176,38 +213,61 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                plan=None,
                serve_prefill: bool = False) -> Tuple[torch.Tensor, Any]:
     """Prefill forward without a cache.  tokens: [B, S] -> (logits
-    [B, S, V] fp32, the summed MoE aux loss: an fp32 scalar for an MoE
-    arch, 0.0 otherwise).  ``plan`` (a core.plan.KernelPlan) runs every
-    dense layer's causal self-attention through the flash kernel with
-    the plan's blocks and KV precision, and its FFN (each expert's, for
-    MoE) through the kernel the grant lowered to (fused LBM or tiled
-    LWM); a Mamba2 layer runs its SSD scan at the plan's chunk.  MoE
-    layers run their capacity buckets even for one token;
-    ``serve_prefill`` makes them drop-free, as :func:`prefill_chunk`'s,
-    so the kept tokens do not depend on how a prompt is chunked.  The
-    reference's flag also unrolls its shallow-stack layer scan; the port
-    has one Python layer loop.  Patch/frame prefixes
-    (``embeds_prefix``) and rematerialisation (``remat``) are not yet
-    ported (raise)."""
+    [B, S', V] fp32, the summed MoE aux loss: an fp32 scalar for an MoE
+    arch, 0.0 otherwise).  ``embeds_prefix`` [B, P, d] (VLM patches) is
+    concatenated before the token embeddings, so S' = P + S and the
+    positions cover both; for an encoder-decoder it holds the audio
+    frames, which :func:`encode` runs over (the token embeddings where
+    it is None), and the decoder stream, so the logits, cover the tokens
+    only (S' = S).  ``plan`` (a core.plan.KernelPlan) runs every dense
+    layer's causal self-attention through the flash kernel with the
+    plan's blocks and KV precision, and its FFN (each expert's, for MoE)
+    through the kernel the grant lowered to (fused LBM or tiled LWM); a
+    Mamba2 layer runs its SSD scan at the plan's chunk.  The encoder and
+    the cross-attention run plain, as in the reference.  MoE layers run
+    their capacity buckets even for one token; ``serve_prefill`` makes
+    them drop-free, as :func:`prefill_chunk`'s, so the kept tokens do
+    not depend on how a prompt is chunked.  The reference's flag also
+    unrolls its shallow-stack layer scan; the port has one Python layer
+    loop.  Rematerialisation (``remat``, training) is not yet ported
+    (raises)."""
     _require_ported(cfg)
-    if embeds_prefix is not None:
-        raise NotImplementedError("embeds_prefix (VLM / audio prefixes) "
-                                  "not yet ported")
     if remat:
         raise NotImplementedError("remat (training) not yet ported")
     x = embed(params["embed"], tokens)
+    if embeds_prefix is not None:
+        x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encode(params, embeds_prefix if embeds_prefix is not None
+                         else x, cfg)
+        x = embed(params["embed"], tokens)     # decoder stream: tokens only
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = 0.0
-    for i, lp in enumerate(_layers(params, cfg)):
+    for i, (lp, xp) in enumerate(_layer_pairs(params, cfg)):
         if not is_attention_layer(cfg, i):
             x, _ = _ssm_block(lp, x, cfg, plan=plan)
         else:
-            x, _, a = _dense_block(lp, x, cfg, positions=positions, plan=plan,
+            x, _, a = _dense_block(lp, x, cfg, positions=positions,
+                                   xattn_kv=enc_out, xp=xp, plan=plan,
                                    moe_fast=False,
                                    moe_drop_free=serve_prefill)
             aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), aux
+
+
+def encode(params: Params, frames: torch.Tensor,
+           cfg: ArchConfig) -> torch.Tensor:
+    """The encoder-decoder's bidirectional encoder over precomputed frame
+    embeddings [B, L, d] (the stub frontend's): the ``encoder`` layers,
+    non-causal and without a plan, then its final norm.  Returns
+    [B, L, d] in the compute dtype."""
+    x = frames.to(cfg.torch_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for lp in params["encoder"]["layers"]:
+        x, _, _ = _dense_block(lp, x, cfg, causal=False, positions=positions)
+    return rms_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
 # -------------------------------------------------------------- decode --
@@ -282,11 +342,16 @@ def seed_caches_from_prefix(cfg: ArchConfig, batch: int, max_len: int,
     :func:`seed_caches_in_place` applied, so the result equals the cache
     a cold tenant holds after prefilling the same ``prefix_len`` tokens.
     ``kv_dtype`` must be the snapshot's precision.  The device defaults
-    to the snapshot's.  Encoder-decoder archs raise, as their family
-    does.  The server seeds its tenants' own buffers with
-    :func:`seed_caches_in_place` (its graphs bind them); this fresh-cache
-    form is the reference's API, kept for callers and parity tests."""
+    to the snapshot's.  Encoder-decoder and VLM archs raise
+    ``ValueError``, as the reference's (its cross-attention reads the
+    encoder, not a prompt prefix).  The server seeds its tenants' own
+    buffers with :func:`seed_caches_in_place` (its graphs bind them);
+    this fresh-cache form is the reference's API, kept for callers and
+    parity tests."""
     _require_ported(cfg)
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"prefix seeding unsupported for family "
+                         f"{cfg.family}")
     if device is None:
         device = next(iter(snapshot[0].values())).device
     fresh = init_caches(None, cfg, batch, max_len, kv_dtype=kv_dtype,
@@ -295,28 +360,31 @@ def seed_caches_from_prefix(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_step(params: Params, token: torch.Tensor, caches: Caches,
-                index: Any, cfg: ArchConfig, plan=None,
+                index: Any, cfg: ArchConfig,
+                enc_out: Optional[torch.Tensor] = None, plan=None,
                 kv_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step.  token: [B, 1] int; index: the position (a device
-    int64 scalar, or a host int).  ``plan`` (a core.plan.KernelPlan) runs
-    each dense layer's FFN through the Hopper kernel its grant lowered to
-    (a Mamba2 layer's O(1) step has no plan; a hybrid stack's shared
-    block runs it); ``kv_len`` bounds the attention read to the live
-    cache prefix (index < kv_len).  Returns (logits [B, 1, V] fp32, the
-    caches, updated in place)."""
+    int64 scalar, or a host int); ``enc_out`` [B, L_enc, d], the encoder
+    output an encoder-decoder's cross-attention reads.  ``plan`` (a
+    core.plan.KernelPlan) runs each dense layer's FFN through the Hopper
+    kernel its grant lowered to (a Mamba2 layer's O(1) step has no plan;
+    a hybrid stack's shared block runs it); ``kv_len`` bounds the
+    attention read to the live cache prefix (index < kv_len).  Returns
+    (logits [B, 1, V] fp32, the caches, updated in place)."""
     _require_ported(cfg)
     x = embed(params["embed"], token)
     index = _as_index(index, x.device)
     positions = index.reshape(1, 1)
-    for g, lp in enumerate(_layers(params, cfg)):
+    for g, (lp, xp) in enumerate(_layer_pairs(params, cfg)):
         if not is_attention_layer(cfg, g):
             x, state = _ssm_block(lp, x, cfg, state=caches[g], decode=True)
             _write_state(caches[g], state)
             continue
         x, _, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
                                cache_index=index, kv_len=kv_len,
-                               positions=positions, plan=plan)
+                               positions=positions, xattn_kv=enc_out, xp=xp,
+                               plan=plan)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), caches
 
@@ -324,20 +392,23 @@ def decode_step(params: Params, token: torch.Tensor, caches: Caches,
 def decode_epoch(params: Params, token: torch.Tensor, caches: Caches,
                  index: Any, cfg: ArchConfig, k: int, *,
                  next_token_fn: Callable[[torch.Tensor], torch.Tensor],
+                 enc_out: Optional[torch.Tensor] = None,
                  plan=None, kv_len: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Caches]:
     """K decode steps under one static plan, each output token fed back
     in (``next_token_fn(logits) -> [B]`` closes the loop).  token:
     [B, 1]; index: the start position (a device int64 scalar, or a host
-    int).  Returns (tokens [B, k], caches) and is bit-identical to k
-    sequential :func:`decode_step` calls: it is exactly that loop, with
-    nothing read back to the host."""
+    int); ``enc_out`` as :func:`decode_step`'s.  Returns (tokens [B, k],
+    caches) and is bit-identical to k sequential :func:`decode_step`
+    calls: it is exactly that loop, with nothing read back to the
+    host."""
     toks = []
     tok = token
     index = _as_index(index, token.device)
     for i in range(k):
         logits, caches = decode_step(params, tok, caches, index + i, cfg,
-                                     plan=plan, kv_len=kv_len)
+                                     enc_out=enc_out, plan=plan,
+                                     kv_len=kv_len)
         nxt = next_token_fn(logits)
         toks.append(nxt)
         tok = nxt[:, None]
@@ -345,7 +416,9 @@ def decode_epoch(params: Params, token: torch.Tensor, caches: Caches,
 
 
 def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
-                  index: Any, cfg: ArchConfig, kv_len: Optional[int] = None
+                  index: Any, cfg: ArchConfig,
+                  enc_out: Optional[torch.Tensor] = None,
+                  kv_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Caches]:
     """One cache-resuming prefill chunk: forward ``tokens`` [B, S] at
     absolute positions [index, index + S), writing their KV (or carrying
@@ -355,21 +428,22 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, caches: Caches,
     architecture's chunk, whose segmentation a chunked prefill at
     chunk-aligned boundaries preserves; an MoE layer routes through
     drop-free buckets, even for a one-token chunk): the grant decides
-    the chunk's size and NEC charge, not its numerics.  Requires index + S <=
-    max_len (and <= kv_len)."""
+    the chunk's size and NEC charge, not its numerics.  An
+    encoder-decoder's cross-attention reads ``enc_out``.  Requires
+    index + S <= max_len (and <= kv_len)."""
     _require_ported(cfg)
     x = embed(params["embed"], tokens)
     S = x.shape[1]
     index = _as_index(index, x.device)
     positions = (torch.arange(S, device=x.device)[None, :] + index)
-    for g, lp in enumerate(_layers(params, cfg)):
+    for g, (lp, xp) in enumerate(_layer_pairs(params, cfg)):
         if not is_attention_layer(cfg, g):
             x, state = _ssm_block(lp, x, cfg, state=caches[g])
             _write_state(caches[g], state)
             continue
         x, _, _ = _dense_block(lp, x, cfg, kv_cache=caches[g],
                                cache_index=index, kv_len=kv_len,
-                               positions=positions, moe_fast=False,
-                               moe_drop_free=True)
+                               positions=positions, xattn_kv=enc_out, xp=xp,
+                               moe_fast=False, moe_drop_free=True)
     x = rms_norm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return unembed(params["embed"], x), caches

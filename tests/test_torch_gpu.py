@@ -634,3 +634,83 @@ def test_capture_failure_raises():
         srv._compile(lambda: float(t.index_dev.float().sum()), ("probe",),
                      [t], 1)
     assert srv._captures == 0
+
+
+# ------------------------------------ encoder-decoder and VLM shapes --
+def _bf16_rand(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda")
+            * scale).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_hd64_encdec_shape_runs_simt():
+    """whisper-tiny's decoder prefill under a plan: causal flash attention
+    at hd 64 (B 2, 6 heads, 448 positions), bf16, which legalizes to the
+    simt tile (no wgmma tile at hd 64), against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = _bf16_rand(gen, 2, 6, 448, 64)
+    k, v = _bf16_rand(gen, 2, 6, 448, 64), _bf16_rand(gen, 2, 6, 448, 64)
+    tile = ops.legalize_attn_tile(128, 128, 64, 448,
+                                  ops.smem_limit(q.device), q.dtype)
+    assert tile.kind == "simt" and tile.hd == 64
+    before = kfa.launches_by_kind["simt"]
+    got = ops.attention(q, k, v, causal=True, block_q=128, block_kv=128)
+    assert kfa.launches_by_kind["simt"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               kfa.flash_attention_plain(q, k, v,
+                                                         True).float(),
+                               **FLASH_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_cuda_fused_ffn_encdec_decode_runs_simt():
+    """whisper-tiny's decode FFN under its LBM grant: 2 rows, d_model 384,
+    d_ff 1536, bf16, on the 8-row simt decode tile, against the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d, f = 384, 1536
+    x = _bf16_rand(gen, 2, d)
+    wg, wu = _bf16_rand(gen, d, f, scale=d ** -0.5), _bf16_rand(
+        gen, d, f, scale=d ** -0.5)
+    wd = _bf16_rand(gen, f, d, scale=f ** -0.5)
+    tile = ops.legalize_ffn_tile(128, 128, 2, ops.smem_limit(x.device),
+                                 x.dtype, d, f)
+    assert (tile.kind, tile.bs) == ("simt", 8)
+    before = kffn.launches_by_kind["simt"]
+    got = ops.fused_ffn(x, wg, wu, wd, block_s=128, block_f=128)
+    assert kffn.launches_by_kind["simt"] == before + 1
+    torch.testing.assert_close(
+        got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
+        **MATMUL_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_vlm_shape_runs_wgmma():
+    """llava-next's prefill attention: 576 patches + 1024 tokens = 1600
+    positions (ragged against the 128-row tile), causal GQA with 32 / 8
+    heads of 128, bf16, on the wgmma kernel, against the plain version;
+    a second launch is bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = _bf16_rand(gen, 2, 32, 1600, 128)
+    k, v = _bf16_rand(gen, 2, 8, 1600, 128), _bf16_rand(gen, 2, 8, 1600, 128)
+    tile = ops.legalize_attn_tile(128, 128, 128, 1600,
+                                  ops.smem_limit(q.device), q.dtype)
+    assert tile.kind == "wgmma"
+    before = kfa.launches_by_kind["wgmma"]
+    got = ops.attention(q, k, v, causal=True, block_q=128, block_kv=128)
+    assert kfa.launches_by_kind["wgmma"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               kfa.flash_attention_plain(q, k, v,
+                                                         True).float(),
+                               **FLASH_TOL["bfloat16"])
+    assert torch.equal(got, ops.attention(q, k, v, causal=True, block_q=128,
+                                          block_kv=128))

@@ -224,16 +224,13 @@ def test_kv_len_window_matches_full_read(yi):
 
 
 def test_unported_attention_paths_raise(yi):
+    """What still raises: an unknown KV precision and remat (training).
+    Cross-attention and ``embeds_prefix`` are ported
+    (tests/test_torch_encdec.py, tests/test_torch_vlm.py)."""
     _, pcfg, _, pparams = yi
-    attn = pparams["layers"][0]["attn"]
-    x = torch.zeros((1, 8, pcfg.d_model))
-    with pytest.raises(NotImplementedError):
-        PA.mha(attn, x, pcfg, xattn_kv=x)
     with pytest.raises(ValueError):
         PA.init_kv_cache(pcfg, 1, 8, kv_dtype="int4", device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="embeds_prefix"):
-        PT.lm_forward(pparams, toks, pcfg, embeds_prefix=x)
     with pytest.raises(NotImplementedError, match="remat"):
         PT.lm_forward(pparams, toks, pcfg, remat=True)
 

@@ -135,8 +135,10 @@ def test_unported_server_features_raise(option):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError):
-        PS.MultiTenantServer(["whisper-tiny"], device="cpu")
+    """Every family is served now (tests/test_torch_encdec_serve.py); what
+    still raises is the fleet, the CLI's ``--devices``."""
+    with pytest.raises(NotImplementedError, match="fleet"):
+        PS.main(["--device", "cpu", "--devices", "2"])
 
 
 def _candidates(tm):
