@@ -258,6 +258,28 @@ Phases, each printed as one JSON object with its seconds:
   (:data:`SERVE_VLM`: a resident and a 256-token arrival, the pool the
   arrival's quote and 324 pages): every decode launch of the gemv kind.
 
+* ``serve_fleet``: the fleet slice (:data:`SERVE_FLEET`).  The
+  reference's ``fleet`` entry at full width: a ``FleetServer`` of 2
+  replicas, both on the card, serves two yi-9b and two mamba2-370m
+  256-token prompt tenants arriving together (batch 1, max_len 2048,
+  epoch 8, 12 decode steps each), 2,649 pages a replica (the two
+  archs' native quotes and 324).  Gated: every tenant's params, caches
+  and buffers on its replica's device, one tenant of each arch a
+  replica, each replica's decode streams bitwise equal to a replay of
+  ``replica_scenarios()[r]`` on a fresh single-card server, and the
+  fleet's launch counts (yi-9b's decode gemv, mamba2's prompt-chunk
+  ssd_chunk) equal to the replays' sums.  Routes, per-replica tokens and
+  page utilization, the fleet's wall and each replay's are kept; then
+  one fleet round warm (the four tenants as residents, one round
+  captured, then timed and profiled: tokens/s and the device's idle
+  share), building nothing.
+* ``fleet_failover``: the reference's failover scenario at full width
+  (:data:`FLEET_FAILOVER`): three mamba2 tenants on 2 replicas, r0
+  killed at step 8: every moved tenant completes on r1 with a
+  ``recovery_s`` entry and r0 keeps no page or buffer; then again with
+  r1 killed at step 12 too, which is logged as skipped ("last live
+  replica") and raises nothing.
+
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  With no CUDA device, or without the port's sources beside this
@@ -489,6 +511,31 @@ VLM_E2E = dict(layers=4, batch=2, prompt_len=40, lwm_pages=32)
 # and the serve phase's 324 pages of headroom (no LBM candidate at full
 # width, as for yi-9b)
 SERVE_VLM = dict(batch=2, max_len=512, steps=32, arrival=ARRIVAL, headroom=324)
+# the fleet slice.  serve_fleet: the reference's `fleet` benchmark entry
+# (benchmarks/run.py:279-292: identical prompt tenants arriving together,
+# batch 1, max_len 2048, epoch_len 8, 12 decode steps, 256-token
+# prompts) at full width on one card: 2 replicas both on the card, two
+# yi-9b and two mamba2-370m tenants (~37 GB of weights; the reference's
+# 8 olmoe weight sets would not fit).  The router's ties send one of each
+# arch to each replica, so a replica's pool is the two archs' native
+# quotes of one prompt and `headroom` pages, serve's 324 (the LBM grant
+# at 128 rows its pool leaves room for).  `steps` bounds the run (the
+# budgets end it).  A warm round: a fleet of the same four tenants as
+# residents on the same weights, `epoch_len` steps a run() (one fleet
+# round), captured once, then timed and profiled
+SERVE_FLEET = dict(archs=("yi-9b", "yi-9b", SSM_ARCH, SSM_ARCH), replicas=2,
+                   batch=1, max_len=2048, epoch_len=8, prompt_len=256,
+                   n_inferences=12, steps=24, headroom=324)
+# fleet_failover: the reference's failover scenario (benchmarks/run.py:
+# 414-422, tests/test_faults.py::test_replica_kill_fails_over_to_survivors
+# and ::test_kill_last_live_replica_is_refused) at full width: 2
+# replicas on the card, three mamba2-370m tenants with 32-token prompts
+# and 24-step budgets arriving at 0, 1 and 2 s, r0 killed at step 8;
+# then the same with r1 killed at step 12 too (refused: the last live
+# replica).  A replica's pool holds the three native quotes
+FLEET_FAILOVER = dict(arch=SSM_ARCH, tenants=3, prompt_len=32, n_inferences=24,
+                      batch=1, max_len=128, epoch_len=4, steps=24,
+                      kill=(8, "r0"), last_kill=(12, "r1"))
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -4205,6 +4252,284 @@ def serve_vlm_main_path(cfg, dev, counters):
                            pages=pages, steps=sv["steps"], arrival=arrival)
 
 
+# ------------------------------------------------------------- fleet --
+def _fleet_devices(dev, n: int):
+    """``n`` replicas on one device: the CLI's placement rule (replica r
+    on card r % device_count) on a one-card machine."""
+    import torch
+    d = torch.device(dev)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return [d] * n
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _tensors(x)
+    elif tree is not None:
+        yield tree
+
+
+def _misplaced(fleet):
+    """Live tenants with a param, cache or buffer (feedback token,
+    position, log, prompt, ``enc``) off their replica's device."""
+    bad = []
+    for srv in fleet.replicas:
+        for t in srv.tenants:
+            devs = {x.device for x in _tensors([
+                t.params, t.caches, t.token, t.index_dev, t.log, t.enc,
+                t.prompt_dev])}
+            if devs != {srv.device}:
+                bad.append((t.tid, srv.replica, sorted(map(str, devs))))
+    return bad
+
+
+def serve_fleet_pages(archs) -> int:
+    """serve_fleet's pages a replica: the native quotes of one prompt of
+    each arch (the router sends one tenant of each to each replica) and
+    the headroom."""
+    from repro_torch.launch.serve import _kv_reserve_pages
+    from repro_torch.models.base import get_arch
+    sf = SERVE_FLEET
+    return sf["headroom"] + sum(
+        _kv_reserve_pages(get_arch(a), sf["batch"], sf["prompt_len"])
+        for a in sorted(set(archs)))
+
+
+def fleet_failover_pages(arch) -> int:
+    """fleet_failover's pages a replica: every tenant's native quote, so
+    the survivor holds them all."""
+    from repro_torch.launch.serve import _kv_reserve_pages
+    from repro_torch.models.base import get_arch
+    ff = FLEET_FAILOVER
+    return ff["tenants"] * _kv_reserve_pages(get_arch(arch), ff["batch"],
+                                             ff["prompt_len"])
+
+
+def serve_fleet_main_path(dev, counters, archs=None, kinds: bool = True):
+    """The fleet slice's main path (:data:`SERVE_FLEET`): a
+    ``FleetServer`` of two replicas on one card serving two yi-9b and
+    two mamba2-370m prompt tenants at full width.  Gated: every tenant's
+    params, caches and buffers lie on its replica's device; one tenant
+    of each arch a replica; every tenant served its budget; each
+    replica's decode streams bitwise equal to a replay of its routed
+    scenario on a fresh single-card server; the fleet's launch counts
+    (zeroed just before its run, read just after, into ``counters``)
+    equal to the sum of the replays' (yi-9b's decode gemv and mamba2's
+    prompt-chunk ssd_chunk, of those kinds with ``kinds``).  Then one
+    fleet round warm: a fleet of the same tenants as residents, captured
+    in a first run of one round, then :data:`WARM_RUNS` rounds timed and
+    one profiled (device idle share); none may build a program.  ``archs``
+    replaces the full-width archs (small registered configs in tests)."""
+    import torch
+    from repro_torch.launch.serve import FleetServer, MultiTenantServer
+    from repro_torch.sim.driver import TenantSpec
+    sf = SERVE_FLEET
+    archs = tuple(archs or sf["archs"])
+    kw = dict(batch=sf["batch"], max_len=sf["max_len"],
+              epoch_len=sf["epoch_len"], reduced=False)
+    mix = sorted(set(archs))
+    pages = serve_fleet_pages(archs)
+    devices = _fleet_devices(dev, sf["replicas"])
+    params_fn = _params_memo(dev)
+    specs = [TenantSpec(a, prompt_len=sf["prompt_len"],
+                        n_inferences=sf["n_inferences"]) for a in archs]
+    torch.cuda.reset_peak_memory_stats()
+    fleet = FleetServer(devices=devices, tenants=specs,
+                        pages_per_replica=pages, params_fn=params_fn, **kw)
+    bad = _misplaced(fleet)
+    if bad:
+        raise AssertionError(f"serve_fleet: off their replica's device: {bad}")
+    routed = [sorted(s.model for s in r) for r in fleet.replica_scenarios()]
+    if routed != [mix] * sf["replicas"]:
+        raise AssertionError(f"serve_fleet: routed {routed}, want {mix} "
+                             f"a replica")
+    _zero_counters()
+    out = fleet.run(steps=sf["steps"])
+    counters.update(_counters())
+    want = (sf["batch"], 1 + sf["n_inferences"])
+    for tid, info in out["tenants"].items():
+        o = info["output"]
+        if not info["departed"] or o.shape != want or o.min() < 0:
+            raise AssertionError(f"serve_fleet {tid}: departed "
+                                 f"{info['departed']}, output {o.shape}, "
+                                 f"want {want}")
+    # each replica's routed scenario replayed alone, on the same weights
+    replays, sums = [], Counter()
+    for r, routed_specs in enumerate(fleet.replica_scenarios()):
+        solo = MultiTenantServer([], tenants=routed_specs, total_pages=pages,
+                                 device=fleet.replicas[r].device,
+                                 params_fn=params_fn, **kw)
+        ref, counts = _run_counted(solo, sf["steps"], {})
+        sums.update(counts)
+        differ = [tid for tid, info in ref["tenants"].items()
+                  if out["tenants"][tid]["replica"] != f"r{r}"
+                  or not np.array_equal(out["tenants"][tid]["output"],
+                                        info["output"])]
+        if differ or set(ref["tenants"]) != set(
+                out["replicas"][r]["tenants"]):
+            raise AssertionError(f"serve_fleet r{r}: the replay differs "
+                                 f"for {differ}")
+        replays.append({"replica": f"r{r}", "tenants": sorted(ref["tenants"]),
+                        "wall_s": ref["wall_s"],
+                        "tokens_served": ref["tokens_served"],
+                        "tokens_per_s": ref["tokens_per_s"],
+                        "launches": _kind_counts(counts),
+                        "captures": ref["host"]["captures"]})
+        del solo
+        _release()
+    if ({k: v for k, v in counters.items() if v}
+            != {k: v for k, v in sums.items() if v}):
+        raise AssertionError(f"serve_fleet: fleet launches {counters}, the "
+                             f"replays' {dict(sums)}")
+    _launched(counters, "serve_fleet", "ssd_chunk")
+    if kinds:
+        # at reduced widths LBM may be granted instead: no cache_matmul
+        _launched(counters, "serve_fleet", "cache_matmul")
+        _gate_kinds(counters, "serve_fleet", ("gemv",), ssd=("wgmma",))
+    res = {"archs": list(archs), "replicas": sf["replicas"],
+           "devices": [str(d) for d in devices],
+           "pages_per_replica": pages,
+           "routes": out["routes"], "per_replica": out["replicas"],
+           "page_util_balance": out["page_util_balance"],
+           "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
+           "tokens_per_s": out["tokens_per_s"], "p95_ttft_s": out["p95_ttft_s"],
+           "ttft_s": {tid: info["ttft_s"]
+                      for tid, info in out["tenants"].items()},
+           "launches": dict(counters), "replays": replays,
+           "replay_wall_s_sum": sum(r["wall_s"] for r in replays),
+           "captures": sum(srv._captures for srv in fleet.replicas),
+           "capture_s": sum(srv._capture_s for srv in fleet.replicas),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del fleet
+    _release()
+    res["round"] = _fleet_round(archs, devices, pages, params_fn, kw)
+    params_fn.memo.clear()
+    return res
+
+
+def _fleet_round(archs, devices, pages, params_fn, kw):
+    """One fleet round warm: the tenants of ``archs`` as residents of a
+    fleet on ``devices`` (the same param seeds, so the same weights), a
+    first ``run()`` of one round (``epoch_len`` steps) capturing every
+    decode item, then :data:`WARM_RUNS` rounds timed (tokens/s) and one
+    profiled (``_profile``: device time by kernel and idle share).  The
+    positions stay inside the first 128-token window, so no warm round
+    may build a program."""
+    from repro_torch.launch.serve import FleetServer
+    from repro_torch.sim.driver import TenantSpec
+    steps = kw["epoch_len"]
+    fleet = FleetServer(devices=devices, tenants=[TenantSpec(a)
+                                                  for a in archs],
+                        pages_per_replica=pages, params_fn=params_fn, **kw)
+    cold = fleet.run(steps=steps)
+
+    def builds():
+        return [(srv._captures, srv._fused_jits.misses,
+                 srv._prefill_jits.misses) for srv in fleet.replicas]
+    built = builds()
+    warm = [fleet.run(steps=steps) for _ in range(WARM_RUNS)]
+    profile = _profile(lambda: fleet.run(steps=steps))
+    if builds() != built:
+        raise AssertionError(f"serve_fleet: a warm round built programs: "
+                             f"{built} -> {builds()}")
+    rates = sorted(o["tokens_per_s"] for o in warm)
+    med = rates[len(rates) // 2]
+    return {"steps": steps, "routes": cold["routes"],
+            "cold_tokens_per_s": cold["tokens_per_s"],
+            "cold_wall_s": cold["wall_s"],
+            "warm_tokens_per_s": [o["tokens_per_s"] for o in warm],
+            "warm_wall_s": [o["wall_s"] for o in warm],
+            "median_tokens_per_s": med,
+            "spread": (rates[-1] - rates[0]) / med if med else None,
+            "profile": profile}
+
+
+def fleet_failover_main_path(dev, counters, arch=None, kinds: bool = True):
+    """The reference's failover scenario at full width
+    (:data:`FLEET_FAILOVER`): r0 killed at step 8 moves its live tenants
+    to r1, where each re-prefills, completes its remaining budget and
+    has a ``recovery_s`` entry, while r0's tenants leave no buffer and
+    its pool is whole again; then the same fleet with r1 killed at step
+    12 too: that kill is logged as skipped ("last live replica"), every
+    tenant completes on r1, nothing raises.  ``counters`` takes both
+    runs' launches (each zeroed just before its run and read just after):
+    the prompt chunks' ssd_chunk, of the wgmma kind with ``kinds``."""
+    from repro_torch.launch.serve import FleetServer
+    from repro_torch.sim.driver import TenantSpec
+    from repro_torch.sim.faults import FaultEvent, FaultPlan
+    ff = FLEET_FAILOVER
+    arch = arch or ff["arch"]
+    pages = fleet_failover_pages(arch)
+    params_fn = _params_memo(dev)
+    runs = {}
+    for label, kills in (("kill", (ff["kill"],)),
+                         ("kill_last", (ff["kill"], ff["last_kill"]))):
+        plan = FaultPlan([FaultEvent(step=s, kind="replica_kill", target=t)
+                          for s, t in kills])
+        fleet = FleetServer(
+            devices=_fleet_devices(dev, 2), faults=plan,
+            tenants=[TenantSpec(arch, prompt_len=ff["prompt_len"],
+                                n_inferences=ff["n_inferences"],
+                                arrive_at=float(i))
+                     for i in range(ff["tenants"])],
+            pages_per_replica=pages, batch=ff["batch"], max_len=ff["max_len"],
+            epoch_len=ff["epoch_len"], reduced=False, params_fn=params_fn)
+        out, counts = _run_counted(fleet, ff["steps"], counters)
+        fo = out["failover"]
+        respecs = {f"t{s.seed}:{arch}": s
+                   for s in fleet.replica_scenarios()[1]}
+        problems = []
+        if fo["killed"] != ["r0"] or not fo["moved"]:
+            problems.append(f"killed {fo['killed']}, moved {fo['moved']}")
+        for m in fo["moved"]:
+            info = out["tenants"][m["tid"]]
+            want = (ff["batch"], 1 + respecs[m["tid"]].n_inferences)
+            if ((m["from"], m["to"], info["replica"]) != ("r0", "r1", "r1")
+                    or not info["departed"] or info["output"].shape != want
+                    or not fo["recovery_s"].get(m["tid"], 0) > 0):
+                problems.append(f"{m}: {info['replica']}, departed "
+                                f"{info['departed']}, output "
+                                f"{info['output'].shape} want {want}, "
+                                f"recovery {fo['recovery_s'].get(m['tid'])}")
+        if not all(info["departed"] for info in out["tenants"].values()):
+            problems.append("a tenant did not complete")
+        dead = fleet.replicas[0]
+        if (dead.cache.free_pages != pages
+                or any(t.caches is not None for t in dead.tenants)):
+            problems.append(f"r0 kept {pages - dead.cache.free_pages} pages "
+                            f"or buffers")
+        skipped = [r for r in out["faults"]["log"]
+                   if r["kind"] == "replica_kill" and "skipped" in r]
+        want_skipped = ([{"target": "r1", "skipped": "last live replica"}]
+                        if len(kills) > 1 else [])
+        if [{k: r[k] for k in ("target", "skipped")}
+                for r in skipped] != want_skipped:
+            problems.append(f"skipped kills {skipped}")
+        if problems:
+            raise AssertionError(f"fleet_failover {label}: {problems}")
+        _launched(counts, f"fleet_failover {label}", "ssd_chunk")
+        if kinds:
+            _gate_kinds(counts, f"fleet_failover {label}", ssd=("wgmma",))
+        runs[label] = {
+            "routes": out["routes"], "moved": fo["moved"],
+            "recovery_s": fo["recovery_s"],
+            "recovery_p95_s": fo["recovery_p95_s"],
+            "per_replica": out["replicas"],
+            "fault_log": _wall_free(out["faults"]["log"]),
+            "tokens_served": out["tokens_served"], "wall_s": out["wall_s"],
+            "tokens_per_s": out["tokens_per_s"],
+            "launches": _kind_counts(counts)}
+        del fleet
+        _release()
+    params_fn.memo.clear()
+    return {"arch": arch, "pages_per_replica": pages,
+            "launches": dict(counters), "runs": runs}
+
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -4340,6 +4665,14 @@ def main() -> int:
     _release()
     report["serve_vlm"] = _phase("serve_vlm", serve_vlm_main_path, vlm_cfg,
                                  dev, serve_vlm_counts)
+    _release()
+    serve_fleet_counts, fleet_failover_counts = {}, {}
+    report["serve_fleet"] = _phase("serve_fleet", serve_fleet_main_path, dev,
+                                   serve_fleet_counts)
+    _release()
+    report["fleet_failover"] = _phase("fleet_failover",
+                                      fleet_failover_main_path, dev,
+                                      fleet_failover_counts)
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"
@@ -4451,6 +4784,12 @@ def main() -> int:
         kernels[i][label] = {"launches": launches,
                              "max_abs_err": t["max_abs_err"],
                              **{k: t[k] for k in keys + ("kind", "simt_ms")}}
+    # the fleet phases' launches (no new kernel: each replica runs its
+    # tenants' kernels)
+    for i, name in ((0, "cache_matmul"), (5, "ssd_chunk")):
+        kernels[i]["fleet_launches"] = {
+            "serve_fleet": serve_fleet_counts[name],
+            "fleet_failover": fleet_failover_counts[name]}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(report["device"]["nvidia_smi"])

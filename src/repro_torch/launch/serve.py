@@ -1,5 +1,6 @@
-"""Multi-tenant server, every model family (port of
-src/repro/launch/serve.py::MultiTenantServer and its ``main`` CLI).
+"""Multi-tenant server, every model family, and the serving fleet (port
+of src/repro/launch/serve.py::MultiTenantServer, ``FleetServer`` and
+their ``main`` CLI).
 
 Several LM tenants (dense decoders, MoE decoders, Mamba2 stacks,
 Zamba2-style hybrids, Whisper-style encoder-decoders and LLaVA-style
@@ -150,8 +151,23 @@ KV checkpoints (``preempt_tenant``, ``preemption_policy``,
   ``reduced=True``, and at full width the ladder reasons about the pages
   the server will really reserve.
 
-Not ported here (raising ``NotImplementedError``): device meshes and the
-fleet (the CLI's ``--devices``).
+The fleet (:class:`FleetServer`, the CLI's ``--devices``) is the
+reference's: one pipelined server per replica of a
+:class:`~repro_torch.launch.mesh.ServingMesh`, each with its own control
+stack, behind least-loaded and prefix-affine routing with replica-kill
+failover.  Where it meets the card, this port deviates:
+
+* Placement.  A replica is a ``torch.device``, and replicas may share
+  one: the CLI places replica r on card ``r % torch.cuda.device_count()``
+  (every replica on the CPU under ``--device cpu``), where the reference
+  splits the host into N XLA devices.  On one card the replicas' epochs
+  run one after another on the card, each replica with its own graphs.
+* The routing probe's width.  The prefix-affinity probe draws the
+  prompt at the replicas' width through their ``prompt_fn`` (the
+  reference draws at the reduced width: the same at ``reduced=True``).
+
+Not ported here (raising ``NotImplementedError``): tensor-parallel
+replica groups (a mesh with ``tp > 1``).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU.  Without injected params / prompts the server draws params from a
@@ -168,6 +184,7 @@ tests inject the reference's params and prompts through ``params_fn`` /
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import os
@@ -187,9 +204,9 @@ from repro_torch.core.mapping import MapperConfig
 from repro_torch.core.mct import MCT, ModelMapping
 from repro_torch.core.plan import KernelPlan, lower_prefill_chunk
 from repro_torch.core.policy import (KV_PRECISION_LADDER, CamdnPolicy,
-                                     QosPreemptionPolicy, ReplicaControl,
-                                     choose_kv_dtype, price_layer_batch,
-                                     project_epoch_dram)
+                                     QosPreemptionPolicy, ReplicaAllocators,
+                                     ReplicaControl, choose_kv_dtype,
+                                     price_layer_batch, project_epoch_dram)
 from repro_torch.core.runtime import (STATE_ADMITTED, STATE_PREEMPTED,
                                       STATE_RESUMED, STATE_RUNNING,
                                       STATE_SHED, TenantModel, TenantTask)
@@ -200,12 +217,15 @@ from repro_torch.core.vmem import (LANE, PAGE_BYTES, VMEM_PAGES,
                                    lower_selection)
 from repro_torch.distributed.fault_tolerance import StragglerPolicy
 from repro_torch.kernels import counters as kcount
+from repro_torch.launch.mesh import (ServingMesh, make_serving_mesh,
+                                     replica_submeshes)
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig, get_arch
 from repro_torch.models.ssm import CONV_K
 from repro_torch.models.transformer import (KV_LEAVES, init_caches,
                                             num_groups, seed_caches_in_place)
-from repro_torch.sim.driver import BackoffPolicy, PoissonArrivals, TenantSpec
+from repro_torch.sim.driver import (BackoffPolicy, FleetScenario,
+                                    PoissonArrivals, TenantSpec)
 from repro_torch.sim.faults import FaultEvent, FaultLog, FaultPlan
 
 ParamsFn = Callable[[ArchConfig, int], Any]
@@ -484,8 +504,9 @@ class MultiTenantServer:
     ``device`` (default ``"cuda"``), ``reduced`` (the reference always
     serves ``get_arch(aid).reduced()``; False serves the full-width
     config), and the injection hooks ``params_fn(cfg, param_seed)`` and
-    ``prompt_fn(spec, admission_index, cfg, batch)``.  A device mesh
-    raises ``NotImplementedError``.
+    ``prompt_fn(spec, admission_index, cfg, batch)``.  ``device`` may be
+    a fleet replica's 1 x 1 :class:`~repro_torch.launch.mesh.ServingMesh`;
+    a larger one (``tp > 1``) raises ``NotImplementedError``.
     """
 
     def __init__(self, arch_ids: Optional[List[str]] = None, batch: int = 2,
@@ -497,7 +518,8 @@ class MultiTenantServer:
                  admission: str = "interleaved",
                  prefill_chunk: int = 2 * LANE,
                  steps_per_s: float = 1.0,
-                 device: Any = "cuda",
+                 device: Any = "cuda", replica: str = "",
+                 control: Optional[ReplicaControl] = None,
                  prefix_dedup: bool = False,
                  kv_dtype: str = "native",
                  batch_sched: bool = True,
@@ -515,12 +537,17 @@ class MultiTenantServer:
                  prompt_fn: Optional[PromptFn] = None):
         if admission not in ("interleaved", "sequential"):
             raise ValueError(f"admission {admission!r}")
-        if not isinstance(device, (str, torch.device)):
-            raise NotImplementedError("device meshes not yet ported")
+        if isinstance(device, ServingMesh):
+            # a fleet replica's (1, tp) submesh: one device at tp = 1
+            if device.devices.size != 1:
+                raise NotImplementedError(
+                    "tensor-parallel replica groups (tp > 1) not yet ported")
+            device = device.devices.flat[0]
         if kv_dtype not in KV_PRECISION_LADDER + ("auto",):
             raise ValueError(f"kv_dtype {kv_dtype!r}: want one of "
                              f"{KV_PRECISION_LADDER + ('auto',)}")
         self.device = torch.device(device)
+        self.replica = replica
         self.reduced = bool(reduced)
         self.aot_warmup = bool(aot_warmup)
         self._params_fn = params_fn
@@ -535,8 +562,10 @@ class MultiTenantServer:
         self.admission = admission
         self.prefill_block = max(LANE, int(prefill_chunk))
         self.steps_per_s = steps_per_s
-        self.control = ReplicaControl.build(
-            "solo", CacheConfig(
+        # the page pool, NEC ledger, allocator and prefix index: a fleet
+        # replica's from the fleet's registry, else a private stack
+        self.control = control or ReplicaControl.build(
+            replica or "solo", CacheConfig(
                 total_bytes=total_pages * PAGE_BYTES,
                 num_slices=1, num_ways=1, npu_ways=1,
                 page_bytes=PAGE_BYTES))
@@ -639,11 +668,40 @@ class MultiTenantServer:
             self._queue.append([spec, None, step])
         self._queue.sort(key=lambda it: it[2])
 
+    # -------------------------------------------------- fleet feedback --
+    def load(self) -> int:
+        """Router load metric: pages granted out of this replica's pool
+        (decode / prefill grants plus the long-lived KV reservations)
+        plus the prefill chunks still queued, read by the fleet's
+        least-loaded admission layer every routing round."""
+        used = self.cache.config.num_pages - self.cache.free_pages
+        chunks = sum(ceil_div(t.prompt_len - t.pf_pos, self.prefill_block)
+                     for t in self.tenants
+                     if not t.departed and t.prefilling)
+        return used + chunks
+
     def active_count(self) -> int:
         return sum(1 for t in self.tenants if not t.departed)
 
     def page_utilization(self) -> float:
         return self.control.utilization
+
+    def admit_routed(self, spec: TenantSpec,
+                     due_wall: Optional[float] = None) -> Tenant:
+        """Fleet admission: the router hands a due spec straight to this
+        replica, bypassing the local arrival queue (the fleet's clock
+        owns arrival timing)."""
+        with self._on_device():
+            return self._admit_spec(spec, due_wall)
+
+    def _on_device(self):
+        """This server's card as the current device (nothing on the CPU):
+        the kernels launch, the graphs capture and replay and the CUDA
+        events record on the current device's stream, so a fleet whose
+        replicas sit on other cards switches to each in turn."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.device)
 
     # ------------------------------------------------------- admission --
     def _to_device(self, tokens: np.ndarray) -> torch.Tensor:
@@ -673,7 +731,8 @@ class MultiTenantServer:
         tm = _tenant_model(_ffn_graph(aid, cfg, seq_block=self.batch),
                            self.mapper)
         self._align_lbm_to_vmem(tm, cfg, max(self.batch, LANE))
-        task = TenantTask(tid, tm, self.cache, self.nec, self.policy)
+        task = TenantTask(tid, tm, self.cache, self.nec, self.policy,
+                          replica=self.replica)
         enc = (torch.zeros((self.batch, cfg.enc_len, cfg.d_model),
                            dtype=cfg.torch_dtype, device=self.device)
                if cfg.family == "encdec" else None)
@@ -706,7 +765,7 @@ class MultiTenantServer:
                                 self.mapper)
             self._align_lbm_to_vmem(ptm, cfg, max(pf_block, LANE))
             t.ptask = TenantTask(tid + "/pf", ptm, self.cache, self.nec,
-                                 self.policy)
+                                 self.policy, replica=self.replica)
             want = _kv_reserve_pages(cfg, self.batch, spec.prompt_len,
                                      t.kv_dtype)
             t.kv_wanted = want
@@ -1676,7 +1735,8 @@ class MultiTenantServer:
         t0 = time.perf_counter()
         a0 = self._admit_wall
         try:
-            return self._plan_epoch_inner(now, steps)
+            with self._on_device():
+                return self._plan_epoch_inner(now, steps)
         finally:
             adm = self._admit_wall - a0
             self._sched_walls.append(time.perf_counter() - t0 - adm)
@@ -2136,7 +2196,8 @@ class MultiTenantServer:
         t0 = time.perf_counter()
         m0 = self.compile_misses()
         try:
-            self._dispatch_epoch_inner(work)
+            with self._on_device():
+                self._dispatch_epoch_inner(work)
         finally:
             self._device_walls.append(time.perf_counter() - t0)
             self._epoch_compiles.append(self.compile_misses() - m0)
@@ -2217,6 +2278,10 @@ class MultiTenantServer:
         self._run_tokens_before = sum(t.tokens_served for t in self.tenants)
 
     def run(self, steps: int = 16) -> Dict[str, Any]:
+        with self._on_device():
+            return self._run(steps)
+
+    def _run(self, steps: int) -> Dict[str, Any]:
         self._begin_run(steps)
         t0 = self._run_t0
         if self.pipeline:
@@ -2363,18 +2428,391 @@ class MultiTenantServer:
         }
 
 
+class FleetServer:
+    """Multi-tenant serving over a :class:`ServingMesh` (port of
+    src/repro/launch/serve.py::FleetServer, decision for decision): one
+    epoch-pipelined :class:`MultiTenantServer` per replica, each with its
+    own CaMDN control stack (:class:`ReplicaAllocators`: no page pool,
+    NEC ledger, allocator profile or prefix index is shared between
+    replicas), behind a global admission layer.
+
+    * Topology: an ``(n_replicas, tp)`` mesh from
+      :func:`~repro_torch.launch.mesh.make_serving_mesh` over
+      ``devices`` (default: every visible CUDA device).  Replica ``r``
+      serves on ``replica_devices(mesh)[r]``: every tenant's params,
+      caches and buffers are allocated there, so its programs run there.
+      Replicas may share a device (``devices=["cuda:0", "cuda:0"]``).
+      ``tp > 1`` raises ``NotImplementedError``.
+    * Routing: prefix match first (longest resident prompt prefix in a
+      replica's index), then load (pages granted out of the replica's
+      pool plus its queued prefill chunks), then active tenants, then
+      replica index.  The routed spec's ``seed`` is pinned to the global
+      admission index, so params, prompt and tid do not depend on the
+      route.
+    * Lockstep epochs: every live replica plans one epoch per fleet
+      round, then all are dispatched back to back; nothing in the round
+      waits for the device beyond the replicas' own TTFT stamps, so on
+      one card replica ``r + 1``'s host scheduling overlaps replica
+      ``r``'s replays.  Idle gaps fast-forward every clock together.
+    * Failover: ``replica_kill`` (a fault event, or :meth:`kill_replica`)
+      re-routes a dead replica's live tenants onto the survivors with
+      their remaining budgets.
+    * Contract: replaying ``replica_scenarios()[r]`` on a fresh
+      single-device server reproduces replica ``r``'s decode streams
+      bit for bit.
+
+    Added to the reference's arguments, and passed to every replica:
+    ``devices``, ``reduced``, ``params_fn`` and ``prompt_fn`` (see
+    :class:`MultiTenantServer`).
+    """
+
+    def __init__(self, n_replicas: Optional[int] = None, tp: int = 1,
+                 mesh: Optional[ServingMesh] = None,
+                 arch_ids: Optional[List[str]] = None,
+                 batch: int = 2, max_len: int = 128,
+                 pages_per_replica: int = VMEM_PAGES, epoch_len: int = 8,
+                 tenants: Optional[List[TenantSpec]] = None,
+                 arrivals: Optional[PoissonArrivals] = None,
+                 prefill_chunk: int = 2 * LANE, steps_per_s: float = 1.0,
+                 qos_targets: Optional[Dict[str, float]] = None,
+                 prefix_dedup: bool = False, kv_dtype: str = "native",
+                 faults: Optional[FaultPlan] = None,
+                 devices: Optional[List[Any]] = None,
+                 reduced: bool = True,
+                 params_fn: Optional[ParamsFn] = None,
+                 prompt_fn: Optional[PromptFn] = None):
+        if mesh is None:
+            mesh = make_serving_mesh(n_replicas, tp=tp, devices=devices)
+        self.mesh = mesh
+        self.n_replicas = int(mesh.devices.shape[0])
+        self.tp = int(mesh.devices.shape[1])
+        self.epoch_len = max(1, int(epoch_len))
+        self.steps_per_s = steps_per_s
+        self.prefix_dedup = bool(prefix_dedup)
+        self.registry = ReplicaAllocators(CacheConfig(
+            total_bytes=pages_per_replica * PAGE_BYTES,
+            num_slices=1, num_ways=1, npu_ways=1, page_bytes=PAGE_BYTES))
+        subs = replica_submeshes(mesh)
+        self.replicas = [
+            MultiTenantServer([], batch=batch, max_len=max_len,
+                              epoch_len=self.epoch_len, pipeline=True,
+                              admission="interleaved",
+                              prefill_chunk=prefill_chunk,
+                              steps_per_s=steps_per_s,
+                              qos_targets=dict(qos_targets or {}),
+                              device=subs[r], replica=f"r{r}",
+                              control=self.registry.get(f"r{r}"),
+                              prefix_dedup=prefix_dedup,
+                              kv_dtype=kv_dtype, reduced=reduced,
+                              params_fn=params_fn, prompt_fn=prompt_fn)
+            for r in range(self.n_replicas)]
+        self._clock = 0               # lockstep with every replica clock
+        self._n_admitted = 0          # global admission index -> seeds
+        # fleet-level fault injection: replica_kill is handled here
+        # (failover re-routing); every other kind is forwarded to the
+        # target replica's own inject()
+        self.faults = faults
+        self.fault_log = FaultLog()
+        self._dead: set = set()       # replica indices that have failed
+        self._moved: List[Dict[str, Any]] = []   # failover re-routes
+        self.scenario = FleetScenario(
+            self.n_replicas, [[] for _ in range(self.n_replicas)])
+        self._util_samples: List[List[float]] = [
+            [] for _ in range(self.n_replicas)]
+        self._queue: List[List] = []
+        specs: List[TenantSpec] = [TenantSpec(a) for a in (arch_ids or [])]
+        specs += list(tenants or [])
+        if arrivals is not None:
+            specs += arrivals.specs()
+        specs.sort(key=lambda s: s.arrive_at)
+        now = time.time()
+        for spec in specs:
+            if spec.arrive_at <= 0.0:
+                self._route(spec, now)
+            else:
+                step = int(math.ceil(spec.arrive_at * steps_per_s))
+                self._queue.append([spec, None, step])
+        self._queue.sort(key=lambda it: it[2])
+
+    def enqueue(self, specs: List[TenantSpec]) -> None:
+        """Queue arrivals relative to the current fleet clock."""
+        for spec in sorted(specs, key=lambda s: s.arrive_at):
+            step = self._clock + int(math.ceil(spec.arrive_at
+                                               * self.steps_per_s))
+            self._queue.append([spec, None, step])
+        self._queue.sort(key=lambda it: it[2])
+
+    # ---------------------------------------------------------- routing --
+    def _match_lens(self, spec: TenantSpec) -> List[int]:
+        """Prefix-affinity probe: the longest resident prefix each
+        replica's index holds for this spec's prompt (0 everywhere when
+        the spec is not dedup-eligible); probes touch no counter and no
+        LRU stamp.  The probe prompt is drawn at the replicas' width
+        through their ``prompt_fn``, so it is the prompt the replica
+        would admit (the reference draws at the reduced width: the same
+        at ``reduced=True``)."""
+        none = [0] * self.n_replicas
+        srv0 = self.replicas[0]
+        if not (self.prefix_dedup and spec.param_seed is not None
+                and spec.prompt_seed is not None and spec.prompt_len > 0):
+            return none
+        aid = spec.model if isinstance(spec.model, str) else spec.model.name
+        cfg = srv0._cfg(aid)
+        if cfg.family == "encdec":
+            return none
+        # session prompts do not depend on the admission index
+        prompt = np.asarray(srv0._prompt_fn(spec, 0, cfg, srv0.batch),
+                            np.int32)
+        cands = _prefix_candidates(prompt, spec.prompt_len,
+                                   srv0._chunk_align(cfg))
+        # probe under the key a fixed-precision replica registers with;
+        # "auto" probes the native rung
+        return [srv.control.prefix.match_len(
+                    cfg.name,
+                    _params_key(spec, srv.kv_dtype
+                                if srv.kv_dtype != "auto" else "native"),
+                    cands)
+                for srv in self.replicas]
+
+    def _route(self, spec: TenantSpec, due_wall: Optional[float]) -> int:
+        """Admit one due spec: the replica holding the longest matching
+        prompt prefix, then the least loaded, then the fewest active
+        tenants, then the lowest index."""
+        match = self._match_lens(spec)
+        loads = [(-match[r], srv.load(), srv.active_count(), r)
+                 for r, srv in enumerate(self.replicas)
+                 if r not in self._dead]
+        assert loads, "no live replica to route to"
+        _, _, _, r = min(loads)
+        routed = dataclasses.replace(
+            spec,
+            seed=self._n_admitted if spec.seed is None else spec.seed,
+            arrive_at=self._clock / self.steps_per_s)
+        self._n_admitted += 1
+        t = self.replicas[r].admit_routed(routed, due_wall)
+        self.scenario.per_replica[r].append(routed)
+        self.scenario.routes.append((t.tid, r))
+        return r
+
+    def _route_due(self) -> None:
+        now = time.time()
+        for item in self._queue:
+            if item[1] is None and item[2] <= self._clock:
+                item[1] = now   # TTFT clock: the request exists from here
+        while self._queue and self._queue[0][2] <= self._clock:
+            spec, due_wall, _ = self._queue.pop(0)
+            self._route(spec, due_wall)
+
+    # ----------------------------------------------------- fault paths --
+    def kill_replica(self, r: int) -> List[str]:
+        """Fail replica ``r`` at an epoch boundary: the router stops
+        offering it, and its live tenants' specs (tid-pinned by their
+        seeds) re-route onto the survivors with their remaining decode
+        budgets, re-prefilling there (warm where a survivor's index holds
+        the prompt prefix).  A moved tenant's recovery is its TTFT on
+        the survivor, clocked from the kill.  Each dead tenant departs
+        through ``_depart``, which evicts its programs before its device
+        buffers go back to the allocator (the survivors' too, when the
+        replicas share a device).  Returns the moved tids; killing the
+        last live replica is refused (logged, not raised)."""
+        if r in self._dead:
+            return []
+        if len(self._dead) + 1 >= self.n_replicas:
+            self.fault_log.record(self._clock, "replica_kill",
+                                  target=f"r{r}", skipped="last live replica")
+            return []
+        self._dead.add(r)
+        kill_wall = time.time()
+        srv = self.replicas[r]
+        by_tid: Dict[str, TenantSpec] = {}
+        for spec in self.scenario.per_replica[r]:
+            aid = (spec.model if isinstance(spec.model, str)
+                   else spec.model.name)
+            by_tid[f"t{spec.seed}:{aid}"] = spec
+        moved: List[str] = []
+        for t in list(srv.tenants):
+            if t.departed:
+                continue
+            left = t.budget_left       # None = unbounded resident tenant
+            spec = by_tid.get(t.tid)
+            srv._depart(t)
+            if spec is None or (left is not None and left <= 0):
+                continue
+            respec = spec if left is None else dataclasses.replace(
+                spec, n_inferences=left)
+            r_new = self._route(respec, kill_wall)
+            moved.append(t.tid)
+            self._moved.append({"tid": t.tid, "from": f"r{r}",
+                                "to": f"r{r_new}", "step": self._clock})
+        self.fault_log.record(self._clock, "replica_kill",
+                              target=f"r{r}", moved=moved)
+        return moved
+
+    def _apply_fleet_faults(self, steps: int) -> None:
+        """Consume due fault events on the fleet clock: ``replica_kill``
+        here, every other kind forwarded to its target replica (by "rN"
+        target, by the replica owning a tenant-id target, else the
+        lowest-index live replica)."""
+        if self.faults is None:
+            return
+        live = lambda: sorted(set(range(self.n_replicas)) - self._dead)
+        for e in self.faults.due(self._clock):
+            if e.kind == "replica_kill":
+                tgt = e.target
+                rid = (int(tgt[1:]) if tgt and tgt.startswith("r")
+                       and tgt[1:].isdigit() else (live() or [None])[0])
+                if rid is not None:
+                    self.kill_replica(rid)
+                continue
+            rid = None
+            if e.target and e.target.startswith("r") \
+                    and e.target[1:].isdigit():
+                rid = int(e.target[1:])
+            elif e.target:   # tenant id: find the replica that owns it
+                for i in live():
+                    if any(t.tid == e.target and not t.departed
+                           for t in self.replicas[i].tenants):
+                        rid = i
+                        break
+            if rid is None:
+                rid = (live() or [None])[0]
+            if rid is not None and rid not in self._dead:
+                self.replicas[rid].inject(e, steps)
+
+    def replica_scenarios(self) -> List[List[TenantSpec]]:
+        """The routed specs per replica (seeds pinned to the global
+        admission index, ``arrive_at`` rebased to the admitting clock)."""
+        return [list(s) for s in self.scenario.per_replica]
+
+    # -------------------------------------------------------------- run --
+    def run(self, steps: int = 16) -> Dict[str, Any]:
+        t0 = time.time()
+        for srv in self.replicas:
+            srv._begin_run(steps)
+        self._apply_fleet_faults(steps)
+        self._route_due()
+        pendings = [None if r in self._dead else srv._plan_epoch(0.0, steps)
+                    for r, srv in enumerate(self.replicas)]
+        self._clock += self.epoch_len
+        while any(pendings) or self._queue:
+            # every replica's epoch back to back, all asynchronous
+            for srv, p in zip(self.replicas, pendings):
+                if p:
+                    srv._dispatch_epoch(p)
+            for r, srv in enumerate(self.replicas):
+                self._util_samples[r].append(
+                    0.0 if r in self._dead else srv.page_utilization())
+            if not any(pendings) and self._queue:
+                nxt = self._queue[0][2]
+                if self.faults is not None:
+                    f = self.faults.peek_step()
+                    if f is not None and self._clock < f < nxt:
+                        nxt = f   # a fault lands in the idle gap first
+                if nxt > self._clock:   # fleet-wide idle gap: fast-forward
+                    self._clock = nxt
+                    for srv in self.replicas:
+                        srv._clock = max(srv._clock, nxt)
+            # kills land here, after the dispatched epoch and before the
+            # next is planned: every tenant is at an epoch boundary
+            self._apply_fleet_faults(steps)
+            self._route_due()
+            now = time.time() - t0
+            pendings = [None if r in self._dead
+                        else srv._plan_epoch(now, steps)
+                        for r, srv in enumerate(self.replicas)]
+            self._clock += self.epoch_len
+        results = [srv._finish_run() for srv in self.replicas]
+        return self._merge(results, time.time() - t0)
+
+    def _merge(self, results: List[Dict[str, Any]],
+               wall: float) -> Dict[str, Any]:
+        tenants: Dict[str, Any] = {}
+        replicas: List[Dict[str, Any]] = []
+        ttfts: List[float] = []
+        total = 0
+        # dead replicas merge first, so a failed-over tenant's tid lands
+        # on its survivor's entry
+        order = sorted(range(self.n_replicas),
+                       key=lambda r: (0 if r in self._dead else 1, r))
+        for r in order:
+            for tid, info in results[r]["tenants"].items():
+                info = dict(info)
+                info["replica"] = f"r{r}"
+                tenants[tid] = info
+        for r, (srv, res) in enumerate(zip(self.replicas, results)):
+            total += res["tokens_served"]
+            util = self._util_samples[r]
+            replicas.append({
+                "replica": f"r{r}",
+                "dead": r in self._dead,
+                "tokens_served": res["tokens_served"],
+                "dram_bytes": res["dram_bytes"],
+                "page_util_mean": float(np.mean(util)) if util else 0.0,
+                "tenants": sorted(res["tenants"]),
+            })
+            ttfts += [t.ttft for t in srv.tenants
+                      if t.ttft is not None and t.admitted_wall is not None
+                      and t.admitted_wall >= srv._run_t0]
+        # balance over survivors: a dead replica's idle pool is a fault
+        # outcome, not a routing imbalance
+        utils = [rep["page_util_mean"] for rep in replicas
+                 if not rep["dead"]]
+        balance = min(utils) / max(utils) if utils and max(utils) > 0 else 1.0
+        # recovery: the survivor's TTFT, clocked from the kill
+        recov: Dict[str, float] = {}
+        for m in self._moved:
+            info = tenants.get(m["tid"])
+            if info is not None and info.get("ttft_s") is not None \
+                    and info["replica"] == m["to"]:
+                recov[m["tid"]] = float(info["ttft_s"])
+        return {
+            "tenants": tenants,
+            "mode": "fleet",
+            "n_replicas": self.n_replicas,
+            "tp": self.tp,
+            "epoch_len": self.epoch_len,
+            "wall_s": wall,
+            "tokens_served": total,
+            "tokens_per_s": total / wall if wall > 0 else 0.0,
+            "dram_bytes": sum(rep["dram_bytes"] for rep in replicas),
+            "p95_ttft_s": (float(np.percentile(ttfts, 95)) if ttfts
+                           else None),
+            "replicas": replicas,
+            "routes": list(self.scenario.routes),
+            "page_util_balance": balance,
+            "failover": {
+                "killed": sorted(f"r{r}" for r in self._dead),
+                "moved": list(self._moved),
+                "recovery_s": recov,
+                "recovery_p95_s": (float(np.percentile(
+                    list(recov.values()), 95)) if recov else None),
+            },
+            "faults": {
+                "counts": self.fault_log.counts(),
+                "log": list(self.fault_log.records),
+                "replica_counts": [res["faults"]["counts"]
+                                   for res in results],
+            },
+        }
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """The reference's serving CLI (src/repro/launch/serve.py::main): the
-    same flags, defaults and printed ``[serve]`` lines, on the port's
-    server.  Added: ``--device`` (default ``cuda``) and ``--full-width``
-    (serve the full-width configs; the reference serves the reduced
-    ones; every family: ``--archs whisper-tiny`` or
-    ``llava-next-mistral-7b`` too).  ``--devices`` (fleet mode) raises
-    ``NotImplementedError``.  Returns the run's result.
+    same flags, defaults and printed ``[serve]`` / ``[fleet]`` lines, on
+    the port's servers.  Added: ``--device`` (default ``cuda``) and
+    ``--full-width`` (serve the full-width configs; the reference serves
+    the reduced ones; every family: ``--archs whisper-tiny`` or
+    ``llava-next-mistral-7b`` too).  ``--devices N`` serves a fleet of N
+    replicas: replica r on card ``r % torch.cuda.device_count()`` of
+    ``--device``'s type (or on the CPU under ``--device cpu``), each
+    placement printed as ``[fleet] rN on cuda:K``; the reference splits
+    the host into N XLA devices instead.  Returns the run's result (the
+    fleet's merged result with ``--devices``).
 
         python -m repro_torch.launch.serve --full-width
         python -m repro_torch.launch.serve --full-width \
             --archs whisper-tiny llava-next-mistral-7b
+        python -m repro_torch.launch.serve --full-width --devices 2
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", nargs="+",
@@ -2401,7 +2839,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     help="KV cache storage precision (auto: downgrade "
                          "per admission when the pool is tight)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="fleet mode (not yet ported: raises)")
+                    help="fleet mode: N replicas, replica r on card "
+                         "r %% device_count (every replica on the CPU "
+                         "under --device cpu)")
     ap.add_argument("--oracle-sched", action="store_true",
                     help="force the per-tenant Algorithm 1 oracle "
                          "(disable the batched epoch planner)")
@@ -2416,14 +2856,36 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--full-width", action="store_true",
                     help="serve the full-width configs (default: reduced)")
     args = ap.parse_args(argv)
-    if args.devices > 0:
-        raise NotImplementedError("fleet mode (--devices) not yet ported")
     arrivals = None
     if args.arrivals > 0:
         arrivals = PoissonArrivals(
             rate_per_s=args.arrival_rate, models=args.archs,
             n_arrivals=args.arrivals, n_inferences=args.decode_budget,
             prompt_len=args.prompt_len)
+    if args.devices > 0:
+        kind = torch.device(args.device).type
+        cards = max(1, torch.cuda.device_count())
+        devices = [torch.device(kind, r % cards) if kind == "cuda"
+                   else torch.device(kind) for r in range(args.devices)]
+        fleet = FleetServer(n_replicas=args.devices, devices=devices,
+                            arch_ids=args.archs,
+                            pages_per_replica=args.pages,
+                            epoch_len=args.epoch_len, max_len=args.max_len,
+                            arrivals=arrivals, kv_dtype=args.kv_dtype,
+                            reduced=not args.full_width)
+        for r, srv in enumerate(fleet.replicas):
+            print(f"[fleet] r{r} on {srv.device}")
+        out = fleet.run(args.steps)
+        for rep in out["replicas"]:
+            print(f"[fleet] {rep['replica']}: {rep['tokens_served']} tokens, "
+                  f"page util {rep['page_util_mean'] * 100:.0f}%, "
+                  f"tenants {rep['tenants']}")
+        p95 = (f", p95 TTFT {out['p95_ttft_s'] * 1e3:.0f}ms"
+               if out["p95_ttft_s"] is not None else "")
+        print(f"[fleet] {out['n_replicas']} replicas (tp={out['tp']}): "
+              f"{out['tokens_per_s']:.1f} tok/s observed, util balance "
+              f"{out['page_util_balance']:.2f}{p95}")
+        return out
     srv = MultiTenantServer(args.archs, total_pages=args.pages,
                             epoch_len=args.epoch_len,
                             pipeline=not args.serial,

@@ -1,13 +1,14 @@
-# Copy of TenantSpec, PoissonArrivals, BackoffPolicy and SessionArrivals
-# from src/repro/sim/driver.py (lines 53-114 and 117-182): the arrival
-# and backoff vocabulary the serving port accepts.  Only these four
-# stdlib dataclasses are taken from that module.
+# Copy of TenantSpec, PoissonArrivals, BackoffPolicy, SessionArrivals and
+# FleetScenario from src/repro/sim/driver.py (lines 53-114, 117-182 and
+# 185-198): the arrival, backoff and fleet-routing vocabulary the serving
+# port accepts.  Only these five stdlib dataclasses are taken from that
+# module.
 """Arrival vocabulary shared by the simulator and the serving path."""
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 from repro_torch.core.types import ModelGraph
 
@@ -142,3 +143,19 @@ class SessionArrivals:
                     prefix_len=self.prefix_len,
                     prefix_seed=prompt_id))
         return out
+
+
+@dataclasses.dataclass
+class FleetScenario:
+    """A fleet run reduced to its routing decisions: per-replica lists of
+    routed TenantSpecs (``seed`` pinned to the global admission index,
+    ``arrive_at`` rebased to the admitting replica's logical clock) plus
+    the route log.  Replaying ``per_replica[r]`` on a fresh single-device
+    :class:`~repro_torch.launch.serve.MultiTenantServer` must reproduce replica
+    ``r``'s decode token streams bit-identically — the fleet's
+    correctness contract, asserted by tests and the fleet benchmark."""
+    n_replicas: int
+    per_replica: List[List[TenantSpec]] = dataclasses.field(
+        default_factory=list)
+    routes: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
+

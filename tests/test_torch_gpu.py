@@ -714,3 +714,56 @@ def test_cuda_flash_vlm_shape_runs_wgmma():
                                **FLASH_TOL["bfloat16"])
     assert torch.equal(got, ops.attention(q, k, v, causal=True, block_q=128,
                                           block_kv=128))
+
+
+# -------------------------------------------------------------- fleet --
+def _fleet_archs():
+    yi = _bf16("yi-9b", "yi-9b-fleet")
+    mb = _bf16("mamba2-370m", "mamba2-fleet")
+    return yi.name, yi.name, mb.name, mb.name
+
+
+@pytest.mark.gpu
+def test_fleet_two_replicas_on_one_card_replay_bitwise():
+    """chip_smoke.py's serve_fleet at the reduced widths in bf16: two
+    replicas on cuda:0, every tenant's params, caches and buffers on it,
+    one yi-9b and one mamba2 tenant each, each replica's decode streams
+    bitwise equal to a replay of its routed scenario on a fresh server,
+    and the fleet's launch counts the replays' sums (ssd_chunk among
+    them); a warm fleet round builds nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    counts = {}
+    out = chip_smoke.serve_fleet_main_path("cuda", counts,
+                                           archs=_fleet_archs(), kinds=False)
+    assert out["devices"] == ["cuda:0", "cuda:0"]
+    assert counts["ssd_chunk"] > 0
+    assert len(out["replays"]) == 2
+    assert out["round"]["median_tokens_per_s"] > 0
+
+
+@pytest.mark.gpu
+def test_fleet_replicas_on_distinct_cards():
+    """Replica r on card r: its tenants' params, caches and buffers lie
+    there, and its decode streams replay bitwise on a fresh server on
+    the same card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    from repro_torch.launch.serve import FleetServer, MultiTenantServer
+    from repro_torch.sim.driver import TenantSpec
+    devices = [torch.device("cuda", r) for r in range(2)]
+    kw = dict(batch=1, max_len=256, epoch_len=4, reduced=False)
+    fleet = FleetServer(devices=devices, pages_per_replica=64,
+                        tenants=[TenantSpec(a, prompt_len=64, n_inferences=6)
+                                 for a in _fleet_archs()], **kw)
+    assert [srv.device for srv in fleet.replicas] == devices
+    assert chip_smoke._misplaced(fleet) == []
+    out = fleet.run(12)
+    for r, routed in enumerate(fleet.replica_scenarios()):
+        solo = MultiTenantServer([], tenants=routed, total_pages=64,
+                                 device=devices[r], **kw).run(12)
+        for tid, info in solo["tenants"].items():
+            assert out["tenants"][tid]["replica"] == f"r{r}"
+            assert (out["tenants"][tid]["output"] == info["output"]).all()

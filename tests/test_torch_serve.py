@@ -33,6 +33,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.core.allocator import Selection as PSelection
 from repro_torch.core.vmem import LANE, fused_ffn_pages
 from repro_torch.launch import serve as PS
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.base import get_arch as port_arch
 from repro_torch.sim.driver import TenantSpec as PSpec
 
@@ -128,17 +129,20 @@ def test_port_serial_and_pipelined_bit_identical(runs):
         assert s["tokens"] == p["tokens"]
 
 
-@pytest.mark.parametrize("option", [dict(device=[object()])])
+@pytest.mark.parametrize("option", [dict(device=make_serving_mesh(
+    1, tp=2, devices=["cpu"] * 2))])
 def test_unported_server_features_raise(option):
-    with pytest.raises(NotImplementedError):
+    """A replica of more than one device (tp > 1) is not ported."""
+    with pytest.raises(NotImplementedError, match="tp > 1"):
         PS.MultiTenantServer(["yi-9b"], **{"device": "cpu", **option})
 
 
 def test_unported_families_raise():
-    """Every family is served now (tests/test_torch_encdec_serve.py); what
-    still raises is the fleet, the CLI's ``--devices``."""
-    with pytest.raises(NotImplementedError, match="fleet"):
-        PS.main(["--device", "cpu", "--devices", "2"])
+    """Every family is served now (tests/test_torch_encdec_serve.py), and
+    the fleet too (tests/test_torch_fleet.py); what still raises is a
+    fleet of tensor-parallel replica groups."""
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        PS.FleetServer(n_replicas=2, tp=2, devices=["cpu"] * 4)
 
 
 def _candidates(tm):
@@ -418,5 +422,8 @@ def test_cli_prints_reference_lines(capsys):
 
 @pytest.mark.parametrize("argv", [["--devices", "2"]])
 def test_cli_unported_flags_raise(argv):
-    with pytest.raises(NotImplementedError):
-        PS.main(["--device", "cpu", "--steps", "1"] + argv)
+    """The one flag the CLI refused, ``--devices``, serves a fleet now
+    (tests/test_torch_fleet.py); what stays unported, tensor-parallel
+    replica groups, has no flag: the CLI's fleet is an (N, 1) mesh."""
+    out = PS.main(["--device", "cpu", "--steps", "1"] + argv)
+    assert (out["mode"], out["n_replicas"], out["tp"]) == ("fleet", 2, 1)

@@ -32,3 +32,15 @@ def dry_server(monkeypatch, specs, **kw):
     srv._prefill_fn = lambda *args: (lambda: None)
     srv._fused_epoch_fn = lambda item: (lambda: None)
     return srv
+
+
+def dry_fleet(monkeypatch, specs, **kw):
+    """A scheduling-only :class:`repro_torch.launch.serve.FleetServer` on
+    the CPU: every replica as ``dry_server``'s."""
+    monkeypatch.setattr(PS, "init_caches", _tiny_caches)
+    fleet = PS.FleetServer(tenants=specs, params_fn=lambda cfg, seed: None,
+                           **kw)
+    for srv in fleet.replicas:
+        srv._prefill_fn = lambda *args: (lambda: None)
+        srv._fused_epoch_fn = lambda item: (lambda: None)
+    return fleet
