@@ -9,7 +9,7 @@ Phases, each printed as one JSON object with its seconds:
   memory per block, L2).
 * ``build``: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
   (cache_matmul, cache_matmul_quant, block_fused_ffn, flash_attention,
-  ssd_chunk) with ``nvcc`` for ``sm_90a``, one compiler per source, all
+  ssd_chunk, ssd_chunk_bwd) with ``nvcc`` for ``sm_90a``, one compiler per source, all
   at once; records each gemv / wgmma kernel's registers and spills and
   each library's wgmma (HGMMA) and TMA load instructions.
 * ``kernels``: holds each kernel against its plain PyTorch version on the
@@ -280,6 +280,29 @@ Phases, each printed as one JSON object with its seconds:
   r1 killed at step 12 too, which is logged as skipped ("last live
   replica") and raises nothing.
 
+* ``train_ssm``: the training slice (:data:`TRAIN_SSM`).
+  ``repro_torch.launch.train.main`` trains full-width, full-depth
+  mamba2-370m (bf16, remat, seq 1024 = four SSD chunks of 256, batch 8)
+  for 10 steps on the card, checkpointing at 5 and 10; counters zeroed
+  just before and read just after: 96 forward ssd_chunk launches a step
+  (48 layers, again under remat; wgmma) and 48 ssd_chunk_bwd, no other
+  kernel; the loss finite and falling, no supervisor restart.  The
+  checkpoint of step 5 restored into a fresh ``build`` replays steps 5
+  and 6 with the first run's losses.  Step ms, tokens/s, model FLOP/s
+  share, peak memory, checkpoint bytes and seconds, one profiled step.
+  Gradients (:func:`train_grad_gates`): at full width cut to 2 layers
+  in fp32 against the same step with ssd_chunk and its backward swapped
+  for their plain versions, and remat on == off bitwise; at full depth
+  in bf16 relative to that plain-path control.  The kernels phase holds
+  ssd_chunk_bwd against its plain version and autograd at mamba2's,
+  zamba2's and the reduced shape, and times it at the prefill's and the
+  train step's shapes.
+* ``train_100m``: ``repro_torch.examples.train_100m --full`` (lm-100m,
+  fp32) for 40 steps with its preemption at 20 and resume.
+* ``train_cli``: ``launch/train.py::main --smoke`` for each of the six
+  families on the card, then reduced olmoe in bf16, whose expert
+  gradients come through ``models/moe.py::_dot_f32``'s bf16 bmm.
+
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  With no CUDA device, or without the port's sources beside this
@@ -536,6 +559,22 @@ SERVE_FLEET = dict(archs=("yi-9b", "yi-9b", SSM_ARCH, SSM_ARCH), replicas=2,
 FLEET_FAILOVER = dict(arch=SSM_ARCH, tenants=3, prompt_len=32, n_inferences=24,
                       batch=1, max_len=128, epoch_len=4, steps=24,
                       kill=(8, "r0"), last_kill=(12, "r1"))
+# the training slice: ssd_chunk_bwd held at full-width mamba2 (B 2,
+# 32 heads, N 128), zamba2 (80 heads, N 64) and the reduced shape, and
+# timed at the prefill's and the train step's shapes; full-width,
+# full-depth mamba2 trained through launch/train.py (seq 1024 = four
+# 256-token SSD chunks, batch 8, 10 steps, checkpoints at 5 and 10, the
+# resume from 5 replayed for RESUME_STEPS steps); its gradients held at
+# 2 layers in fp32 against the plain versions (TOL, relative to each
+# gradient's largest magnitude) and at full depth in bf16 relative to a
+# plain-path control (1 - cosine to the fp32 gradients within
+# SSM_BF16_SPREAD times the control's, or SSM_BF16_FLOOR), on GRAD_BATCH
+TRAIN_SSM = dict(steps=10, seq_len=1024, global_batch=8, ckpt_every=5,
+                 lr=3e-4)
+RESUME_STEPS = 2
+GRAD_BATCH = dict(batch=2, seq_len=1024)
+TRAIN_100M = dict(steps=40)
+TRAIN_CLI = dict(steps=6, seq_len=64, global_batch=2, lr=1e-3)
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -1294,6 +1333,144 @@ def ssd_timings(ssm_cfg, dev):
                                 ("serve_chunk", 256, 256))}
 
 
+def _ssd_bwd_plain(x, dt, A, Bm, Cm, chunk, gy, gS):
+    """ssd_chunk_bwd's plain version on the reference's broadcast B/C,
+    summed over the heads that share a row as the wrapper sums: the
+    control that stands in for the backward kernel."""
+    from repro_torch.kernels import ssd_scan as kssd
+    h = x.shape[0] // Bm.shape[0]
+    dx, ddt, dA, dB, dC = kssd.ssd_chunk_bwd_plain(
+        x, dt, A, Bm.repeat_interleave(h, 0), Cm.repeat_interleave(h, 0),
+        chunk, gy, gS)
+    G, S, N = Bm.shape
+    return (dx, ddt, dA, dB.reshape(G, h, S, N).sum(1),
+            dC.reshape(G, h, S, N).sum(1))
+
+
+def _close_scaled(got, want, tol):
+    """(max |got - want|, whether it is within ``tol`` of want's largest
+    magnitude): a gradient's long sums (the reverse cumsum of dcum, dA's
+    sum over the positions) cancel, so an element-wise bar would hold
+    its small entries to the rounding of the large ones."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err <= tol * max(float(want.float().abs().max()), 1e-6)
+
+
+def _ssd_bwd_grads(gen, b, h, s, p, n, dtype, q):
+    """:func:`_ssd_inputs` and the output gradients gy, gS (fp32)."""
+    import torch
+    ops_in = _ssd_inputs(gen, b, h, s, p, n, dtype)
+    gy = _randn(gen, (b * h, s, p), torch.float32)
+    gS = _randn(gen, (b * h, s // q, n, p), torch.float32)
+    return ops_in, gy, gS
+
+
+def ssd_bwd_cases(ssm_cfg, hybrid_cfg, dev):
+    """ssd_chunk_bwd against its plain version (on the card, the same
+    inputs) and against ``torch.autograd`` of ssd_chunk_plain: full-width
+    mamba2 (B 2, 32 heads, S 1024, P 64, N 128, Q 256), zamba2 (80 heads,
+    N 64) and the reduced shape (N 16, P 32), in bf16 and fp32 (TF32
+    off).  Against the plain backward at the fp32 tolerance (all fp32
+    arithmetic), against autograd at the input dtype's (autograd returns
+    dx, dB, dC in it), each relative to the gradient's largest magnitude
+    (:func:`_close_scaled`); bitwise on a repeat."""
+    import torch
+    from repro_torch.kernels import ssd_scan as kssd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    red = ssm_cfg.reduced()
+    shapes = [("mamba2", 2, ssm_cfg.ssm_heads, 1024, ssm_cfg.ssm_head_dim,
+               ssm_cfg.ssm_state, 256),
+              ("zamba2", 2, hybrid_cfg.ssm_heads, 1024,
+               hybrid_cfg.ssm_head_dim, hybrid_cfg.ssm_state, 256),
+              ("reduced", 2, red.ssm_heads, 3 * red.ssm_chunk,
+               red.ssm_head_dim, red.ssm_state, red.ssm_chunk)]
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = _dtype_name(dtype)
+        for label, b, h, s, p, n, q in shapes:
+            ops_in, gy, gS = _ssd_bwd_grads(gen, b, h, s, p, n, dtype, q)
+            got = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
+            again = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
+            repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+            del again
+            plain = _ssd_bwd_plain(*ops_in, q, gy, gS)
+            leaves = [t.detach().clone().requires_grad_() for t in ops_in]
+            y, st = _ssd_plain(*leaves, q)
+            auto = torch.autograd.grad((y * gy).sum() + (st * gS).sum(),
+                                       leaves)
+            del y, st, leaves
+            errs, ok = {}, repeat
+            for name, g, w, a in zip(names, got, plain, auto):
+                ep, okp = _close_scaled(g, w, TOL["float32"])
+                ea, oka = _close_scaled(g.to(a.dtype), a, TOL[dn])
+                errs[name] = {"vs_plain": ep, "vs_autograd": ea}
+                ok = ok and okp and oka
+            rows.append({"kernel": "ssd_chunk_bwd", "case": f"{label} Q{q}",
+                         "dtype": dn, "kind": "simt",
+                         "shape": [b * h, s, p, n], "chunk": q,
+                         "max_abs_err": max(e["vs_plain"]
+                                            for e in errs.values()),
+                         "errors": errs, "tol": {"vs_plain": TOL["float32"],
+                                                 "vs_autograd": TOL[dn]},
+                         "bitwise_repeat": repeat, "ok": ok})
+            del got, plain, auto
+    return rows
+
+
+def ssd_bwd_work(b, h, s, p, n, q, eb):
+    """(bytes, operations) of one ssd_chunk_bwd call: x at ``eb`` bytes,
+    B and C once per batch row, dt, A, gy and gS fp32 read; dx, ddt, dA
+    and dB, dC per batch row fp32 written; the causal half of the five
+    [Q x Q] products (C B^T and dC over N, G and dx over P, dB over N) and
+    the states' two products (B gS, gS x), at 2 operations a
+    multiply-add."""
+    bh, n_c = b * h, s // q
+    nbytes = (bh * s * p * eb + 2 * b * s * n * eb + bh * s * 4 + bh * 4
+              + bh * s * p * 4 + bh * n_c * n * p * 4
+              + bh * s * p * 4 + bh * s * 4 + bh * 4 + 2 * b * s * n * 4)
+    flops = (2 * bh * n_c * (q * (q + 1) // 2) * (3 * n + 2 * p)
+             + 2 * 2 * bh * n_c * q * n * p)
+    return nbytes, flops
+
+
+def ssd_bwd_timings(ssm_cfg, dev):
+    """ssd_chunk_bwd at the SSM paths' shapes (bf16, full-width mamba2):
+    the prefill's (B 2, S 1024) and the train step's (B 8, S 1024), Q 256;
+    checked against the plain version on the timed inputs, bitwise on a
+    repeat; kernel and plain timed by :func:`_median_ms`, the bound from
+    :func:`ssd_bwd_work`."""
+    import torch
+    from repro_torch.kernels import ssd_scan as kssd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    h, p, n = ssm_cfg.ssm_heads, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
+    out = {}
+    for label, b in (("prefill", SSM_PREFILL["batch"]),
+                     ("train", TRAIN_SSM["global_batch"])):
+        s, q = 1024, 256
+        ops_in, gy, gS = _ssd_bwd_grads(gen, b, h, s, p, n, torch.bfloat16, q)
+        got = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
+        again = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
+        repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+        plain = _ssd_bwd_plain(*ops_in, q, gy, gS)
+        checks = [_close_scaled(g, w, TOL["float32"])
+                  for g, w in zip(got, plain)]
+        del got, again, plain
+        bound, by = _bound(*ssd_bwd_work(b, h, s, p, n, q, 2), "bfloat16")
+        out[f"ssd_chunk_bwd.{label}"] = {
+            "shape": [b, h, s, p, n], "chunk": q, "kind": "simt",
+            "ms": _median_ms(lambda: kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)),
+            "plain_ms": _median_ms(lambda: _ssd_bwd_plain(*ops_in, q, gy,
+                                                          gS)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": max(e for e, _ in checks),
+            "bitwise_repeat": repeat,
+            "ok": repeat and all(ok for _, ok in checks)}
+    return out
+
+
 def hybrid_timings(hybrid_cfg, dev):
     """The kernels at full-width zamba2-2.7b's shapes (bf16): cache_matmul's
     gemv at decode (2 x 2560 @ 2560 x 10240 and 2 x 10240 @ 10240 x 2560,
@@ -1460,11 +1637,13 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg,
     torch.backends.cudnn.allow_tf32 = False
     rows = (kernel_cases(cfg, dev)
             + flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg)
-            + quant_cases(cfg, dev) + ssd_cases(ssm_cfg, dev))
+            + quant_cases(cfg, dev) + ssd_cases(ssm_cfg, dev)
+            + ssd_bwd_cases(ssm_cfg, hybrid_cfg, dev))
     bad = [r for r in rows if not r["ok"]]
     timings = kernel_timings(cfg, dev, batch=2, lwm_pages=32, lbm_pages=324)
     timings.update(prefill_timings(cfg, dev))
     timings.update(ssd_timings(ssm_cfg, dev))
+    timings.update(ssd_bwd_timings(ssm_cfg, dev))
     timings.update(moe_timings(moe_cfg, dev))
     timings.update(hybrid_timings(hybrid_cfg, dev))
     timings.update(encdec_vlm_timings(encdec_cfg, vlm_cfg, dev))
@@ -4530,6 +4709,307 @@ def fleet_failover_main_path(dev, counters, arch=None, kinds: bool = True):
             "launches": dict(counters), "runs": runs}
 
 
+# -------------------------------------------------------------- train --
+def _median(xs):
+    xs = sorted(xs)
+    return xs[(len(xs) - 1) // 2]
+
+
+def _plain_ssd_train(fn):
+    """``fn()`` with ssd_chunk's and ssd_chunk_bwd's plain versions in
+    place of the kernels (a control run: it launches neither)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    fwd, bwd = kssd.ssd_chunk, kssd.ssd_chunk_bwd
+    kssd.ssd_chunk, kssd.ssd_chunk_bwd = _ssd_plain, _ssd_bwd_plain
+    try:
+        return fn()
+    finally:
+        kssd.ssd_chunk, kssd.ssd_chunk_bwd = fwd, bwd
+
+
+def _grads(cfg, params, batch, remat: bool = True):
+    """(loss, the gradient of every param in tree order) of
+    ``models/model.py::loss_fn`` with or without remat."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    loss, _, grads = M._value_and_grad(params, batch, cfg, remat=remat)
+    return loss, adamw.tree_leaves(grads)
+
+
+def _train_batch(cfg, dev, batch: int, seq_len: int, seed: int):
+    """One synthetic batch (data/pipeline.py) on ``dev``."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    b = SyntheticTokens(DataConfig(cfg.vocab_size, seq_len, batch,
+                                   seed=seed)).batch_at(0)
+    return {k: torch.from_numpy(v).long().to(dev) for k, v in b.items()}
+
+
+def _cosine(got, want) -> float:
+    """Cosine of two gradient lists, each flattened into one vector."""
+    import torch
+    a = torch.cat([g.float().reshape(-1) for g in got])
+    b = torch.cat([g.float().reshape(-1) for g in want])
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
+def train_grad_gates(cfg, dev):
+    """The train step's gradients on the card.  At full width cut to 2
+    layers in fp32 (the simt kinds), :data:`GRAD_BATCH`: the loss and
+    every gradient with the kernels within :data:`TOL` (relative to each
+    gradient's largest magnitude) of the same step with ssd_chunk and its
+    backward swapped for their plain versions; 4 forward launches (2
+    layers, again under remat) and 2 backward; remat on == off bitwise.
+    At full depth in bf16: the kernel path's 1 - cosine to the gradients
+    of an fp32 copy of the weights within :data:`SSM_BF16_SPREAD` times
+    the plain-path control's, or :data:`SSM_BF16_FLOOR`."""
+    import torch
+    from repro_torch.models import model as M
+    c2 = dataclasses.replace(cfg, name=f"{cfg.name}-2layer-fp32",
+                             num_layers=2, dtype="float32")
+    p2 = M.init_params(c2, seed=3, device=dev)
+    batch = _train_batch(c2, dev, GRAD_BATCH["batch"], GRAD_BATCH["seq_len"],
+                         seed=11)
+    _zero_counters()
+    loss_k, g_k = _grads(c2, p2, batch)
+    launched = {k: _counters()[k] for k in ("ssd_chunk", "ssd_chunk_bwd")}
+    if launched != {"ssd_chunk": 4, "ssd_chunk_bwd": 2}:
+        raise AssertionError(f"train_ssm fp32: launches {launched}")
+    loss_p, g_p = _plain_ssd_train(lambda: _grads(c2, p2, batch))
+    errs = [_close_scaled(a, b, TOL["float32"]) for a, b in zip(g_k, g_p)]
+    loss_err = abs(float(loss_k) - float(loss_p))
+    loss_off, g_off = _grads(c2, p2, batch, remat=False)
+    remat_bitwise = bool(torch.equal(loss_off, loss_k) and all(
+        torch.equal(a, b) for a, b in zip(g_off, g_k)))
+    fp32 = {"layers": 2, "batch": GRAD_BATCH, "launches": launched,
+            "loss": float(loss_k), "loss_vs_plain": loss_err,
+            "max_grad_err_vs_plain": max(e for e, _ in errs),
+            "tol_relative": TOL["float32"], "remat_bitwise": remat_bitwise}
+    if (not all(ok for _, ok in errs) or remat_bitwise is not True
+            or loss_err > TOL["float32"] * abs(float(loss_p))):
+        raise AssertionError(f"train_ssm fp32 gradients: {fp32}")
+    del p2, g_k, g_p, g_off
+    pb = M.init_params(cfg, seed=4, device=dev)
+    batch = _train_batch(cfg, dev, GRAD_BATCH["batch"], GRAD_BATCH["seq_len"],
+                         seed=12)
+    loss_b, g_b = _grads(cfg, pb, batch)
+    loss_c, g_c = _plain_ssd_train(lambda: _grads(cfg, pb, batch))
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    loss_32, g_32 = _grads(c32, _to_dtype(pb, torch.float32), batch)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_b)
+    cos_k, cos_c = _cosine(g_b, g_32), _cosine(g_c, g_32)
+    limit = max(SSM_BF16_SPREAD * (1.0 - cos_c), SSM_BF16_FLOOR)
+    bf16 = {"layers": cfg.num_layers, "loss": float(loss_b),
+            "loss_plain_control": float(loss_c), "loss_fp32": float(loss_32),
+            "cosine_to_fp32": cos_k, "control_cosine_to_fp32": cos_c,
+            "limit_one_minus_cosine": limit, "finite": finite}
+    if not finite or 1.0 - cos_k > limit:
+        raise AssertionError(f"train_ssm bf16 gradients: {bf16}")
+    return {"fp32_2layer": fp32, "bf16_full_depth": bf16}
+
+
+def train_ssm_main_path(cfg, dev, counters):
+    """The training slice's main path: ``launch/train.py::main`` on
+    full-width, full-depth mamba2 (bf16, remat, :data:`TRAIN_SSM`), its
+    counters zeroed just before and read just after: 96 forward
+    ssd_chunk launches a step (48 layers, again under remat), all of the
+    wgmma kind, and 48 ssd_chunk_bwd; no other kernel.  The loss finite
+    and falling, no supervisor restart.  Then the resume: the checkpoint
+    of step 5 restored (``TrainSupervisor.restore``) into a fresh
+    ``build`` and :data:`RESUME_STEPS` steps replayed on the batches of
+    steps 5 and 6: the restored step and the losses as the first run's.
+    Step ms (median host time of the steps after the first), tokens/s,
+    model FLOP/s (6 x params x tokens, remat's recompute not counted) as
+    a share of the bf16 peak, peak memory, one profiled step (idle share,
+    ssd_chunk forward / backward shares), the checkpoint's bytes and a
+    synchronous save's seconds; then :func:`train_grad_gates`.  The
+    checkpoint directory is removed."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed.fault_tolerance import (SupervisorConfig,
+                                                         TrainSupervisor)
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    T, steps = TRAIN_SSM, TRAIN_SSM["steps"]
+    ckpt_dir = OUT_DIR.parent / "train_ssm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = ["--arch", cfg.name, "--steps", str(steps), "--seq-len",
+            str(T["seq_len"]), "--global-batch", str(T["global_batch"]),
+            "--lr", str(T["lr"]), "--ckpt-dir", str(ckpt_dir),
+            "--ckpt-every", str(T["ckpt_every"]), "--device", dev]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_counters()
+        t0 = time.perf_counter()
+        run = train.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counters.update(_counters())
+        peak = torch.cuda.max_memory_allocated()
+        losses = run["losses"]
+        want = {"ssd_chunk": 2 * cfg.num_layers * steps,
+                "ssd_chunk_bwd": cfg.num_layers * steps}
+        others = {k: counters[k] for k in PREFILL_KERNELS
+                  + ("cache_matmul_quant",) if counters[k]}
+        if (not all(math.isfinite(v) for v in losses)
+                or not losses[-1] < losses[0] or run["restarts"]
+                or any(counters[k] != v for k, v in want.items()) or others):
+            raise AssertionError(f"train_ssm: losses {losses}, restarts "
+                                 f"{run['restarts']}, launches {counters}")
+        _gate_kinds(counters, "train_ssm", ssd=("wgmma",))
+        ckpt_bytes = ckpt.checkpoint_bytes(ckpt_dir / f"step_{steps:08d}")
+        # the resume: step 5's checkpoint, a fresh build, two steps
+        resume_at = T["ckpt_every"]
+        (ckpt_dir / "LATEST").write_text(f"step_{resume_at:08d}")
+        opt_cfg = adamw.AdamWConfig(lr=T["lr"],
+                                    warmup_steps=max(steps // 10, 1),
+                                    total_steps=steps)
+        _, params, opt_state, step_fn, batch_at = train.build(
+            cfg.name, False, T["seq_len"], T["global_batch"], opt_cfg,
+            device=dev)
+        sup = TrainSupervisor(SupervisorConfig(ckpt_dir=str(ckpt_dir)))
+        t0 = time.perf_counter()
+        params, opt_state, start = sup.restore((params, opt_state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resumed = []
+        for k in range(start, start + RESUME_STEPS):
+            params, opt_state, m = step_fn(params, opt_state, batch_at(k))
+            resumed.append(float(m["loss"]))
+        first = losses[start:start + RESUME_STEPS]
+        resume = {"restored_step": start, "opt_step": int(opt_state.step),
+                  "losses": resumed, "first_run_losses": first,
+                  "bitwise": resumed == first, "restore_s": restore_s}
+        if (start != resume_at or int(opt_state.step) != start + RESUME_STEPS
+                or any(abs(a - b) > 1e-5 * abs(b)
+                       for a, b in zip(resumed, first))):
+            raise AssertionError(f"train_ssm resume: {resume}")
+        t0 = time.perf_counter()
+        ckpt.save(ckpt_dir, 0, {"params": params, "opt": opt_state},
+                  extra={"step": 0})
+        save_s = time.perf_counter() - t0
+        batch = batch_at(start + RESUME_STEPS)
+        profile = _profile(
+            lambda: float(step_fn(params, opt_state, batch)[2]["loss"]),
+            shares=("ssd_chunk_wgmma", "ssd_chunk_bwd"))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_params = sum(p.numel() for p in adamw.tree_leaves(params))
+    del params, opt_state
+    step_s = _median(run["step_seconds"][1:])
+    tokens = T["global_batch"] * T["seq_len"]
+    gates = train_grad_gates(cfg, dev)
+    return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+            **T, "params": n_params, "losses": losses,
+            "restarts": run["restarts"], "launches": dict(counters),
+            "launches_per_step": {k: counters[k] / steps for k in want},
+            "wall_s": wall, "step_seconds": run["step_seconds"],
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "model_flops_share": 6 * n_params * tokens / step_s
+            / PEAK_FLOPS["bfloat16"],
+            "peak_memory_bytes": peak, "allocated_at_start_bytes": base,
+            "checkpoint_bytes": ckpt_bytes,
+            "checkpoint_save_s": save_s, "resume": resume,
+            "profile": profile, "gates": gates}
+
+
+def train_100m_main_path(dev, counters):
+    """``repro_torch.examples.train_100m --full`` (lm-100m: 12 layers,
+    d 768, fp32) for :data:`TRAIN_100M` steps on the card, its mid-run
+    preemption and resume included; counters zeroed just before and
+    read just after (a dense model trains without plans, so no kernel
+    launches).  Gates: the loss falls (the example asserts it), the
+    resume restores the step of the preemption, no restart.  Tokens/s
+    from the median step (8 x 128 tokens)."""
+    from repro_torch.examples import train_100m
+    steps = TRAIN_100M["steps"]
+    _zero_counters()
+    t0 = time.perf_counter()
+    run = train_100m.main(["--full", "--steps", str(steps), "--device", dev])
+    wall = time.perf_counter() - t0
+    counters.update(_counters())
+    if run["resumed_at"] != run["preempted_at"] or run["restarts"]:
+        raise AssertionError(f"train_100m: {run}")
+    step_s = _median(run["step_seconds"][1:])
+    return {"arch": run["cfg"].name, "params": run["cfg"].param_count(),
+            "steps": steps, "losses": [run["losses"][0], run["losses"][-1]],
+            "preempted_at": run["preempted_at"],
+            "resumed_at": run["resumed_at"], "wall_s": wall,
+            "step_ms": step_s * 1e3, "tokens_per_s": 8 * 128 / step_s,
+            "launches": {k: v for k, v in counters.items() if v}}
+
+
+def train_cli_main_path(dev, counters):
+    """``launch/train.py::main`` with ``--smoke`` on the card for each of
+    the six families (:data:`TRAIN_CLI`): the loss falls (main asserts
+    it), no restart, ssd_chunk and ssd_chunk_bwd launched by the SSM and
+    hybrid configs (fp32: the simt kinds) and no kernel by the others.
+    Then reduced olmoe in bf16 (registered as its own config): main
+    again, and one step's expert gradients, which come through
+    ``models/moe.py::_dot_f32``'s card branch (a bf16 bmm into fp32),
+    finite, non-zero and in bf16."""
+    import shutil
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models.base import get_arch, register
+    T = TRAIN_CLI
+    root = OUT_DIR.parent / "train_cli_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    bf16 = register(dataclasses.replace(
+        get_arch(MOE_ARCH).reduced(), name=f"{MOE_ARCH}-smoke-bf16",
+        dtype="bfloat16"))
+    runs = {}
+    try:
+        for arch in ("yi-9b", MOE_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH,
+                     VLM_ARCH):
+            _zero_counters()
+            t0 = time.perf_counter()
+            r = train.main(["--arch", arch, "--smoke", "--steps",
+                            str(T["steps"]), "--seq-len", str(T["seq_len"]),
+                            "--global-batch", str(T["global_batch"]), "--lr",
+                            str(T["lr"]), "--ckpt-dir", str(root / arch),
+                            "--device", dev])
+            launched = {k: v for k, v in _counters().items() if v}
+            counters.update({f"{arch}.{k}": v for k, v in launched.items()})
+            runs[arch] = {"losses": [r["losses"][0], r["losses"][-1]],
+                          "restarts": r["restarts"], "launches": launched,
+                          "wall_s": time.perf_counter() - t0}
+            ssm = arch in (SSM_ARCH, HYBRID_ARCH)
+            if r["restarts"] or (ssm and not (
+                    launched.get("ssd_chunk.simt") and launched.get(
+                        "ssd_chunk_bwd"))) or (not ssm and launched):
+                raise AssertionError(f"train_cli {arch}: {runs[arch]}")
+        _zero_counters()
+        r = train.main(["--arch", bf16.name, "--steps", str(T["steps"]),
+                        "--seq-len", str(T["seq_len"]), "--global-batch",
+                        str(T["global_batch"]), "--lr", str(T["lr"]),
+                        "--ckpt-dir", str(root / bf16.name), "--device", dev])
+        params = M.init_params(bf16, seed=0, device=dev)
+        _, _, grads = M._value_and_grad(
+            params, _train_batch(bf16, dev, T["global_batch"], T["seq_len"],
+                                 seed=3), bf16)
+        experts = [g for layer in grads["layers"]
+                   for g in (layer["mlp"]["gate"], layer["mlp"]["up"],
+                             layer["mlp"]["down"])]
+        norms = [float(g.float().norm()) for g in experts]
+        runs[bf16.name] = {"losses": [r["losses"][0], r["losses"][-1]],
+                           "restarts": r["restarts"],
+                           "expert_grad_norms": norms,
+                           "expert_grad_dtypes": sorted({_dtype_name(g.dtype)
+                                                         for g in experts})}
+        if (r["restarts"] or not all(math.isfinite(n) and n > 0
+                                     for n in norms)
+                or any(g.dtype != torch.bfloat16 for g in experts)):
+            raise AssertionError(f"train_cli bf16 olmoe: {runs[bf16.name]}")
+        del params, grads, experts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"runs": runs, **T}
+
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -4673,6 +5153,16 @@ def main() -> int:
     report["fleet_failover"] = _phase("fleet_failover",
                                       fleet_failover_main_path, dev,
                                       fleet_failover_counts)
+    _release()
+    train_ssm_counts, train_100m_counts, train_cli_counts = {}, {}, {}
+    report["train_ssm"] = _phase("train_ssm", train_ssm_main_path, ssm_cfg,
+                                 dev, train_ssm_counts)
+    _release()
+    report["train_100m"] = _phase("train_100m", train_100m_main_path, dev,
+                                  train_100m_counts)
+    _release()
+    report["train_cli"] = _phase("train_cli", train_cli_main_path, dev,
+                                 train_cli_counts)
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"
@@ -4698,7 +5188,12 @@ def main() -> int:
             ffn_quant_counts),
         "ssd_chunk": (csrc + "ssd_chunk.cu",
                       "src/repro/kernels/ssd_scan.py:62",
-                      timings["ssd_chunk.prefill"], prefill_ssm_counts)}
+                      timings["ssd_chunk.prefill"], prefill_ssm_counts),
+        # the gradient of the same TPU kernel's function (the reference
+        # has no backward kernel), with the train step's launches
+        "ssd_chunk_bwd": (csrc + "ssd_chunk_bwd.cu",
+                          "src/repro/kernels/ssd_scan.py:62",
+                          timings["ssd_chunk_bwd.train"], train_ssm_counts)}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": t["max_abs_err"],
@@ -4784,6 +5279,17 @@ def main() -> int:
         kernels[i][label] = {"launches": launches,
                              "max_abs_err": t["max_abs_err"],
                              **{k: t[k] for k in keys + ("kind", "simt_ms")}}
+    # the training slice: ssd_chunk's backward beside its forward (the
+    # train step's launches and shape), its prefill-shaped timing, and
+    # the forward's launches in the train step
+    pf = timings["ssd_chunk_bwd.train"]
+    kernels[5]["backward"] = {"launches": train_ssm_counts["ssd_chunk_bwd"],
+                              "max_abs_err": pf["max_abs_err"],
+                              **{k: pf[k] for k in keys + ("kind",)}}
+    kernels[5]["train_launches"] = train_ssm_counts["ssd_chunk"]
+    pf = timings["ssd_chunk_bwd.prefill"]
+    kernels[6]["prefill"] = {"max_abs_err": pf["max_abs_err"],
+                             **{k: pf[k] for k in keys + ("kind",)}}
     # the fleet phases' launches (no new kernel: each replica runs its
     # tenants' kernels)
     for i, name in ((0, "cache_matmul"), (5, "ssd_chunk")):

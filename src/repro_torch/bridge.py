@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import _require_ported, num_groups
+from repro_torch.optim.adamw import AdamWState
 
 # ml_dtypes name -> (numpy carrier of the same width, torch dtype)
 _BIT_VIEWS = {
@@ -78,6 +79,20 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
             "final_norm": _tree(tree["encoder"]["final_norm"], leaf)}
         out["xattn"] = _unstack(tree["xattn"], G, leaf)
     return out
+
+
+def opt_state_from_numpy(step: Any, m: Dict[str, Any], v: Dict[str, Any],
+                         cfg: ArchConfig, device: Any = "cuda") -> AdamWState:
+    """The port's ``AdamWState`` from the reference's: its ``step`` (an
+    int32 scalar) and its ``m`` / ``v`` trees, leaves turned into numpy
+    arrays; the moments have the params' tree, so each goes through
+    :func:`params_from_numpy` (bf16 moments by bit view).  Gradients,
+    which also have the params' tree, come across through
+    :func:`params_from_numpy` alone."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        m=params_from_numpy(m, cfg, device), v=params_from_numpy(v, cfg, device))
 
 
 def _unstack(tree: Dict[str, Any], n: int, leaf) -> List[Dict[str, Any]]:

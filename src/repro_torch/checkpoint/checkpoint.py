@@ -21,7 +21,9 @@ buffer limit (2**31 bytes) has no counterpart.
 Trees are nested dicts, lists and tuples with tensor leaves (a numpy
 array is taken as a tensor); :func:`_flatten` is the port's own flatten
 (dict keys sorted, as ``jax.tree_util`` orders them).  ``restore``
-rebuilds the saved structure, or ``tree_like``'s when one is given, and
+rebuilds the saved structure, or ``tree_like``'s when one is given (its
+containers' own types, a NamedTuple such as the optimizer's
+``AdamWState`` included, as the reference's pytree restore does), and
 puts the leaves on the device the caller names (the card unless told).
 """
 from __future__ import annotations
@@ -72,6 +74,20 @@ def _unflatten(structure: Any, leaves: List[Any]) -> Any:
             return [build(v) for v in s["list"]]
         return tuple(build(v) for v in s["tuple"])
     return build(structure)
+
+
+def _like(tree: Any, leaves) -> Any:
+    """``tree``'s structure, containers of its own types (a NamedTuple
+    too), filled from the iterator ``leaves`` in :func:`_flatten`'s
+    order."""
+    if isinstance(tree, dict):
+        got = {k: _like(tree[k], leaves) for k in sorted(tree)}
+        return {k: got[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        items = [_like(x, leaves) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    return next(leaves)
 
 
 def _host(leaf: Any) -> torch.Tensor:
@@ -153,9 +169,10 @@ def checkpoint_bytes(step_dir: str | pathlib.Path) -> int:
 def restore(ckpt_dir, tree_like: Any = None, step: Optional[int] = None,
             device: Any = "cuda") -> Tuple[Any, Dict[str, Any]]:
     """Restore a checkpoint (the latest unless ``step`` is given): the
-    saved tree, or ``tree_like``'s structure when one is given (its leaf
-    count must match), with every leaf on ``device``.  Returns (tree,
-    extra)."""
+    saved tree (its tuples plain tuples), or ``tree_like``'s structure
+    when one is given (its leaf count must match; its dicts, lists,
+    tuples and NamedTuples come back as their own types), with every
+    leaf on ``device``.  Returns (tree, extra)."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -164,7 +181,7 @@ def restore(ckpt_dir, tree_like: Any = None, step: Optional[int] = None,
     manifest = json.loads((step_dir / "manifest.json").read_text())
     structure = manifest["structure"]
     if tree_like is not None:
-        leaves_like, structure = _flatten(tree_like)
+        leaves_like, _ = _flatten(tree_like)
         if len(manifest["leaves"]) != len(leaves_like):
             raise ValueError(
                 f"checkpoint has {len(manifest['leaves'])} leaves, "
@@ -182,4 +199,6 @@ def restore(ckpt_dir, tree_like: Any = None, step: Optional[int] = None,
                     .view(dtype).reshape(meta["shape"]))
         # a copy of its own: no leaf keeps the whole file's buffer
         out.append(leaf.to(device, copy=True))
+    if tree_like is not None:
+        return _like(tree_like, iter(out)), manifest["extra"]
     return _unflatten(structure, out), manifest["extra"]

@@ -1,1 +1,2 @@
-"""Fault-tolerance pieces the serving port uses (``StragglerPolicy``)."""
+"""Fault tolerance (``StragglerPolicy``, ``TrainSupervisor``) and gradient
+compression of the port."""

@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cache_matmul import BF16, DTYPES, KINDS, dtype_mask
+from repro_torch.kernels.cache_matmul import (BF16, DTYPES, KINDS, dtype_mask,
+                                              no_backward)
 
 
 WGMMA_STAGES = 3      # csrc/block_fused_ffn.cu::FfnWgmma::stages
@@ -127,7 +128,9 @@ def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     version ignores it).  x: [S, d]; wg/wu: [d, f]; wd: [f, d].  Ragged S,
     d_model and d_ff are masked in the kernel: no padding.  A ``wgmma``
     tile needs d and f to be multiples of 8 (TMA's 16-byte row
-    strides)."""
+    strides).  No backward: raises under grad
+    (``cache_matmul.no_backward``)."""
+    no_backward("block_fused_ffn", x, wg, wu, wd)
     if x.dim() != 2 or wg.dim() != 2 or wu.shape != wg.shape \
             or x.shape[1] != wg.shape[0] or wd.shape != (wg.shape[1], x.shape[1]):
         raise ValueError(f"block_fused_ffn: shapes x{tuple(x.shape)} "

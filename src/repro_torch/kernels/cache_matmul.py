@@ -175,6 +175,19 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def no_backward(name: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through ``name``, a
+    kernel without a backward: its launch writes fresh outputs that carry
+    no ``grad_fn``, so a train step would silently drop every gradient
+    through it.  The reference trains without plans, so training never
+    reaches these kernels; serving runs them without grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or on tensors that do "
+                           f"not require grad")
+
+
 def cache_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version (the reference's ``matmul_ref``): fp32 products and
     sums, cast to A's dtype."""
@@ -205,7 +218,10 @@ def cache_matmul(a: torch.Tensor, b: torch.Tensor,
     (one of :data:`TILES` compiled for A's dtype; the plain version
     ignores it).  Ragged M/N/K edges are masked in the kernel: no
     padding.  A ``gemv`` tile takes at most bm rows; a ``wgmma`` tile
-    needs K and N to be multiples of 8 (TMA's 16-byte row strides)."""
+    needs K and N to be multiples of 8 (TMA's 16-byte row strides).  It
+    has no backward: under grad, with an operand that requires grad, it
+    raises (:func:`no_backward`)."""
+    no_backward("cache_matmul", a, b)
     _check(a, b)
     if a.device.type == "cpu":
         return cache_matmul_plain(a, b)
@@ -304,7 +320,8 @@ def cache_matmul_quant(a: torch.Tensor, b_q: torch.Tensor,
     dequantized on chip: no fp copy of B is made.  Ragged edges are masked
     in the kernel.  A ``gemv`` tile takes at most bm rows; a ``wgmma``
     tile needs K a multiple of 8 and N of 16 (TMA's 16-byte row
-    strides)."""
+    strides).  No backward: raises under grad (:func:`no_backward`)."""
+    no_backward("cache_matmul_quant", a, b_q, b_scale)
     _check_quant(a, b_q, b_scale)
     if a.device.type == "cpu":
         return cache_matmul_quant_plain(a, b_q, b_scale)

@@ -10,8 +10,9 @@ launches the device ran, graph or not.
 
 Names are the kernel's (``cache_matmul``, ``block_fused_ffn``,
 ``flash_attention``, ``flash_attention_quantized``,
-``cache_matmul_quant``, ``ssd_chunk``) and ``<kernel>.<kind>`` for each
-tile kind (``cache_matmul.gemv``, ``ssd_chunk.wgmma`` ...).
+``cache_matmul_quant``, ``ssd_chunk``, ``ssd_chunk_bwd``) and
+``<kernel>.<kind>`` for each tile kind (``cache_matmul.gemv``,
+``ssd_chunk.wgmma`` ...).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ _COUNTERS = (
      "launches_quantized_by_kind"),
     ("cache_matmul_quant", kmm, "launches_quant", "launches_quant_by_kind"),
     ("ssd_chunk", kssd, "launches", "launches_by_kind"),
+    ("ssd_chunk_bwd", kssd, "launches_bwd", "launches_bwd_by_kind"),
 )
 
 

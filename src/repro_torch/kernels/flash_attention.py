@@ -40,7 +40,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cache_matmul import DTYPES, KINDS, dtype_mask
+from repro_torch.kernels.cache_matmul import (DTYPES, KINDS, dtype_mask,
+                                              no_backward)
 
 NEG_INF = -1e30
 # quantized K/V storage dtype -> the C entry point's kv_kind
@@ -223,7 +224,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention through the Hopper kernel with ``tile`` (one of
     :data:`TILES`, of q's head dim; the plain version ignores it).  K/V
     in q's dtype.  Ragged S and Sk are masked in the kernel: no
-    padding."""
+    padding.  No backward: raises under grad
+    (``cache_matmul.no_backward``)."""
+    no_backward("flash_attention", q, k, v)
     _check(q, k, v, tile)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes q {q.dtype}, k {k.dtype},"
@@ -240,7 +243,8 @@ def flash_attention_quantized(q: torch.Tensor, k: torch.Tensor,
     """Dequant-fused attention: ``k``/``v`` int8 or float8_e4m3fn
     [B, Hkv, Sk, hd] with fp32 row scales [B, Hkv, Sk]; q stays in the
     compute dtype.  K/V cross device memory at their stored width and
-    are dequantized on chip."""
+    are dequantized on chip.  No backward: raises under grad."""
+    no_backward("flash_attention_quantized", q, k, v, k_scale, v_scale)
     _check(q, k, v, tile, (k_scale, v_scale))
     if k.dtype not in KV_KINDS or v.dtype != k.dtype:
         raise TypeError(f"flash_attention_quantized: K/V dtypes {k.dtype}, "

@@ -345,7 +345,10 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ssd_chunk kernel of :func:`ssd_kind`'s kind.  x [BH, S, P]; dt
     [BH, S]; A [BH]; B, C [BH, S, N] or, shared by the heads of a batch
     row, [BH / heads, S, N], which is how the model passes them: no
-    broadcast copy is made."""
-    return kssd.ssd_chunk(x.contiguous(), dt.contiguous(), A.contiguous(),
-                          B.contiguous(), C.contiguous(), chunk,
-                          kind=ssd_kind(x.dtype, B.shape[-1], x.shape[-1]))
+    broadcast copy is made.  The call goes through
+    ``kssd.SsdChunk``, so its gradient runs the ssd_chunk_bwd kernel on
+    the card and its plain version on the CPU."""
+    return kssd.SsdChunk.apply(x.contiguous(), dt.contiguous(),
+                               A.contiguous(), B.contiguous(),
+                               C.contiguous(), chunk,
+                               ssd_kind(x.dtype, B.shape[-1], x.shape[-1]))

@@ -23,6 +23,14 @@ Layouts are the reference's: x [BH, S, P]; dt [BH, S]; A [BH]; B, C
 (block b*h reads row bh // heads, so no broadcast copy is made on the
 card).  Outputs y_diag [BH, S, P] and states [BH, S / chunk, N, P], both
 fp32.  The chunk length is any divisor of S from 1 to :data:`MAX_CHUNK`.
+
+The gradient: :class:`SsdChunk` is the ``torch.autograd.Function`` the
+model calls (``kernels/ops.py::ssd_intra_chunk``).  It saves x, dt, A, B
+and C only; its backward is :func:`ssd_chunk_bwd`, the hand-written
+kernel of ``csrc/ssd_chunk_bwd.cu`` on the card (one launch, counted in
+:data:`launches_bwd`) and :func:`ssd_chunk_bwd_plain`, the explicit
+formulas in fp32, on the CPU.  The kernel recomputes cum and L from dt
+and A, as the forward does.
 """
 from __future__ import annotations
 
@@ -44,7 +52,11 @@ _KIND_IDS = {"simt": 0, "wgmma": 2}   # the C entry point's kind
 
 launches = 0
 launches_by_kind: Dict[str, int] = {k: 0 for k in KINDS}
+launches_bwd = 0
+launches_bwd_by_kind: Dict[str, int] = {"simt": 0}
 _lib = None
+_bwd_lib = None
+BWD_TILE = 64            # rows and columns of the backward's tiles
 
 
 def smem_bytes(n: int, p: int, kind: str = "simt") -> int:
@@ -203,3 +215,197 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             C = C.repeat_interleave(heads, dim=0)
         return ssd_chunk_plain(x, dt, A, B, C, chunk)
     return _launch(x, dt, A, B, C, chunk, heads, kind)
+
+
+# ------------------------------------------------------------ backward --
+def bwd_smem_bytes(n: int, p: int) -> int:
+    """Shared memory of one backward launch at state size ``n`` and head
+    dim ``p`` (``csrc/ssd_chunk_bwd.cu::bwd_smem_bytes``, checked when it
+    loads): the cum, dt and decay stripes, then the larger of the column
+    block's tiles (B and C transposed [n][65], x and gy transposed
+    [p][65], gy [64][p], two [64][65] weight tiles) and the dB / dC
+    blocks', fp32."""
+    ld = BWD_TILE + 1
+    col = 2 * n * ld + 2 * p * ld + BWD_TILE * p + 2 * BWD_TILE * ld
+    bc = 2 * p * ld + BWD_TILE * ld + BWD_TILE * BWD_TILE + p * BWD_TILE
+    return 4 * (3 * MAX_CHUNK + max(col, bc))
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build.load("ssd_chunk_bwd")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_chunk_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
+        lib.ssd_chunk_bwd.restype = i32
+        lib.ssd_chunk_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.ssd_chunk_bwd_smem_bytes.restype = i32
+        for n, p in ((128, 64), (64, 64), (16, 32), (8, 16), (256, 64)):
+            got = lib.ssd_chunk_bwd_smem_bytes(n, p)
+            if got != bwd_smem_bytes(n, p):
+                raise RuntimeError(
+                    f"ssd_chunk_bwd: shared memory at N {n}, P {p} is {got} "
+                    f"in the library, {bwd_smem_bytes(n, p)} in Python")
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _reverse_cumsum(t: torch.Tensor) -> torch.Tensor:
+    return t.flip(-1).cumsum(-1).flip(-1)
+
+
+def ssd_chunk_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, chunk: int,
+                        gy: torch.Tensor, gS: torch.Tensor):
+    """Plain version of the backward: the explicit formulas of
+    ``csrc/ssd_chunk_bwd.cu``'s header, in fp32.  x [BH, S, P]; dt
+    [BH, S]; A [BH]; B, C [BH, S, N] (the reference's broadcast layout);
+    gy [BH, S, P] and gS [BH, S // chunk, N, P], the gradients of y_diag
+    and the states.  Returns (dx, ddt, dA, dB, dC), fp32, dB and dC per
+    head."""
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    n_c = S // chunk
+    xr = x.reshape(BH, n_c, chunk, P).float()
+    dtr = dt.reshape(BH, n_c, chunk).float()
+    Br = B.reshape(BH, n_c, chunk, N).float()
+    Cr = C.reshape(BH, n_c, chunk, N).float()
+    gyr = gy.reshape(BH, n_c, chunk, P).float()
+    gSr = gS.float()
+    a = A.float()[:, None, None]
+    cum = torch.cumsum(-dtr * a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tri, diff, torch.full_like(diff, -torch.inf)))
+    e = torch.exp(cum[..., -1:] - cum)                        # [BH,c,Q]
+    ed = e * dtr
+    CL = torch.matmul(Cr, Br.transpose(-1, -2)) * L           # [..,i,j]
+    G = torch.matmul(gyr, xr.transpose(-1, -2))               # [..,i,j]
+    dtj = dtr[..., None, :]
+    W = G * L * dtj
+    u = torch.matmul(Br, gSr)                                 # B_j gS [..,Q,P]
+    v = torch.matmul(xr, gSr.transpose(-1, -2))               # gS x_j [..,Q,N]
+    s = (u * xr).sum(-1)                                      # B_j^T gS x_j
+    dx = torch.matmul((CL * dtj).transpose(-1, -2), gyr) + ed[..., None] * u
+    dC = torch.matmul(W, Br)
+    dB = torch.matmul(W.transpose(-1, -2), Cr) + ed[..., None] * v
+    T = G * CL
+    R = T * dtj
+    sterm = ed * s
+    dcum = R.sum(-1) - R.sum(-2) - sterm
+    dcum[..., -1] += sterm.sum(-1)
+    rc = _reverse_cumsum(dcum)
+    ddt = T.sum(-2) + e * s - a * rc
+    dA = -(dtr * rc).sum((1, 2))
+    return (dx.reshape(BH, S, P), ddt.reshape(BH, S), dA,
+            dB.reshape(BH, S, N), dC.reshape(BH, S, N))
+
+
+def _launch_bwd(x, dt, A, B, C, chunk: int, heads: int, gy, gS):
+    """The backward kernel, then the fixed-order torch pass of its
+    header: dcum summed over the column tiles and the states' term added
+    at each chunk's last position, the reverse cumsum, ddt's -A rc term
+    and dA.  dB and dC come back per head [BH, S, N]."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd: unsupported device {x.device}")
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    if P not in HEAD_DIMS:
+        raise ValueError(f"ssd_chunk_bwd: head dim {P} not compiled (have "
+                         f"{HEAD_DIMS})")
+    limit = torch.cuda.get_device_properties(
+        x.device).shared_memory_per_block_optin
+    need = bwd_smem_bytes(N, P)
+    if need > limit:
+        raise ValueError(f"ssd_chunk_bwd: N {N}, P {P} needs {need} bytes "
+                         f"of shared memory, the device {limit}")
+    n_c, n_t = S // chunk, -(-chunk // BWD_TILE)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((BH, S, P), **f32)
+    ddt = torch.empty((BH, S), **f32)
+    dcum = torch.empty((BH, n_c, 2, chunk), **f32)
+    rowpart = torch.zeros((BH, n_t, S), **f32)
+    dB = torch.empty((BH, S, N), **f32)
+    dC = torch.empty((BH, S, N), **f32)
+    if dx.numel() == 0:
+        return dx, ddt, torch.zeros((BH,), **f32), dB, dC
+    with torch.cuda.device(x.device):
+        err = _bwd_library().ssd_chunk_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), gy.data_ptr(), gS.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dcum.data_ptr(), rowpart.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), int(x.dtype == torch.bfloat16),
+            BH, S, chunk, N, P, heads,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd: launch failed with CUDA error "
+                           f"{err} (x{tuple(x.shape)} {x.dtype} "
+                           f"B{tuple(B.shape)} chunk {chunk})")
+    global launches_bwd
+    launches_bwd += 1
+    launches_bwd_by_kind["simt"] += 1
+    total = rowpart.sum(1).reshape(BH, n_c, chunk) + dcum[:, :, 0]
+    total[..., -1] += dcum[:, :, 1].sum(-1)
+    rc = _reverse_cumsum(total)
+    ddt = ddt.reshape(BH, n_c, chunk) - A[:, None, None] * rc
+    dA = -(dt.reshape(BH, n_c, chunk) * rc).sum((1, 2))
+    return dx, ddt.reshape(BH, S), dA, dB, dC
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, chunk: int,
+                  gy: torch.Tensor, gS: torch.Tensor):
+    """The gradient of :func:`ssd_chunk` through the Hopper backward
+    kernel (``csrc/ssd_chunk_bwd.cu``, simt, fp32 arithmetic).  Operands
+    as :func:`ssd_chunk`'s (B, C [G, S, N], G dividing BH), gy
+    [BH, S, P] and gS [BH, S // chunk, N, P] the gradients of its
+    outputs.  Returns (dx, ddt, dA, dB, dC), fp32, dB and dC in B's
+    layout [G, S, N]: the per-head partials summed over the heads that
+    share a row, in head order.  For CPU tensors it computes
+    :func:`ssd_chunk_bwd_plain`; for CUDA tensors it launches the kernel
+    or raises."""
+    heads = _check(x, dt, A, B, C, chunk, "simt")
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    if gy.shape != x.shape or gS.shape != (BH, S // chunk, N, P) \
+            or gy.dtype != torch.float32 or gS.dtype != torch.float32 \
+            or gy.device != x.device or gS.device != x.device:
+        raise ValueError(f"ssd_chunk_bwd: gradients gy{tuple(gy.shape)} "
+                         f"{gy.dtype}, gS{tuple(gS.shape)} {gS.dtype}")
+    if x.device.type == "cpu":
+        Bb = B.repeat_interleave(heads, dim=0) if heads > 1 else B
+        Cb = C.repeat_interleave(heads, dim=0) if heads > 1 else C
+        dx, ddt, dA, dB, dC = ssd_chunk_bwd_plain(x, dt, A, Bb, Cb, chunk,
+                                                  gy, gS)
+    else:
+        if not all(t.is_contiguous() for t in (x, dt, A, B, C, gy, gS)):
+            raise ValueError("ssd_chunk_bwd: operands must be contiguous")
+        dx, ddt, dA, dB, dC = _launch_bwd(x, dt, A, B, C, chunk, heads,
+                                          gy, gS)
+    G = B.shape[0]
+    return (dx, ddt, dA, dB.reshape(G, heads, S, N).sum(1),
+            dC.reshape(G, heads, S, N).sum(1))
+
+
+class SsdChunk(torch.autograd.Function):
+    """:func:`ssd_chunk` with a gradient.  The forward launches the kernel
+    of ``kind`` (or the plain version, on the CPU) and saves only x, dt,
+    A, B and C; the backward is :func:`ssd_chunk_bwd` and returns each
+    gradient in its input's dtype.  Both are looked up in this module at
+    call time, so a control run may put the plain versions in their
+    place."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int, kind: str):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return ssd_chunk(x, dt, A, B, C, chunk, kind=kind)
+
+    @staticmethod
+    def backward(ctx, gy, gS):
+        x, dt, A, B, C = ctx.saved_tensors
+        dx, ddt, dA, dB, dC = ssd_chunk_bwd(
+            x, dt, A, B, C, ctx.chunk, gy.float().contiguous(),
+            gS.float().contiguous())
+        return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+                dB.to(B.dtype), dC.to(C.dtype), None, None)

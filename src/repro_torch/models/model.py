@@ -1,13 +1,13 @@
-"""Public model API of the ported slices (port of the serving and
-prefill entry points of src/repro/models/model.py): params, logit
-masking, greedy feedback, the one-shot prefill, and the decode-step /
-decode-epoch / prefill-chunk closures the server drives.  The closures
-take their static arguments (plan, k, kv_len) per call and the position
-as a device int64 scalar (or a host int), so the server can capture one
-call as a CUDA graph and replay it at every position of its window."""
+"""Public model API of the port (port of src/repro/models/model.py):
+params, logit masking, the training loss and step, greedy feedback,
+the one-shot prefill, and the decode-step / decode-epoch / prefill-chunk
+closures the server drives.  The closures take their static arguments
+(plan, k, kv_len) per call and the position as a device int64 scalar
+(or a host int), so the server can capture one call as a CUDA graph and
+replay it at every position of its window."""
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -15,6 +15,7 @@ from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import (decode_epoch, decode_step,
                                             init_lm, lm_forward,
                                             prefill_chunk)
+from repro_torch.optim import adamw
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda"):
@@ -34,6 +35,82 @@ def mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     ids = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(ids < cfg.vocab_size, logits,
                        torch.full_like(logits, -1e30))
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            remat: bool = True):
+    """Next-token cross-entropy plus 0.01 x the MoE aux loss, over the
+    token positions only (a VLM's patch prefix is conditioning context;
+    an encoder-decoder's logits cover its tokens already), padded vocab
+    rows masked, under remat, as the reference's ``loss_fn`` (:64);
+    ``remat=False`` keeps the activations instead (the same numbers).
+    Returns (loss, {"ce", "aux"}), fp32 scalars."""
+    prefix = batch.get("embeds_prefix")
+    logits, aux = lm_forward(params, batch["tokens"], cfg,
+                             embeds_prefix=prefix, remat=remat)
+    if prefix is not None and cfg.family != "encdec":
+        logits = logits[:, prefix.shape[1]:, :]
+    labels = batch["labels"]
+    logits = mask_padded_logits(logits[:, :-1, :].float(), cfg)
+    tgt = labels[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _value_and_grad(params, batch, cfg: ArchConfig, remat: bool = True):
+    """(loss, metrics, grads) of :func:`loss_fn`: the grads a tree like
+    ``params``, each in its param's dtype (zeros for a param the loss
+    does not reach)."""
+    leaves = adamw.tree_leaves(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    swap = dict(zip(map(id, leaves), live))
+    loss, metrics = loss_fn(adamw.tree_map(lambda p: swap[id(p)], params),
+                            batch, cfg, remat=remat)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)}
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            adamw.tree_map(lambda p: grads[id(p)], params))
+
+
+def make_train_step(cfg: ArchConfig,
+                    opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    microbatches: int = 1):
+    """The training step (ref :81): ``train_step(params, opt_state,
+    batch)`` -> (params, opt_state, metrics ``loss``, ``ce``, ``aux``,
+    ``grad_norm``, ``lr``).  ``microbatches > 1`` splits the batch on
+    its leading axis and sums the micro-steps' grads in fp32, in order,
+    then divides, as the reference's ``lax.scan`` of micro-steps; the
+    loss and metrics are the micro-steps' means."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, metrics, grads = _value_and_grad(params, batch, cfg)
+        else:
+            micro = [{k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                   + v.shape[1:])[i]
+                      for k, v in batch.items()} for i in range(microbatches)]
+            gsum = adamw.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            lsum, ms = 0.0, []
+            for mb in micro:
+                loss, metrics, g = _value_and_grad(params, mb, cfg)
+                gsum = adamw.tree_map(lambda a, b: a + b.float(), gsum, g)
+                lsum = lsum + loss
+                ms.append(metrics)
+            grads = adamw.tree_map(lambda g: g / microbatches, gsum)
+            loss = lsum / microbatches
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        params, opt_state, opt_metrics = adamw.update(opt_cfg, grads,
+                                                      opt_state, params)
+        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
 
 
 def make_prefill(cfg: ArchConfig, serve: bool = False):

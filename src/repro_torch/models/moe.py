@@ -55,11 +55,33 @@ def capacity(tokens_per_group: int, cfg: ArchConfig) -> int:
     return max(4, -(-c // 4) * 4)  # pad to a multiple of 4
 
 
+class _BmmF32(torch.autograd.Function):
+    """bf16 ``bmm`` with an fp32 result, and its gradient: ``aten::bmm``'s
+    ``out_dtype`` overload has no derivative formula, so the backward is
+    written out, each product again a bf16 ``bmm`` into fp32, and each
+    gradient cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = torch.bmm(g, b.transpose(1, 2), out_dtype=torch.float32)
+        gb = torch.bmm(a.transpose(1, 2), g, out_dtype=torch.float32)
+        return ga.to(a.dtype), gb.to(b.dtype)
+
+
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a @ b ([n, m, k] @ [n, k, p]) with fp32 accumulation and an
-    fp32 result, as the reference's ``preferred_element_type=float32``."""
+    fp32 result, as the reference's ``preferred_element_type=float32``;
+    bf16 on the card through :class:`_BmmF32`, which carries a
+    gradient."""
     if a.is_cuda and a.dtype == torch.bfloat16:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

@@ -49,10 +49,12 @@ to K/V at every call (no cross-attention cache, as in the reference).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as tcheckpoint
 
 from repro_torch.models.attention import init_attention, init_kv_cache, mha
 from repro_torch.models.base import ArchConfig
@@ -66,6 +68,22 @@ Caches = List[dict]
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the leaves of an attention layer's cache: [B, T, Hkv, .], time on axis 1
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+_REMAT_POLICY = "full"   # "full" | "dots" (save matmul outputs)
+
+
+def set_remat_policy(p: str) -> None:
+    global _REMAT_POLICY
+    assert p in ("full", "dots"), p
+    _REMAT_POLICY = p
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the output of every matmul without a
+    batch dim (``aten.mm`` / ``aten.addmm``, as JAX's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return tcheckpoint.CheckpointPolicy.MUST_SAVE
+    return tcheckpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -229,11 +247,13 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     them drop-free, as :func:`prefill_chunk`'s, so the kept tokens do
     not depend on how a prompt is chunked.  The reference's flag also
     unrolls its shallow-stack layer scan; the port has one Python layer
-    loop.  Rematerialisation (``remat``, training) is not yet ported
-    (raises)."""
+    loop.  ``remat`` (training) recomputes each layer group's activations
+    in the backward pass (``torch.utils.checkpoint``, non-reentrant)
+    instead of keeping them, as the reference's ``jax.checkpoint`` around
+    its group step: one layer, or a hybrid group's Mamba2 layers and the
+    shared block; :func:`set_remat_policy` ``"dots"`` keeps the matmul
+    outputs.  The encoder runs without remat, as in the reference."""
     _require_ported(cfg)
-    if remat:
-        raise NotImplementedError("remat (training) not yet ported")
     x = embed(params["embed"], tokens)
     if embeds_prefix is not None:
         x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
@@ -243,16 +263,36 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                          else x, cfg)
         x = embed(params["embed"], tokens)     # decoder stream: tokens only
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def group_fn(x, members):
+        aux = 0.0
+        for i, lp, xp in members:
+            if not is_attention_layer(cfg, i):
+                x, _ = _ssm_block(lp, x, cfg, plan=plan)
+            else:
+                x, _, a = _dense_block(lp, x, cfg, positions=positions,
+                                       xattn_kv=enc_out, xp=xp, plan=plan,
+                                       moe_fast=False,
+                                       moe_drop_free=serve_prefill)
+                aux = aux + a
+        return x, aux
+
+    layers = [(i, lp, xp)
+              for i, (lp, xp) in enumerate(_layer_pairs(params, cfg))]
+    size = cfg.attn_every if cfg.family == "hybrid" else 1
+    context = (functools.partial(
+        tcheckpoint.create_selective_checkpoint_contexts, _save_dots)
+        if _REMAT_POLICY == "dots" else tcheckpoint.noop_context_fn)
     aux = 0.0
-    for i, (lp, xp) in enumerate(_layer_pairs(params, cfg)):
-        if not is_attention_layer(cfg, i):
-            x, _ = _ssm_block(lp, x, cfg, plan=plan)
+    for g in range(0, len(layers), size):
+        members = layers[g:g + size]
+        if remat:
+            x, a = tcheckpoint.checkpoint(group_fn, x, members,
+                                          use_reentrant=False,
+                                          context_fn=context)
         else:
-            x, _, a = _dense_block(lp, x, cfg, positions=positions,
-                                   xattn_kv=enc_out, xp=xp, plan=plan,
-                                   moe_fast=False,
-                                   moe_drop_free=serve_prefill)
-            aux = aux + a
+            x, a = group_fn(x, members)
+        aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), aux
 

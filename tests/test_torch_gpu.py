@@ -11,7 +11,9 @@ quantized) and FFN kernels (2e-2 bf16, 2e-3 fp32), tests/test_kernels.py's flash
 tolerances for attention (3e-2 bf16, 2e-3 fp32; the quantized wgmma
 kernel is held at 2e-2, the bar chip_smoke.py holds it to), and the fp32
 one for ssd_chunk at both input types and both kinds (its arithmetic and
-outputs are fp32).
+outputs are fp32), and for its backward relative to each gradient's
+largest magnitude.  Two bf16 train steps (reduced mamba2 and olmoe) run
+the training path on the card.
 Each wrapper counts one launch per call.
 """
 import pytest
@@ -767,3 +769,90 @@ def test_fleet_replicas_on_distinct_cards():
         for tid, info in solo["tenants"].items():
             assert out["tenants"][tid]["replica"] == f"r{r}"
             assert (out["tenants"][tid]["output"] == info["output"]).all()
+
+
+# ------------------------------------------------------------ training --
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_chunk_bwd_matches_plain_version(dtype):
+    """ssd_chunk's backward kernel against its plain version on the card:
+    B and C per batch row at full width (32 heads, P 64, N 128, Q 256),
+    the reduced shape (P 32, N 16), a 44-token tail chunk and Q 1; each
+    gradient within the fp32 tolerance of its largest magnitude, or of 1
+    where that is smaller (the arithmetic and the outputs are fp32; dA
+    and ddt end in long sums that cancel).
+    One launch per call; a second launch is bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    for b, h, p, n, q, s in ((2, 32, 64, 128, 256, 512), (2, 8, 32, 16, 32, 96),
+                             (1, 4, 64, 128, 44, 132), (1, 2, 16, 8, 1, 8)):
+        x, Bm, Cm = r(b * h, s, p).to(dt), r(b, s, n).to(dt), r(b, s, n).to(dt)
+        dts = torch.nn.functional.softplus(r(b * h, s))
+        A = r(b * h).abs() + 0.1
+        gy, gS = r(b * h, s, p), r(b * h, s // q, n, p)
+        before = kssd.launches_bwd
+        got = kssd.ssd_chunk_bwd(x, dts, A, Bm, Cm, q, gy, gS)
+        assert kssd.launches_bwd == before + 1
+        want = kssd.ssd_chunk_bwd_plain(x, dts, A, Bm.repeat_interleave(h, 0),
+                                        Cm.repeat_interleave(h, 0), q, gy, gS)
+        want = list(want[:3]) + [w.reshape(b, h, s, n).sum(1)
+                                 for w in want[3:]]
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            err = float((g - w).abs().max())
+            # relative to the larger of the gradient's largest magnitude
+            # and 1: at Q 1, dA's terms cancel to exactly 0 in the plain
+            # version and to a rounding error of O(1) terms in the kernel
+            bar = 2e-3 * max(float(w.abs().max()), 1.0)
+            assert err <= bar, (b, h, p, n, q, err)
+        again = kssd.ssd_chunk_bwd(x, dts, A, Bm, Cm, q, gy, gS)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "olmoe-1b-7b"])
+def test_bf16_train_step_on_the_card(arch):
+    """One bf16 train step of the reduced config through make_train_step:
+    finite loss and grad norm, every param in its own dtype (bf16; a
+    Mamba2 layer's A_log, D and dt_bias fp32) and on the card, every
+    weight matrix moved.  mamba2's step launches ssd_chunk twice a layer
+    (again under remat; the wgmma kind) and ssd_chunk_bwd once; olmoe's
+    expert products run _dot_f32's bf16 bmm, whose gradient must reach
+    the expert weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import counters as kcount
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = _bf16(arch, f"{arch}-smoke-bf16-train")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device="cuda")
+    step = M.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1))
+    kcount.zero()
+    new, state, m = step(params, adamw.init(params),
+                         {"tokens": toks, "labels": toks})
+    counts = kcount.snapshot()
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert int(state.step) == 1
+    for old, p in zip(adamw.tree_leaves(params), adamw.tree_leaves(new)):
+        assert p.dtype == old.dtype and p.is_cuda
+    # a bf16 norm scale of 1.0 cannot move by lr 1e-3 (its spacing is
+    # 2**-7); every weight matrix must
+    moved = [not torch.equal(a, b) for a, b in zip(adamw.tree_leaves(params),
+                                                   adamw.tree_leaves(new))
+             if a.dim() >= 2]
+    assert moved and all(moved)
+    if arch == "mamba2-370m":
+        assert counts["ssd_chunk.wgmma"] == 2 * cfg.num_layers
+        assert counts["ssd_chunk_bwd"] == cfg.num_layers
+    else:
+        assert counts["ssd_chunk"] == 0
+        for layer in new["layers"]:
+            assert all(float(layer["mlp"][k].float().abs().sum()) > 0
+                       for k in ("gate", "up", "down"))

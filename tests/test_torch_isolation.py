@@ -39,16 +39,20 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 
 def test_every_kernel_and_the_ssm_slice_are_covered():
-    """The sources above include the SSM and MoE slices' modules and the
-    serve features' (checkpoint, straggler detector, fault schedule),
-    and every CUDA source the build compiles sits beside them."""
+    """The sources above include the SSM and MoE slices' modules, the
+    serve features' (checkpoint, straggler detector, fault schedule) and
+    the training slice's, and every CUDA source the build compiles sits
+    beside them."""
     from repro_torch.kernels import build
     names = {p.relative_to(PORT).as_posix() for p in SOURCES
              if p.is_relative_to(PORT)}
     assert {"models/ssm.py", "models/moe.py", "kernels/ssd_scan.py",
             "kernels/ops.py", "checkpoint/checkpoint.py",
-            "distributed/fault_tolerance.py", "sim/faults.py"} <= names
-    assert "ssd_chunk" in build.SOURCES
+            "distributed/fault_tolerance.py", "sim/faults.py",
+            "optim/adamw.py", "data/pipeline.py", "launch/train.py",
+            "distributed/compression.py",
+            "examples/train_100m.py"} <= names
+    assert {"ssd_chunk", "ssd_chunk_bwd"} <= set(build.SOURCES)
     for name in build.SOURCES:
         assert (PORT / "csrc" / f"{name}.cu").is_file(), name
 
@@ -61,6 +65,8 @@ def test_every_kernel_and_the_ssm_slice_are_covered():
     ("repro_torch.bridge", "caches_from_numpy"),
     ("repro_torch.launch.serve", "MultiTenantServer"),
     ("repro_torch.checkpoint.checkpoint", "restore"),
+    ("repro_torch.bridge", "opt_state_from_numpy"),
+    ("repro_torch.launch.train", "build"),
 ])
 def test_entry_points_run_on_the_card_unless_told(module, name):
     """Every entry point that places tensors defaults to ``"cuda"``: the

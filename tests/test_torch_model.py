@@ -224,15 +224,58 @@ def test_kv_len_window_matches_full_read(yi):
 
 
 def test_unported_attention_paths_raise(yi):
-    """What still raises: an unknown KV precision and remat (training).
-    Cross-attention and ``embeds_prefix`` are ported
-    (tests/test_torch_encdec.py, tests/test_torch_vlm.py)."""
+    """What still raises: an unknown KV precision.  Cross-attention and
+    ``embeds_prefix`` are ported (tests/test_torch_encdec.py,
+    tests/test_torch_vlm.py), and so is remat (training): its forward
+    equals the one without, bitwise (its gradients:
+    tests/test_torch_train.py)."""
     _, pcfg, _, pparams = yi
     with pytest.raises(ValueError):
         PA.init_kv_cache(pcfg, 1, 8, kv_dtype="int4", device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="remat"):
-        PT.lm_forward(pparams, toks, pcfg, remat=True)
+    with_remat = PT.lm_forward(pparams, toks, pcfg, remat=True)[0]
+    assert torch.equal(with_remat, PT.lm_forward(pparams, toks, pcfg)[0])
+
+
+def _kernel_calls():
+    """Each backward-less kernel wrapper on small CPU operands, by name."""
+    from repro_torch.kernels import block_fused_ffn as kffn
+    from repro_torch.kernels import cache_matmul as kmm
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import quant as kquant
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    q, k, v = r(1, 2, 8, 32), r(1, 2, 8, 32), r(1, 2, 8, 32)
+    kq, ks = kquant.quantize_rows(k, "int8")
+    vq, vs = kquant.quantize_rows(v, "int8")
+    bq, bs = r(16, 8).to(torch.int8), r(1, 8).abs()
+    return {
+        "cache_matmul": lambda a: kmm.cache_matmul(a, r(16, 8), kmm.TILES[0]),
+        "cache_matmul_quant": lambda a: kmm.cache_matmul_quant(
+            a, bq, bs, kmm.QUANT_TILES[0]),
+        "block_fused_ffn": lambda a: kffn.block_fused_ffn(
+            a, r(16, 24), r(16, 24), r(24, 16), kffn.TILES[0]),
+        "flash_attention": lambda a: kfa.flash_attention(
+            a, k, v, True, kfa.TILES[0]),
+        "flash_attention_quantized": lambda a: kfa.flash_attention_quantized(
+            a, kq, vq, ks[..., 0], vs[..., 0], True, kfa.TILES[0]),
+    }, {"flash_attention": q, "flash_attention_quantized": q}
+
+
+@pytest.mark.parametrize("name", ["cache_matmul", "cache_matmul_quant",
+                                  "block_fused_ffn", "flash_attention",
+                                  "flash_attention_quantized"])
+def test_backward_less_kernels_raise_under_grad(name):
+    """A kernel without a backward raises where autograd would need its
+    gradient, rather than returning an output with no ``grad_fn``; without
+    grad (serving), or under ``torch.no_grad``, it runs."""
+    calls, firsts = _kernel_calls()
+    a = firsts.get(name, torch.randn(4, 16))
+    calls[name](a)                                   # no grad needed
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[name](a.clone().requires_grad_())
+    with torch.no_grad():
+        calls[name](a.clone().requires_grad_())
 
 
 # ------------------------------------------------ plan-lowered prefill --
