@@ -285,18 +285,20 @@ Phases, each printed as one JSON object with its seconds:
   mamba2-370m (bf16, remat, seq 1024 = four SSD chunks of 256, batch 8)
   for 10 steps on the card, checkpointing at 5 and 10; counters zeroed
   just before and read just after: 96 forward ssd_chunk launches a step
-  (48 layers, again under remat; wgmma) and 48 ssd_chunk_bwd, no other
-  kernel; the loss finite and falling, no supervisor restart.  The
+  (48 layers, again under remat; wgmma) and 48 ssd_chunk_bwd (wgmma), no
+  other kernel; the loss finite and falling, no supervisor restart.  The
   checkpoint of step 5 restored into a fresh ``build`` replays steps 5
   and 6 with the first run's losses.  Step ms, tokens/s, model FLOP/s
   share, peak memory, checkpoint bytes and seconds, one profiled step.
   Gradients (:func:`train_grad_gates`): at full width cut to 2 layers
   in fp32 against the same step with ssd_chunk and its backward swapped
-  for their plain versions, and remat on == off bitwise; at full depth
-  in bf16 relative to that plain-path control.  The kernels phase holds
-  ssd_chunk_bwd against its plain version and autograd at mamba2's,
-  zamba2's and the reduced shape, and times it at the prefill's and the
-  train step's shapes.
+  for their plain versions (the simt kinds), and remat on == off
+  bitwise; at full depth in bf16 relative to that plain-path control.
+  The kernels phase holds ssd_chunk_bwd (wgmma and simt for bf16, simt
+  for fp32) against its plain version and autograd at mamba2's (Q 256,
+  a 44-token tail, Q 1), zamba2's and the reduced shape, and times the
+  wgmma kind in turns against the simt kind at the prefill's and the
+  train step's shapes, and the forward at the train step's.
 * ``train_100m``: ``repro_torch.examples.train_100m --full`` (lm-100m,
   fp32) for 40 steps with its preemption at 20 and resume.
 * ``train_cli``: ``launch/train.py::main --smoke`` for each of the six
@@ -1333,10 +1335,10 @@ def ssd_timings(ssm_cfg, dev):
                                 ("serve_chunk", 256, 256))}
 
 
-def _ssd_bwd_plain(x, dt, A, Bm, Cm, chunk, gy, gS):
+def _ssd_bwd_plain(x, dt, A, Bm, Cm, chunk, gy, gS, kind=None):
     """ssd_chunk_bwd's plain version on the reference's broadcast B/C,
     summed over the heads that share a row as the wrapper sums: the
-    control that stands in for the backward kernel."""
+    control that stands in for the backward kernel (of any kind)."""
     from repro_torch.kernels import ssd_scan as kssd
     h = x.shape[0] // Bm.shape[0]
     dx, ddt, dA, dB, dC = kssd.ssd_chunk_bwd_plain(
@@ -1347,13 +1349,14 @@ def _ssd_bwd_plain(x, dt, A, Bm, Cm, chunk, gy, gS):
             dC.reshape(G, h, S, N).sum(1))
 
 
-def _close_scaled(got, want, tol):
+def _close_scaled(got, want, tol, floor: float = 1e-6):
     """(max |got - want|, whether it is within ``tol`` of want's largest
-    magnitude): a gradient's long sums (the reverse cumsum of dcum, dA's
-    sum over the positions) cancel, so an element-wise bar would hold
-    its small entries to the rounding of the large ones."""
+    magnitude, or of ``floor`` where that is larger): a gradient's long
+    sums (the reverse cumsum of dcum, dA's sum over the positions) cancel,
+    so an element-wise bar would hold its small entries to the rounding
+    of the large ones."""
     err = float((got.float() - want.float()).abs().max())
-    return err, err <= tol * max(float(want.float().abs().max()), 1e-6)
+    return err, err <= tol * max(float(want.float().abs().max()), floor)
 
 
 def _ssd_bwd_grads(gen, b, h, s, p, n, dtype, q):
@@ -1368,19 +1371,26 @@ def _ssd_bwd_grads(gen, b, h, s, p, n, dtype, q):
 def ssd_bwd_cases(ssm_cfg, hybrid_cfg, dev):
     """ssd_chunk_bwd against its plain version (on the card, the same
     inputs) and against ``torch.autograd`` of ssd_chunk_plain: full-width
-    mamba2 (B 2, 32 heads, S 1024, P 64, N 128, Q 256), zamba2 (80 heads,
-    N 64) and the reduced shape (N 16, P 32), in bf16 and fp32 (TF32
-    off).  Against the plain backward at the fp32 tolerance (all fp32
+    mamba2 (B 2, 32 heads, S 1024, P 64, N 128, Q 256; a 44-token tail
+    chunk and Q 1 at B 1), zamba2 (80 heads, N 64) and the reduced shape
+    (N 16, P 32), in bf16 and fp32 (TF32 off).  bf16 runs the kind
+    ``ops.ssd_kind`` routes (wgmma) and the simt kind, fp32 the simt kind.
+    Against the plain backward at the fp32 tolerance (all fp32
     arithmetic), against autograd at the input dtype's (autograd returns
     dx, dB, dC in it), each relative to the gradient's largest magnitude
-    (:func:`_close_scaled`); bitwise on a repeat."""
+    (:func:`_close_scaled`; at Q 1 to the larger of that and 1: dA's terms
+    cancel to exactly 0 in the plain version and to rounding in the
+    kernel); bitwise on a repeat, one launch of the kind a call."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as kssd
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     red = ssm_cfg.reduced()
-    shapes = [("mamba2", 2, ssm_cfg.ssm_heads, 1024, ssm_cfg.ssm_head_dim,
-               ssm_cfg.ssm_state, 256),
+    h, p, n = ssm_cfg.ssm_heads, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
+    shapes = [("mamba2", 2, h, 1024, p, n, 256),
+              ("mamba2 tail", 1, h, 132, p, n, 44),
+              ("mamba2", 1, h, 8, p, n, 1),
               ("zamba2", 2, hybrid_cfg.ssm_heads, 1024,
                hybrid_cfg.ssm_head_dim, hybrid_cfg.ssm_state, 256),
               ("reduced", 2, red.ssm_heads, 3 * red.ssm_chunk,
@@ -1391,31 +1401,39 @@ def ssd_bwd_cases(ssm_cfg, hybrid_cfg, dev):
         dn = _dtype_name(dtype)
         for label, b, h, s, p, n, q in shapes:
             ops_in, gy, gS = _ssd_bwd_grads(gen, b, h, s, p, n, dtype, q)
-            got = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
-            again = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
-            repeat = all(torch.equal(a, c) for a, c in zip(got, again))
-            del again
             plain = _ssd_bwd_plain(*ops_in, q, gy, gS)
             leaves = [t.detach().clone().requires_grad_() for t in ops_in]
             y, st = _ssd_plain(*leaves, q)
             auto = torch.autograd.grad((y * gy).sum() + (st * gS).sum(),
                                        leaves)
             del y, st, leaves
-            errs, ok = {}, repeat
-            for name, g, w, a in zip(names, got, plain, auto):
-                ep, okp = _close_scaled(g, w, TOL["float32"])
-                ea, oka = _close_scaled(g.to(a.dtype), a, TOL[dn])
-                errs[name] = {"vs_plain": ep, "vs_autograd": ea}
-                ok = ok and okp and oka
-            rows.append({"kernel": "ssd_chunk_bwd", "case": f"{label} Q{q}",
-                         "dtype": dn, "kind": "simt",
-                         "shape": [b * h, s, p, n], "chunk": q,
-                         "max_abs_err": max(e["vs_plain"]
-                                            for e in errs.values()),
-                         "errors": errs, "tol": {"vs_plain": TOL["float32"],
-                                                 "vs_autograd": TOL[dn]},
-                         "bitwise_repeat": repeat, "ok": ok})
-            del got, plain, auto
+            floor = 1.0 if q == 1 else 1e-6
+            for kind in dict.fromkeys((ops.ssd_kind(dtype, n, p), "simt")):
+                before = kssd.launches_bwd_by_kind[kind]
+                got = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS, kind=kind)
+                again = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS, kind=kind)
+                launched = kssd.launches_bwd_by_kind[kind] - before
+                repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+                del again
+                errs, ok = {}, repeat and launched == 2
+                for name, g, w, a in zip(names, got, plain, auto):
+                    ep, okp = _close_scaled(g, w, TOL["float32"], floor)
+                    ea, oka = _close_scaled(g.to(a.dtype), a, TOL[dn], floor)
+                    errs[name] = {"vs_plain": ep, "vs_autograd": ea}
+                    ok = ok and okp and oka
+                rows.append({"kernel": "ssd_chunk_bwd",
+                             "case": f"{label} Q{q}", "dtype": dn,
+                             "kind": kind, "shape": [b * h, s, p, n],
+                             "chunk": q,
+                             "max_abs_err": max(e["vs_plain"]
+                                                for e in errs.values()),
+                             "errors": errs,
+                             "tol": {"vs_plain": TOL["float32"],
+                                     "vs_autograd": TOL[dn],
+                                     "floor": floor},
+                             "bitwise_repeat": repeat, "ok": ok})
+                del got
+            del plain, auto
     return rows
 
 
@@ -1438,36 +1456,47 @@ def ssd_bwd_work(b, h, s, p, n, q, eb):
 def ssd_bwd_timings(ssm_cfg, dev):
     """ssd_chunk_bwd at the SSM paths' shapes (bf16, full-width mamba2):
     the prefill's (B 2, S 1024) and the train step's (B 8, S 1024), Q 256;
-    checked against the plain version on the timed inputs, bitwise on a
-    repeat; kernel and plain timed by :func:`_median_ms`, the bound from
-    :func:`ssd_bwd_work`."""
+    the kind ``ops.ssd_kind`` routes (wgmma) checked against the plain
+    version on the timed inputs, bitwise on a repeat, timed in turns
+    against the simt kind (``simt_ms``), plain timed by
+    :func:`_median_ms`, the bound from :func:`ssd_bwd_work`.  Then the
+    forward ssd_chunk at the train step's shape (:func:`_ssd_timing`)."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as kssd
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     h, p, n = ssm_cfg.ssm_heads, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
+    kind = ops.ssd_kind(torch.bfloat16, n, p)
     out = {}
     for label, b in (("prefill", SSM_PREFILL["batch"]),
                      ("train", TRAIN_SSM["global_batch"])):
         s, q = 1024, 256
         ops_in, gy, gS = _ssd_bwd_grads(gen, b, h, s, p, n, torch.bfloat16, q)
-        got = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
-        again = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)
+        got = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS, kind=kind)
+        again = kssd.ssd_chunk_bwd(*ops_in, q, gy, gS, kind=kind)
         repeat = all(torch.equal(a, c) for a, c in zip(got, again))
         plain = _ssd_bwd_plain(*ops_in, q, gy, gS)
         checks = [_close_scaled(g, w, TOL["float32"])
                   for g, w in zip(got, plain)]
         del got, again, plain
         bound, by = _bound(*ssd_bwd_work(b, h, s, p, n, q, 2), "bfloat16")
+        t = _turns_ms({
+            "ms": lambda: kssd.ssd_chunk_bwd(*ops_in, q, gy, gS, kind=kind),
+            "simt_ms": lambda: kssd.ssd_chunk_bwd(*ops_in, q, gy, gS,
+                                                  kind="simt")})
         out[f"ssd_chunk_bwd.{label}"] = {
-            "shape": [b, h, s, p, n], "chunk": q, "kind": "simt",
-            "ms": _median_ms(lambda: kssd.ssd_chunk_bwd(*ops_in, q, gy, gS)),
+            "shape": [b, h, s, p, n], "chunk": q, "kind": kind, **t,
             "plain_ms": _median_ms(lambda: _ssd_bwd_plain(*ops_in, q, gy,
                                                           gS)),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
             "max_abs_err": max(e for e, _ in checks),
             "bitwise_repeat": repeat,
-            "ok": repeat and all(ok for _, ok in checks)}
+            "ok": repeat and all(ok for _, ok in checks),
+            "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+        del ops_in, gy, gS
+    out["ssd_chunk.train"] = _ssd_timing(gen, TRAIN_SSM["global_batch"], h,
+                                         1024, p, n, 256)
     return out
 
 
@@ -4759,7 +4788,8 @@ def train_grad_gates(cfg, dev):
     every gradient with the kernels within :data:`TOL` (relative to each
     gradient's largest magnitude) of the same step with ssd_chunk and its
     backward swapped for their plain versions; 4 forward launches (2
-    layers, again under remat) and 2 backward; remat on == off bitwise.
+    layers, again under remat) and 2 backward, of the simt kind; remat on
+    == off bitwise.
     At full depth in bf16: the kernel path's 1 - cosine to the gradients
     of an fp32 copy of the weights within :data:`SSM_BF16_SPREAD` times
     the plain-path control's, or :data:`SSM_BF16_FLOOR`."""
@@ -4772,8 +4802,10 @@ def train_grad_gates(cfg, dev):
                          seed=11)
     _zero_counters()
     loss_k, g_k = _grads(c2, p2, batch)
-    launched = {k: _counters()[k] for k in ("ssd_chunk", "ssd_chunk_bwd")}
-    if launched != {"ssd_chunk": 4, "ssd_chunk_bwd": 2}:
+    launched = {k: _counters()[k] for k in ("ssd_chunk", "ssd_chunk_bwd",
+                                            "ssd_chunk_bwd.simt")}
+    if launched != {"ssd_chunk": 4, "ssd_chunk_bwd": 2,
+                    "ssd_chunk_bwd.simt": 2}:
         raise AssertionError(f"train_ssm fp32: launches {launched}")
     loss_p, g_p = _plain_ssd_train(lambda: _grads(c2, p2, batch))
     errs = [_close_scaled(a, b, TOL["float32"]) for a, b in zip(g_k, g_p)]
@@ -4813,7 +4845,8 @@ def train_ssm_main_path(cfg, dev, counters):
     full-width, full-depth mamba2 (bf16, remat, :data:`TRAIN_SSM`), its
     counters zeroed just before and read just after: 96 forward
     ssd_chunk launches a step (48 layers, again under remat), all of the
-    wgmma kind, and 48 ssd_chunk_bwd; no other kernel.  The loss finite
+    wgmma kind, and 48 ssd_chunk_bwd, all of the wgmma kind too (the
+    forward's); no other kernel.  The loss finite
     and falling, no supervisor restart.  Then the resume: the checkpoint
     of step 5 restored (``TrainSupervisor.restore``) into a fresh
     ``build`` and :data:`RESUME_STEPS` steps replayed on the batches of
@@ -4850,7 +4883,9 @@ def train_ssm_main_path(cfg, dev, counters):
         peak = torch.cuda.max_memory_allocated()
         losses = run["losses"]
         want = {"ssd_chunk": 2 * cfg.num_layers * steps,
-                "ssd_chunk_bwd": cfg.num_layers * steps}
+                "ssd_chunk_bwd": cfg.num_layers * steps,
+                "ssd_chunk_bwd.wgmma": cfg.num_layers * steps,
+                "ssd_chunk_bwd.simt": 0}
         others = {k: counters[k] for k in PREFILL_KERNELS
                   + ("cache_matmul_quant",) if counters[k]}
         if (not all(math.isfinite(v) for v in losses)
@@ -5285,11 +5320,14 @@ def main() -> int:
     pf = timings["ssd_chunk_bwd.train"]
     kernels[5]["backward"] = {"launches": train_ssm_counts["ssd_chunk_bwd"],
                               "max_abs_err": pf["max_abs_err"],
-                              **{k: pf[k] for k in keys + ("kind",)}}
-    kernels[5]["train_launches"] = train_ssm_counts["ssd_chunk"]
+                              **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
+    pf = timings["ssd_chunk.train"]
+    kernels[5]["train"] = {"launches": train_ssm_counts["ssd_chunk"],
+                           "max_abs_err": pf["max_abs_err"],
+                           **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
     pf = timings["ssd_chunk_bwd.prefill"]
     kernels[6]["prefill"] = {"max_abs_err": pf["max_abs_err"],
-                             **{k: pf[k] for k in keys + ("kind",)}}
+                             **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
     # the fleet phases' launches (no new kernel: each replica runs its
     # tenants' kernels)
     for i, name in ((0, "cache_matmul"), (5, "ssd_chunk")):

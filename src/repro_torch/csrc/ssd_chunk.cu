@@ -75,7 +75,7 @@
 // memory of a launch, which kernels/ssd_scan.py::smem_bytes mirrors.
 #include <cstdint>
 
-#include "hopper_async.cuh"
+#include "ssd_common.cuh"
 #include "tile_common.cuh"
 
 namespace repro {
@@ -309,10 +309,7 @@ int dispatch(int P, const void* x, const void* dt, const void* A, const void* B,
 }
 
 // ---------------------------------------------------------------- wgmma --
-constexpr int kWRows = 64;            // rows of every tile: query, key, state, position
-constexpr int kWBox = kWRows * 128;   // one 128-byte-swizzled box: 64 rows of 64 bf16
-constexpr int kWThreads = 128;        // one warpgroup a block
-constexpr int kWMaxState = 256;
+constexpr int kWMaxState = 256;   // tile geometry: ssd_common.cuh
 
 __host__ __device__ constexpr int w_boxes(int N) { return (N + 63) / 64; }
 // Alignment to the swizzle atom, the cum and dt (or state weight)
@@ -348,15 +345,6 @@ __device__ __forceinline__ void load_sw128(uint8_t* dst, const __nv_bfloat16* __
   }
 }
 
-// Two fp32 weights as bf16 pairs hi = bf16(w) and lo = bf16(w - hi)
-// (w - hi is exact in fp32), element a in the low halves.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(__fsub_rn(a, hf.x), __fsub_rn(b, hf.y));
-}
-
 template <int P>
 __device__ __forceinline__ void mma_rs(float (&d)[P / 2], const uint32_t (&a)[4], uint64_t b) {
   if constexpr (P == 64) {
@@ -372,30 +360,6 @@ __device__ __forceinline__ void mma_ss_t(float (&d)[P / 2], uint64_t a, uint64_t
     wgmma_m64n64k16_ss<1, 1>(d, a, b);
   } else {
     wgmma_m64n32k16_ss<1, 1>(d, a, b);
-  }
-}
-
-// cum[q] = sum over r <= q of -dt[r] * a, by warp 0 in a fixed order:
-// lane l sums its run of ceil(Q / 32) positions, a shuffle scan adds the
-// runs before it, then the lane writes its run's prefix sums from there.
-__device__ __forceinline__ void chunk_cum_scan(float* cum, const float* dt, float a, int Q) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  const int per = (Q + 31) / 32;
-  const int lo = min(Q, lane * per), hi = min(Q, lo + per);
-  float run = 0.f;
-  for (int q = lo; q < hi; ++q) run = __fadd_rn(run, __fmul_rn(-dt[q], a));
-  float inc = run;
-#pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
-    const float up = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc = __fadd_rn(up, inc);
-  }
-  float acc = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) acc = 0.f;
-  for (int q = lo; q < hi; ++q) {
-    acc = __fadd_rn(acc, __fmul_rn(-dt[q], a));
-    cum[q] = acc;
   }
 }
 

@@ -26,15 +26,19 @@ fp32.  The chunk length is any divisor of S from 1 to :data:`MAX_CHUNK`.
 
 The gradient: :class:`SsdChunk` is the ``torch.autograd.Function`` the
 model calls (``kernels/ops.py::ssd_intra_chunk``).  It saves x, dt, A, B
-and C only; its backward is :func:`ssd_chunk_bwd`, the hand-written
-kernel of ``csrc/ssd_chunk_bwd.cu`` on the card (one launch, counted in
-:data:`launches_bwd`) and :func:`ssd_chunk_bwd_plain`, the explicit
-formulas in fp32, on the CPU.  The kernel recomputes cum and L from dt
-and A, as the forward does.
+and C only, and the forward's kind; its backward is :func:`ssd_chunk_bwd`
+of that kind, the hand-written kernel of ``csrc/ssd_chunk_bwd.cu`` on the
+card (one launch, counted in :data:`launches_bwd` and
+:data:`launches_bwd_by_kind`: ``simt`` for fp32, ``wgmma`` on the tensor
+cores for the bf16 calls the forward's wgmma kind takes) and
+:func:`ssd_chunk_bwd_plain`, the explicit formulas in fp32, on the CPU.
+The kernel recomputes cum and L from dt and A, as the forward's kind
+does.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -53,10 +57,11 @@ _KIND_IDS = {"simt": 0, "wgmma": 2}   # the C entry point's kind
 launches = 0
 launches_by_kind: Dict[str, int] = {k: 0 for k in KINDS}
 launches_bwd = 0
-launches_bwd_by_kind: Dict[str, int] = {"simt": 0}
+launches_bwd_by_kind: Dict[str, int] = {k: 0 for k in KINDS}
 _lib = None
 _bwd_lib = None
 BWD_TILE = 64            # rows and columns of the backward's tiles
+BWD_HEAD_GROUP = 4       # heads a wgmma backward block sums dB and dC over
 
 
 def smem_bytes(n: int, p: int, kind: str = "simt") -> int:
@@ -218,13 +223,20 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 # ------------------------------------------------------------ backward --
-def bwd_smem_bytes(n: int, p: int) -> int:
-    """Shared memory of one backward launch at state size ``n`` and head
-    dim ``p`` (``csrc/ssd_chunk_bwd.cu::bwd_smem_bytes``, checked when it
-    loads): the cum, dt and decay stripes, then the larger of the column
-    block's tiles (B and C transposed [n][65], x and gy transposed
-    [p][65], gy [64][p], two [64][65] weight tiles) and the dB / dC
-    blocks', fp32."""
+def bwd_smem_bytes(n: int, p: int, kind: str = "simt") -> int:
+    """Shared memory of one backward launch of ``kind`` at state size
+    ``n`` and head dim ``p`` (``csrc/ssd_chunk_bwd.cu::bwd_smem_bytes``
+    and ``wgmma_bwd_smem_bytes``, checked when it loads).  simt: the cum,
+    dt and decay stripes, then the larger of the column block's tiles (B
+    and C transposed [n][65], x and gy transposed [p][65], gy [64][p], two
+    [64][65] weight tiles) and the dB / dC blocks', fp32.  wgmma: 1024
+    bytes of alignment, the three stripes and the reduction rows (4096),
+    then 64-row bf16 boxes of 128 bytes a row: B_j (``nb`` boxes, N
+    rounded up to whole state slices) and x_j, then the larger of C_i with
+    gy_i's hi and lo (nb + 2) and gS's hi and lo (2 nb)."""
+    if kind == "wgmma":
+        nb = 1 if n <= 64 else 2 * -(-n // 128)
+        return 1024 + 4096 + (nb + 1 + max(nb + 2, 2 * nb)) * 64 * 128
     ld = BWD_TILE + 1
     col = 2 * n * ld + 2 * p * ld + BWD_TILE * p + 2 * BWD_TILE * ld
     bc = 2 * p * ld + BWD_TILE * ld + BWD_TILE * BWD_TILE + p * BWD_TILE
@@ -236,16 +248,18 @@ def _bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = build.load("ssd_chunk_bwd")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_chunk_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
+        lib.ssd_chunk_bwd.argtypes = [ptr] * 13 + [i32] * 9 + [ptr]
         lib.ssd_chunk_bwd.restype = i32
-        lib.ssd_chunk_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.ssd_chunk_bwd_smem_bytes.argtypes = [i32, i32, i32]
         lib.ssd_chunk_bwd_smem_bytes.restype = i32
-        for n, p in ((128, 64), (64, 64), (16, 32), (8, 16), (256, 64)):
-            got = lib.ssd_chunk_bwd_smem_bytes(n, p)
-            if got != bwd_smem_bytes(n, p):
-                raise RuntimeError(
-                    f"ssd_chunk_bwd: shared memory at N {n}, P {p} is {got} "
-                    f"in the library, {bwd_smem_bytes(n, p)} in Python")
+        for kind in KINDS:
+            for n, p in ((128, 64), (64, 64), (16, 32), (192, 32), (256, 64)):
+                got = lib.ssd_chunk_bwd_smem_bytes(n, p, _KIND_IDS[kind])
+                if got != bwd_smem_bytes(n, p, kind):
+                    raise RuntimeError(
+                        f"ssd_chunk_bwd: {kind} shared memory at N {n}, P "
+                        f"{p} is {got} in the library, "
+                        f"{bwd_smem_bytes(n, p, kind)} in Python")
         _bwd_lib = lib
     return _bwd_lib
 
@@ -301,11 +315,19 @@ def ssd_chunk_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dB.reshape(BH, S, N), dC.reshape(BH, S, N))
 
 
-def _launch_bwd(x, dt, A, B, C, chunk: int, heads: int, gy, gS):
-    """The backward kernel, then the fixed-order torch pass of its
-    header: dcum summed over the column tiles and the states' term added
-    at each chunk's last position, the reverse cumsum, ddt's -A rc term
-    and dA.  dB and dC come back per head [BH, S, N]."""
+def bwd_head_group(heads: int, kind: str) -> int:
+    """Heads one backward block sums dB and dC over, in head order: 1 for
+    simt (per-head slabs), the largest divisor of ``heads`` up to
+    :data:`BWD_HEAD_GROUP` for wgmma."""
+    return math.gcd(heads, BWD_HEAD_GROUP) if kind == "wgmma" else 1
+
+
+def _launch_bwd(x, dt, A, B, C, chunk: int, heads: int, gy, gS, kind: str):
+    """The backward kernel of ``kind``, then the fixed-order torch pass of
+    its header: dcum summed over the column tiles and the states' term
+    added at each chunk's last position, the reverse cumsum, ddt's -A rc
+    term and dA.  dB and dC come back summed over groups of
+    :func:`bwd_head_group` heads, [BH / group, S, N]."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_bwd: unsupported device {x.device}")
     BH, S, P = x.shape
@@ -315,18 +337,19 @@ def _launch_bwd(x, dt, A, B, C, chunk: int, heads: int, gy, gS):
                          f"{HEAD_DIMS})")
     limit = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
-    need = bwd_smem_bytes(N, P)
+    need = bwd_smem_bytes(N, P, kind)
     if need > limit:
         raise ValueError(f"ssd_chunk_bwd: N {N}, P {P} needs {need} bytes "
-                         f"of shared memory, the device {limit}")
+                         f"of shared memory ({kind}), the device {limit}")
+    group = bwd_head_group(heads, kind)
     n_c, n_t = S // chunk, -(-chunk // BWD_TILE)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((BH, S, P), **f32)
     ddt = torch.empty((BH, S), **f32)
     dcum = torch.empty((BH, n_c, 2, chunk), **f32)
     rowpart = torch.zeros((BH, n_t, S), **f32)
-    dB = torch.empty((BH, S, N), **f32)
-    dC = torch.empty((BH, S, N), **f32)
+    dB = torch.empty((BH // group, S, N), **f32)
+    dC = torch.empty((BH // group, S, N), **f32)
     if dx.numel() == 0:
         return dx, ddt, torch.zeros((BH,), **f32), dB, dC
     with torch.cuda.device(x.device):
@@ -335,15 +358,15 @@ def _launch_bwd(x, dt, A, B, C, chunk: int, heads: int, gy, gS):
             C.data_ptr(), gy.data_ptr(), gS.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), dcum.data_ptr(), rowpart.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), int(x.dtype == torch.bfloat16),
-            BH, S, chunk, N, P, heads,
+            BH, S, chunk, N, P, heads, _KIND_IDS[kind], group,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_bwd: launch failed with CUDA error "
                            f"{err} (x{tuple(x.shape)} {x.dtype} "
-                           f"B{tuple(B.shape)} chunk {chunk})")
+                           f"B{tuple(B.shape)} chunk {chunk}, {kind})")
     global launches_bwd
     launches_bwd += 1
-    launches_bwd_by_kind["simt"] += 1
+    launches_bwd_by_kind[kind] += 1
     total = rowpart.sum(1).reshape(BH, n_c, chunk) + dcum[:, :, 0]
     total[..., -1] += dcum[:, :, 1].sum(-1)
     rc = _reverse_cumsum(total)
@@ -354,17 +377,19 @@ def _launch_bwd(x, dt, A, B, C, chunk: int, heads: int, gy, gS):
 
 def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor, chunk: int,
-                  gy: torch.Tensor, gS: torch.Tensor):
+                  gy: torch.Tensor, gS: torch.Tensor, kind: str = "simt"):
     """The gradient of :func:`ssd_chunk` through the Hopper backward
-    kernel (``csrc/ssd_chunk_bwd.cu``, simt, fp32 arithmetic).  Operands
-    as :func:`ssd_chunk`'s (B, C [G, S, N], G dividing BH), gy
-    [BH, S, P] and gS [BH, S // chunk, N, P] the gradients of its
-    outputs.  Returns (dx, ddt, dA, dB, dC), fp32, dB and dC in B's
-    layout [G, S, N]: the per-head partials summed over the heads that
-    share a row, in head order.  For CPU tensors it computes
+    kernel of ``kind`` (``csrc/ssd_chunk_bwd.cu``; :func:`wgmma_takes`
+    decides which calls the ``wgmma`` kind takes, as for the forward; the
+    plain version ignores it).  Operands as :func:`ssd_chunk`'s (B, C
+    [G, S, N], G dividing BH), gy [BH, S, P] and gS [BH, S // chunk, N,
+    P] the gradients of its outputs.  Returns (dx, ddt, dA, dB, dC),
+    fp32, dB and dC in B's layout [G, S, N]: the per-head (simt) or
+    per-group (wgmma, summed in the kernel) partials summed over the
+    heads that share a row, in head order.  For CPU tensors it computes
     :func:`ssd_chunk_bwd_plain`; for CUDA tensors it launches the kernel
     or raises."""
-    heads = _check(x, dt, A, B, C, chunk, "simt")
+    heads = _check(x, dt, A, B, C, chunk, kind)
     BH, S, P = x.shape
     N = B.shape[-1]
     if gy.shape != x.shape or gS.shape != (BH, S // chunk, N, P) \
@@ -381,24 +406,25 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if not all(t.is_contiguous() for t in (x, dt, A, B, C, gy, gS)):
             raise ValueError("ssd_chunk_bwd: operands must be contiguous")
         dx, ddt, dA, dB, dC = _launch_bwd(x, dt, A, B, C, chunk, heads,
-                                          gy, gS)
+                                          gy, gS, kind)
     G = B.shape[0]
-    return (dx, ddt, dA, dB.reshape(G, heads, S, N).sum(1),
-            dC.reshape(G, heads, S, N).sum(1))
+    parts = dB.shape[0] // G
+    return (dx, ddt, dA, dB.reshape(G, parts, S, N).sum(1),
+            dC.reshape(G, parts, S, N).sum(1))
 
 
 class SsdChunk(torch.autograd.Function):
     """:func:`ssd_chunk` with a gradient.  The forward launches the kernel
     of ``kind`` (or the plain version, on the CPU) and saves only x, dt,
-    A, B and C; the backward is :func:`ssd_chunk_bwd` and returns each
-    gradient in its input's dtype.  Both are looked up in this module at
-    call time, so a control run may put the plain versions in their
-    place."""
+    A, B and C, and the kind; the backward is :func:`ssd_chunk_bwd` of the
+    same kind and returns each gradient in its input's dtype.  Both are
+    looked up in this module at call time, so a control run may put the
+    plain versions in their place."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int, kind: str):
         ctx.save_for_backward(x, dt, A, B, C)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.kind = chunk, kind
         return ssd_chunk(x, dt, A, B, C, chunk, kind=kind)
 
     @staticmethod
@@ -406,6 +432,6 @@ class SsdChunk(torch.autograd.Function):
         x, dt, A, B, C = ctx.saved_tensors
         dx, ddt, dA, dB, dC = ssd_chunk_bwd(
             x, dt, A, B, C, ctx.chunk, gy.float().contiguous(),
-            gS.float().contiguous())
+            gS.float().contiguous(), kind=ctx.kind)
         return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
                 dB.to(B.dtype), dC.to(C.dtype), None, None)

@@ -773,30 +773,36 @@ def test_fleet_replicas_on_distinct_cards():
 
 # ------------------------------------------------------------ training --
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_ssd_chunk_bwd_matches_plain_version(dtype):
-    """ssd_chunk's backward kernel against its plain version on the card:
-    B and C per batch row at full width (32 heads, P 64, N 128, Q 256),
-    the reduced shape (P 32, N 16), a 44-token tail chunk and Q 1; each
-    gradient within the fp32 tolerance of its largest magnitude, or of 1
-    where that is smaller (the arithmetic and the outputs are fp32; dA
-    and ddt end in long sums that cancel).
-    One launch per call; a second launch is bitwise equal."""
+@pytest.mark.parametrize("dtype,kind", [("float32", "simt"),
+                                        ("bfloat16", "simt"),
+                                        ("bfloat16", "wgmma")])
+def test_cuda_ssd_chunk_bwd_matches_plain_version(dtype, kind):
+    """ssd_chunk's backward kernel of each kind against its plain version
+    on the card: B and C per batch row at full width (32 heads, P 64,
+    N 128, Q 256), the reduced shape (P 32, N 16), a 44-token tail chunk
+    and Q 1 (at P 16, N 8 for simt; P 32, N 16 for wgmma, which takes P 32
+    and 64 and N a multiple of 16); each gradient within the fp32
+    tolerance of its largest magnitude, or of 1 where that is smaller (the
+    arithmetic and the outputs are fp32; dA and ddt end in long sums that
+    cancel).  One launch of the kind per call; a second launch is bitwise
+    equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(3)
     r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    q1 = (1, 2, 32, 16, 1, 8) if kind == "wgmma" else (1, 2, 16, 8, 1, 8)
     for b, h, p, n, q, s in ((2, 32, 64, 128, 256, 512), (2, 8, 32, 16, 32, 96),
-                             (1, 4, 64, 128, 44, 132), (1, 2, 16, 8, 1, 8)):
+                             (1, 4, 64, 128, 44, 132), q1):
         x, Bm, Cm = r(b * h, s, p).to(dt), r(b, s, n).to(dt), r(b, s, n).to(dt)
         dts = torch.nn.functional.softplus(r(b * h, s))
         A = r(b * h).abs() + 0.1
         gy, gS = r(b * h, s, p), r(b * h, s // q, n, p)
-        before = kssd.launches_bwd
-        got = kssd.ssd_chunk_bwd(x, dts, A, Bm, Cm, q, gy, gS)
-        assert kssd.launches_bwd == before + 1
+        before = dict(kssd.launches_bwd_by_kind)
+        got = kssd.ssd_chunk_bwd(x, dts, A, Bm, Cm, q, gy, gS, kind=kind)
+        assert {k: v - before[k] for k, v in kssd.launches_bwd_by_kind.items()
+                } == {k: int(k == kind) for k in kssd.KINDS}
         want = kssd.ssd_chunk_bwd_plain(x, dts, A, Bm.repeat_interleave(h, 0),
                                         Cm.repeat_interleave(h, 0), q, gy, gS)
         want = list(want[:3]) + [w.reshape(b, h, s, n).sum(1)
@@ -808,8 +814,8 @@ def test_cuda_ssd_chunk_bwd_matches_plain_version(dtype):
             # and 1: at Q 1, dA's terms cancel to exactly 0 in the plain
             # version and to a rounding error of O(1) terms in the kernel
             bar = 2e-3 * max(float(w.abs().max()), 1.0)
-            assert err <= bar, (b, h, p, n, q, err)
-        again = kssd.ssd_chunk_bwd(x, dts, A, Bm, Cm, q, gy, gS)
+            assert err <= bar, (kind, b, h, p, n, q, err)
+        again = kssd.ssd_chunk_bwd(x, dts, A, Bm, Cm, q, gy, gS, kind=kind)
         assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
@@ -820,7 +826,8 @@ def test_bf16_train_step_on_the_card(arch):
     finite loss and grad norm, every param in its own dtype (bf16; a
     Mamba2 layer's A_log, D and dt_bias fp32) and on the card, every
     weight matrix moved.  mamba2's step launches ssd_chunk twice a layer
-    (again under remat; the wgmma kind) and ssd_chunk_bwd once; olmoe's
+    (again under remat; the wgmma kind) and ssd_chunk_bwd once (wgmma
+    too: the forward's kind); olmoe's
     expert products run _dot_f32's bf16 bmm, whose gradient must reach
     the expert weights."""
     if not torch.cuda.is_available():
@@ -851,6 +858,7 @@ def test_bf16_train_step_on_the_card(arch):
     if arch == "mamba2-370m":
         assert counts["ssd_chunk.wgmma"] == 2 * cfg.num_layers
         assert counts["ssd_chunk_bwd"] == cfg.num_layers
+        assert counts["ssd_chunk_bwd.wgmma"] == cfg.num_layers
     else:
         assert counts["ssd_chunk"] == 0
         for layer in new["layers"]:

@@ -198,7 +198,7 @@ def test_ssd_wgmma_kind_smem_and_rejections():
 
 
 def _warp_scan_cum(dA):
-    """csrc/ssd_chunk.cu::chunk_cum_scan in torch fp32: lane l sums its
+    """csrc/ssd_common.cuh::chunk_cum_scan in torch fp32: lane l sums its
     run of ceil(Q / 32) positions in order, a Hillis-Steele shuffle scan
     over the 32 run totals, then each lane's prefix sums from the runs
     before it.  dA [..., Q]."""
