@@ -280,6 +280,34 @@ Phases, each printed as one JSON object with its seconds:
   r1 killed at step 12 too, which is logged as skipped ("last live
   replica") and raises nothing.
 
+* ``serve_tp``: the tensor-parallel slice (:data:`SERVE_TP`), the
+  reference's tp = 2 fleet scenario (tests/test_fleet.py:166) at full
+  width: ``FleetServer(n_replicas=2, tp=2, devices=["cuda:0"] * 4)``,
+  two full-depth yi-9b tenants (bf16), one a replica, the second with a
+  128-token prompt, 16 steps.  Gated: every 'model'-split leaf's pieces
+  on the group's devices at 1/tp of its bytes (bytes per shard
+  printed), each attention cache one piece a shard (its KV heads) on
+  the shard's device, every other leaf and buffer on the group's first
+  device;
+  each replica's streams bitwise equal to a replay on a fresh tp = 2
+  group; the run repeated bitwise; a warm round (the two as residents)
+  building nothing.  Then, the tp = 2 weights freed, a tp = 1 fleet on
+  the same weights rebuilt from the same seeds: tp = 2 runs exactly
+  twice its cache_matmul gemv launches (counters zeroed just before each
+  run, read just after), every one at a shard's shape (4096 x 5504 and
+  5504 x 4096), none on a whole FFN weight; warm tokens/s of both (a
+  record, not a gate).
+* ``e2e_tp``: all six families at full width cut to 2–6 layers
+  (:data:`E2E_TP`; olmoe in both MoE modes), one seed's weights at
+  tp = 2 on ``[cuda:0, cuda:0]`` against tp = 1: ``make_prefill`` and a
+  prompt chunk with teacher-forced decode epochs under an LWM plan and,
+  where the family has an FFN, an LBM plan; logits within 2e-2 of the
+  largest (:func:`_gate`) and bitwise on a repeat; the plan kernels'
+  launches at tp = 2 on each shard's d_ff slice, twice tp = 1's (once
+  an expert under ``"fsdp"``).  An eager decode step's time at tp = 2
+  and tp = 1 is recorded (:func:`_decode_ms`), not gated.
+* ``example``: ``python -m repro_torch.examples.multi_tenant_serve
+  --full-width --steps 6`` in a process of its own; rc 0 and its report.
 * ``train_ssm``: the training slice (:data:`TRAIN_SSM`).
   ``repro_torch.launch.train.main`` trains full-width, full-depth
   mamba2-370m (bf16, remat, seq 1024 = four SSD chunks of 256, batch 8)
@@ -571,6 +599,21 @@ FLEET_FAILOVER = dict(arch=SSM_ARCH, tenants=3, prompt_len=32, n_inferences=24,
 # gradient's largest magnitude) and at full depth in bf16 relative to a
 # plain-path control (1 - cosine to the fp32 gradients within
 # SSM_BF16_SPREAD times the control's, or SSM_BF16_FLOOR), on GRAD_BATCH
+# serve_tp: the reference's tensor-parallel fleet
+# (tests/test_fleet.py:166: FleetServer(n_replicas=2, tp=2, batch=1,
+# max_len=256, epoch_len=4), two yi-9b tenants) at full width and depth
+# on one card: both groups' four devices are cuda:0.  The second tenant
+# has a 128-token prompt, so prefill runs under tp; a replica's pool is
+# its native quote and serve's 324 pages of headroom
+SERVE_TP = dict(arch="yi-9b", replicas=2, tp=2, batch=1, max_len=256,
+                epoch_len=4, steps=16, prompt_len=128, n_inferences=12,
+                headroom=324)
+# e2e_tp: (arch, MoE mode, layers) at full width, tp = 2 against tp = 1;
+# zamba2 keeps one group of attn_every layers
+E2E_TP = (("yi-9b", None, 4), ("mamba2-370m", None, 4),
+          ("olmoe-1b-7b", "fsdp", 2), ("olmoe-1b-7b", "ep2d", 2),
+          ("zamba2-2.7b", None, 6), ("whisper-tiny", None, 4),
+          ("llava-next-mistral-7b", None, 4))
 TRAIN_SSM = dict(steps=10, seq_len=1024, global_batch=8, ckpt_every=5,
                  lr=3e-4)
 RESUME_STEPS = 2
@@ -1015,6 +1058,40 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
         "library_ms": None, "bound_ms": bound, "bound_by": by,
         "partial_bytes": kffn.partial_bytes(hop, batch, d, f),
         "max_abs_err": err, "ok": ok}
+    return out
+
+
+def tp_timings(cfg, dev, tp: int = 2):
+    """The plan kernels at a tensor-parallel shard's shapes (yi-9b's d_ff
+    cut in ``tp``): cache_matmul's gemv at the decode rows (2 x d @ d x
+    f/tp and 2 x f/tp @ f/tp x d) under serve's LWM plan tile, and
+    block_fused_ffn at the prefill's 2048 rows under its LBM plan, each
+    held against its plain version and timed beside it and the library
+    call (``torch.matmul``; the FFN: the unfused bf16 chain)."""
+    import torch
+    from repro_torch.core.plan import lower_ffn
+    from repro_torch.core.vmem import LANE
+    from repro_torch.kernels import ops
+    d, f = cfg.d_model, cfg.d_ff
+    fs = f // tp
+    dt = torch.bfloat16
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    lwm = lower_ffn(LANE, d, f, 2, 32, want_fused=False)
+    x = _randn(gen, (2, d), dt)
+    h = _randn(gen, (2, fs), dt)
+    wg = _randn(gen, (d, fs), dt, 1 / math.sqrt(d))
+    wd = _randn(gen, (fs, d), dt, 1 / math.sqrt(f))
+    out = {"cache_matmul.tp.up": _matmul_timing(x, wg, lwm.up_tile, limit, 30),
+           "cache_matmul.tp.down": _matmul_timing(h, wd, lwm.down_tile, limit,
+                                                  30)}
+    s = PREFILL["batch"] * PREFILL["prompt_len"]
+    plan = prefill_plans(cfg)["LBM/native"]
+    xs = _randn(gen, (s, d), dt)
+    wu = _randn(gen, (d, fs), dt, 1 / math.sqrt(d))
+    out["block_fused_ffn.tp.prefill"] = _ffn_timing(xs, wg, wu, wd, plan,
+                                                    limit, 10)
     return out
 
 
@@ -1676,6 +1753,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg,
     timings.update(moe_timings(moe_cfg, dev))
     timings.update(hybrid_timings(hybrid_cfg, dev))
     timings.update(encdec_vlm_timings(encdec_cfg, vlm_cfg, dev))
+    timings.update(tp_timings(cfg, dev))
     bad += [k for k, v in timings.items() if not v["ok"]]
     worst = {}
     for r in rows:
@@ -3623,16 +3701,22 @@ def serve_mix_main_path(dev, counters):
 
 
 # ----------------------------------------------------- serve features --
-def _params_memo(dev):
+def _params_memo(dev, group=None):
     """A ``params_fn`` that makes each (config, param seed) weight set
     once, so tenants that share a seed share one set (a full-width yi-9b
-    set is 17.6 GB).  ``params_fn.memo.clear()`` lets them go."""
+    set is 17.6 GB); with ``group`` (a ``(1, tp)`` mesh) the set is kept
+    only as placed on that group (``shard_params``), which the servers of
+    a group of the same devices take as it is.  ``params_fn.memo.clear()``
+    lets them go."""
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import model as M
     memo = {}
 
     def params_fn(c, pkey):
         if (c.name, pkey) not in memo:
-            memo[(c.name, pkey)] = M.init_params(c, pkey, dev)
+            params = M.init_params(c, pkey, dev)
+            memo[(c.name, pkey)] = (params if group is None
+                                    else tp.shard_params(params, group))
         return memo[(c.name, pkey)]
     params_fn.memo = memo
     return params_fn
@@ -4619,9 +4703,10 @@ def serve_fleet_main_path(dev, counters, archs=None, kinds: bool = True):
     return res
 
 
-def _fleet_round(archs, devices, pages, params_fn, kw):
+def _fleet_round(archs, devices, pages, params_fn, kw, tp: int = 1):
     """One fleet round warm: the tenants of ``archs`` as residents of a
-    fleet on ``devices`` (the same param seeds, so the same weights), a
+    fleet on ``devices`` (groups of ``tp``; the same param seeds, so the
+    same weights), a
     first ``run()`` of one round (``epoch_len`` steps) capturing every
     decode item, then :data:`WARM_RUNS` rounds timed (tokens/s) and one
     profiled (``_profile``: device time by kernel and idle share).  The
@@ -4630,8 +4715,8 @@ def _fleet_round(archs, devices, pages, params_fn, kw):
     from repro_torch.launch.serve import FleetServer
     from repro_torch.sim.driver import TenantSpec
     steps = kw["epoch_len"]
-    fleet = FleetServer(devices=devices, tenants=[TenantSpec(a)
-                                                  for a in archs],
+    fleet = FleetServer(tp=tp, devices=devices,
+                        tenants=[TenantSpec(a) for a in archs],
                         pages_per_replica=pages, params_fn=params_fn, **kw)
     cold = fleet.run(steps=steps)
 
@@ -4736,6 +4821,358 @@ def fleet_failover_main_path(dev, counters, arch=None, kinds: bool = True):
     params_fn.memo.clear()
     return {"arch": arch, "pages_per_replica": pages,
             "launches": dict(counters), "runs": runs}
+
+
+# ----------------------------------------------------------------- tp --
+def _tp_placement(fleet):
+    """Per tenant of a tensor-parallel fleet: every split leaf's pieces on
+    its group's devices, one a device, each 1/tp of the leaf; every
+    head-split KV cache leaf (``k@r`` ...) on the group's device r with
+    Hkv / tp heads, and one at least; every other leaf, cache and buffer
+    on the group's first device; something split.  Returns (problems,
+    each tenant's param bytes by shard)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    bad, per = [], {}
+    for srv in fleet.replicas:
+        n = len(srv.group)
+        for t in srv.tenants:
+            leaves = tp.leaves(t.params)
+            split = [x for x in leaves if tp.is_sharded(x)]
+            for x in split:
+                if (x.devices != srv.group or any(
+                        p.numel() * n != x.shape.numel() for p in x.pieces)):
+                    bad.append((t.tid, repr(x)))
+            heads = t.cfg.num_kv_heads // n
+            kv = {name: leaf for c in t.caches for name, leaf in c.items()
+                  if "@" in name}
+            for name, leaf in kv.items():
+                r = int(name.partition("@")[2])
+                if leaf.device != srv.group[r] or leaf.shape[2] != heads:
+                    bad.append((t.tid, name, str(leaf.device),
+                                tuple(leaf.shape)))
+            rest = [leaf for c in t.caches for name, leaf in c.items()
+                    if "@" not in name]
+            off = {str(x.device) for x in leaves if not tp.is_sharded(x)}
+            off |= {str(x.device) for x in _tensors([
+                rest, t.token, t.index_dev, t.log, t.enc, t.prompt_dev])}
+            if off != {str(srv.device)} or not split or not kv:
+                bad.append((t.tid, sorted(off), len(split), len(kv)))
+            per[t.tid] = tp.bytes_by_shard(t.params)
+    return bad, per
+
+
+def serve_tp_main_path(dev, counters, arch=None, kinds: bool = True):
+    """The tensor-parallel slice's main path (:data:`SERVE_TP`): the
+    reference's tp = 2 fleet at full width on one card, each group's two
+    shards on cuda:0.  Gates: placement (:func:`_tp_placement`, bytes a
+    shard recorded); every tenant served its budget; each replica's
+    streams bitwise equal to a replay of its routed specs on a fresh
+    tp = 2 group; the run repeated on a fresh fleet bitwise; a warm round
+    (:func:`_fleet_round`) building nothing.  Then a tp = 1 fleet on the
+    same weights, rebuilt from the same seeds after the tp = 2 ones are
+    freed: with ``kinds``, tp = 2's cache_matmul gemv launches exactly
+    ``tp`` times tp = 1's, every cache_matmul / block_fused_ffn launch at
+    a shard's weight shape and none at a whole FFN weight's (counters
+    zeroed just before each run, read just after; tp = 2's into
+    ``counters``).  Warm tokens/s of both groups' rounds recorded."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh, replica_submeshes
+    from repro_torch.launch.serve import (FleetServer, MultiTenantServer,
+                                          _kv_reserve_pages)
+    from repro_torch.models.base import get_arch
+    from repro_torch.sim.driver import TenantSpec
+    st = SERVE_TP
+    arch = arch or st["arch"]
+    cfg = get_arch(arch)
+    n, tpn = st["replicas"], st["tp"]
+    kw = dict(batch=st["batch"], max_len=st["max_len"],
+              epoch_len=st["epoch_len"], reduced=False)
+    pages = st["headroom"] + _kv_reserve_pages(cfg, st["batch"],
+                                               st["prompt_len"])
+    specs = [TenantSpec(arch, n_inferences=st["n_inferences"]),
+             TenantSpec(arch, n_inferences=st["n_inferences"],
+                        prompt_len=st["prompt_len"])]
+
+    def fleet_of(size, params_fn):
+        return FleetServer(n_replicas=n, tp=size,
+                           devices=_fleet_devices(dev, n * size),
+                           tenants=specs, pages_per_replica=pages,
+                           params_fn=params_fn, **kw)
+
+    # the weights kept only as placed on a group (every group is the same
+    # devices), so a tenant's whole weights live only while it is split
+    params_fn = _params_memo(dev, make_serving_mesh(
+        1, tp=tpn, devices=_fleet_devices(dev, tpn)))
+    torch.cuda.reset_peak_memory_stats()
+    fleet = fleet_of(tpn, params_fn)
+    bad, shard_bytes = _tp_placement(fleet)
+    if bad:
+        raise AssertionError(f"serve_tp: misplaced: {bad}")
+    if [len(r) for r in fleet.replica_scenarios()] != [1] * n:
+        raise AssertionError(f"serve_tp: routed {fleet.scenario.routes}")
+    _zero_counters()
+    out = fleet.run(steps=st["steps"])
+    counts2 = _counters()
+    counters.update(counts2)
+    for tid, info in out["tenants"].items():
+        if not info["departed"] or info["output"].min() < 0:
+            raise AssertionError(f"serve_tp {tid}: departed "
+                                 f"{info['departed']}")
+    replays = []
+    for r, routed in enumerate(fleet.replica_scenarios()):
+        solo = MultiTenantServer([], tenants=routed, total_pages=pages,
+                                 device=replica_submeshes(fleet.mesh)[r],
+                                 params_fn=params_fn, **kw)
+        ref = solo.run(steps=st["steps"])
+        differ = _differing_outputs(ref, out)
+        if differ:
+            raise AssertionError(f"serve_tp r{r}: the replay differs for "
+                                 f"{differ}")
+        replays.append({"replica": f"r{r}", "tenants": sorted(ref["tenants"]),
+                        "tokens_per_s": ref["tokens_per_s"]})
+        del solo
+        _release()
+    captured = [srv._capture_graphs for srv in fleet.replicas]
+    res = {"arch": arch, "replicas": n, "tp": tpn, "pages_per_replica": pages,
+           "devices": [[str(d) for d in srv.group] for srv in fleet.replicas],
+           "param_bytes_by_shard": shard_bytes, "captured": captured,
+           "routes": out["routes"], "tokens_served": out["tokens_served"],
+           "wall_s": out["wall_s"], "tokens_per_s": out["tokens_per_s"],
+           "captures": sum(srv._captures for srv in fleet.replicas),
+           "capture_s": sum(srv._capture_s for srv in fleet.replicas),
+           "replays": replays}
+    del fleet
+    _release()
+    again = fleet_of(tpn, params_fn)
+    out_b = again.run(steps=st["steps"])
+    if _differing_outputs(out, out_b):
+        raise AssertionError(f"serve_tp: the repeat differs for "
+                             f"{_differing_outputs(out, out_b)}")
+    del again
+    _release()
+    res["round"] = _fleet_round([arch] * n, _fleet_devices(dev, n * tpn),
+                                pages, params_fn, kw, tp=tpn)
+    params_fn.memo.clear()
+    _release()
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    # tp = 1 on the same weights, rebuilt from the same seeds
+    params_fn = _params_memo(dev)
+    fleet = fleet_of(1, params_fn)
+    _zero_counters()
+    out1 = fleet.run(steps=st["steps"])
+    counts1 = _counters()
+    del fleet
+    _release()
+    res["round_tp1"] = _fleet_round([arch] * n, _fleet_devices(dev, n),
+                                    pages, params_fn, kw)
+    params_fn.memo.clear()
+    _release()
+    d, f = cfg.d_model, cfg.d_ff
+    shard = {f"cache_matmul@{d}x{f // tpn}", f"cache_matmul@{f // tpn}x{d}",
+             f"block_fused_ffn@{d}x{f // tpn}"}
+    whole = {f"cache_matmul@{d}x{f}", f"cache_matmul@{f}x{d}",
+             f"block_fused_ffn@{d}x{f}"}
+    shapes = sorted(k for k, v in counts2.items() if "@" in k and v)
+    # a prompt tenant's first token comes from its last prompt chunk
+    decode_steps = sum(info["tokens"] // st["batch"] - (info["prompt_len"] > 0)
+                       for info in out["tenants"].values())
+    same = sum(int(np.array_equal(info["output"],
+                                  out1["tenants"][tid]["output"]))
+               for tid, info in out["tenants"].items())
+    res.update({
+        "launches": {k: v for k, v in counts2.items() if v},
+        "launches_tp1": {k: v for k, v in counts1.items() if v},
+        "gemv_per_decode_step": counts2["cache_matmul.gemv"] / decode_steps,
+        "gemv_per_decode_step_tp1": (counts1["cache_matmul.gemv"]
+                                     / decode_steps),
+        "shapes": shapes, "tp1_tokens_per_s": out1["tokens_per_s"],
+        "streams_equal_to_tp1": f"{same} of {len(out['tenants'])}"})
+    if kinds:
+        g2, g1 = counts2["cache_matmul.gemv"], counts1["cache_matmul.gemv"]
+        if g1 <= 0 or g2 != tpn * g1:
+            raise AssertionError(f"serve_tp: gemv launches {g2} at tp = "
+                                 f"{tpn}, {g1} at tp = 1")
+        if not set(shapes) <= shard or set(shapes) & whole:
+            raise AssertionError(f"serve_tp: launches at {shapes}, want "
+                                 f"only {sorted(shard)}")
+    return res
+
+
+def _tp_plans(cfg):
+    """e2e_tp's plans: an LWM grant of 32 pages and, where the family has
+    an FFN, the smallest LBM grant that lowers fused, at LANE rows."""
+    from repro_torch.core.vmem import LANE, fused_ffn_pages
+    from repro_torch.launch.serve import _lower_width
+    plans = {"LWM": _plan(cfg, "LWM", 32, LANE)}
+    if cfg.family != "ssm":
+        plans["LBM"] = _plan(cfg, "LBM", fused_ffn_pages(
+            LANE, cfg.d_model, _lower_width(cfg), 2), LANE)
+    return plans
+
+
+def _tp_run(cfg, params, dev, plans, inputs):
+    """``make_prefill`` under each plan, then a prompt chunk and a
+    teacher-forced decode epoch under each plan (:func:`_e2e_run`); an
+    encoder-decoder's encoder runs on ``params`` first.  Logits fp32 on
+    the host."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import encode
+    toks, prompt, forced, prefix = inputs
+    batch = {"tokens": torch.from_numpy(toks).long().to(dev)}
+    enc = None
+    if prefix is not None:
+        batch["embeds_prefix"] = torch.from_numpy(prefix).to(dev).to(
+            cfg.torch_dtype)
+        if cfg.family == "encdec":
+            enc = encode(params, batch["embeds_prefix"], cfg)
+    prefill = M.make_prefill(cfg)
+    pf = torch.stack([prefill(params, batch, p).float()
+                      for p in plans.values()], 1).cpu()
+    return pf, _e2e_run(cfg, params, dev, prompt, forced,
+                        list(plans.values()), enc=enc)
+
+
+def _decode_ms(cfg, params, dev, inputs, plan, k: int = 8, reps: int = 3):
+    """One eager decode step's time under ``plan`` (ms, CUDA events over
+    a ``k``-step greedy ``decode_epoch`` after a prompt chunk, the median
+    of ``reps``; each repeat rewrites the same cache rows): a record of
+    what tp = 2 costs on one card, not a gate."""
+    import torch
+    from repro_torch.models.transformer import (decode_epoch, encode,
+                                                init_caches, prefill_chunk)
+    _, prompt, _, prefix = inputs
+    toks = torch.from_numpy(prompt).long().to(dev)
+    enc = None
+    if cfg.family == "encdec":
+        enc = encode(params, torch.from_numpy(prefix).to(dev).to(
+            cfg.torch_dtype), cfg)
+    caches = init_caches(params, cfg, toks.shape[0], 64, device=dev)
+    logits, caches = prefill_chunk(params, toks, caches, 0, cfg, enc)
+    first = logits[:, -1].argmax(-1)[:, None]
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        decode_epoch(params, first, caches, toks.shape[1], cfg, k,
+                     next_token_fn=lambda lg: lg[:, -1].argmax(-1),
+                     enc_out=enc, plan=plan)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / k)
+    return _median(times[1:])
+
+
+def e2e_tp_main_path(dev, counters, cases=None, kinds: bool = True):
+    """Every family at tp = 2 against tp = 1 on one card (:data:`E2E_TP`):
+    weights from one seed, placed whole and on a ``[dev, dev]`` group
+    (``shard_params``; olmoe under each MoE mode), the same inputs through
+    :func:`_tp_run`.  Gates: :func:`_gate` (2e-2 of the largest logit)
+    on every prefill and decode logit; tp = 2 bitwise on a repeat; with
+    ``kinds``, the plan kernels' launches (counters zeroed just before
+    each run and read just after; tp = 2's into ``counters``): cache_matmul
+    and block_fused_ffn launched, at tp = 2 twice tp = 1's on a shard's
+    d_ff slice and never on a whole FFN weight, except under ``"fsdp"``,
+    where each expert runs whole, once, on the shard that holds it."""
+    import torch
+    from repro_torch.distributed import sharding, tensor_parallel as tp
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.base import get_arch
+    group = make_serving_mesh(1, tp=2, devices=_fleet_devices(dev, 2))
+    res = {}
+    for arch, mode, layers in cases or E2E_TP:
+        label = arch if mode is None else f"{arch}/{mode}"
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        plans = _tp_plans(cfg)
+        rng = np.random.default_rng(11)
+        n_pre = {"vlm": cfg.num_patches, "encdec": cfg.enc_len}.get(cfg.family)
+        inputs = (rng.integers(0, cfg.vocab_size, (2, 40)),
+                  rng.integers(0, cfg.vocab_size, (2, 8)),
+                  rng.integers(0, cfg.vocab_size, (2, 9)),
+                  None if n_pre is None else
+                  rng.standard_normal((2, n_pre, cfg.d_model)).astype(
+                      np.float32))
+        one = M.init_params(cfg, seed=5, device=dev)
+        sharding.set_moe_mode(mode or "fsdp")
+        try:
+            two = tp.shard_params(one, group)
+        finally:
+            sharding.set_moe_mode("fsdp")
+        _zero_counters()
+        pf1, dec1 = _tp_run(cfg, one, dev, plans, inputs)
+        c1 = _counters()
+        ms1 = _decode_ms(cfg, one, dev, inputs, plans["LWM"])
+        del one
+        _zero_counters()
+        pf2, dec2 = _tp_run(cfg, two, dev, plans, inputs)
+        c2 = _counters()
+        pf2b, dec2b = _tp_run(cfg, two, dev, plans, inputs)
+        ms2 = _decode_ms(cfg, two, dev, inputs, plans["LWM"])
+        del two
+        _release()
+        for k, v in c2.items():
+            counters[k] = counters.get(k, 0) + v
+        V = cfg.vocab_size
+        rec = {"layers": layers, "moe_mode": mode,
+               "plans": {k: p.describe() for k, p in plans.items()},
+               "prefill": _gate(pf2[..., :V], pf1[..., :V],
+                                f"e2e_tp {label} prefill"),
+               "decode": _gate(dec2[..., :V], dec1[..., :V],
+                               f"e2e_tp {label} decode"),
+               "bitwise_repeat": bool(torch.equal(pf2, pf2b)
+                                      and torch.equal(dec2, dec2b)),
+               "launches": {k: v for k, v in c2.items() if v},
+               "launches_tp1": {k: v for k, v in c1.items() if v},
+               "decode_step_ms": ms2, "decode_step_ms_tp1": ms1}
+        if not rec["bitwise_repeat"]:
+            raise AssertionError(f"e2e_tp {label}: a repeat differs")
+        if kinds and cfg.family != "ssm":
+            d, f = cfg.d_model, cfg.d_ff
+            whole = {f"cache_matmul@{d}x{f}", f"cache_matmul@{f}x{d}",
+                     f"block_fused_ffn@{d}x{f}"}
+            per = 1 if mode == "fsdp" else 2
+            for k in ("cache_matmul", "block_fused_ffn"):
+                if c1[k] <= 0 or c2[k] != per * c1[k]:
+                    raise AssertionError(f"e2e_tp {label}: {k} {c2[k]} "
+                                         f"launches at tp = 2, {c1[k]} at "
+                                         f"tp = 1")
+            hit = sorted(k for k in whole if c2[k])
+            if mode != "fsdp" and hit:
+                raise AssertionError(f"e2e_tp {label}: launches on a whole "
+                                     f"FFN weight: {hit}")
+        if kinds and cfg.family in ("ssm", "hybrid") and (
+                c1["ssd_chunk"] <= 0 or c2["ssd_chunk"] != c1["ssd_chunk"]):
+            raise AssertionError(f"e2e_tp {label}: ssd_chunk {c2['ssd_chunk']}"
+                                 f" at tp = 2, {c1['ssd_chunk']} at tp = 1")
+        res[label] = rec
+    return res
+
+
+def example_main_path(dev):
+    """The serve example at full width in a process of its own
+    (``python -m repro_torch.examples.multi_tenant_serve --full-width
+    --steps 6``): gated on rc 0 and its two reports; its output goes to
+    ``example.log``."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.examples.multi_tenant_serve",
+           "--full-width", "--steps", "6", "--device", dev]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "example.log").write_text(proc.stdout + proc.stderr)
+    lines = proc.stdout.splitlines()
+    reports = [ln for ln in lines if ln.lstrip().startswith("throughput")]
+    if proc.returncode != 0 or len(reports) != 2:
+        raise AssertionError(f"example: rc {proc.returncode}, "
+                             f"{len(reports)} reports: "
+                             f"{proc.stderr[-3000:]}")
+    return {"cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+            "report": lines}
 
 
 # -------------------------------------------------------------- train --
@@ -5189,6 +5626,14 @@ def main() -> int:
                                       fleet_failover_main_path, dev,
                                       fleet_failover_counts)
     _release()
+    serve_tp_counts, e2e_tp_counts = {}, {}
+    report["serve_tp"] = _phase("serve_tp", serve_tp_main_path, dev,
+                                serve_tp_counts)
+    _release()
+    report["e2e_tp"] = _phase("e2e_tp", e2e_tp_main_path, dev, e2e_tp_counts)
+    _release()
+    report["example"] = _phase("example", example_main_path, dev)
+    _release()
     train_ssm_counts, train_100m_counts, train_cli_counts = {}, {}, {}
     report["train_ssm"] = _phase("train_ssm", train_ssm_main_path, ssm_cfg,
                                  dev, train_ssm_counts)
@@ -5334,6 +5779,26 @@ def main() -> int:
         kernels[i]["fleet_launches"] = {
             "serve_fleet": serve_fleet_counts[name],
             "fleet_failover": fleet_failover_counts[name]}
+    # the tensor-parallel slice: the gemv at yi-9b's shard shapes with
+    # serve_tp's launches of each, and the fused FFN at d_ff / 2 with
+    # e2e_tp's yi-9b launches of that shape
+    d, f = cfg.d_model, cfg.d_ff // SERVE_TP["tp"]
+    for i, label, timing, launches in (
+            (0, "tp.up", "cache_matmul.tp.up",
+             serve_tp_counts[f"cache_matmul@{d}x{f}"]),
+            (0, "tp.down", "cache_matmul.tp.down",
+             serve_tp_counts[f"cache_matmul@{f}x{d}"]),
+            (1, "tp.prefill", "block_fused_ffn.tp.prefill",
+             report["e2e_tp"]["yi-9b"]["launches"].get(
+                 f"block_fused_ffn@{d}x{f}", 0))):
+        t = timings[timing]
+        kernels[i][label] = {"launches": launches,
+                             "max_abs_err": t["max_abs_err"],
+                             **{k: t[k] for k in keys + ("kind", "simt_ms")}}
+    for i, name in ((0, "cache_matmul"), (1, "block_fused_ffn"),
+                    (2, "flash_attention"), (5, "ssd_chunk")):
+        kernels[i]["tp_launches"] = {"serve_tp": serve_tp_counts[name],
+                                     "e2e_tp": e2e_tp_counts.get(name, 0)}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(report["device"]["nvidia_smi"])

@@ -18,7 +18,8 @@ by summing them across a thread-block cluster).
 * :data:`TILES` is the menu the CUDA source compiles;
   ``kernels/ops.py::legalize_ffn_tile`` picks one under a plan's blocks.
   A tile has a kind, ``simt`` (fp32 FMA) or ``wgmma`` (bf16, tensor
-  cores); :data:`launches_by_kind` counts the launches of each.
+  cores); :data:`launches_by_kind` counts the launches of each, and
+  :data:`launches_by_shape` by the weights' shape (``"dxf"``).
 """
 from __future__ import annotations
 
@@ -83,6 +84,8 @@ TILES = (FfnTile(8, 64, 64, 1, 2),
 
 launches = 0
 launches_by_kind: Dict[str, int] = dict.fromkeys(KINDS, 0)
+# launches by the weights' shape, "dxf" (d_model x d_ff)
+launches_by_shape: Dict[str, int] = {}
 _lib = None
 
 
@@ -175,4 +178,5 @@ def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     global launches
     launches += 1
     launches_by_kind[tile.kind] += 1
+    launches_by_shape[f"{d}x{f}"] = launches_by_shape.get(f"{d}x{f}", 0) + 1
     return y

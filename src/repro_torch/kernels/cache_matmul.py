@@ -23,7 +23,8 @@ bounds it on the H100 (at decode: the bytes of B).
   fp32 and bf16), ``gemv`` (bf16 decode rows, B streamed into registers;
   codes converted there) or ``wgmma`` (bf16, tensor cores fed by TMA;
   codes converted to bf16 tiles on chip); :data:`launches_by_kind` /
-  :data:`launches_quant_by_kind` count the launches of each.
+  :data:`launches_quant_by_kind` count the launches of each, and
+  :data:`launches_by_shape` cache_matmul's by B's shape (``"KxN"``).
 """
 from __future__ import annotations
 
@@ -152,6 +153,8 @@ def gemv_split(n: int, k: int, sms: int) -> Tuple[int, int]:
 
 launches = 0
 launches_by_kind: Dict[str, int] = dict.fromkeys(KINDS, 0)
+# launches by B's shape, "KxN"
+launches_by_shape: Dict[str, int] = {}
 launches_quant = 0
 launches_quant_by_kind: Dict[str, int] = dict.fromkeys(KINDS, 0)
 _lib = None
@@ -265,6 +268,7 @@ def cache_matmul(a: torch.Tensor, b: torch.Tensor,
     global launches
     launches += 1
     launches_by_kind[tile.kind] += 1
+    launches_by_shape[f"{k}x{n}"] = launches_by_shape.get(f"{k}x{n}", 0) + 1
     return c
 
 

@@ -10,12 +10,17 @@ launches the device ran, graph or not.
 
 Names are the kernel's (``cache_matmul``, ``block_fused_ffn``,
 ``flash_attention``, ``flash_attention_quantized``,
-``cache_matmul_quant``, ``ssd_chunk``, ``ssd_chunk_bwd``) and
+``cache_matmul_quant``, ``ssd_chunk``, ``ssd_chunk_bwd``),
 ``<kernel>.<kind>`` for each tile kind (``cache_matmul.gemv``,
-``ssd_chunk.wgmma`` ...).
+``ssd_chunk.wgmma`` ...), and ``<kernel>@<shape>`` for the weight shapes
+the two plan kernels ran (``cache_matmul@4096x5504``: B's K x N;
+``block_fused_ffn@4096x5504``: d_model x d_ff), which show a
+tensor-parallel shard's slices.  Shapes appear as they are launched, so
+a snapshot is a ``Counter``: a count it does not hold reads 0.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Mapping
 
 from repro_torch.kernels import block_fused_ffn as kffn
@@ -34,15 +39,24 @@ _COUNTERS = (
     ("ssd_chunk", kssd, "launches", "launches_by_kind"),
     ("ssd_chunk_bwd", kssd, "launches_bwd", "launches_bwd_by_kind"),
 )
+# (name, module, by-shape attribute)
+_SHAPES = (
+    ("cache_matmul", kmm, "launches_by_shape"),
+    ("block_fused_ffn", kffn, "launches_by_shape"),
+)
 
 
-def snapshot() -> Dict[str, int]:
-    """Every kernel's launch count, and each split by tile kind."""
-    out: Dict[str, int] = {}
+def snapshot() -> Counter:
+    """Every kernel's launch count, each split by tile kind, and the
+    plan kernels' by weight shape."""
+    out: Counter = Counter()
     for name, mod, total, by_kind in _COUNTERS:
         out[name] = getattr(mod, total)
         out.update({f"{name}.{k}": v
                     for k, v in getattr(mod, by_kind).items()})
+    for name, mod, by_shape in _SHAPES:
+        out.update({f"{name}@{k}": v
+                    for k, v in getattr(mod, by_shape).items()})
     return out
 
 
@@ -50,7 +64,8 @@ def delta(before: Mapping[str, int]) -> Dict[str, int]:
     """The launches counted since ``before`` (a :func:`snapshot`), only
     the counts that moved."""
     now = snapshot()
-    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    return {k: now[k] - before.get(k, 0) for k in now
+            if now[k] != before.get(k, 0)}
 
 
 def add(counts: Mapping[str, int], sign: int = 1) -> None:
@@ -61,6 +76,12 @@ def add(counts: Mapping[str, int], sign: int = 1) -> None:
         kinds = getattr(mod, by_kind)
         for k in kinds:
             kinds[k] += sign * counts.get(f"{name}.{k}", 0)
+    for name, mod, by_shape in _SHAPES:
+        shapes = getattr(mod, by_shape)
+        for key, v in counts.items():
+            if key.startswith(name + "@"):
+                shape = key[len(name) + 1:]
+                shapes[shape] = shapes.get(shape, 0) + sign * v
 
 
 def zero() -> None:

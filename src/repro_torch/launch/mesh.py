@@ -6,19 +6,22 @@ Axis roles (the fleet in :mod:`repro_torch.launch.serve`):
   data  — replica axis: each index along 'data' is one serving replica
           (one device, or one tensor-parallel group of devices) running
           its own epoch pipeline with its own CaMDN control stack.
-  model — tensor parallelism inside a replica group (not ported: a
-          replica of more than one device raises).
+  model — tensor parallelism inside a replica group: the group's
+          params split by ``distributed/sharding.py::param_specs``,
+          one piece on each of its devices
+          (``distributed/tensor_parallel.py``).
 
 A mesh is a :class:`ServingMesh`: an ``(n_replicas, tp)`` numpy object
 array of ``torch.device`` and the axis names, so the fleet reads
-``mesh.devices.shape`` as the reference reads a JAX ``Mesh``'s.  The
+``mesh.devices.shape`` as the reference reads a JAX ``Mesh``'s, and the
+sharding rules read ``shape`` (axis name -> size) and ``axis_names``.  The
 same device may appear more than once: replicas then share it, as the
 reference's forced host devices share one CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,9 +31,15 @@ AXIS_NAMES = ("data", "model")
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ServingMesh:
-    """``devices``: ``(n_replicas, tp)`` object array of ``torch.device``."""
+    """``devices``: an object array of ``torch.device``, one dim per
+    axis name (``(n_replicas, tp)`` for a serving mesh)."""
     devices: np.ndarray
     axis_names: Tuple[str, ...] = AXIS_NAMES
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as a JAX mesh's ``shape``."""
+        return dict(zip(self.axis_names, self.devices.shape))
 
 
 def _grid(devices: Sequence[Any], shape: Tuple[int, int]) -> np.ndarray:

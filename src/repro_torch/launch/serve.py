@@ -35,8 +35,8 @@ kernels; its prompt chunks align to the SSD chunk and scan through
 ssd_chunk; its reservation prices both; and, its state being
 cumulative, its prefix entry is registered at full length only.  Every
 loop over a tenant's caches decides per leaf, by the leaf's name
-(``KV_LEAVES`` have a time axis, the recurrent ``conv`` / ``ssm`` do
-not), never by family.  An encoder-decoder tenant holds a fixed encoder
+(K/V leaves, ``is_kv_leaf``, have a time axis, the recurrent ``conv`` /
+``ssm`` do not), never by family.  An encoder-decoder tenant holds a fixed encoder
 output ``enc`` [batch, enc_len, d_model], zeros in the compute dtype
 (the reference's frontend is a stub), allocated once at admission on
 the server's device and freed at departure; its decode items and prompt
@@ -166,8 +166,19 @@ failover.  Where it meets the card, this port deviates:
   prompt at the replicas' width through their ``prompt_fn`` (the
   reference draws at the reduced width: the same at ``reduced=True``).
 
-Not ported here (raising ``NotImplementedError``): tensor-parallel
-replica groups (a mesh with ``tp > 1``).
+* Tensor-parallel groups (``tp > 1``).  The reference places a
+  group's params and caches by ``param_shardings`` / ``cache_shardings``
+  and lets XLA partition its epochs.  Here a tenant's params are split by
+  ``distributed/sharding.py::param_specs`` into pieces on the group's
+  devices (``distributed/tensor_parallel.py``), and the models compute
+  shard by shard and sum the row-split partial products in shard order;
+  the plan kernels run at the shards' shapes.  Where the split falls on
+  head boundaries, each shard's attention runs on its device over its
+  own KV heads' cache (the reference's ``cache_specs`` shard head_dim);
+  the unsplit work (norms, the router, the Mamba2 conv and scan) and its
+  caches stay on the group's first device.  The group's devices may repeat (every piece on one card); a group of
+  distinct cards dispatches eagerly, without graphs.  Grants, plans and
+  chunk traces do not depend on ``tp``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU.  Without injected params / prompts the server draws params from a
@@ -215,6 +226,7 @@ from repro_torch.core.types import (GemmDims, LayerKind, LayerSpec, ModelGraph,
 from repro_torch.core.vmem import (LANE, PAGE_BYTES, VMEM_PAGES,
                                    fused_ffn_pages, kv_row_bytes,
                                    lower_selection)
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.fault_tolerance import StragglerPolicy
 from repro_torch.kernels import counters as kcount
 from repro_torch.launch.mesh import (ServingMesh, make_serving_mesh,
@@ -222,7 +234,7 @@ from repro_torch.launch.mesh import (ServingMesh, make_serving_mesh,
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig, get_arch
 from repro_torch.models.ssm import CONV_K
-from repro_torch.models.transformer import (KV_LEAVES, init_caches,
+from repro_torch.models.transformer import (init_caches, is_kv_leaf,
                                             num_groups, seed_caches_in_place)
 from repro_torch.sim.driver import (BackoffPolicy, FleetScenario,
                                     PoissonArrivals, TenantSpec)
@@ -505,8 +517,10 @@ class MultiTenantServer:
     serves ``get_arch(aid).reduced()``; False serves the full-width
     config), and the injection hooks ``params_fn(cfg, param_seed)`` and
     ``prompt_fn(spec, admission_index, cfg, batch)``.  ``device`` may be
-    a fleet replica's 1 x 1 :class:`~repro_torch.launch.mesh.ServingMesh`;
-    a larger one (``tp > 1``) raises ``NotImplementedError``.
+    a fleet replica's ``(1, tp)`` :class:`~repro_torch.launch.mesh
+    .ServingMesh`: at tp = 1 its device; above, a tensor-parallel group
+    whose tenants' params are split over its devices (see the module
+    docstring), the first holding the buffers.
     """
 
     def __init__(self, arch_ids: Optional[List[str]] = None, batch: int = 2,
@@ -537,12 +551,16 @@ class MultiTenantServer:
                  prompt_fn: Optional[PromptFn] = None):
         if admission not in ("interleaved", "sequential"):
             raise ValueError(f"admission {admission!r}")
+        # a fleet replica's (1, tp) submesh: its first device at tp = 1;
+        # a tensor-parallel group above (params split over its devices)
+        self.mesh: Optional[ServingMesh] = None
         if isinstance(device, ServingMesh):
-            # a fleet replica's (1, tp) submesh: one device at tp = 1
-            if device.devices.size != 1:
-                raise NotImplementedError(
-                    "tensor-parallel replica groups (tp > 1) not yet ported")
-            device = device.devices.flat[0]
+            self.group = tp.group_devices(device)
+            if len(self.group) > 1:
+                self.mesh = device
+            device = self.group[0]
+        else:
+            self.group = [torch.device(device)]
         if kv_dtype not in KV_PRECISION_LADDER + ("auto",):
             raise ValueError(f"kv_dtype {kv_dtype!r}: want one of "
                              f"{KV_PRECISION_LADDER + ('auto',)}")
@@ -591,7 +609,10 @@ class MultiTenantServer:
         # capacities; captured graphs on the card in the pipelined loop
         self._fused_jits = _LruCache(capacity=64)
         self._prefill_jits = _LruCache(capacity=16)
-        self._capture_graphs = self.device.type == "cuda" and self.pipeline
+        # a group of distinct cards dispatches eagerly (a graph captures
+        # one device's stream)
+        self._capture_graphs = (self.device.type == "cuda" and self.pipeline
+                                and tp.one_device(self.group))
         self._capture_stream = None
         # the graphs' shared memory pool, held alive by an anchor graph
         # the server keeps (see _anchor_graph)
@@ -725,6 +746,8 @@ class MultiTenantServer:
         pkey = spec.param_seed if spec.param_seed is not None else i
         params = (self._params_fn(cfg, pkey) if self._params_fn is not None
                   else M.init_params(cfg, pkey, self.device))
+        if self.mesh is not None:
+            params = tp.shard_params(params, self.mesh)
         if cfg.name not in self._step_fns:
             self._step_fns[cfg.name] = M.make_decode_step(cfg)
         tid = f"t{i}:{aid}"
@@ -1466,7 +1489,7 @@ class MultiTenantServer:
             # full hit itself): refresh its LRU stamp, no new copy
             self.prefix.touch(full_key)
             return
-        snap = [{name: (leaf[:, :t.prompt_len] if name in KV_LEAVES
+        snap = [{name: (leaf[:, :t.prompt_len] if is_kv_leaf(name)
                         else leaf).clone()
                  for name, leaf in layer.items()}
                 for layer in t.caches]
@@ -1506,10 +1529,12 @@ class MultiTenantServer:
         None for a native cache."""
         if t.kv_dtype == "native" or t.caches is None or t.pf_pos <= 0:
             return None
-        leaves = torch.stack([c[name][:, :t.pf_pos] for c in t.caches
-                              if "k_scale" in c
-                              for name in ("k_scale", "v_scale")])
-        return leaves.amax(dim=(0, 1, 3, 4))
+        # each scale leaf (a head-split cache's too: one a shard) reduced
+        # over its batch rows and heads, then the max over leaves
+        rows = [leaf[:, :t.pf_pos].amax(dim=(0, 2, 3)).to(self.device)
+                for c in t.caches for name, leaf in c.items()
+                if name.partition("@")[0] in ("k_scale", "v_scale")]
+        return torch.stack(rows).amax(dim=0)
 
     def _record_page_scales(self, t: Tenant) -> None:
         """Per-page dequant scales for a quantized tenant, recorded at the
@@ -1995,7 +2020,7 @@ class MultiTenantServer:
         bufs = [b for t in tenants for b in
                 [t.token, t.index_dev] + [leaf for c in t.caches
                                           for name, leaf in c.items()
-                                          if name not in KV_LEAVES]]
+                                          if not is_kv_leaf(name)]]
         saved = [b.clone() for b in bufs]
         before = kcount.snapshot()
         fn()
@@ -2371,6 +2396,11 @@ class MultiTenantServer:
             "p95_ttft_s": (float(np.percentile(ttfts, 95)) if ttfts
                            else None),
             "host": {
+                # the replica group's size, and whether its programs are
+                # captured as CUDA graphs (False on the CPU, in the
+                # serial loop and over distinct cards)
+                "tp": len(self.group),
+                "captured": self._capture_graphs,
                 "epochs": len(self._device_walls),
                 "sched_wall_s": sched,
                 "device_wall_s": device,
@@ -2442,7 +2472,8 @@ class FleetServer:
       serves on ``replica_devices(mesh)[r]``: every tenant's params,
       caches and buffers are allocated there, so its programs run there.
       Replicas may share a device (``devices=["cuda:0", "cuda:0"]``).
-      ``tp > 1`` raises ``NotImplementedError``.
+      At ``tp > 1`` a replica is a tensor-parallel group of ``tp``
+      devices (which may repeat), its tenants' params split over them.
     * Routing: prefix match first (longest resident prompt prefix in a
       replica's index), then load (pages granted out of the replica's
       pool plus its queued prefill chunks), then active tenants, then

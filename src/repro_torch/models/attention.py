@@ -11,14 +11,17 @@ per-row codes and fp32 scales; the cached path dequantizes the live
 window in plain ops, as the reference's does.  Cross-attention (an
 encoder-decoder's decoder over the encoder output) is plain too: K and
 V projected from ``xattn_kv`` at every call, no RoPE, no mask and no
-cache.
+cache.  Over a tensor-parallel group whose split falls on head
+boundaries (:func:`head_shards`), each shard attends over its own heads
+on its own device, through its own KV cache leaves (:func:`_mha_heads`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import quant as kquant
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import Params, apply_rope, init_linear, linear
@@ -101,15 +104,38 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
+    if head_shards(params, cfg) is not None:
+        return _mha_heads(params, x, cfg, positions=positions, causal=causal,
+                          kv_cache=kv_cache, cache_index=cache_index,
+                          kv_len=kv_len, xattn_kv=xattn_kv,
+                          attn_plan=attn_plan)
+    src = x if xattn_kv is None else xattn_kv
     q = _split_heads(linear(params["wq"], x), H, hd)          # [B,S,H,hd]
-    if xattn_kv is not None:
-        k = _split_heads(linear(params["wk"], xattn_kv), Hkv, hd)
-        v = _split_heads(linear(params["wv"], xattn_kv), Hkv, hd)
+    k = _split_heads(linear(params["wk"], src), Hkv, hd)
+    v = _split_heads(linear(params["wv"], src), Hkv, hd)
+    ctx = _context(q, k, v, cfg, x.dtype, positions=positions, causal=causal,
+                   kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len,
+                   cross=xattn_kv is not None, attn_plan=attn_plan)
+    return (linear(params["wo"], ctx),
+            kv_cache if xattn_kv is None else None)
+
+
+def _context(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             cfg: ArchConfig, dtype: torch.dtype, *, positions: torch.Tensor,
+             causal: bool, kv_cache: Optional[Dict[str, torch.Tensor]],
+             cache_index: Optional[torch.Tensor], kv_len: Optional[int],
+             cross: bool, attn_plan: Optional[Any]) -> torch.Tensor:
+    """Attention of q [B, S, h, hd] over the new k, v [B, S, hkv, hd] (or
+    the encoder's, ``cross``), through the cache when one is given (its
+    leaves [B, L, hkv, .], written in place), before the output
+    projection: the context [B, S, h * hd] in ``dtype``.  The head counts
+    are q's and k's, so a tensor-parallel shard passes its own heads and
+    its head range of the cache."""
+    B, S, h, hd = q.shape
+    if cross:
         bias = torch.zeros((S, k.shape[1]), dtype=torch.float32,
-                           device=x.device)
-        return _attend(params, q, k, v, bias, x.dtype), None
-    k = _split_heads(linear(params["wk"], x), Hkv, hd)
-    v = _split_heads(linear(params["wv"], x), Hkv, hd)
+                           device=q.device)
+        return _attend(q, k, v, bias, dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
@@ -122,37 +148,33 @@ def mha(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
             kv_name = kquant.kv_dtype_of(kv_cache["k"].dtype)
             new["k"], new["k_scale"] = kquant.quantize_rows(k, kv_name)
             new["v"], new["v_scale"] = kquant.quantize_rows(v, kv_name)
-        pos = cache_index + torch.arange(S, device=x.device)
+        pos = cache_index + torch.arange(S, device=q.device)
         for name, rows in new.items():
             _write_rows(kv_cache[name], pos, rows)
-        new_cache = kv_cache
         window = {name: buf[:, :kv_len] for name, buf in kv_cache.items()}
         k, v = window["k"], window["v"]
         if "k_scale" in kv_cache:
-            k = kquant.dequantize_rows(k, window["k_scale"], x.dtype)
-            v = kquant.dequantize_rows(v, window["v_scale"], x.dtype)
+            k = kquant.dequantize_rows(k, window["k_scale"], dtype)
+            v = kquant.dequantize_rows(v, window["v_scale"], dtype)
         bias = _mask_bias(S, k.shape[1], True, cfg.sliding_window,
-                          q_offset=cache_index, device=x.device)
-    else:
-        new_cache = None
-        if attn_plan is not None and causal and cfg.sliding_window == 0:
-            # plan-lowered flash path: block sizes from the grant
-            from repro_torch.kernels import ops as kops
-            ctx = kops.attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, block_q=attn_plan.block_q,
-                block_kv=attn_plan.block_kv, kv_dtype=attn_plan.kv_dtype)
-            ctx = ctx.transpose(1, 2).reshape(B, S, H * hd)
-            return linear(params["wo"], ctx.to(x.dtype)), None
-        bias = _mask_bias(S, S, causal, cfg.sliding_window, device=x.device)
-    return _attend(params, q, k, v, bias, x.dtype), new_cache
+                          q_offset=cache_index, device=q.device)
+        return _attend(q, k, v, bias, dtype)
+    if attn_plan is not None and causal and cfg.sliding_window == 0:
+        # plan-lowered flash path: block sizes from the grant
+        from repro_torch.kernels import ops as kops
+        ctx = kops.attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, block_q=attn_plan.block_q,
+            block_kv=attn_plan.block_kv, kv_dtype=attn_plan.kv_dtype)
+        return ctx.transpose(1, 2).reshape(B, S, h * hd).to(dtype)
+    bias = _mask_bias(S, S, causal, cfg.sliding_window, device=q.device)
+    return _attend(q, k, v, bias, dtype)
 
 
-def _attend(params: Params, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, bias: torch.Tensor,
-            dtype: torch.dtype) -> torch.Tensor:
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Plain GQA attention of q [B, S, H, hd] over k, v [B, L, Hkv, hd]
-    with an additive ``bias`` [S, L], then the output projection.  The
+    with an additive ``bias`` [S, L]: the context [B, S, H * hd].  The
     group dim is folded into the contractions; fp32 products and sums,
     as the reference's preferred_element_type."""
     B, S, H, hd = q.shape
@@ -163,21 +185,110 @@ def _attend(params: Params, q: torch.Tensor, k: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(dtype)
     ctx = torch.einsum("bkgqs,bskh->bqkgh", probs.float(),
                        v.float()).to(dtype)
-    return linear(params["wo"], ctx.reshape(B, S, H * hd))
+    return ctx.reshape(B, S, H * hd)
+
+
+def head_shards(params: Params, cfg: ArchConfig
+                ) -> Optional[List[torch.device]]:
+    """The devices of a tensor-parallel group over which this attention
+    splits by heads: wq / wk / wv split by columns and wo by rows into n
+    pieces, with H and Hkv divisible by n, so that every piece holds
+    whole heads and GQA's head mapping stays inside a shard.  None
+    otherwise: the projections (split or not) go through
+    ``layers.linear``, which puts their whole outputs on x's device, and
+    attention runs there over a whole cache."""
+    ws = [params[n]["w"] for n in ("wq", "wk", "wv", "wo")]
+    if not all(tp.is_sharded(w) for w in ws):
+        return None
+    n = len(ws[0].pieces)
+    if (any(len(w.pieces) != n for w in ws) or cfg.num_heads % n
+            or cfg.num_kv_heads % n):
+        return None
+    return ws[1].devices
+
+
+def shard_name(name: str, r: int) -> str:
+    """A head-split cache's name for shard ``r``'s piece of leaf
+    ``name``."""
+    return f"{name}@{r}"
+
+
+def cache_shard(cache: Dict[str, torch.Tensor], r: int
+                ) -> Dict[str, torch.Tensor]:
+    """Shard ``r``'s leaves of a head-split KV cache, under their plain
+    names."""
+    tag = shard_name("", r)
+    out = {name[:-len(tag)]: leaf for name, leaf in cache.items()
+           if name.endswith(tag)}
+    if not out:
+        raise ValueError(f"a KV cache with leaves {sorted(cache)} has no "
+                         f"shard {r}: a head-split attention takes the "
+                         f"cache init_caches makes from its params")
+    return out
+
+
+def _mha_heads(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
+               positions: torch.Tensor, causal: bool,
+               kv_cache: Optional[Dict[str, torch.Tensor]],
+               cache_index: Optional[torch.Tensor], kv_len: Optional[int],
+               xattn_kv: Optional[torch.Tensor], attn_plan: Optional[Any]
+               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """:func:`mha` over a group split by heads (:func:`head_shards`).
+    Shard r projects its q, k and v heads on its device, writes and reads
+    its own cache leaves there (``shard_name(name, r)``: its KV heads, see
+    :func:`init_kv_cache`), attends over its heads (one flash launch a
+    shard under a plan) and multiplies its context by its rows of wo; the
+    partial outputs are summed in shard order on x's device."""
+    wq, wk, wv, wo = (params[n]["w"] for n in ("wq", "wk", "wv", "wo"))
+    n = len(wq.pieces)
+    hq, hk, hd = cfg.num_heads // n, cfg.num_kv_heads // n, cfg.hd
+    src = x if xattn_kv is None else xattn_kv
+    cache = kv_cache if xattn_kv is None else None
+    ctxs = []
+    for r, (q, k, v) in enumerate(zip(tp.col(x, wq), tp.col(src, wk),
+                                      tp.col(src, wv))):
+        dev = q.device
+        ctxs.append(_context(
+            _split_heads(q, hq, hd), _split_heads(k, hk, hd),
+            _split_heads(v, hk, hd), cfg, x.dtype,
+            positions=positions.to(dev), causal=causal, kv_len=kv_len,
+            cache_index=(cache_index.to(dev) if torch.is_tensor(cache_index)
+                         else cache_index),
+            kv_cache=None if cache is None else cache_shard(cache, r),
+            cross=xattn_kv is not None, attn_plan=attn_plan))
+    return tp.row(ctxs, wo, x.device), cache
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype: Optional[torch.dtype] = None,
                   kv_dtype: Optional[str] = None,
-                  device: Any = "cuda") -> Dict[str, torch.Tensor]:
+                  device: Any = "cuda",
+                  shards: Optional[List[torch.device]] = None
+                  ) -> Dict[str, torch.Tensor]:
     """KV cache buffers [B, max_len, Hkv, hd].  ``kv_dtype`` None /
     "native" keeps the compute dtype; "int8" / "fp8_e4m3" stores K/V as
     codes of that type with per-row fp32 scales [B, max_len, Hkv, 1],
-    initialised to ones (src/repro/models/attention.py::init_kv_cache)."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+    initialised to ones (src/repro/models/attention.py::init_kv_cache).
+    ``shards``: the devices of a group whose attention splits by heads
+    (:func:`head_shards`); each leaf is then one leaf a shard,
+    ``shard_name(name, r)`` [B, max_len, Hkv / n, .] on device r."""
     if kv_dtype is not None and kv_dtype not in kquant.KV_DTYPES:
         raise ValueError(f"kv_dtype {kv_dtype!r}: want one of "
                          f"{kquant.KV_DTYPES}")
+    if shards is not None:
+        heads = cfg.num_kv_heads // len(shards)
+        return {shard_name(name, r): leaf
+                for r, dev in enumerate(shards)
+                for name, leaf in _kv_buffers(cfg, batch, max_len, heads,
+                                              dtype, kv_dtype, dev).items()}
+    return _kv_buffers(cfg, batch, max_len, cfg.num_kv_heads, dtype,
+                       kv_dtype, device)
+
+
+def _kv_buffers(cfg: ArchConfig, batch: int, max_len: int, heads: int,
+                dtype: Optional[torch.dtype], kv_dtype: Optional[str],
+                device: Any) -> Dict[str, torch.Tensor]:
+    shape = (batch, max_len, heads, cfg.hd)
     if kv_dtype is not None and kv_dtype != "native":
         qdt = kquant.kv_storage_dtype(kv_dtype)
         sshape = shape[:-1] + (1,)

@@ -5,7 +5,10 @@ an explicit ``torch.Generator`` with the reference's scales, and the
 apply functions keep the reference's fp32 upcast and cast points.  With
 a plan, the FFN runs through the port's Hopper kernels
 (``kernels/ops.py``); every other matmul is a plain ``torch.matmul``,
-as the reference leaves them to XLA.
+as the reference leaves them to XLA.  A weight split over a
+tensor-parallel group (``distributed/tensor_parallel.py::Sharded``)
+takes the group's ops: :func:`linear`, :func:`embed` and :func:`unembed`
+by the split's kind, and :func:`ffn` shard by shard on its d_ff slice.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tensor_parallel as tp
 
 Params = Dict[str, Any]
 DotFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -64,15 +69,21 @@ def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 def linear(params: Params, x: torch.Tensor, dot: DotFn = default_dot) -> torch.Tensor:
+    if tp.is_sharded(params["w"]):
+        return tp.linear(params["w"], x, dot)
     return dot(x, params["w"])
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if tp.is_sharded(params["table"]):
+        return tp.embed(params["table"], tokens)
     return params["table"][tokens]
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32, as the reference's fp32-accumulating einsum."""
+    if tp.is_sharded(params["table"]):
+        return tp.unembed(params["table"], x)
     return torch.matmul(x.float(), params["table"].float().t())
 
 
@@ -87,7 +98,12 @@ def ffn(params: Params, x: torch.Tensor, dot: DotFn = default_dot,
         plan: Optional[Any] = None) -> torch.Tensor:
     """SwiGLU FFN.  With ``plan`` (a core.plan.FfnPlan) the block runs
     through the Hopper kernels the granted candidate lowered to — fused
-    LBM or tiled LWM — instead of plain matmuls."""
+    LBM or tiled LWM — instead of plain matmuls.  Split over a
+    tensor-parallel group (gate / up by columns, down by rows), each
+    shard runs the block on its d_ff slice, the kernels at the shard's
+    shapes, and the partial outputs are summed in shard order."""
+    if tp.is_sharded(params["down"]["w"]):
+        return _ffn_tp(params, x, dot, plan)
     if plan is None:
         return swiglu(params["gate"], params["up"], params["down"], x, dot)
     from repro_torch.kernels import ops as kops
@@ -96,6 +112,22 @@ def ffn(params: Params, x: torch.Tensor, dot: DotFn = default_dot,
     y = kops.planned_ffn(x2, params["gate"]["w"], params["up"]["w"],
                          params["down"]["w"], plan)
     return y.reshape(lead + (y.shape[-1],))
+
+
+def _ffn_tp(params: Params, x: torch.Tensor, dot: DotFn,
+            plan: Optional[Any]) -> torch.Tensor:
+    wg, wu, wd = (params[n]["w"] for n in ("gate", "up", "down"))
+    parts = []
+    for g, u, dn in zip(wg.pieces, wu.pieces, wd.pieces):
+        xr = x.to(g.device)
+        if plan is None:
+            parts.append(swiglu({"w": g}, {"w": u}, {"w": dn}, xr, dot))
+            continue
+        from repro_torch.kernels import ops as kops
+        x2 = xr.reshape(-1, x.shape[-1])
+        y = kops.planned_ffn(x2, g, u, dn, plan)
+        parts.append(y.reshape(x.shape[:-1] + (y.shape[-1],)))
+    return tp.reduce(parts, x.device)
 
 
 # ---------------------------------------------------------------- RoPE --

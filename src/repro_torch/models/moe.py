@@ -4,8 +4,11 @@ a one-token decode fast path, and, under a plan, each expert's SwiGLU
 through the plan-lowered Hopper kernels.
 
 The reference pins an expert-parallel layout with ``shard_hint`` on the
-dispatch buffers; the port runs on one device, where those hints do
-nothing, so they are dropped.
+dispatch buffers, which the port drops: over a tensor-parallel group the
+expert weights are split by ``distributed/sharding.py``'s MoE mode, and
+the expert products run where their pieces are (:func:`_experts`,
+:func:`_owned_expert_rows`); the router and the dispatch run on the
+group's first device.
 
 Two departures in how, not what, the layer computes:
 
@@ -35,6 +38,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import Params, _normal
 
@@ -85,6 +89,45 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+def _expert_rows(wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                 x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Expert ``e[i]``'s SwiGLU over row ``x[i]``: x [N, d], e [N] ids into
+    ``wg`` / ``wu`` [E, d, f] and ``wd`` [E, f, d].  Returns [N, d]
+    fp32."""
+    xt = x[:, None, :]                                # [N, 1, d]
+    h_g = _dot_f32(xt, wg[e])                         # [N, 1, f] fp32
+    h_u = _dot_f32(xt, wu[e])
+    h = (F.silu(h_g) * h_u).to(x.dtype)
+    return _dot_f32(h, wd[e])[:, 0]
+
+
+def _owned_expert_rows(wg: Any, wu: Any, wd: Any, x: torch.Tensor,
+                       e: torch.Tensor) -> torch.Tensor:
+    """:func:`_expert_rows` over experts split across a tensor-parallel
+    group (``"fsdp"``: [E] cut into contiguous pieces): each shard runs
+    the entries whose expert it holds, on its device, and each row is put
+    back at its entry, on x's device.  A shard takes only its own
+    entries, except inside a CUDA graph capture, where shapes may not
+    depend on the routing: there it runs every entry, on an id clamped
+    into its piece, and keeps its own."""
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    static = tp.capturing()
+    for o, g, u, dn in zip(wg.offsets(), wg.pieces, wu.pieces, wd.pieces):
+        n = g.shape[0]
+        own = (e >= o) & (e < o + n)
+        if static:
+            y = _expert_rows(g, u, dn, x.to(g.device),
+                             (e - o).clamp(0, n - 1).to(g.device))
+            out = torch.where(own[:, None], y.to(x.device), out)
+            continue
+        idx = own.nonzero()[:, 0]
+        if len(idx):
+            y = _expert_rows(g, u, dn, x[idx].to(g.device),
+                             (e[idx] - o).to(g.device))
+            out.index_copy_(0, idx, y.to(x.device))
+    return out
+
+
 def _decode_moe(params: Params, x: torch.Tensor, top_p: torch.Tensor,
                 top_e: torch.Tensor) -> torch.Tensor:
     """Token-granular (T == 1) expert combine: gather the top-k experts'
@@ -92,21 +135,27 @@ def _decode_moe(params: Params, x: torch.Tensor, top_p: torch.Tensor,
     ``_decode_moe``, which says why).  It ignores the KernelPlan: a
     one-token expert FFN is a GEMV with no tiling freedom, so the server
     binds no plan to MoE decode (``launch/serve.py::_dec_plan``).  The K
-    contributions are summed in top-k order."""
+    contributions are summed in top-k order.  Over a tensor-parallel
+    group: experts split (``"fsdp"``) -> each entry runs on the shard
+    that holds its expert (:func:`_owned_expert_rows`); d_ff split
+    (``"ep2d"``) -> each shard's partial outputs on its d_ff slice,
+    summed in shard order in fp32."""
     G, _, d = x.shape
-    e = top_e[:, 0]                                   # [G, K]
-    K = e.shape[1]
-    wg = params["gate"][e]                            # [G, K, d, f]
-    wu = params["up"][e]
-    wd = params["down"][e]                            # [G, K, f, d]
-    f = wg.shape[-1]
-    xt = x[:, 0][:, None, None, :].expand(G, K, 1, d).reshape(G * K, 1, d)
-    h_g = _dot_f32(xt, wg.reshape(G * K, d, f))       # [G*K, 1, f] fp32
-    h_u = _dot_f32(xt, wu.reshape(G * K, d, f))
-    h = (F.silu(h_g) * h_u).to(x.dtype)
-    out = _dot_f32(h, wd.reshape(G * K, f, d)).reshape(G, K, d)
-    w = top_p[:, 0, :, None].to(out.dtype)            # [G, K, 1]
-    return (out * w).sum(1)[:, None, :].to(x.dtype)
+    K = top_e.shape[-1]
+    e = top_e[:, 0].reshape(G * K)
+    rows = x[:, 0][:, None, :].expand(G, K, d).reshape(G * K, d)
+    wg, wu, wd = params["gate"], params["up"], params["down"]
+    if not tp.is_sharded(wg):
+        out = _expert_rows(wg, wu, wd, rows, e)
+    elif wg.dim == 0:
+        out = _owned_expert_rows(wg, wu, wd, rows, e)
+    else:
+        out = tp.reduce([_expert_rows(g, u, dn, rows.to(g.device),
+                                      e.to(g.device))
+                         for g, u, dn in zip(wg.pieces, wu.pieces,
+                                             wd.pieces)], x.device)
+    w = top_p[:, 0].reshape(G * K, 1).to(out.dtype)
+    return (out * w).reshape(G, K, d).sum(1)[:, None, :].to(x.dtype)
 
 
 def _dispatch(x: torch.Tensor, top_e: torch.Tensor, C: int, E: int
@@ -134,24 +183,51 @@ def _dispatch(x: torch.Tensor, top_e: torch.Tensor, C: int, E: int
     return buf[:, :-1].reshape(G, E, C, d), order, slot, keep, tok
 
 
+def _experts_on(wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                bufe: torch.Tensor, dtype: torch.dtype, plan: Optional[Any],
+                f32: bool = False) -> torch.Tensor:
+    """Experts ``[E', ...]`` over their bucket rows bufe [E', N, d]: one
+    ``kops.planned_ffn`` per expert under a plan, else the batched
+    products; the down product in fp32 where ``f32`` (a partial output
+    that is summed before it is rounded)."""
+    if plan is not None:
+        from repro_torch.kernels import ops as kops
+        return torch.stack([kops.planned_ffn(bufe[e], wg[e], wu[e], wd[e],
+                                             plan)
+                            for e in range(bufe.shape[0])])
+    h_g = _dot_f32(bufe, wg)                          # [E, N, f] fp32
+    h_u = _dot_f32(bufe, wu)
+    h = (F.silu(h_g) * h_u).to(dtype)
+    out = _dot_f32(h, wd)
+    return out if f32 else out.to(dtype)
+
+
 def _experts(params: Params, buf: torch.Tensor, dtype: torch.dtype,
              plan: Optional[Any]) -> torch.Tensor:
     """Every expert's SwiGLU over its bucket rows: buf [G, E, C, d] ->
     [G, E, C, d] in ``dtype``.  With a plan (a core.plan.FfnPlan), one
     ``kops.planned_ffn`` per expert on its [G*C, d] rows (fused LBM or
-    tiled LWM); without, the batched products."""
+    tiled LWM); without, the batched products.  Over a tensor-parallel
+    group each expert runs on the device that holds it (``"fsdp"``: the
+    experts split), or each shard runs every expert on its d_ff slice
+    and the partial outputs are summed in shard order (``"ep2d"``), the
+    kernels at the shard's shapes either way."""
     G, E, C, d = buf.shape
     bufe = buf.transpose(0, 1).reshape(E, G * C, d)
-    if plan is not None:
-        from repro_torch.kernels import ops as kops
-        oute = torch.stack([
-            kops.planned_ffn(bufe[e], params["gate"][e], params["up"][e],
-                             params["down"][e], plan) for e in range(E)])
+    wg, wu, wd = params["gate"], params["up"], params["down"]
+    if not tp.is_sharded(wg):
+        oute = _experts_on(wg, wu, wd, bufe, dtype, plan)
+    elif wg.dim == 0:
+        oute = torch.cat([
+            _experts_on(g, u, dn, bufe[o:o + g.shape[0]].to(g.device),
+                        dtype, plan).to(buf.device)
+            for o, g, u, dn in zip(wg.offsets(), wg.pieces, wu.pieces,
+                                   wd.pieces)])
     else:
-        h_g = _dot_f32(bufe, params["gate"])          # [E, G*C, f] fp32
-        h_u = _dot_f32(bufe, params["up"])
-        h = (F.silu(h_g) * h_u).to(dtype)
-        oute = _dot_f32(h, params["down"]).to(dtype)
+        oute = tp.reduce([
+            _experts_on(g, u, dn, bufe.to(g.device), dtype, plan, f32=True)
+            for g, u, dn in zip(wg.pieces, wu.pieces, wd.pieces)],
+            buf.device).to(dtype)
     return oute.reshape(E, G, C, d).transpose(0, 1)
 
 

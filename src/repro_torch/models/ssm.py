@@ -11,7 +11,10 @@ The inter-chunk recurrence is a loop over chunks, as the reference's
 ``lax.scan``, and the inter-chunk output ``y_off`` keeps the reference's
 cast points.  ``ssd_decode_step`` is the O(1) recurrent step of the
 serving path (state cache instead of a KV cache), plain torch as in the
-reference.
+reference.  Over a tensor-parallel group, ``in_proj``'s output
+(z | x | B | C | dt, not head-aligned) is concatenated on the group's
+first device before the conv and the scan, and ``out_proj``'s row split
+takes slices of y (``layers.linear``).
 
 Precision: the reference casts the intra-chunk weights and
 ``decay_out * dt`` to x's dtype before its contractions; the kernel
@@ -27,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import Params, _normal, init_linear, linear
@@ -54,7 +58,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv1d.  x: [b, s, c]; w: [k, c].
-    Returns (y, new_state [b, k-1, c])."""
+    Returns (y, new_state [b, k-1, c]).  A ``w`` split over a
+    tensor-parallel group by channels convolves each piece's channels
+    (the same products: the conv is per channel)."""
+    if tp.is_sharded(w):
+        outs = [_causal_conv(x[..., o:o + p.shape[1]], p.to(x.device),
+                             None if state is None
+                             else state[..., o:o + p.shape[1]])
+                for o, p in zip(w.offsets(), w.pieces)]
+        return (torch.cat([y for y, _ in outs], dim=-1),
+                torch.cat([st for _, st in outs], dim=-1))
     k = w.shape[0]
     if state is None:
         state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,

@@ -16,8 +16,8 @@ dict per group, and ``shared_attn`` one dense layer, stored once.  Its
 caches are the flat per-layer list in execution order: each group's
 Mamba2 states, then that group's own K/V (the weights are shared, the
 K/V is not).  So every loop over the caches that treats a dict by its
-leaves' names (K/V leaves ``KV_LEAVES`` have a time axis, ``conv`` and
-``ssm`` do not) holds for every family, and the i-th cache belongs to
+leaves' names (K/V leaves, :func:`is_kv_leaf`, have a time axis,
+``conv`` and ``ssm`` do not) holds for every family, and the i-th cache belongs to
 the i-th layer that :func:`_layers` yields.
 
 Every cache write happens in place, into the buffers the caches held
@@ -56,7 +56,9 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint as tcheckpoint
 
-from repro_torch.models.attention import init_attention, init_kv_cache, mha
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models.attention import (head_shards, init_attention,
+                                          init_kv_cache, mha)
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, embed, ffn, init_embedding,
                                        init_ffn, init_norm, rms_norm, unembed)
@@ -68,6 +70,12 @@ Caches = List[dict]
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the leaves of an attention layer's cache: [B, T, Hkv, .], time on axis 1
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
+def is_kv_leaf(name: str) -> bool:
+    """Whether a cache leaf is K/V (``KV_LEAVES``, or a head-split
+    cache's shard of one, ``attention.shard_name``): time on axis 1."""
+    return name.partition("@")[0] in KV_LEAVES
 _REMAT_POLICY = "full"   # "full" | "dots" (save matmul outputs)
 
 
@@ -336,14 +344,22 @@ def init_caches(params: Optional[Params], cfg: ArchConfig, batch: int,
     the compute dtype, the state in fp32), never quantized, whatever
     ``kv_dtype`` says, and independent of ``max_len``.  A hybrid stack
     holds both (see the module docstring).  The device defaults to the
-    params' device (``"cuda"`` without params)."""
+    params' device (a tensor-parallel group's first device; ``"cuda"``
+    without params).  Over a group whose attention splits by heads
+    (``attention.head_shards`` of the layer's params), an attention
+    layer's cache is one piece a shard, its KV heads, on the shard's
+    device; every other cache is on ``device``."""
     _require_ported(cfg)
     if device is None:
-        device = (params["embed"]["table"].device if params is not None
-                  else "cuda")
+        device = (tp.first_device(params["embed"]["table"])
+                  if params is not None else "cuda")
     num_groups(cfg)     # a hybrid stack must divide into groups
+    layers = (list(_layers(params, cfg)) if params is not None
+              else [None] * cfg.num_layers)
     return [init_kv_cache(cfg, batch, max_len, kv_dtype=kv_dtype,
-                          device=device)
+                          device=device,
+                          shards=(None if layers[i] is None
+                                  else head_shards(layers[i]["attn"], cfg)))
             if is_attention_layer(cfg, i)
             else init_ssm_state(cfg, batch, device)
             for i in range(cfg.num_layers)]
@@ -353,8 +369,8 @@ def seed_caches_in_place(cfg: ArchConfig, caches: Caches, snapshot: Caches,
                          prefix_len: int) -> Caches:
     """Seed a tenant's own cache buffers from a shared prefix, in place
     (the buffers keep their addresses, so programs that bind them stay
-    valid), leaf by leaf: a K/V leaf (``KV_LEAVES``: codes and fp32 scale
-    leaves alike, all ``[B, T, Hkv, .]``, time on axis 1) gets rows
+    valid), leaf by leaf: a K/V leaf (:func:`is_kv_leaf`: codes and fp32
+    scale leaves alike, all ``[B, T, Hkv, .]``, time on axis 1) gets rows
     ``[0, prefix_len)`` and keeps the rows past the prefix as they are;
     a recurrent leaf (``conv``, ``ssm``) adopts the snapshot's state
     wholesale (only valid at the snapshot's exact length, so an SSM or
@@ -365,7 +381,7 @@ def seed_caches_in_place(cfg: ArchConfig, caches: Caches, snapshot: Caches,
     _require_ported(cfg)
     for dst, src in zip(caches, snapshot, strict=True):
         for name, leaf in dst.items():
-            if name in KV_LEAVES:
+            if is_kv_leaf(name):
                 leaf[:, :prefix_len].copy_(src[name][:, :prefix_len])
             else:
                 leaf.copy_(src[name])

@@ -10,8 +10,9 @@ device, the port on ``devices=["cpu"] * n`` with the reference's params
 and prompts injected (``torch_fleet_pairs``); routes, routed scenarios,
 every replica's traces, tokens and records must be equal.  Also: the
 serving mesh (its assertion, repeated devices, the default CUDA device
-list), ``tp > 1`` raising, the CLI's ``--devices``, and chip_smoke.py's
-two fleet phases scheduled at full width without weights
+list), tp > 1 groups built (a multi-row mesh raising), the CLI's
+``--devices``, and chip_smoke.py's two fleet phases scheduled at full
+width without weights
 (``torch_dry_run``).
 """
 import contextlib
@@ -178,11 +179,17 @@ def test_serving_mesh_defaults_to_every_cuda_device(monkeypatch):
 
 
 def test_tensor_parallel_replica_groups_raise():
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        PS.FleetServer(n_replicas=1, tp=2, devices=["cpu"] * 2)
+    """tp > 1 groups are served (tests/test_torch_tp*.py hold them against
+    the reference); what still raises is a server handed more than one
+    replica row."""
+    fleet = PS.FleetServer(n_replicas=1, tp=2, devices=["cpu"] * 2)
+    assert fleet.tp == 2 and fleet.replicas[0].group == [torch.device("cpu")] * 2
     wide = PMesh.make_serving_mesh(1, tp=2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="tp > 1"):
-        PS.MultiTenantServer([ARCH], device=wide)
+    srv = PS.MultiTenantServer([ARCH], device=wide)
+    assert srv.mesh is wide and srv.device == torch.device("cpu")
+    rows = PMesh.make_serving_mesh(2, tp=1, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="one mesh row"):
+        PS.MultiTenantServer([ARCH], device=rows)
     # a 1 x 1 submesh is its device
     one = PMesh.make_serving_mesh(1, devices=["cpu"])
     assert PS.MultiTenantServer([], device=one).device == torch.device("cpu")

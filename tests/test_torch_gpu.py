@@ -771,6 +771,55 @@ def test_fleet_replicas_on_distinct_cards():
             assert (out["tenants"][tid]["output"] == info["output"]).all()
 
 
+@pytest.mark.gpu
+def test_tensor_parallel_families_match_tp1_on_the_card():
+    """chip_smoke.py's e2e_tp at the reduced widths in bf16: each family
+    (olmoe under both MoE modes) at tp = 2 on [cuda:0, cuda:0] against
+    tp = 1 with the same weights, prefill and decode under LWM and LBM
+    plans within 2e-2 of the largest logit, bitwise on a repeat, the plan
+    kernels twice as often on each shard's d_ff slice (once an expert
+    under "fsdp")."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    cases = [(_bf16(a, f"{a}-tp").name, m, 2) for a, m in (
+        ("yi-9b", None), ("mamba2-370m", None), ("olmoe-1b-7b", "fsdp"),
+        ("olmoe-1b-7b", "ep2d"), ("zamba2-2.7b", None),
+        ("whisper-tiny", None), ("llava-next-mistral-7b", None))]
+    counts = {}
+    out = chip_smoke.e2e_tp_main_path("cuda", counts, cases=cases)
+    assert len(out) == 7 and all(r["bitwise_repeat"] for r in out.values())
+    assert counts["cache_matmul"] > 0 and counts["block_fused_ffn"] > 0
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_group_on_distinct_cards():
+    """A tp = 2 group of two cards: each piece on its card, each shard's
+    KV heads' cache on its card, the group's programs dispatched eagerly (not captured), tokens equal to the same
+    group on one card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.sim.driver import TenantSpec
+    cfg = _bf16("yi-9b", "yi-9b-tp-cards")
+    outs = []
+    for devices in (["cuda:0", "cuda:1"], ["cuda:0", "cuda:0"]):
+        srv = MultiTenantServer(
+            [], batch=1, max_len=256, epoch_len=4, total_pages=64,
+            tenants=[TenantSpec(cfg.name, n_inferences=6, prompt_len=64)],
+            device=make_serving_mesh(1, tp=2, devices=devices),
+            reduced=False)
+        w = srv.tenants[0].params["layers"][0]["mlp"]["down"]["w"]
+        assert [str(d) for d in w.devices] == devices
+        kv = srv.tenants[0].caches[0]
+        assert [str(kv[f"k@{r}"].device) for r in (0, 1)] == devices
+        outs.append(srv.run(8))
+        assert outs[-1]["host"]["captured"] == (devices[0] == devices[1])
+    assert (outs[0]["tenants"]["t0:" + cfg.name]["output"]
+            == outs[1]["tenants"]["t0:" + cfg.name]["output"]).all()
+
+
 # ------------------------------------------------------------ training --
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,kind", [("float32", "simt"),

@@ -51,7 +51,9 @@ def test_every_kernel_and_the_ssm_slice_are_covered():
             "distributed/fault_tolerance.py", "sim/faults.py",
             "optim/adamw.py", "data/pipeline.py", "launch/train.py",
             "distributed/compression.py",
-            "examples/train_100m.py"} <= names
+            "examples/train_100m.py", "distributed/sharding.py",
+            "distributed/tensor_parallel.py",
+            "examples/multi_tenant_serve.py"} <= names
     assert {"ssd_chunk", "ssd_chunk_bwd"} <= set(build.SOURCES)
     for name in build.SOURCES:
         assert (PORT / "csrc" / f"{name}.cu").is_file(), name

@@ -22,6 +22,7 @@ import types
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core.allocator import Selection as RSelection
 from repro.core.runtime import TenantModel as RTenantModel
@@ -130,19 +131,28 @@ def test_port_serial_and_pipelined_bit_identical(runs):
 
 
 @pytest.mark.parametrize("option", [dict(device=make_serving_mesh(
-    1, tp=2, devices=["cpu"] * 2))])
+    2, tp=1, devices=["cpu"] * 2))])
 def test_unported_server_features_raise(option):
-    """A replica of more than one device (tp > 1) is not ported."""
-    with pytest.raises(NotImplementedError, match="tp > 1"):
+    """A replica of more than one device (tp > 1) is served now
+    (tests/test_torch_tp.py); a server handed more than one replica row
+    of a mesh raises."""
+    group = make_serving_mesh(1, tp=2, devices=["cpu"] * 2)
+    assert PS.MultiTenantServer(["yi-9b"], device=group).mesh is group
+    with pytest.raises(ValueError, match="one mesh row"):
         PS.MultiTenantServer(["yi-9b"], **{"device": "cpu", **option})
 
 
 def test_unported_families_raise():
     """Every family is served now (tests/test_torch_encdec_serve.py), and
-    the fleet too (tests/test_torch_fleet.py); what still raises is a
-    fleet of tensor-parallel replica groups."""
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        PS.FleetServer(n_replicas=2, tp=2, devices=["cpu"] * 4)
+    the fleet too (tests/test_torch_fleet.py), tensor-parallel groups
+    included (tests/test_torch_tp_fleet.py); a family outside the
+    ported ones raises."""
+    fleet = PS.FleetServer(n_replicas=2, tp=2, devices=["cpu"] * 4)
+    assert fleet.tp == 2 and len(fleet.replicas) == 2
+    from repro_torch.models import transformer as PT
+    odd = dataclasses.replace(port_arch("yi-9b").reduced(), family="audio")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        PT.init_lm(torch.Generator().manual_seed(0), odd)
 
 
 def _candidates(tm):
