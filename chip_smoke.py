@@ -332,6 +332,26 @@ Phases, each printed as one JSON object with its seconds:
 * ``train_cli``: ``launch/train.py::main --smoke`` for each of the six
   families on the card, then reduced olmoe in bf16, whose expert
   gradients come through ``models/moe.py::_dot_f32``'s bf16 bmm.
+* ``dryrun``: the dry run (``launch/dryrun.py``) against the card
+  (:data:`DRYRUN`).  yi-9b's plan-less ``make_prefill`` at full width
+  and depth (2 x 2048) traced on fake tensors at a (1, 1) group: its
+  argument bytes equal the live params' and tokens' exactly, its FLOPs
+  ``FlopCounterMode``'s over the real call on the card exactly (no
+  kernel is on that path), and its predicted peak (arguments + temp)
+  within 10% of ``max_memory_allocated``; the roofline bound beside the
+  measured ms.  mamba2-370m's train step (8 x 1024): argument bytes
+  (params, AdamW state, batch) exact, and its FLOPs ``FlopCounterMode``'s
+  exactly (the trace prices ssd_chunk and its backward as the kernels
+  the card runs, by the FLOP formulas ``FlopCounterMode`` applies to
+  them there); predicted and measured peak recorded, the bound beside
+  the measured step ms.  Each trace launches no kernel and moves
+  ``memory_allocated`` by nothing.  Then the CLI, ``python -m
+  repro_torch.launch.dryrun --arch whisper-tiny --shape decode_32k
+  --multi-pod --roofline`` (rc 0, "0 failures"), and ``python -m
+  repro_torch.launch.roofline --mesh 2x16x16`` over its report, both
+  with their report folder under ``build/chip_smoke/`` (the committed
+  reports stay as they are); its argument bytes printed beside the
+  reference's XLA figure.
 
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -620,6 +640,18 @@ RESUME_STEPS = 2
 GRAD_BATCH = dict(batch=2, seq_len=1024)
 TRAIN_100M = dict(steps=40)
 TRAIN_CLI = dict(steps=6, seq_len=64, global_batch=2, lr=1e-3)
+# the dry run (launch/dryrun.py) held against runs on the card: yi-9b's
+# plan-less prefill at the prefill phase's shape and mamba2's train step
+# at train_ssm's, each traced on fake tensors at a (1, 1) group, then the
+# CLI at whisper-tiny x decode_32k x 2x16x16.  The predicted peak
+# (arguments + temp) of the prefill within PEAK_TOL of the card's.
+DRYRUN = dict(prefill=dict(arch="yi-9b", batch=2, seq_len=2048),
+              train=dict(arch=SSM_ARCH, batch=8, seq_len=1024, steps=3),
+              cli=dict(arch="whisper-tiny", shape="decode_32k"),
+              peak_tol=0.10, timed=3,
+              # the reference's XLA figure for the CLI's cell
+              # (experiments/dryrun/whisper-tiny__decode_32k__2x16x16.json)
+              xla_argument_bytes=109_250_324)
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -1354,14 +1386,13 @@ def ssd_cases(ssm_cfg, dev):
 def ssd_work(b, h, s, p, n, q, eb):
     """(bytes, operations) of one ssd_chunk call: x at ``eb`` bytes, dt
     and A fp32, B and C once per batch row, y and the states fp32
-    written; the causal half of the [Q x Q] score and weight products,
-    and the states, at 2 operations a multiply-add."""
+    written; the operations of ``kssd.chunk_flops`` (the causal half of
+    the [Q x Q] score and weight products, and the states)."""
+    from repro_torch.kernels import ssd_scan as kssd
     bh, n_c = b * h, s // q
     nbytes = (bh * s * p * eb + bh * s * 4 + bh * 4 + 2 * b * s * n * eb
               + bh * s * p * 4 + bh * n_c * n * p * 4)
-    flops = (2 * bh * n_c * (q * (q + 1) // 2) * (n + p)
-             + 2 * bh * n_c * q * n * p)
-    return nbytes, flops
+    return nbytes, kssd.chunk_flops(bh, s, p, n, q)
 
 
 def _ssd_timing(gen, b, h, s, p, n, q):
@@ -1517,17 +1548,15 @@ def ssd_bwd_cases(ssm_cfg, hybrid_cfg, dev):
 def ssd_bwd_work(b, h, s, p, n, q, eb):
     """(bytes, operations) of one ssd_chunk_bwd call: x at ``eb`` bytes,
     B and C once per batch row, dt, A, gy and gS fp32 read; dx, ddt, dA
-    and dB, dC per batch row fp32 written; the causal half of the five
-    [Q x Q] products (C B^T and dC over N, G and dx over P, dB over N) and
-    the states' two products (B gS, gS x), at 2 operations a
-    multiply-add."""
+    and dB, dC per batch row fp32 written; the operations of
+    ``kssd.chunk_bwd_flops`` (the causal half of the five [Q x Q]
+    products and the states' two products)."""
+    from repro_torch.kernels import ssd_scan as kssd
     bh, n_c = b * h, s // q
     nbytes = (bh * s * p * eb + 2 * b * s * n * eb + bh * s * 4 + bh * 4
               + bh * s * p * 4 + bh * n_c * n * p * 4
               + bh * s * p * 4 + bh * s * 4 + bh * 4 + 2 * b * s * n * 4)
-    flops = (2 * bh * n_c * (q * (q + 1) // 2) * (3 * n + 2 * p)
-             + 2 * 2 * bh * n_c * q * n * p)
-    return nbytes, flops
+    return nbytes, kssd.chunk_bwd_flops(bh, s, p, n, q)
 
 
 def ssd_bwd_timings(ssm_cfg, dev):
@@ -5482,6 +5511,191 @@ def train_cli_main_path(dev, counters):
     return {"runs": runs, **T}
 
 
+def _dryrun_trace(cfg, shape):
+    """``launch/dryrun.py``'s trace of ``shape``'s step at a (1, 1)
+    group, with its argument bytes from the specs.  Gated: the trace
+    launches no kernel and moves the card's allocations by nothing."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun as D
+    mesh = D.ServingMesh(np.empty((1, 1), dtype=object))
+    torch.cuda.synchronize()
+    _zero_counters()
+    before = torch.cuda.memory_allocated()
+    trace = D.trace_step(cfg, shape, mesh)
+    with FakeTensorMode():
+        args = D.argument_bytes(cfg, shape, mesh)
+    launched = {k: v for k, v in _counters().items() if v}
+    moved = torch.cuda.memory_allocated() - before
+    if launched or moved:
+        raise AssertionError(f"dryrun: the trace of {cfg.name} launched "
+                             f"{launched}, moved {moved} bytes on the card")
+    return trace, args
+
+
+def _tree_bytes(tree):
+    from repro_torch.optim import adamw
+    return sum(t.numel() * t.element_size() for t in adamw.tree_leaves(tree))
+
+
+def _measured(step, args, timed: int):
+    """A real call of ``step`` on the card: FLOPs under
+    ``FlopCounterMode`` (one call), then the peak above what was
+    allocated before (one call after ``reset_peak_memory_stats``), then
+    the median ms of ``timed`` calls.  ``args`` is a list: a train
+    step's new params and state replace the old ones after each call."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def call():
+        out = step(*args)
+        if isinstance(out, tuple) and len(out) == 3:   # a train step
+            args[0], args[1] = out[0], out[1]
+        return out
+    with FlopCounterMode(display=False) as fc:
+        call()
+    torch.cuda.synchronize()
+    _release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"flops": fc.get_total_flops(), "peak_above_args": peak,
+            "ms": _median(ms), "ms_all": ms}
+
+
+def _dryrun_cell(cfg, shape, trace, args_bytes, live_bytes, measured, hw):
+    """The record of one traced cell beside its run on the card."""
+    from repro_torch.launch import dryrun as D
+    c = trace.counter
+    rf = c.roofline(0, hw)
+    predicted = trace.args_bytes[0] + c.peak[0]
+    measured_peak = live_bytes + measured["peak_above_args"]
+    return {"arch": cfg.name, "kind": shape.kind,
+            "batch": shape.global_batch, "seq_len": shape.seq_len,
+            "trace_s": trace.trace_s,
+            "argument_bytes": args_bytes, "live_argument_bytes": live_bytes,
+            "temp_bytes": c.peak[0], "predicted_peak_bytes": predicted,
+            "measured_peak_bytes": measured_peak,
+            "peak_ratio": predicted / measured_peak,
+            "traced_flops": c.flops[0], "measured_flops": measured["flops"],
+            "hbm_bytes": c.hbm_bytes[0],
+            "model_flops": D._model_flops_per_chip(cfg, shape, 1),
+            "bound_ms": rf.bound_s * 1e3, "bound_by": rf.dominant,
+            "compute_ms": rf.compute_s * 1e3, "memory_ms": rf.memory_s * 1e3,
+            "measured_ms": measured["ms"], "measured_ms_all":
+            measured["ms_all"]}
+
+
+def dryrun_main_path(dev, cells=None):
+    """The dry run against the card (:data:`DRYRUN`; ``cells`` replaces
+    its prefill and train entries, for a rehearsal at reduced widths):
+    see the module docstring's ``dryrun``."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.launch import cost_analysis
+    from repro_torch.models import model as M
+    from repro_torch.models.base import get_arch
+    from repro_torch.optim import adamw
+    T = {**DRYRUN, **(cells or {})}
+    hw = cost_analysis.hardware(dev)
+    out = {"hardware": hw}
+    gen = torch.Generator(device=dev)
+
+    def tokens(cfg, b, s):
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             dtype=torch.int32, device=dev)
+
+    # yi-9b's plan-less prefill: every number gated
+    P = T["prefill"]
+    cfg = get_arch(P["arch"])
+    shape = M.ShapeSpec("prefill", P["seq_len"], P["batch"], "prefill")
+    trace, args_bytes = _dryrun_trace(cfg, shape)
+    gen.manual_seed(0)
+    params = M.init_params(cfg, seed=0, device=dev)
+    args = [params, {"tokens": tokens(cfg, P["batch"], P["seq_len"]),
+                     "labels": tokens(cfg, P["batch"], P["seq_len"])}]
+    live = _tree_bytes(args)
+    measured = _measured(M.make_prefill(cfg), args, T["timed"])
+    rec = _dryrun_cell(cfg, shape, trace, args_bytes, live, measured, hw)
+    del params, args
+    _release()
+    if (rec["argument_bytes"] != live
+            or rec["traced_flops"] != rec["measured_flops"]
+            or abs(rec["peak_ratio"] - 1) > T["peak_tol"]):
+        raise AssertionError(f"dryrun prefill: {rec}")
+    out["prefill"] = rec
+
+    # mamba2's train step: the arguments and FLOPs gated, the rest
+    # recorded
+    R = T["train"]
+    cfg = get_arch(R["arch"])
+    shape = M.ShapeSpec("train", R["seq_len"], R["batch"], "train")
+    trace, args_bytes = _dryrun_trace(cfg, shape)
+    params = M.init_params(cfg, seed=0, device=dev)
+    args = [params, adamw.init(params),
+            {"tokens": tokens(cfg, R["batch"], R["seq_len"]),
+             "labels": tokens(cfg, R["batch"], R["seq_len"])}]
+    live = _tree_bytes(args)
+    _zero_counters()
+    measured = _measured(M.make_train_step(cfg), args, R["steps"])
+    launches = {k: v for k, v in _counters().items() if v}
+    rec = _dryrun_cell(cfg, shape, trace, args_bytes, live, measured, hw)
+    rec["launches"] = launches
+    del params, args
+    _release()
+    if (rec["argument_bytes"] != live
+            or rec["traced_flops"] != rec["measured_flops"]):
+        raise AssertionError(f"dryrun train: {rec}")
+    out["train"] = rec
+
+    # the CLI in processes of their own, then the table over its report,
+    # both with their report folder in OUT_DIR
+    C = T["cli"]
+    reports = OUT_DIR / "dryrun_torch"
+    shutil.rmtree(reports, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+
+    def cli(module, *argv):
+        # the module's main with REPORT_DIR set to ``reports``
+        code = (f"import sys, pathlib\nfrom repro_torch.launch import "
+                f"{module} as m\nm.REPORT_DIR = pathlib.Path(sys.argv[1])\n"
+                f"raise SystemExit(m.main(sys.argv[2:]))")
+        return [sys.executable, "-c", code, str(reports), *argv]
+    argv = ["--arch", C["arch"], "--shape", C["shape"], "--multi-pod",
+            "--roofline"] + (["--device", "cpu"] if dev == "cpu" else [])
+    t0 = time.perf_counter()
+    run = subprocess.run(cli("dryrun", *argv), capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=600)
+    cli_s = time.perf_counter() - t0
+    table = subprocess.run(cli("roofline", "--mesh", "2x16x16"),
+                           capture_output=True, text=True, env=env,
+                           cwd=ROOT, timeout=120)
+    if (run.returncode or "0 failures" not in run.stdout
+            or table.returncode or C["arch"] not in table.stdout):
+        raise AssertionError(f"dryrun CLI: rc {run.returncode} "
+                             f"{run.stdout[-2000:]} {run.stderr[-2000:]}; "
+                             f"table rc {table.returncode} {table.stdout}")
+    report = json.loads((reports / f"{C['arch']}__{C['shape']}__"
+                         "2x16x16.json").read_text())
+    out["cli"] = {"seconds": cli_s, "stdout": run.stdout.splitlines(),
+                  "table": table.stdout.splitlines(),
+                  "argument_bytes": report["argument_size_in_bytes"],
+                  "xla_argument_bytes": T["xla_argument_bytes"],
+                  "output_bytes": report["output_size_in_bytes"],
+                  "temp_bytes": report["temp_size_in_bytes"],
+                  "trace_s": report["trace_s"]}
+    return out
+
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -5643,6 +5857,8 @@ def main() -> int:
     _release()
     report["train_cli"] = _phase("train_cli", train_cli_main_path, dev,
                                  train_cli_counts)
+    _release()
+    report["dryrun"] = _phase("dryrun", dryrun_main_path, dev)
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"

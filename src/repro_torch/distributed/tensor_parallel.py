@@ -33,14 +33,27 @@ The group's devices may repeat: on one card every piece sits on
 group's programs as CUDA graphs as it does a single device's.  Moving a
 tensor to its own device is free.  No collective library is used:
 NCCL puts no two ranks of one communicator on one GPU.
+
+A dry run (``launch/dryrun.py``) traces a group on fake tensors under a
+per-device counter (``launch/cost_analysis.py::CostCounter``), set by
+:func:`traced`.  Only then do the hooks here act: :func:`capturing` says
+yes (the trace prices the captured form), each of :func:`reduce`,
+:func:`embed`'s sum and the gathers of :func:`linear` and
+:func:`unembed` reports one collective at its output bytes, and
+:func:`broadcast` reports the all-reduce of its input's gradient.
+Outside a trace they compute what they computed before.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence
+import contextlib
+import functools
+from typing import Any, Callable, Iterator, List, Sequence
 
 import torch
 
 from repro_torch.distributed import sharding
+
+_TRACE: Any = None     # the dry run's counter, while it traces
 
 
 class Sharded:
@@ -127,10 +140,70 @@ def group_devices(mesh: Any) -> List[torch.device]:
     return [torch.device(d) for d in mesh.devices.flat]
 
 
+@contextlib.contextmanager
+def traced(counter: Any) -> Iterator[Any]:
+    """Report this module's collectives to ``counter`` (a dry run's
+    ``CostCounter``) while the block traces."""
+    global _TRACE
+    prev, _TRACE = _TRACE, counter
+    try:
+        yield counter
+    finally:
+        _TRACE = prev
+
+
 def capturing() -> bool:
     """Whether the current CUDA stream is capturing a graph, whose
-    shapes may not depend on data."""
+    shapes may not depend on data; a dry run's trace counts as one, so
+    it prices the form a served (captured) step runs."""
+    if _TRACE is not None:
+        return True
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def _collective(kind: str):
+    """Under a trace, ``fn``'s copies between devices are one collective
+    of ``kind``, counted at its output's bytes."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if _TRACE is None:
+                return fn(*args, **kwargs)
+            with _TRACE.quiet():
+                out = fn(*args, **kwargs)
+            _TRACE.collective(kind, out)
+            return out
+        return run
+    return wrap
+
+
+class _Broadcast(torch.autograd.Function):
+    """:func:`broadcast` under a trace: the gradients of the copies,
+    summed on the input's device, are one all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, *devices):
+        ctx.device = x.device
+        return tuple(x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with _TRACE.quiet():
+            parts = [g.to(ctx.device) for g in grads if g is not None]
+            total = parts[0]
+            for g in parts[1:]:
+                total = total + g
+        _TRACE.collective("all-reduce", total)
+        return (total,) + (None,) * len(grads)
+
+
+def broadcast(x: torch.Tensor, devices: Sequence[torch.device]
+              ) -> List[torch.Tensor]:
+    """``x`` on each of ``devices``: a replicated input handed to every
+    shard."""
+    if _TRACE is not None and x.requires_grad and torch.is_grad_enabled():
+        return list(_Broadcast.apply(x, *devices))
+    return [x.to(d) for d in devices]
 
 
 def one_device(devices: Sequence[torch.device]) -> bool:
@@ -202,6 +275,7 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+@_collective("all-reduce")
 def reduce(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
     """The sum of partial results on ``device``, in shard order, in fp32,
     cast back to the parts' dtype."""
@@ -216,7 +290,7 @@ def col(x: torch.Tensor, w: Sharded, dot: DotFn = _matmul
     """A column-split ``w`` [d, n]: each shard's output columns,
     ``x @ piece`` on the piece's device."""
     assert w.dim == w.pieces[0].dim() - 1, w
-    return [dot(x.to(p.device), p) for p in w.pieces]
+    return [dot(xr, p) for xr, p in zip(broadcast(x, w.devices), w.pieces)]
 
 
 def split_last(x: torch.Tensor, w: Sharded) -> List[torch.Tensor]:
@@ -241,10 +315,18 @@ def linear(w: Sharded, x: torch.Tensor, dot: DotFn = _matmul) -> torch.Tensor:
     device: a column split's pieces concatenated, a row split's partial
     products summed in shard order."""
     if w.dim == w.pieces[0].dim() - 1:
-        return torch.cat([y.to(x.device) for y in col(x, w, dot)], dim=-1)
+        return _gather(col(x, w, dot), x.device)
     return row(split_last(x, w), w, x.device, dot)
 
 
+@_collective("all-gather")
+def _gather(parts: Sequence[torch.Tensor], device: torch.device
+            ) -> torch.Tensor:
+    """Column pieces concatenated on ``device``."""
+    return torch.cat([y.to(device) for y in parts], dim=-1)
+
+
+@_collective("all-reduce")
 def embed(table: Sharded, tokens: torch.Tensor) -> torch.Tensor:
     """A vocab-split embedding lookup: each shard looks up the ids in its
     range (others masked to zero), the rows summed in shard order; every
@@ -265,5 +347,6 @@ def unembed(table: Sharded, x: torch.Tensor) -> torch.Tensor:
     """fp32 logits of a vocab-split table: each shard's columns,
     concatenated on ``x``'s device."""
     assert table.dim == 0, table
-    return torch.cat([torch.matmul(x.float().to(p.device), p.float().t())
-                      .to(x.device) for p in table.pieces], dim=-1)
+    return _gather([torch.matmul(xr, p.float().t()) for xr, p in
+                    zip(broadcast(x.float(), table.devices), table.pieces)],
+                   x.device)

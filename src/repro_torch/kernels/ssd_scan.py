@@ -33,7 +33,10 @@ card (one launch, counted in :data:`launches_bwd` and
 cores for the bf16 calls the forward's wgmma kind takes) and
 :func:`ssd_chunk_bwd_plain`, the explicit formulas in fp32, on the CPU.
 The kernel recomputes cum and L from dt and A, as the forward's kind
-does.
+does.  :class:`SsdChunk` calls both through operators
+(``torch.ops.repro_torch.ssd_chunk`` / ``ssd_chunk_bwd``) whose fake
+shapes and FLOP formulas (:func:`chunk_flops`, :func:`chunk_bwd_flops`)
+let a trace on fake tensors price the card's kernels.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cache_matmul import DTYPES
@@ -375,6 +379,19 @@ def _launch_bwd(x, dt, A, B, C, chunk: int, heads: int, gy, gS, kind: str):
     return dx, ddt.reshape(BH, S), dA, dB, dC
 
 
+def _check_bwd(x, dt, A, B, C, chunk: int, gy, gS, kind: str) -> int:
+    """:func:`_check`, and the gradients' shapes, dtypes and device."""
+    heads = _check(x, dt, A, B, C, chunk, kind)
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    if gy.shape != x.shape or gS.shape != (BH, S // chunk, N, P) \
+            or gy.dtype != torch.float32 or gS.dtype != torch.float32 \
+            or gy.device != x.device or gS.device != x.device:
+        raise ValueError(f"ssd_chunk_bwd: gradients gy{tuple(gy.shape)} "
+                         f"{gy.dtype}, gS{tuple(gS.shape)} {gS.dtype}")
+    return heads
+
+
 def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor, chunk: int,
                   gy: torch.Tensor, gS: torch.Tensor, kind: str = "simt"):
@@ -389,14 +406,8 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     heads that share a row, in head order.  For CPU tensors it computes
     :func:`ssd_chunk_bwd_plain`; for CUDA tensors it launches the kernel
     or raises."""
-    heads = _check(x, dt, A, B, C, chunk, kind)
-    BH, S, P = x.shape
-    N = B.shape[-1]
-    if gy.shape != x.shape or gS.shape != (BH, S // chunk, N, P) \
-            or gy.dtype != torch.float32 or gS.dtype != torch.float32 \
-            or gy.device != x.device or gS.device != x.device:
-        raise ValueError(f"ssd_chunk_bwd: gradients gy{tuple(gy.shape)} "
-                         f"{gy.dtype}, gS{tuple(gS.shape)} {gS.dtype}")
+    heads = _check_bwd(x, dt, A, B, C, chunk, gy, gS, kind)
+    S, N = x.shape[1], B.shape[-1]
     if x.device.type == "cpu":
         Bb = B.repeat_interleave(heads, dim=0) if heads > 1 else B
         Cb = C.repeat_interleave(heads, dim=0) if heads > 1 else C
@@ -413,25 +424,100 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dC.reshape(G, parts, S, N).sum(1))
 
 
+# ------------------------------------------------------- operators --
+# SsdChunk reaches the two wrappers through operators of their own,
+# torch.ops.repro_torch.ssd_chunk and .ssd_chunk_bwd.  On real tensors
+# each runs its wrapper, looked up in this module at call time.  On fake
+# tensors (launch/dryrun.py's trace) each gives its outputs' shapes, and
+# the trace prices it as the card's kernel: FLOPs by chunk_flops /
+# chunk_bwd_flops, which torch.utils.flop_counter also applies on the
+# card, and bytes as its inputs read once and its outputs written once.
+def chunk_flops(bh: int, s: int, p: int, n: int, q: int) -> int:
+    """Operations of one ssd_chunk call (x [bh, s, p], state size n,
+    chunk q): the causal half of the [q x q] score and weight products,
+    and the states, at 2 operations a multiply-add."""
+    n_c = s // q
+    return (2 * bh * n_c * (q * (q + 1) // 2) * (n + p)
+            + 2 * bh * n_c * q * n * p)
+
+
+def chunk_bwd_flops(bh: int, s: int, p: int, n: int, q: int) -> int:
+    """Operations of one ssd_chunk_bwd call: the causal half of the five
+    [q x q] products (C B^T and dC over n, G and dx over p, dB over n)
+    and the states' two products (B gS, gS x), at 2 operations a
+    multiply-add."""
+    n_c = s // q
+    return (2 * bh * n_c * (q * (q + 1) // 2) * (3 * n + 2 * p)
+            + 2 * 2 * bh * n_c * q * n * p)
+
+
+def _ssd_chunk_op(x, dt, A, B, C, chunk: int, kind: str):
+    return ssd_chunk(x, dt, A, B, C, chunk, kind=kind)
+
+
+def _ssd_chunk_bwd_op(x, dt, A, B, C, chunk: int, gy, gS, kind: str):
+    return ssd_chunk_bwd(x, dt, A, B, C, chunk, gy, gS, kind=kind)
+
+
+def _ssd_chunk_fake(x, dt, A, B, C, chunk: int, kind: str):
+    _check(x, dt, A, B, C, chunk, kind)
+    BH, S, P = x.shape
+    return (x.new_empty((BH, S, P), dtype=torch.float32),
+            x.new_empty((BH, S // chunk, B.shape[-1], P),
+                        dtype=torch.float32))
+
+
+def _ssd_chunk_bwd_fake(x, dt, A, B, C, chunk: int, gy, gS, kind: str):
+    _check_bwd(x, dt, A, B, C, chunk, gy, gS, kind)
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty(x.shape, **f32), x.new_empty(dt.shape, **f32),
+            x.new_empty(A.shape, **f32), x.new_empty(B.shape, **f32),
+            x.new_empty(C.shape, **f32))
+
+
+def _shape_flops(fn):
+    """``fn`` as a flop_counter formula: the operands come as shapes."""
+    def formula(x, dt, A, B, C, chunk, *rest, out_shape=None):
+        return fn(x[0], x[1], x[2], B[-1], chunk)
+    return formula
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_chunk(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
+            "int chunk, str kind) -> (Tensor, Tensor)")
+_LIB.define("ssd_chunk_bwd(Tensor x, Tensor dt, Tensor A, Tensor B, "
+            "Tensor C, int chunk, Tensor gy, Tensor gS, str kind) -> "
+            "(Tensor, Tensor, Tensor, Tensor, Tensor)")
+for _name, _impl, _fake, _flops in (
+        ("ssd_chunk", _ssd_chunk_op, _ssd_chunk_fake, chunk_flops),
+        ("ssd_chunk_bwd", _ssd_chunk_bwd_op, _ssd_chunk_bwd_fake,
+         chunk_bwd_flops)):
+    _LIB.impl(_name, _impl, "CPU")
+    _LIB.impl(_name, _impl, "CUDA")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
+    register_flop_formula(getattr(torch.ops.repro_torch, _name))(
+        _shape_flops(_flops))
+
+
 class SsdChunk(torch.autograd.Function):
     """:func:`ssd_chunk` with a gradient.  The forward launches the kernel
     of ``kind`` (or the plain version, on the CPU) and saves only x, dt,
     A, B and C, and the kind; the backward is :func:`ssd_chunk_bwd` of the
-    same kind and returns each gradient in its input's dtype.  Both are
-    looked up in this module at call time, so a control run may put the
-    plain versions in their place."""
+    same kind and returns each gradient in its input's dtype.  Both run
+    through their operators (above), so a control run may put the plain
+    versions in this module in their place."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int, kind: str):
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.chunk, ctx.kind = chunk, kind
-        return ssd_chunk(x, dt, A, B, C, chunk, kind=kind)
+        return torch.ops.repro_torch.ssd_chunk(x, dt, A, B, C, chunk, kind)
 
     @staticmethod
     def backward(ctx, gy, gS):
         x, dt, A, B, C = ctx.saved_tensors
-        dx, ddt, dA, dB, dC = ssd_chunk_bwd(
+        dx, ddt, dA, dB, dC = torch.ops.repro_torch.ssd_chunk_bwd(
             x, dt, A, B, C, ctx.chunk, gy.float().contiguous(),
-            gS.float().contiguous(), kind=ctx.kind)
+            gS.float().contiguous(), ctx.kind)
         return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
                 dB.to(B.dtype), dC.to(C.dtype), None, None)

@@ -118,8 +118,8 @@ def _ffn_tp(params: Params, x: torch.Tensor, dot: DotFn,
             plan: Optional[Any]) -> torch.Tensor:
     wg, wu, wd = (params[n]["w"] for n in ("gate", "up", "down"))
     parts = []
-    for g, u, dn in zip(wg.pieces, wu.pieces, wd.pieces):
-        xr = x.to(g.device)
+    for xr, g, u, dn in zip(tp.broadcast(x, wg.devices), wg.pieces,
+                            wu.pieces, wd.pieces):
         if plan is None:
             parts.append(swiglu({"w": g}, {"w": u}, {"w": dn}, xr, dot))
             continue

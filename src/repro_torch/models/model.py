@@ -1,21 +1,61 @@
 """Public model API of the port (port of src/repro/models/model.py):
 params, logit masking, the training loss and step, greedy feedback,
-the one-shot prefill, and the decode-step / decode-epoch / prefill-chunk
-closures the server drives.  The closures take their static arguments
-(plan, k, kv_len) per call and the position as a device int64 scalar
-(or a host int), so the server can capture one call as a CUDA graph and
-replay it at every position of its window."""
+the one-shot prefill, the decode-step / decode-epoch / prefill-chunk
+closures the server drives, and the dry run's input shapes and specs.
+The closures take their static arguments (plan, k, kv_len) per call and
+the position as a device int64 scalar (or a host int), so the server
+can capture one call as a CUDA graph and replay it at every position of
+its window.
+
+``input_specs(cfg, shape)`` gives stand-ins for every input of the step
+function named by the shape kind, as the reference's (:304): fake
+tensors, built inside the caller's ``FakeTensorMode`` by the port's own
+``init_params``, ``transformer.init_caches`` and ``adamw.init``, so
+nothing is allocated.  Their layout is the port's: a list per layer,
+where the reference stacks the layer dims.
+
+  train_*    -> train_step(params, opt_state, batch)
+  prefill_*  -> prefill(params, batch)
+  decode_* / long_* -> serve_decode(params, caches, token, index)
+
+The reference's ``decode_epoch_input_specs`` (:274) has no counterpart:
+its one caller, the reference server's AOT precompiler, is replaced in
+the port by graph capture (``launch/serve.py``)."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import transformer
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import (decode_epoch, decode_step,
                                             init_lm, lm_forward,
                                             prefill_chunk)
 from repro_torch.optim import adamw
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 500k ctx needs sub-quadratic attn"
+    return True, ""
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda"):
@@ -220,3 +260,80 @@ def make_decode_step(cfg: ArchConfig):
                                      kv_len=kv_len)
         return next_token(logits), caches
     return serve_decode
+
+
+# ---------------------------------------------------------- input specs --
+def _require_fake_mode() -> None:
+    """The specs are full-width trees: built outside a ``FakeTensorMode``
+    they would allocate every byte they describe."""
+    from torch._guards import detect_fake_mode
+    if detect_fake_mode() is None:
+        raise RuntimeError("input specs are built inside a "
+                           "torch._subclasses.fake_tensor.FakeTensorMode")
+
+
+def _spec(shape, dtype: torch.dtype, device: Any = "cpu") -> torch.Tensor:
+    _require_fake_mode()
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """The data batch of a train / prefill step (ref :231), at
+    ``shape.global_batch``: int32 tokens and labels, and an fp32
+    ``embeds_prefix`` for an encoder-decoder (its frames) or a VLM (its
+    patches, which take ``num_patches`` of the sequence)."""
+    B, S, d = shape.global_batch, shape.seq_len, cfg.d_model
+    out: Dict[str, Any] = {}
+    if cfg.family == "encdec":
+        out["embeds_prefix"] = _spec((B, cfg.enc_len, d), torch.float32)
+    elif cfg.family == "vlm":
+        out["embeds_prefix"] = _spec((B, cfg.num_patches, d), torch.float32)
+        S -= cfg.num_patches
+    out["tokens"] = _spec((B, S), torch.int32)
+    out["labels"] = _spec((B, S), torch.int32)
+    return out
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
+                kv_dtype: Optional[str] = None, params: Any = None):
+    """Decode caches (ref :252) from ``transformer.init_caches``: whole,
+    on the CPU, or, given a tensor-parallel group's ``params``, in that
+    group's layout (a head-split attention's cache one piece a shard)."""
+    _require_fake_mode()
+    return transformer.init_caches(params, cfg, batch, max_len,
+                                   kv_dtype=kv_dtype,
+                                   device=None if params is not None
+                                   else "cpu")
+
+
+def param_specs_shapes(cfg: ArchConfig):
+    """Full params (ref :258) from :func:`init_params`, on the CPU."""
+    _require_fake_mode()
+    return init_params(cfg, device="cpu")
+
+
+def opt_specs_shapes(params_shapes):
+    """AdamW state (ref :263) from ``adamw.init``."""
+    _require_fake_mode()
+    return adamw.init(params_shapes)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Every step-function input, keyed by argument name (ref :304)."""
+    params = param_specs_shapes(cfg)
+    if shape.kind == "train":
+        return {"params": params,
+                "opt_state": opt_specs_shapes(params),
+                "batch": batch_specs(cfg, shape)}
+    if shape.kind == "prefill":
+        return {"params": params, "batch": batch_specs(cfg, shape)}
+    # decode: one new token against caches of length seq_len
+    B = shape.global_batch
+    out = {"params": params,
+           "caches": cache_specs(cfg, B, shape.seq_len),
+           "token": _spec((B, 1), torch.int32),
+           "index": _spec((), torch.int32)}
+    if cfg.family == "encdec":
+        out["enc_out"] = _spec((B, cfg.enc_len, cfg.d_model),
+                               cfg.torch_dtype)
+    return out

@@ -225,8 +225,9 @@ def _experts(params: Params, buf: torch.Tensor, dtype: torch.dtype,
                                    wd.pieces)])
     else:
         oute = tp.reduce([
-            _experts_on(g, u, dn, bufe.to(g.device), dtype, plan, f32=True)
-            for g, u, dn in zip(wg.pieces, wu.pieces, wd.pieces)],
+            _experts_on(g, u, dn, xr, dtype, plan, f32=True)
+            for xr, g, u, dn in zip(tp.broadcast(bufe, wg.devices),
+                                    wg.pieces, wu.pieces, wd.pieces)],
             buf.device).to(dtype)
     return oute.reshape(E, G, C, d).transpose(0, 1)
 

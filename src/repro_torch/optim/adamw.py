@@ -6,10 +6,14 @@ src/repro/optim/adamw.py: ``AdamWState`` :16, ``AdamWConfig`` :23,
 Functional, as the reference: ``update`` returns new param and state
 trees and changes nothing in place, under ``torch.no_grad``.  Trees are
 the port's nested dicts, lists and tuples of tensors; leaves are visited
-with dict keys sorted, the reference's ``jax.tree_util`` order.  The cast
-points are the reference's: grads to fp32, m and v stored in
-``state_dtype``, weight decay only on leaves of two or more dims, each
-new param cast back to its own dtype.  ``step`` is a 0-d int32 tensor on
+with dict keys sorted, the reference's ``jax.tree_util`` order.  A
+tensor-parallel group's split leaf (a node with ``pieces`` and ``dim``,
+as ``distributed/tensor_parallel.py::Sharded``) is a node whose pieces
+are the leaves, so each piece is updated on its own device and keeps
+its own state.  The cast points are the reference's: grads to fp32, m
+and v stored in ``state_dtype``, weight decay only on leaves of two or
+more dims, each new param cast back to its own dtype.  ``step`` is a
+0-d int32 tensor on
 the params' device.  ``torch.optim`` is not used: its AdamW is a
 different update (decay applied before the step, no global clipping).
 """
@@ -43,23 +47,36 @@ class AdamWConfig:
     state_dtype: str = "float32"
 
 
+def _is_split(x: Any) -> bool:
+    """A split leaf: any node with ``pieces`` and ``dim``."""
+    return (not isinstance(x, torch.Tensor) and hasattr(x, "pieces")
+            and hasattr(x, "dim"))
+
+
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of ``tree`` and the trees of the same
-    structure in ``rest``; dicts, lists and tuples are nodes."""
+    structure in ``rest``; dicts, lists, tuples and split leaves are
+    nodes."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
         return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+    if _is_split(tree):
+        return type(tree)([fn(*xs) for xs in zip(
+            tree.pieces, *(r.pieces for r in rest))], tree.dim)
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
-    """The leaves in the reference's order (dict keys sorted)."""
+    """The leaves in the reference's order (dict keys sorted); a split
+    leaf's pieces in shard order."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in tree_leaves(t)]
+    if _is_split(tree):
+        return list(tree.pieces)
     return [tree]
 
 

@@ -40,9 +40,9 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 def test_every_kernel_and_the_ssm_slice_are_covered():
     """The sources above include the SSM and MoE slices' modules, the
-    serve features' (checkpoint, straggler detector, fault schedule) and
-    the training slice's, and every CUDA source the build compiles sits
-    beside them."""
+    serve features' (checkpoint, straggler detector, fault schedule), the
+    training slice's and the dry run's, and every CUDA source the build
+    compiles sits beside them."""
     from repro_torch.kernels import build
     names = {p.relative_to(PORT).as_posix() for p in SOURCES
              if p.is_relative_to(PORT)}
@@ -53,7 +53,8 @@ def test_every_kernel_and_the_ssm_slice_are_covered():
             "distributed/compression.py",
             "examples/train_100m.py", "distributed/sharding.py",
             "distributed/tensor_parallel.py",
-            "examples/multi_tenant_serve.py"} <= names
+            "examples/multi_tenant_serve.py", "launch/dryrun.py",
+            "launch/cost_analysis.py", "launch/roofline.py"} <= names
     assert {"ssd_chunk", "ssd_chunk_bwd"} <= set(build.SOURCES)
     for name in build.SOURCES:
         assert (PORT / "csrc" / f"{name}.cu").is_file(), name
