@@ -24,7 +24,7 @@ Phases, each printed as one JSON object with its seconds:
   the dtype, at the decode shapes, 256 and 2048 rows and ragged shapes
   (its gemv tile at up to 8 rows, its wgmma tile above); the fused FFN
   also at ragged rows, d_model and d_ff (its wgmma tile above 8 bf16
-  rows, the 8-row simt tile below); ssd_chunk at
+  rows, its gemv tile below); ssd_chunk at
   full-width mamba2 heads (B/C per batch row) for chunks of 256, 128,
   64, a 44-token tail and 1, and at the reduced shape.  Then times each
   kernel at the shape of each path that runs it (the FFN kernels at
@@ -33,9 +33,12 @@ Phases, each printed as one JSON object with its seconds:
   inputs.  Every row names its tile's kind: bf16 ``cache_matmul`` runs
   the gemv tile at up to 8 rows and a wgmma tile above (also at ragged
   rows, N and K), bf16 flash attention at hd 128 the wgmma kernel of
-  its K/V storage (native, or int8 / fp8 codes), the bf16 fused FFN at
-  the prefill's rows its cluster-reduced wgmma tile (beside its partial
-  bytes and, as a yardstick of several calls, the unfused bf16 chain),
+  its K/V storage (native, or int8 / fp8 codes) and native at hd 64 the
+  wgmma tile of the q rows that fill the card (timed in turns against
+  the other), the bf16 fused FFN at the prefill's rows its
+  cluster-reduced wgmma tile and at decode rows its gemv tile (beside
+  its partial bytes and, as a yardstick of several calls, the unfused
+  bf16 chain),
   bf16 ``ssd_chunk`` its wgmma kind, the rest the simt tiles; the gemv /
   wgmma tiles must repeat bitwise and are timed in turns against the
   simt tile of the same plan (``simt_ms``).
@@ -225,20 +228,20 @@ Phases, each printed as one JSON object with its seconds:
 * ``e2e_encdec``: the encoder-decoder slice, whisper-tiny at full width
   and depth (:data:`ENCDEC_E2E`): ``make_prefill`` of 2 x (1500 frames +
   448 decoder tokens) plain, under the smallest fused LBM grant and an
-  LWM@32p grant (the decoder's flash attention at hd 64 on the simt
+  LWM@32p grant (the decoder's flash attention at hd 64 on its wgmma
   tile, its FFN at 896 rows on the wgmma tiles; the encoder and the
   cross-attention plain, as in the reference), then two teacher-forced
-  decode epochs over the encoder output (LBM@34p: the fused FFN's 2-row
-  simt tile; LWM@3p: the gemv), on the card against the CPU with the
-  plain versions on the same weights (fp32 there); every simt launch
-  named in the kinds gate.
+  decode epochs over the encoder output (LBM@34p: the fused FFN's gemv
+  tile; LWM@3p: cache_matmul's gemv), on the card against the CPU with
+  the plain versions on the same weights (fp32 there); no simt launch
+  of the bf16 kernels (the kinds gate).
 * ``serve_encdec``: ``serve``'s function on whisper (:data:`SERVE_ENCDEC`:
   a resident and a 64-token arrival, a pool of the arrival's quote and
   the decode FFN's LBM candidate): decode granted LBM (block_fused_ffn's
-  simt decode tile, 4 launches a step) and LWM (gemv), each tenant's
+  gemv tile, 4 launches a step) and LWM (gemv), each tenant's
   zero ``enc`` read by every cross-attention; three warm runs, a
-  replayed epoch profiled with the share of the cross-attention K/V
-  projections over the 1500 frames.
+  replayed epoch profiled with the fused FFN's share and the share of
+  the cross-attention K/V projections over the 1500 frames.
 * ``self_encdec``: serial == pipelined on whisper, two residents (one
   bucket, each with its own ``enc``) and a 64-token arrival
   (:data:`SELF_ENCDEC`).  The ``graphs`` phase holds whisper's items
@@ -557,26 +560,30 @@ ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "llava-next-mistral-7b"
 # tokens, whisper's decoder context) plain, under the smallest fused LBM
 # grant at 448 rows and an LWM@32p grant; two teacher-forced decode
 # epochs under the grants serve_encdec's decode gets (LBM@34p: the fused
-# FFN's simt decode tile; LWM@3p: cache_matmul's gemv)
+# FFN's gemv tile; LWM@3p: cache_matmul's gemv)
 ENCDEC_E2E = dict(batch=2, prompt_len=448, lwm_pages=32, decode_lbm_pages=34,
                   decode_lwm_pages=3)
 # serve_encdec (serve_main_path's arguments but the pool): a resident and
 # a 64-token arrival at step 8, batch 2, max_len 448, in a pool of the
 # arrival's native quote and the decode FFN's LBM candidate (24 + 15
 # pages, _lbm_pool): the resident is granted LBM alone and LWM beside the
-# arrival, so decode runs the fused FFN's simt tile and cache_matmul's gemv
+# arrival, so decode runs the fused FFN's gemv tile and cache_matmul's gemv
 SERVE_ENCDEC = dict(batch=2, max_len=448, steps=32,
                     arrival=dict(arrive_at=8.0, prompt_len=64,
                                  n_inferences=16))
+# the fused FFN's kernels, by name, for a profile's shares: the decode
+# kind's cluster kernel, the simt tile's and the slab reduce
+FUSED_FFN_KERNELS = ("ffn_gemv_kernel", "ffn_partial_kernel",
+                     "ffn_reduce_kernel")
 # self_encdec: serial == pipelined, two whisper residents (one bucket in
 # the first epoch, each with its own enc buffer) and a 64-token arrival,
-# in a pool where every decode is granted LBM (the fused FFN's simt
-# decode tile).  In serve_encdec's contended pool the serial loop's
+# in a pool where every decode is granted LBM (the fused FFN's gemv
+# tile).  In serve_encdec's contended pool the serial loop's
 # per-step grants differ from the pipelined loop's per-epoch ones, so
 # the two would run different kernels
 SELF_ENCDEC = dict(batch=2, max_len=448, steps=16, budget=8, arrival=(4.0, 64),
                    pages=1 << 16, kernels=("block_fused_ffn",),
-                   kinds=dict(ffn=("simt",)), bucket=True)
+                   kinds=dict(ffn=("gemv",)), bucket=True)
 # e2e_vlm: 4 layers, make_prefill of 2 x (576 patches + 40 tokens) under
 # an LBM plan (native KV) and an LWM@32p int8 plan
 VLM_E2E = dict(layers=4, batch=2, prompt_len=40, lwm_pages=32)
@@ -1058,16 +1065,14 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
     import torch
     from repro_torch.core.plan import lower_ffn
     from repro_torch.core.vmem import LANE
-    from repro_torch.kernels import block_fused_ffn as kffn
     from repro_torch.kernels import ops
     d, f = cfg.d_model, cfg.d_ff
     dt = torch.bfloat16
-    dn, eb = "bfloat16", 2
+    eb = 2
     limit = ops.smem_limit(torch.device(dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     lwm = lower_ffn(LANE, d, f, eb, lwm_pages, want_fused=False)
-    lbm = lower_ffn(LANE, d, f, eb, lbm_pages, want_fused=True)
     x = _randn(gen, (batch, d), dt)
     wg = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
     wu = _randn(gen, (d, f), dt, 1 / math.sqrt(d))
@@ -1077,19 +1082,13 @@ def kernel_timings(cfg, dev, batch: int, lwm_pages: int, lbm_pages: int):
     for label, a, b, tile in (("up", x, wg, lwm.up_tile),
                               ("down", h, wd, lwm.down_tile)):
         out[f"cache_matmul.{label}"] = _matmul_timing(a, b, tile, limit, 30)
-    hop = ops.legalize_ffn_tile(lbm.block_s, lbm.block_f, batch, limit, dt,
-                                d, f)
-    bound, by = _bound(eb * (2 * batch * d + 3 * d * f), 6 * batch * d * f, dn)
-    err, ok = _close(kffn.block_fused_ffn(x, wg, wu, wd, hop),
-                     kffn.block_fused_ffn_plain(x, wg, wu, wd), dn)
-    out["block_fused_ffn.decode"] = {
-        "shape": [batch, d, f], "plan_block": [lbm.block_s, lbm.block_f],
-        "kind": hop.kind, "hopper_tile": [hop.bs, hop.bf, hop.bk],
-        "ms": _median_ms(lambda: kffn.block_fused_ffn(x, wg, wu, wd, hop)),
-        "plain_ms": _median_ms(lambda: kffn.block_fused_ffn_plain(x, wg, wu, wd)),
-        "library_ms": None, "bound_ms": bound, "bound_by": by,
-        "partial_bytes": kffn.partial_bytes(hop, batch, d, f),
-        "max_abs_err": err, "ok": ok}
+    # the fused FFN's decode rows under the e2e phase's LBM grant, and at
+    # 8 rows (a batch of 8: the gemv kind's largest, 8 rows a thread)
+    lbm = _plan(cfg, "LBM", lbm_pages, LANE)
+    out["block_fused_ffn.decode"] = _ffn_timing(x, wg, wu, wd, lbm, limit,
+                                                30)
+    out["block_fused_ffn.decode.rows8"] = _ffn_timing(
+        _randn(gen, (8, d), dt), wg, wu, wd, lbm, limit, 30)
     return out
 
 
@@ -1167,7 +1166,10 @@ def _ffn_timing(x, wg, wu, wd, plan, limit, reps: int):
     ``plan``'s fused blocks legalize to, against the simt tile the fp32
     rule picks at the same plan, timed in turns in this call, beside the
     plain version and the unfused bf16 chain (a yardstick of several
-    calls); the kernel held against the plain version."""
+    calls); the kernel held against the plain version.  A gemv tile's
+    row names its cluster (blocks a 64-wide d_ff tile) and times every
+    cluster size in turns (``cluster_ms``), each held against the plain
+    version."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import block_fused_ffn as kffn
@@ -1193,6 +1195,9 @@ def _ffn_timing(x, wg, wu, wd, plan, limit, reps: int):
         return torch.matmul(F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu),
                             wd)
 
+    clusters = _gemv_cluster_ms(x, wg, wu, wd, hop) if hop.kind == "gemv" \
+        else None
+
     return {
         "shape": [s, d, f], "plan": plan.describe(), "kind": hop.kind,
         "hopper_tile": [hop.bs, hop.bf, hop.bk],
@@ -1207,8 +1212,34 @@ def _ffn_timing(x, wg, wu, wd, plan, limit, reps: int):
         "bound_ms": bound, "bound_by": by,
         "partial_bytes": kffn.partial_bytes(hop, s, d, f),
         "simt_partial_bytes": kffn.partial_bytes(simt, s, d, f),
+        "gemv_cluster": (kffn.gemv_cluster(d, f, ops.sm_count(x.device))
+                         if hop.kind == "gemv" else None),
+        "cluster_ms": clusters,
         "max_abs_err": err, "bitwise_repeat": repeat, "ok": ok and repeat,
         "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+
+
+def _gemv_cluster_ms(x, wg, wu, wd, tile, reps: int = 30):
+    """The gemv tile at ``x``'s shape with each cluster size of 1, 2, 4
+    and 8 blocks (those that leave every block a vector of Wd's columns)
+    in place of ``kffn.gemv_cluster``'s, timed in turns; raises if one
+    misses the plain version."""
+    from repro_torch.kernels import block_fused_ffn as kffn
+    d = x.shape[1]
+    rule, fns = kffn.gemv_cluster, {}
+    for c in (c for c in (1, 2, 4, 8) if c <= d // 8):
+        def run(c=c):
+            kffn.gemv_cluster = lambda *_: c
+            try:
+                return kffn.block_fused_ffn(x, wg, wu, wd, tile)
+            finally:
+                kffn.gemv_cluster = rule
+        err, ok = _close(run(), kffn.block_fused_ffn_plain(x, wg, wu, wd),
+                         "bfloat16")
+        if not ok:
+            raise AssertionError(f"block_fused_ffn gemv, cluster {c}: {err}")
+        fns[c] = run
+    return _turns_ms(fns, reps)
 
 
 def prefill_timings(cfg, dev):
@@ -1260,8 +1291,10 @@ def _flash_timing(q, k, v, attn, limit, kv_dtype: str = "native",
     S, hd], K/V [B, Hkv, S, hd]) with the tile the plan's attention
     blocks ``attn`` legalize to, timed in turns against the simt tile
     the same plan gives fp32 (every bf16 call's before the wgmma
-    kernels; the same tile where the head dim has no wgmma tile), beside
-    the plain version and, for native K/V, SDPA.  A quantized
+    kernels; the same tile where the head dim has no wgmma tile), and at
+    hd 64 against the other wgmma tile of the head dim (``alt_ms``: 64
+    or 128 q rows, held against the plain version too), beside the plain
+    version and, for native K/V, SDPA.  A quantized
     ``kv_dtype`` runs flash_attention_quantized on K/V quantized per
     row.  The kernel is held against its plain version on the timed
     inputs."""
@@ -1274,7 +1307,8 @@ def _flash_timing(q, k, v, attn, limit, kv_dtype: str = "native",
     Hkv = k.shape[1]
     quantized = kv_dtype != "native"
     tile = ops.legalize_attn_tile(attn.block_q, attn.block_kv, hd, S, limit,
-                                  q.dtype, quantized)
+                                  q.dtype, quantized, B * H,
+                                  ops.sm_count(q.device))
     simt = ops.legalize_attn_tile(attn.block_q, attn.block_kv, hd, S, limit,
                                   torch.float32, quantized)
     flops = 2 * B * H * S * S * hd           # causal: half of 4*B*H*S*Sk*hd
@@ -1303,12 +1337,20 @@ def _flash_timing(q, k, v, attn, limit, kv_dtype: str = "native",
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
+    alt = [t for t in kfa.TILES if t.kind == "wgmma" and t.hd == hd
+           and t.kv == tile.kv and t != tile] if tile.kind == "wgmma" else []
+    want = plain()
     got = run(tile)
-    err, ok = _close(got, plain(), "bfloat16")
+    err, ok = _close(got, want, "bfloat16")
     repeat = bool(torch.equal(got, run(tile)))
-    del got
-    t = _turns_ms({"ms": lambda: run(tile), "simt_ms": lambda: run(simt)},
-                  reps)
+    if alt:
+        alt_err, alt_ok = _close(run(alt[0]), want, "bfloat16")
+        ok = ok and alt_ok
+    del got, want
+    turns = {"ms": lambda: run(tile), "simt_ms": lambda: run(simt)}
+    if alt:
+        turns["alt_ms"] = lambda: run(alt[0])
+    t = _turns_ms(turns, reps)
     out = {"shape": [B, H, Hkv, S, hd], "kv": kv_dtype,
            "plan": [attn.block_q, attn.block_kv], "kind": tile.kind,
            "hopper_tile": [tile.bq, tile.bkv],
@@ -1319,6 +1361,8 @@ def _flash_timing(q, k, v, attn, limit, kv_dtype: str = "native",
            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
            "bitwise_repeat": repeat, "ok": ok and repeat,
            "speedup_vs_simt": t["simt_ms"] / t["ms"]}
+    if alt:
+        out.update(alt_tile=[alt[0].bq, alt[0].bkv], alt_max_abs_err=alt_err)
     if library:
         out["vs_library"] = t["ms"] / out["library_ms"]
     return out
@@ -1653,11 +1697,12 @@ def hybrid_timings(hybrid_cfg, dev):
 def encdec_vlm_timings(encdec_cfg, vlm_cfg, dev):
     """The kernels at the encoder-decoder and VLM shapes (bf16).
     whisper-tiny: its decode FFN (2 x 384, d_ff 1536) under serve_encdec's
-    grants, cache_matmul's gemv (LWM@3p) and block_fused_ffn's 8-row simt
-    tile (LBM@34p); its fused FFN at e2e_encdec's 896 prefill rows (the
+    grants, cache_matmul's gemv (LWM@3p) and block_fused_ffn's gemv tile
+    (LBM@34p); its fused FFN at e2e_encdec's 896 prefill rows (the
     wgmma tile) and causal flash attention at hd 64 over 2 x 448 decoder
-    positions, 6 heads (the simt tile: no wgmma tile at hd 64), against
-    SDPA.  llava-next: its decode gemv (2 x 4096 @ 4096 x 14336 and 2 x
+    positions, 6 heads (the 64-row wgmma tile of hd 64, in turns with
+    the 128-row one; a batch of 8 takes 128 rows), against SDPA.
+    llava-next: its decode gemv (2 x 4096 @ 4096 x 14336 and 2 x
     14336 @ 14336 x 4096, LWM@32p), and at prefill_vlm's 2 x (576 + 1024)
     = 3200 rows the LWM@32p GEMM, the fused FFN at d_ff 14336 (the
     smallest fused grant) and causal GQA flash attention at S 1600, 32 /
@@ -1693,6 +1738,12 @@ def encdec_vlm_timings(encdec_cfg, vlm_cfg, dev):
     k = _randn(gen, (B, Hkv, S, hd), dt)
     v = _randn(gen, (B, Hkv, S, hd), dt)
     out["flash_attention.encdec"] = _flash_timing(q, k, v, pf.attn, limit)
+    # a batch of 8 prompts: the grid that fills the card with 128-row
+    # q tiles (the legalization's other side)
+    q8, k8, v8 = (_randn(gen, (8, H, S, hd), dt) for _ in range(3))
+    out["flash_attention.encdec.b8"] = _flash_timing(q8, k8, v8, pf.attn,
+                                                     limit)
+    del q8, k8, v8
     cfg = vlm_cfg
     d, f = cfg.d_model, cfg.d_ff
     B, S = PREFILL["batch"], cfg.num_patches + PREFILL["prompt_len"]
@@ -1890,8 +1941,7 @@ def _gate_kinds(counters, label: str, matmul=(), flash=(), ffn=(), quant=(),
     """Every bf16 launch of the path ran the kinds named: no cache_matmul
     launch of the ``simt`` kind, each kind of ``matmul`` launched; where
     ``flash`` names kinds, each of them launched and none of the simt
-    kind unless ``simt`` is named (whisper's hd-64 flash and 2-row fused
-    FFN have only simt tiles); likewise ``ffn`` for block_fused_ffn,
+    kind unless ``simt`` is named; likewise ``ffn`` for block_fused_ffn,
     ``quant`` for cache_matmul_quant, ``flash_quantized`` for
     flash_attention_quantized and ``ssd`` for ssd_chunk."""
     bad = [k for k in matmul if counters[f"cache_matmul.{k}"] <= 0]
@@ -1964,9 +2014,10 @@ def check_e2e(cfg, dev, layers: int = 4, lbm_pages: int = 324,
            "plans": [p.describe() for p in plans]}
     if min(launches[k] for k in PREFILL_KERNELS) <= 0:
         raise AssertionError(f"e2e: a kernel never launched: {launches}")
-    # the LBM decode epochs run block_fused_ffn's simt decode tile (2
-    # rows), make_prefill's 80 rows its wgmma tile
-    _gate_kinds(launches, "e2e", ("gemv", "wgmma"), ("wgmma",))
+    # the LBM decode epochs run block_fused_ffn's gemv tile (2 rows),
+    # make_prefill's 80 rows its wgmma tile
+    _gate_kinds(launches, "e2e", ("gemv", "wgmma"), ("wgmma",),
+                ffn=("gemv", "wgmma"))
     if launches["block_fused_ffn.wgmma"] <= 0:
         raise AssertionError(f"e2e: no wgmma block_fused_ffn launch: "
                              f"{launches}")
@@ -4287,9 +4338,10 @@ def check_e2e_hybrid(cfg, dev):
     if min(launches[k] for k in HYBRID_KERNELS) <= 0:
         raise AssertionError(f"e2e_hybrid: a kernel never launched: "
                              f"{launches}")
-    # the LBM decode epochs run block_fused_ffn's simt decode tile (2
-    # rows), make_prefill's 600 rows its wgmma tile
-    _gate_kinds(launches, "e2e_hybrid", ("gemv", "wgmma"), ssd=("wgmma",))
+    # the LBM decode epochs run block_fused_ffn's gemv tile (2 rows),
+    # make_prefill's 600 rows its wgmma tile
+    _gate_kinds(launches, "e2e_hybrid", ("gemv", "wgmma"), ssd=("wgmma",),
+                ffn=("gemv", "wgmma"))
     if launches["block_fused_ffn.wgmma"] <= 0:
         raise AssertionError(f"e2e_hybrid: no wgmma block_fused_ffn launch: "
                              f"{launches}")
@@ -4395,13 +4447,13 @@ def check_e2e_encdec(cfg, dev):
     versions, on the same weights (in fp32 there: :func:`_fp32_reference`).
     ``make_prefill`` of 2 x (1500 frames + 448 decoder tokens) plain and
     under :func:`encdec_prefill_plans` (the decoder's self-attention
-    through flash attention at hd 64, simt; the FFN at 896 rows through
-    block_fused_ffn's or cache_matmul's wgmma tile; the encoder and the
-    cross-attention plain, as in the reference), then a prefill and two
-    teacher-forced decode epochs over the encoder's output under the
-    grants serve_encdec's decode gets (LBM@34p: the fused FFN's 2-row
-    simt tile; LWM@3p: cache_matmul's gemv).  Gated by :func:`_gate`; the
-    kinds by :func:`_gate_kinds`, the simt tiles named."""
+    through flash attention at hd 64, its wgmma tile; the FFN at 896 rows
+    through block_fused_ffn's or cache_matmul's wgmma tile; the encoder
+    and the cross-attention plain, as in the reference), then a prefill
+    and two teacher-forced decode epochs over the encoder's output under
+    the grants serve_encdec's decode gets (LBM@34p: the fused FFN's gemv
+    tile; LWM@3p: cache_matmul's gemv).  Gated by :func:`_gate`; the
+    kinds by :func:`_gate_kinds`: no simt launch."""
     import torch
     from repro_torch.core.vmem import LANE
     from repro_torch.models import model as M
@@ -4441,8 +4493,8 @@ def check_e2e_encdec(cfg, dev):
     prefill = {name: _gate(got_pf[name][..., :V], want_pf[name][..., :V],
                            f"e2e_encdec prefill {name}")
                for name in pf_plans}
-    _gate_kinds(launches, "e2e_encdec", ("gemv", "wgmma"), flash=("simt",),
-                ffn=("wgmma", "simt"))
+    _gate_kinds(launches, "e2e_encdec", ("gemv", "wgmma"), flash=("wgmma",),
+                ffn=("wgmma", "gemv"))
     return {"arch": cfg.name, "layers": cfg.num_layers,
             "enc_layers": cfg.enc_layers, "frames": cfg.enc_len,
             "prompt_len": S, "batch": B, "reference": "cpu fp32",
@@ -4486,21 +4538,22 @@ def serve_encdec_main_path(cfg, dev, counters):
     full-width, full-depth whisper-tiny (:data:`SERVE_ENCDEC`: a resident
     and a 64-token arrival, in a pool of the arrival's quote and the
     decode FFN's LBM candidate).  Decode is granted LBM (block_fused_ffn,
-    its 8-row simt tile: 4 launches a decode step, one a layer) and LWM
-    beside the arrival (cache_matmul's gemv); the prompt chunk runs
-    plain.  Every tenant's cross-attention reads its ``enc``.  The
-    replayed epoch's profile gets the share of the per-step
-    cross-attention K/V projections (:func:`_xattn_kv_share`)."""
+    its gemv tile: 4 launches a decode step, one a layer) and LWM beside
+    the arrival (cache_matmul's gemv); the prompt chunk runs plain.
+    Every tenant's cross-attention reads its ``enc``.  The replayed
+    epoch's profile gets the fused FFN's kernels' shares and the share
+    of the per-step cross-attention K/V projections
+    (:func:`_xattn_kv_share`)."""
     se = SERVE_ENCDEC
     arrival = se["arrival"]
     pages = _lbm_pool(cfg, se["batch"], arrival["prompt_len"])
     res = serve_main_path(cfg, dev, counters, label="serve_encdec",
                           batch=se["batch"], max_len=se["max_len"],
                           pages=pages, steps=se["steps"], arrival=arrival,
-                          ffn=("simt",))
+                          ffn=("gemv",), shares=FUSED_FFN_KERNELS)
     res["xattn_kv"] = _xattn_kv_share(cfg, se["batch"], dev,
                                       res["profile"][0])
-    fused = counters["block_fused_ffn.simt"]
+    fused = counters["block_fused_ffn.gemv"]
     if res["plan_kinds"] != ["LBM", "LWM"] or fused % cfg.num_layers:
         raise AssertionError(f"serve_encdec: plans {res['plan_kinds']}, "
                              f"{fused} fused launches for "
@@ -5901,6 +5954,13 @@ def main() -> int:
     kernels[0]["prefill"] = {"launches": prefill_counts["cache_matmul"],
                              "max_abs_err": pf["max_abs_err"],
                              **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
+    # the fused FFN's decode rows (gemv) with the e2e phase's LBM decode
+    # launches (yi-9b, 4 layers)
+    pf = timings["block_fused_ffn.decode"]
+    kernels[1]["decode"] = {
+        "launches": report["e2e"]["launches"]["block_fused_ffn.gemv"],
+        "max_abs_err": pf["max_abs_err"],
+        **{k: pf[k] for k in keys + ("kind", "simt_ms")}}
     # the quantized flash kernel under the fp8 plan beside the int8 one
     pf = timings["flash_attention_quantized.fp8_e4m3"]
     kernels[3]["fp8_e4m3"] = {"max_abs_err": pf["max_abs_err"],
@@ -5945,7 +6005,7 @@ def main() -> int:
                              "max_abs_err": t["max_abs_err"],
                              **{k: t[k] for k in keys + ("kind", "simt_ms")}}
     # whisper-tiny's and llava-next's shapes, each with the launches of
-    # the phase that ran it: the decode gemv and the fused FFN's simt
+    # the phase that ran it: the decode gemv and the fused FFN's gemv
     # decode tile (serve_encdec, serve_vlm), whisper's fused FFN at 896
     # rows and hd-64 flash (e2e_encdec's calls), llava's prefill GEMM,
     # fused FFN and flash kernels at 1600 positions (prefill_vlm)
@@ -5960,13 +6020,13 @@ def main() -> int:
             (0, "vlm.prefill", "cache_matmul.vlm.prefill.up",
              prefill_vlm_counts["cache_matmul.wgmma"]),
             (1, "encdec.decode", "block_fused_ffn.encdec.decode",
-             serve_encdec_counts["block_fused_ffn.simt"]),
+             serve_encdec_counts["block_fused_ffn.gemv"]),
             (1, "encdec.prefill", "block_fused_ffn.encdec.prefill",
              e2e_encdec["block_fused_ffn.wgmma"]),
             (1, "vlm", "block_fused_ffn.vlm",
              prefill_vlm_counts["block_fused_ffn.wgmma"]),
             (2, "encdec", "flash_attention.encdec",
-             e2e_encdec["flash_attention.simt"]),
+             e2e_encdec["flash_attention.wgmma"]),
             (2, "vlm", "flash_attention.vlm",
              prefill_vlm_counts["flash_attention.wgmma"]),
             (3, "vlm", "flash_attention_quantized.vlm",

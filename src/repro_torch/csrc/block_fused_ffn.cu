@@ -20,18 +20,45 @@
 // serial and pipelined serving loops stay bit-identical.  Every weight
 // element is read once per row block.
 //
-// Two tile kinds, one menu (kernels/ops.py::legalize_ffn_tile picks the
-// kind by dtype and rows):
+// Three tile kinds, one menu (kernels/ops.py::legalize_ffn_tile picks the
+// kind by dtype, rows and alignment):
 //
-//  * simt (fp32 and bf16; the first design, and every fp32 call): plain
-//    fp32 FMA from shared memory, h kept in shared memory, one [S, d]
-//    partial slab per BF-wide d_ff block (n_f = ceil(d_ff / BF) slabs).
-//    At decode (S <= 8, tile 8 x 64) the FFN does 2 FLOP per weight
-//    element, so it is bound by the weight bytes; the small BF keeps 172
-//    blocks streaming weights, and the slabs (2 x 5.6 MB) are small
-//    against 270 MB of weights.  At prefill the slabs are the problem:
-//    at 2048 x 4096 and 64-wide tiles, 172 slabs are 5.77 GB written and
-//    read again, more than six times the whole FFN's 0.56 ms bound.
+//  * simt (fp32, and bf16 rows TMA or 16-byte loads cannot take; the
+//    first design): plain fp32 FMA from shared memory, h kept in shared
+//    memory, one [S, d] partial slab per BF-wide d_ff block
+//    (n_f = ceil(d_ff / BF) slabs).  At prefill the slabs are the
+//    problem: at 2048 x 4096 and 64-wide tiles, 172 slabs are 5.77 GB
+//    written and read again, more than six times the whole FFN's 0.56 ms
+//    bound.
+//  * gemv (bf16 decode rows, S <= 8; d_model and d_ff multiples of 8).
+//    The FFN does 2 FLOP per weight element there, so it is bound by the
+//    weight bytes (yi-9b, 2 x 4096, d_ff 11008: 270 MB, 0.081 ms on an
+//    H100).  Two things keep a one-block-per-tile design from streaming
+//    them: a 64-wide d_ff tile gives whisper-tiny's d_ff 1536 only 24
+//    blocks for 132 SMs, and each block walks all of d_model alone.  So
+//    each 64-wide d_ff tile gets a thread-block cluster of C blocks
+//    (gemv_cluster in kernels/block_fused_ffn.py: two blocks an SM, at
+//    least 64 d_model rows a block, C in 1, 2, 4, 8):
+//    1. Block r of the cluster takes d_model rows [r d / C, (r + 1) d / C)
+//       of Wg and Wu: each thread streams 16-byte vectors (8 d_ff
+//       columns of a row) into registers, four rows of each matrix in
+//       flight, against x staged in shared memory as fp32, and sums its
+//       rows; the warp's four row lanes add by shuffles, the 8 warps in
+//       order through shared memory: g and u partials [S, 64] (4 KB at
+//       S 8).
+//    2. Behind a cluster barrier every block adds the C partials of g
+//       and of u in rank order through distributed shared memory (all C
+//       blocks form the same sums), and forms h = bf16(silu(g) * u) in
+//       shared memory, rounded as the reference rounds: h never reaches
+//       device memory.
+//    3. Block r multiplies h by its d_model / C columns of the tile's 64
+//       rows of Wd, again in 16-byte vectors (rows split over up to 32
+//       thread groups, added in order), and writes them into the tile's
+//       fp32 [S, d] slab; the cluster writes the whole slab once.  The
+//       fixed-order ffn_reduce_kernel adds the n_f slabs (yi-9b: 5.6 MB
+//       of partials against 270 MB of weights).
+//    Every weight element is read by one block once; every sum has one
+//    order (a function of the shapes and the SM count alone); no atomics.
 //  * wgmma (bf16, more than 8 rows; the prefill, 2048 x 4096, d_ff 11008:
 //    554 GFLOP, bound by operations at 0.56 ms).  Block = (BS-row block,
 //    128-wide d_ff tile), BS / 64 consumer warpgroups of 64 rows.
@@ -472,6 +499,289 @@ cudaError_t run_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* wg, const __n
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- gemv --
+constexpr int FG_BF = 64;        // d_ff columns a cluster owns: 8 vectors of 8 bf16
+constexpr int FG_BK = 1024;      // x rows staged in shared memory at a time
+constexpr int FG_THREADS = 256;  // 8 warps
+constexpr int FG_U = 4;          // rows of each matrix in flight per thread
+constexpr int FG_MAX_S = 8;
+constexpr int FG_MAX_RG = 32;    // row groups of the down product
+
+// Shared memory of a gemv block with MT rows of x, in floats: the x slab
+// [FG_BK][MT]; the exchange [2][MT][64] (the g, then the u partials the
+// peers read); h [64][MT]; a scratch for the cross-warp sums of the gate /
+// up product ([8 warps][2][MT][64]) and of the down product ([threads][MT][8]).
+constexpr int ffn_gemv_floats(int mt) {
+  return mt * (FG_BK + 2 * FG_BF + FG_BF + FG_THREADS * 8);
+}
+
+struct FfnGemv {
+  static constexpr int kind = 1, dtypes = 2;  // gemv; bf16
+  static constexpr int bs = FG_MAX_S, bf = FG_BF, bk = FG_BK, tm = FG_MAX_S, tn = 8;
+  static constexpr int smem = (int)sizeof(float) * ffn_gemv_floats(FG_MAX_S);  // at 8 rows
+};
+
+// bf16 -> fp32 is a 16-bit shift, two values per 32-bit word.
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 ld_vec(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Grid (C, d_ff tiles); the cluster is the C blocks of x.  MT >= S rows.
+// P [tiles, S, D] fp32: one slab per d_ff tile.
+template <int MT, int C>
+__global__ void __cluster_dims__(C, 1, 1)
+    __launch_bounds__(FG_THREADS, MT <= 2 ? 3 : (MT <= 4 ? 2 : 1))
+    ffn_gemv_kernel(const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __restrict__ Wg,
+                    const __nv_bfloat16* __restrict__ Wu, const __nv_bfloat16* __restrict__ Wd,
+                    float* __restrict__ P, int S, int D, int F) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* xs = fsmem;                // [FG_BK][MT]
+  float* ex = xs + FG_BK * MT;      // [2][MT][64]
+  float* hs = ex + 2 * MT * FG_BF;  // [64][MT]
+  float* red = hs + FG_BF * MT;     // scratch
+  const int rank = (int)cluster_rank();
+  const int tile = blockIdx.y, f0 = tile * FG_BF;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  // 1. g, u partials over this block's d_model rows: thread (warp, lane)
+  // holds columns f0 + 8 (lane % 8) .. + 7 of rows warp * 4 + lane / 8
+  // + 32 i of each slab (F % 8 == 0: a vector is wholly in or past d_ff)
+  const int vec = lane % 8, row = warp * 4 + lane / 8;
+  const bool col_ok = f0 + 8 * vec < F;
+  const int kb = (int)((long long)rank * D / C), ke = (int)((long long)(rank + 1) * D / C);
+  float g[MT][8], u[MT][8];
+#pragma unroll
+  for (int s = 0; s < MT; ++s)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) g[s][j] = u[s][j] = 0.f;
+  for (int k0 = kb; k0 < ke; k0 += FG_BK) {
+    const int kn = min(FG_BK, ke - k0);
+    __syncthreads();  // the previous slab is consumed
+    for (int i = tid; i < kn * MT; i += FG_THREADS) {
+      const int kk = i / MT, s = i % MT;
+      xs[i] = s < S ? __bfloat162float(X[(size_t)s * D + k0 + kk]) : 0.f;
+    }
+    __syncthreads();
+    if (col_ok) {
+      for (int r0 = row; r0 < kn; r0 += 32 * FG_U) {
+        uint4 wg[FG_U], wu[FG_U];
+#pragma unroll
+        for (int q = 0; q < FG_U; ++q) {
+          const int r = r0 + 32 * q;
+          const size_t off = (size_t)(k0 + r) * F + f0 + 8 * vec;
+          wg[q] = r < kn ? ld_vec(Wg + off) : make_uint4(0u, 0u, 0u, 0u);
+          wu[q] = r < kn ? ld_vec(Wu + off) : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int q = 0; q < FG_U; ++q) {
+          const int r = r0 + 32 * q;
+          if (r < kn) {
+            float fg[8], fu[8];
+            bf16x8_to_f32(wg[q], fg);
+            bf16x8_to_f32(wu[q], fu);
+            const float* a = xs + r * MT;
+#pragma unroll
+            for (int s = 0; s < MT; ++s) {
+              const float am = a[s];
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                g[s][j] = fmaf(am, fg[j], g[s][j]);
+                u[s][j] = fmaf(am, fu[j], u[s][j]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  // the warp's four row lanes (8 apart), then the 8 warps in order
+#pragma unroll
+  for (int s = 0; s < MT; ++s) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int off = 8; off < 32; off *= 2) {
+        g[s][j] += __shfl_xor_sync(0xffffffffu, g[s][j], off);
+        u[s][j] += __shfl_xor_sync(0xffffffffu, u[s][j], off);
+      }
+    }
+  }
+  if (lane < 8) {
+#pragma unroll
+    for (int s = 0; s < MT; ++s) {
+      float* rg = red + (warp * 2 * MT + s) * FG_BF + 8 * vec;
+      float* ru = rg + MT * FG_BF;
+#pragma unroll
+      for (int j = 0; j < 8; j += 4) {
+        *reinterpret_cast<float4*>(rg + j) = make_float4(g[s][j], g[s][j + 1], g[s][j + 2], g[s][j + 3]);
+        *reinterpret_cast<float4*>(ru + j) = make_float4(u[s][j], u[s][j + 1], u[s][j + 2], u[s][j + 3]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < 2 * MT * FG_BF; e += FG_THREADS) {
+    float sum = red[e];
+#pragma unroll
+    for (int w = 1; w < FG_THREADS / 32; ++w) sum += red[w * 2 * MT * FG_BF + e];
+    ex[e] = sum;
+  }
+
+  // 2. the tile's g and u: the C partials added in rank order through
+  // distributed shared memory (every block forms the same sums); h =
+  // bf16(silu(g) * u) into shared memory, h[j][s] for column f0 + j
+  cluster_arrive();
+  cluster_wait();  // every block's partials are staged
+  for (int q = tid; q < MT * FG_BF / 4; q += FG_THREADS) {
+    float4 pg[C], pu[C];
+#pragma unroll
+    for (int p = 0; p < C; ++p) {
+      pg[p] = ld_peer_f4(smem_u32(ex + 4 * q), p);
+      pu[p] = ld_peer_f4(smem_u32(ex + MT * FG_BF + 4 * q), p);
+    }
+    float4 gs = pg[0], us = pu[0];
+#pragma unroll
+    for (int p = 1; p < C; ++p) {
+      gs.x += pg[p].x; gs.y += pg[p].y; gs.z += pg[p].z; gs.w += pg[p].w;
+      us.x += pu[p].x; us.y += pu[p].y; us.z += pu[p].z; us.w += pu[p].w;
+    }
+    const float gv[4] = {gs.x, gs.y, gs.z, gs.w}, uv[4] = {us.x, us.y, us.z, us.w};
+    const int s = 4 * q / FG_BF, c = 4 * q % FG_BF;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = gv[i];
+      hs[(c + i) * MT + s] = __bfloat162float(__float2bfloat16_rn(a / (1.f + expf(-a)) * uv[i]));
+    }
+  }
+  // the peers' partials are read (and consumed above); this block's stay
+  // in place until the last wait below
+  cluster_arrive();
+  __syncthreads();  // h is complete
+
+  // 3. this block's columns of h @ Wd[f0:f0+64, :]: 16-byte vectors v0 ..
+  // v1 - 1 of a row; thread (rg, vs) sums rows rg, rg + RG, ... of vectors
+  // v0 + vs, v0 + vs + VS, ...; with RG > 1 groups (a thread then holds
+  // one vector) the groups' sums are added in order through shared memory
+  const int nvd = D / 8;
+  const int v0 = (int)((long long)rank * nvd / C), v1 = (int)((long long)(rank + 1) * nvd / C);
+  const int nv = v1 - v0;
+  int RG = 1;
+  while (RG < FG_MAX_RG && 2 * RG * nv <= FG_THREADS) RG *= 2;
+  const int VS = FG_THREADS / RG, rgi = tid / VS, vs = tid % VS;
+  const int rows = min(FG_BF, F - f0);
+  for (int v = v0 + vs; v < v1; v += VS) {
+    float acc[MT][8];
+#pragma unroll
+    for (int s = 0; s < MT; ++s)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[s][j] = 0.f;
+    for (int j0 = rgi; j0 < rows; j0 += RG * FG_U) {
+      uint4 w[FG_U];
+#pragma unroll
+      for (int q = 0; q < FG_U; ++q) {
+        const int j = j0 + RG * q;
+        w[q] = j < rows ? ld_vec(Wd + (size_t)(f0 + j) * D + 8 * v) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int q = 0; q < FG_U; ++q) {
+        const int j = j0 + RG * q;
+        if (j < rows) {
+          float f[8];
+          bf16x8_to_f32(w[q], f);
+          const float* h = hs + j * MT;
+#pragma unroll
+          for (int s = 0; s < MT; ++s) {
+            const float hv = h[s];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[s][c] = fmaf(hv, f[c], acc[s][c]);
+          }
+        }
+      }
+    }
+    if (RG == 1) {
+#pragma unroll
+      for (int s = 0; s < MT; ++s) {
+        if (s < S) {
+          float* o = P + ((size_t)tile * S + s) * D + 8 * v;
+          *reinterpret_cast<float4*>(o) = make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+          *reinterpret_cast<float4*>(o + 4) = make_float4(acc[s][4], acc[s][5], acc[s][6], acc[s][7]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < MT; ++s)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) red[(tid * MT + s) * 8 + c] = acc[s][c];
+    }
+  }
+  if (RG > 1) {
+    __syncthreads();
+    for (int e = tid; e < nv * MT * 8; e += FG_THREADS) {
+      const int vi = e / (MT * 8), s = e / 8 % MT, c = e % 8;
+      float sum = red[(vi * MT + s) * 8 + c];
+      for (int r = 1; r < RG; ++r) sum += red[((r * VS + vi) * MT + s) * 8 + c];
+      if (s < S) P[((size_t)tile * S + s) * D + 8 * (v0 + vi) + c] = sum;
+    }
+  }
+  cluster_wait();  // no block leaves while a peer reads its shared memory
+}
+
+template <int MT, int C>
+cudaError_t run_gemv_c(const __nv_bfloat16* x, const __nv_bfloat16* wg, const __nv_bfloat16* wu,
+                       const __nv_bfloat16* wd, float* partial, __nv_bfloat16* y, int S, int D,
+                       int F, cudaStream_t s) {
+  auto kernel = ffn_gemv_kernel<MT, C>;
+  constexpr int smem = (int)sizeof(float) * ffn_gemv_floats(MT);
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int n_f = (F + FG_BF - 1) / FG_BF;
+  kernel<<<dim3(C, n_f), FG_THREADS, smem, s>>>(x, wg, wu, wd, partial, S, D, F);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long SD = (long long)S * D;
+  const int rt = 256;
+  ffn_reduce_kernel<__nv_bfloat16>
+      <<<(unsigned)((SD + rt - 1) / rt), rt, 0, s>>>(partial, y, n_f, SD);
+  return cudaGetLastError();
+}
+
+template <int MT>
+cudaError_t run_gemv_mt(const __nv_bfloat16* x, const __nv_bfloat16* wg, const __nv_bfloat16* wu,
+                        const __nv_bfloat16* wd, float* partial, __nv_bfloat16* y, int S, int D,
+                        int F, int cluster, cudaStream_t s) {
+  switch (cluster) {
+    case 1: return run_gemv_c<MT, 1>(x, wg, wu, wd, partial, y, S, D, F, s);
+    case 2: return run_gemv_c<MT, 2>(x, wg, wu, wd, partial, y, S, D, F, s);
+    case 4: return run_gemv_c<MT, 4>(x, wg, wu, wd, partial, y, S, D, F, s);
+    case 8: return run_gemv_c<MT, 8>(x, wg, wu, wd, partial, y, S, D, F, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t run_gemv(const __nv_bfloat16* x, const __nv_bfloat16* wg, const __nv_bfloat16* wu,
+                     const __nv_bfloat16* wd, float* partial, __nv_bfloat16* y, int S, int D,
+                     int F, int cluster, cudaStream_t s) {
+  // 16-byte weight vectors: aligned bases, d_model and d_ff multiples of
+  // 8; every block of a cluster keeps at least one vector of Wd's columns
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(wg) | reinterpret_cast<uintptr_t>(wu) |
+                          reinterpret_cast<uintptr_t>(wd) | reinterpret_cast<uintptr_t>(partial);
+  if (D % 8 || F % 8 || bases % 16 || S < 1 || F < 1 || cluster < 1 || cluster > D / 8)
+    return cudaErrorInvalidValue;
+  if (S <= 1) return run_gemv_mt<1>(x, wg, wu, wd, partial, y, S, D, F, cluster, s);
+  if (S <= 2) return run_gemv_mt<2>(x, wg, wu, wd, partial, y, S, D, F, cluster, s);
+  if (S <= 4) return run_gemv_mt<4>(x, wg, wu, wd, partial, y, S, D, F, cluster, s);
+  if (S <= FG_MAX_S) return run_gemv_mt<8>(x, wg, wu, wd, partial, y, S, D, F, cluster, s);
+  return cudaErrorInvalidValue;
+}
+
 // The compiled tile menu, by index (kernels/block_fused_ffn.py::TILES).
 using F0 = FfnTile<8, 64, 64, 1, 2>;    // decode: S <= 8
 using F1 = FfnTile<16, 64, 32, 2, 2>;
@@ -479,6 +789,7 @@ using F2 = FfnTile<32, 64, 32, 2, 4>;
 using F3 = FfnTile<64, 64, 32, 4, 4>;
 using F4 = FfnWgmma<64>;                // bf16, 9 to 64 rows
 using F5 = FfnWgmma<128>;               // bf16, more rows (the prefill)
+using F6 = FfnGemv;                     // bf16, decode rows: S <= 8
 
 template <typename T>
 int dispatch(int tile, const void* x, const void* wg, const void* wu, const void* wd,
@@ -510,14 +821,18 @@ void describe(int* out) {
 
 extern "C" {
 
+// `cluster`: the gemv tile's blocks a d_ff tile (1, 2, 4 or 8); the
+// other tiles ignore it.
 int block_fused_ffn_f32(const void* x, const void* wg, const void* wu, const void* wd,
-                        void* partial, void* y, int S, int D, int F, int tile, void* stream) {
+                        void* partial, void* y, int S, int D, int F, int tile, int cluster,
+                        void* stream) {
   return repro::dispatch<float>(tile, x, wg, wu, wd, partial, y, S, D, F, stream);
 }
 
 // bf16 runs every tile.
 int block_fused_ffn_bf16(const void* x, const void* wg, const void* wu, const void* wd,
-                         void* partial, void* y, int S, int D, int F, int tile, void* stream) {
+                         void* partial, void* y, int S, int D, int F, int tile, int cluster,
+                         void* stream) {
   using bf16 = __nv_bfloat16;
   const bf16* X = static_cast<const bf16*>(x);
   const bf16* G = static_cast<const bf16*>(wg);
@@ -528,11 +843,12 @@ int block_fused_ffn_bf16(const void* x, const void* wg, const void* wu, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 4) return repro::run_wgmma<repro::F4>(X, G, U, W, P, Y, S, D, F, s);
   if (tile == 5) return repro::run_wgmma<repro::F5>(X, G, U, W, P, Y, S, D, F, s);
+  if (tile == 6) return repro::run_gemv(X, G, U, W, P, Y, S, D, F, cluster, s);
   return repro::dispatch<bf16>(tile, x, wg, wu, wd, partial, y, S, D, F, stream);
 }
 
 // Writes (kind, dtypes, bs, bf, bk, tm, tn, shared-memory bytes) of menu
-// entry `tile` (kind 0 simt, 2 wgmma; dtypes a mask, 1 fp32, 2 bf16);
+// entry `tile` (kind 0 simt, 1 gemv, 2 wgmma; dtypes a mask, 1 fp32, 2 bf16);
 // returns the number of entries.
 int block_fused_ffn_tile(int tile, int* out) {
   switch (tile) {
@@ -542,9 +858,10 @@ int block_fused_ffn_tile(int tile, int* out) {
     case 3: repro::describe<repro::F3>(out); break;
     case 4: repro::describe<repro::F4>(out); break;
     case 5: repro::describe<repro::F5>(out); break;
+    case 6: repro::describe<repro::F6>(out); break;
     default: break;
   }
-  return 6;
+  return 7;
 }
 
 }  // extern "C"

@@ -50,24 +50,29 @@
 // byte, so it is bound by operations (0.017 ms at the bf16 tensor-core
 // peak).  Three kernels, one menu:
 //
-//  * simt (flash_kernel; fp32, head dims 32 and 64, and bf16 where
-//    asked; native or quantized K/V): plain fp32 FMA from shared memory,
+//  * simt (flash_kernel; fp32, head dim 32, bf16 quantized K/V off hd
+//    128, and bf16 where asked; native or quantized K/V): plain fp32 FMA
+//    from shared memory,
 //    as described above.  K/V cross device memory once per q tile at
 //    their stored width (1 byte a value when quantized), and the causal q
 //    tiles are launched longest first so the tail is short.
-//  * wgmma (flash_wgmma_kernel; bf16 q and native K/V at hd 128): one block
-//    per (b*H + h, 128-row q tile), longest first.  A producer warp loads
-//    the q tile once and K/V tiles of 128 keys into a 2-stage ring by TMA
-//    (128-byte swizzled, zero fill past S and Sk); two consumer warpgroups
-//    of 64 q rows each compute S = Q K^T with wgmma m64n128k16 from shared
-//    memory (K's [keys, hd] tile is K-major as it lies), run the online
+//  * wgmma (flash_wgmma_kernel; bf16 q and native K/V at hd 128 and 64):
+//    one block per (b*H + h, q tile of 128 rows, or at hd 64 also 64),
+//    longest first.  A producer warp loads the q tile once and K/V tiles
+//    of 128 keys into a ring by TMA (128-byte swizzled, zero fill past S
+//    and Sk; 2 stages at hd 128, 4 at hd 64, whose tiles are half the
+//    size); the consumer warpgroups, one per 64 q rows, compute S = Q K^T
+//    with wgmma m64n128k16 from shared memory (K's [keys, hd] tile is
+//    K-major as it lies; 8 k-steps at hd 128, 4 at hd 64), run the online
 //    softmax on the accumulator fragment in registers (row max and sum over
 //    the 4 threads of a row by shuffles, in fp32, on log2(e)-scaled scores
 //    with exp2f), round p to bf16 in registers as the reference's
 //    p.astype(v.dtype) does, and feed it as wgmma's register A operand for
-//    O += P V (V's [keys, hd] tile is MN-major: the transpose bit).  The
-//    -1e30 mask, the l == 0 guard and the skipped tiles are the simt
-//    kernel's.
+//    O += P V (V's [keys, hd] tile is MN-major: the transpose bit; m64n128
+//    at hd 128, m64n64 at hd 64).  The -1e30 mask, the l == 0 guard and
+//    the skipped tiles are the simt kernel's.  At whisper-tiny's decoder
+//    prefill (B 2, H 6, S 448, hd 64) the 128-row q tiles give 48 blocks
+//    for 132 SMs, the 64-row ones 96.
 //  * wgmma, quantized (flash_wgmma_quant_kernel; bf16 q with int8 or e4m3
 //    K/V at hd 128): the wgmma kernel fed codes.  The producer warp
 //    TMA-loads the q tile once and, per step, the [128 keys x 128] code
@@ -282,17 +287,23 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* ks, con
 }
 
 // ------------------------------------------------------------- wgmma --
+// HD 128 or 64; BQ q rows a block, 64 per consumer warpgroup (128 or 64).
+template <int HD, int BQ>
 struct FlashWgmma {
   static constexpr int kind = 2, dtypes = 2;  // wgmma; bf16
   static constexpr int kv = 1;                // native K/V
-  static constexpr int hd = 128, bq = 128, bkv = 128, tm = 64, tn = 128;
-  static constexpr int stages = 2;
-  static constexpr int threads = 2 * 128 + 32;  // two consumer warpgroups, a producer warp
-  static constexpr int tile_bytes = 128 * 128 * 2;  // q, k or v tile: two [128][64] boxes
-  static constexpr int box_bytes = tile_bytes / 2;
+  static constexpr int hd = HD, bq = BQ, bkv = 128, tm = 64, tn = 128;
+  static constexpr int stages = HD == 128 ? 2 : 4;      // K/V ring depth
+  static constexpr int consumers = BQ / 64;             // warpgroups of 64 q rows
+  static constexpr int threads = consumers * 128 + 32;  // and a producer warp
+  static constexpr int boxes = HD / 64;                 // 64-wide boxes of a row
+  static constexpr int q_box = BQ * 128;                // bytes of a box of the q tile
+  static constexpr int kv_box = 128 * 128;              // bytes of a box of a K or V tile
+  static constexpr int q_bytes = boxes * q_box;
+  static constexpr int tile_bytes = boxes * kv_box;     // a K or V tile
   // 1024 to align to the swizzle atom; q; the K/V ring; the q barrier and
   // a full and an empty barrier per stage
-  static constexpr int smem = 1024 + tile_bytes * (1 + 2 * stages) + (1 + 2 * stages) * 8;
+  static constexpr int smem = 1024 + q_bytes + 2 * stages * tile_bytes + (1 + 2 * stages) * 8;
 };
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -305,18 +316,22 @@ __device__ __forceinline__ float quad_sum(float v) {
   return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// q [B*H, S, 128], k/v [B*Hkv, Sk, 128] as 3-D tensor maps (boxes of 64 x
-// 128 rows x 1); O [B*H, S, 128] bf16.  scale_log2 = hd^-0.5 * log2(e).
-__global__ void __launch_bounds__(FlashWgmma::threads, 1)
+// q [B*H, S, HD], k/v [B*Hkv, Sk, HD] as 3-D tensor maps (boxes of 64 x
+// BQ, or 64 x 128, rows x 1); O [B*H, S, HD] bf16.  scale_log2 =
+// hd^-0.5 * log2(e).  At HD 64 a tile row is one 128-byte box: S = Q K^T
+// takes 4 k-steps, and O += P V runs on wgmma m64n64k16 with 32
+// accumulators a thread.
+template <typename TL>
+__global__ void __launch_bounds__(TL::threads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                        const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v, __nv_bfloat16* __restrict__ O,
                        int H, int groups, int S, int Sk, int causal, float scale_log2) {
-  using TL = FlashWgmma;
-  constexpr int TB = TL::tile_bytes, BOX = TL::box_bytes, ST = TL::stages;
+  constexpr int HD = TL::hd, NB = TL::boxes, QBOX = TL::q_box, KBOX = TL::kv_box;
+  constexpr int TB = TL::tile_bytes, ST = TL::stages, NC = TL::consumers;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* Ks = Qs + TB;            // stage s at Ks + s * TB
+  uint8_t* Ks = Qs + TL::q_bytes;   // stage s at Ks + s * TB
   uint8_t* Vs = Ks + ST * TB;       // stage s at Vs + s * TB
   uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + ST * TB);
   uint64_t* full = qbar + 1;
@@ -333,27 +348,28 @@ __global__ void __launch_bounds__(FlashWgmma::threads, 1)
     mbar_init(qbar, 1);
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2);
+      mbar_init(&empty[s], NC);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {  // the producer warp
+  if (wg == NC) {  // the producer warp
     if (tid == 0) {
-      mbar_expect_tx(qbar, TB);
-      tma_load_3d(Qs, &tmap_q, qbar, 0, q0, bh);
-      tma_load_3d(Qs + BOX, &tmap_q, qbar, 64, q0, bh);
+      mbar_expect_tx(qbar, TL::q_bytes);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) tma_load_3d(Qs + b * QBOX, &tmap_q, qbar, 64 * b, q0, bh);
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % ST;
         if (t >= ST) mbar_wait(&empty[s], (t / ST - 1) & 1);
         mbar_expect_tx(&full[s], 2 * TB);
         uint8_t* k = Ks + s * TB;
         uint8_t* v = Vs + s * TB;
-        tma_load_3d(k, &tmap_k, &full[s], 0, t * TL::bkv, kvh);
-        tma_load_3d(k + BOX, &tmap_k, &full[s], 64, t * TL::bkv, kvh);
-        tma_load_3d(v, &tmap_v, &full[s], 0, t * TL::bkv, kvh);
-        tma_load_3d(v + BOX, &tmap_v, &full[s], 64, t * TL::bkv, kvh);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(k + b * KBOX, &tmap_k, &full[s], 64 * b, t * TL::bkv, kvh);
+          tma_load_3d(v + b * KBOX, &tmap_v, &full[s], 64 * b, t * TL::bkv, kvh);
+        }
       }
     }
     return;
@@ -361,9 +377,9 @@ __global__ void __launch_bounds__(FlashWgmma::threads, 1)
 
   const int warp = tid / 32, lane = tid % 32;
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
-  float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[HD / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   mbar_wait(qbar, 0);
   const uint8_t* q = Qs + wg * 64 * 128;  // this warpgroup's 64 rows of each box
 
@@ -373,16 +389,17 @@ __global__ void __launch_bounds__(FlashWgmma::threads, 1)
     const uint8_t* k = Ks + s * TB;
     const uint8_t* v = Vs + s * TB;
 
-    // S = Q K^T: 8 steps of 16 along hd, 4 per 64-wide box
+    // S = Q K^T: HD / 16 steps of 16 along hd, 4 per 64-wide box
     float sc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] = 0.f;
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int off = (kk / 4) * BOX + 32 * (kk % 4);
-      wgmma_m64n128k16_ss<0>(sc, desc_b128(q + off, 16, 1024), desc_b128(k + off, 16, 1024));
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int qoff = (kk / 4) * QBOX + 32 * (kk % 4);
+      const int koff = (kk / 4) * KBOX + 32 * (kk % 4);
+      wgmma_m64n128k16_ss<0>(sc, desc_b128(q + qoff, 16, 1024), desc_b128(k + koff, 16, 1024));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -423,7 +440,7 @@ __global__ void __launch_bounds__(FlashWgmma::threads, 1)
       l[h] = __fadd_rn(__fmul_rn(l[h], alpha), quad_sum(sum));
       m[h] = m_new;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < HD / 8; ++j) {
         o[4 * j + 2 * h] = __fmul_rn(o[4 * j + 2 * h], alpha);
         o[4 * j + 2 * h + 1] = __fmul_rn(o[4 * j + 2 * h + 1], alpha);
       }
@@ -439,7 +456,11 @@ __global__ void __launch_bounds__(FlashWgmma::threads, 1)
                              pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
                              pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                              pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-      wgmma_m64n128k16_rs<1>(o, a, desc_b128(v + 2048 * kk, BOX, 1024));
+      if constexpr (HD == 128) {
+        wgmma_m64n128k16_rs<1>(o, a, desc_b128(v + 2048 * kk, KBOX, 1024));
+      } else {
+        wgmma_m64n64k16_rs<1>(o, a, desc_b128(v + 2048 * kk, KBOX, 1024));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -447,40 +468,41 @@ __global__ void __launch_bounds__(FlashWgmma::threads, 1)
     if (tid == 0) mbar_arrive(&empty[s]);
   }
 
-  __nv_bfloat16* out = O + (size_t)bh * S * TL::hd;
+  __nv_bfloat16* out = O + (size_t)bh * S * HD;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 8 * h;
     if (r >= S) continue;
     const float inv = l[h] == 0.f ? 1.f : l[h];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * TL::hd + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * HD + col) =
           __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * h], inv),
                                 __fdiv_rn(o[4 * j + 2 * h + 1], inv));
     }
   }
 }
 
+template <typename TL>
 cudaError_t run_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
                       int S, int Sk, int causal, float sm_scale, cudaStream_t stream) {
-  using TL = FlashWgmma;
   CUtensorMap tq, tk, tv;
-  const uint32_t box[2] = {64, (uint32_t)TL::bq};
+  const uint32_t q_box[2] = {64, (uint32_t)TL::bq}, kv_box[2] = {64, (uint32_t)TL::bkv};
   const uint64_t row = TL::hd * 2;
   const uint64_t q_dims[3] = {(uint64_t)TL::hd, (uint64_t)S, (uint64_t)B * H};
   const uint64_t q_strides[2] = {row, row * S};
   const uint64_t kv_dims[3] = {(uint64_t)TL::hd, (uint64_t)Sk, (uint64_t)B * Hkv};
   const uint64_t kv_strides[2] = {row, row * Sk};
-  cudaError_t e = encode_tmap_bf16(&tq, q, 3, q_dims, q_strides, box);
-  if (e == cudaSuccess) e = encode_tmap_bf16(&tk, k, 3, kv_dims, kv_strides, box);
-  if (e == cudaSuccess) e = encode_tmap_bf16(&tv, v, 3, kv_dims, kv_strides, box);
+  cudaError_t e = encode_tmap_bf16(&tq, q, 3, q_dims, q_strides, q_box);
+  if (e == cudaSuccess) e = encode_tmap_bf16(&tk, k, 3, kv_dims, kv_strides, kv_box);
+  if (e == cudaSuccess) e = encode_tmap_bf16(&tv, v, 3, kv_dims, kv_strides, kv_box);
   if (e != cudaSuccess) return e;
-  e = set_smem(flash_wgmma_kernel, TL::smem);
+  auto kernel = flash_wgmma_kernel<TL>;
+  e = set_smem(kernel, TL::smem);
   if (e != cudaSuccess) return e;
   dim3 grid((S + TL::bq - 1) / TL::bq, B * H);
-  flash_wgmma_kernel<<<grid, TL::threads, TL::smem, stream>>>(
+  kernel<<<grid, TL::threads, TL::smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, H / Hkv, S, Sk, causal,
       sm_scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -741,8 +763,10 @@ using A2 = AttnTile<64, 64, 64, 4, 4>;
 using A3 = AttnTile<64, 128, 128, 8, 8>;
 using A4 = AttnTile<128, 64, 64, 4, 4>;
 using A5 = AttnTile<128, 128, 64, 8, 4>;
-using A6 = FlashWgmma;  // bf16, native K/V, hd 128
-using A7 = FlashWgmmaQuant;  // bf16, int8 / e4m3 K/V, hd 128
+using A6 = FlashWgmma<128, 128>;  // bf16, native K/V, hd 128
+using A7 = FlashWgmmaQuant;       // bf16, int8 / e4m3 K/V, hd 128
+using A8 = FlashWgmma<64, 128>;   // bf16, native K/V, hd 64
+using A9 = FlashWgmma<64, 64>;    // bf16, native K/V, hd 64, one warpgroup
 
 template <typename TQ, typename TKV, bool QUANT>
 int dispatch(int tile, const void* q, const void* k, const void* v, const void* ks,
@@ -789,9 +813,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
                         const void* vs, void* o, int q_bf16, int kv_kind, int B, int H, int Hkv,
                         int S, int Sk, int causal, float sm_scale, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 6) {
+  if (tile == 6 || tile == 8 || tile == 9) {
     if (!q_bf16 || kv_kind != 0) return cudaErrorInvalidValue;
-    return repro::run_wgmma(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    if (tile == 6)
+      return repro::run_wgmma<repro::A6>(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    if (tile == 8)
+      return repro::run_wgmma<repro::A8>(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    return repro::run_wgmma<repro::A9>(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
   }
   if (tile == 7) {
     if (!q_bf16) return cudaErrorInvalidValue;
@@ -823,9 +851,11 @@ int flash_attention_tile(int tile, int* out) {
     case 5: repro::describe<repro::A5>(out); break;
     case 6: repro::describe<repro::A6>(out); break;
     case 7: repro::describe<repro::A7>(out); break;
+    case 8: repro::describe<repro::A8>(out); break;
+    case 9: repro::describe<repro::A9>(out); break;
     default: break;
   }
-  return 8;
+  return 10;
 }
 
 }  // extern "C"

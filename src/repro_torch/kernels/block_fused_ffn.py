@@ -6,9 +6,11 @@ y = ((silu(x@wg) * (x@wu)).astype(x.dtype)) @ wd, fp32 accumulation,
 with the [bs, bf] hidden tile kept on chip.  The CUDA source,
 ``csrc/block_fused_ffn.cu``, says why it splits over d_ff with fp32
 partials and a fixed-order second pass (no atomics), what that costs,
-and what bounds it on the H100 (at decode: the weight bytes; at prefill:
-the operations, and the partials' traffic, which the ``wgmma`` tile cuts
-by summing them across a thread-block cluster).
+and what bounds it on the H100 (at decode: the weight bytes, which the
+``gemv`` tile streams in 16-byte vectors with a thread-block cluster per
+d_ff tile; at prefill: the operations, and the partials' traffic, which
+the ``wgmma`` tile cuts by summing them across a thread-block
+cluster).
 
 * :func:`block_fused_ffn` is the wrapper.  For CPU tensors it computes
   the plain version; for CUDA tensors it launches the kernel (its two
@@ -17,8 +19,9 @@ by summing them across a thread-block cluster).
   reference's cast points.
 * :data:`TILES` is the menu the CUDA source compiles;
   ``kernels/ops.py::legalize_ffn_tile`` picks one under a plan's blocks.
-  A tile has a kind, ``simt`` (fp32 FMA) or ``wgmma`` (bf16, tensor
-  cores); :data:`launches_by_kind` counts the launches of each, and
+  A tile has a kind, ``simt`` (fp32 FMA), ``gemv`` (bf16 decode rows,
+  weights streamed into registers) or ``wgmma`` (bf16, tensor cores);
+  :data:`launches_by_kind` counts the launches of each, and
   :data:`launches_by_shape` by the weights' shape (``"dxf"``).
 """
 from __future__ import annotations
@@ -31,13 +34,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cache_matmul import (BF16, DTYPES, KINDS, dtype_mask,
-                                              no_backward)
+from repro_torch.kernels.cache_matmul import (BF16, DTYPES, KINDS, _sm_count,
+                                              dtype_mask, no_backward)
 
 
 WGMMA_STAGES = 3      # csrc/block_fused_ffn.cu::FfnWgmma::stages
 CLUSTER = 8           # csrc/block_fused_ffn.cu::FFN_CLUSTER
 EXCHANGE_LD = 136     # csrc/block_fused_ffn.cu::FfnWgmma::ex_ld
+GEMV_THREADS = 256    # csrc/block_fused_ffn.cu::FG_THREADS
+GEMV_MAX_CLUSTER = 8  # the portable cluster size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +51,10 @@ class FfnTile:
     thread block, d_model consumed bk at a time.  ``simt``: a [tm, tn]
     register tile per thread.  ``wgmma``: bs / 64 warpgroups of tm = 64
     rows, each issuing wgmma of width tn = bf, the blocks of a d_ff group
-    of :data:`CLUSTER` tiles summing their partials as a cluster."""
+    of :data:`CLUSTER` tiles summing their partials as a cluster.
+    ``gemv``: up to bs rows of x, a cluster of :func:`gemv_cluster`
+    blocks per bf-wide d_ff tile splitting d_model, bk rows of x staged
+    at a time, tn columns a thread."""
     bs: int
     bf: int
     bk: int
@@ -57,6 +65,9 @@ class FfnTile:
 
     @property
     def smem_bytes(self) -> int:
+        if self.kind == "gemv":    # x slab, exchange, h, cross-thread sums
+            return 4 * self.bs * (self.bk + 3 * self.bf
+                                  + GEMV_THREADS * self.tn)
         if self.kind == "wgmma":   # alignment, ring, fp32 exchange, barriers
             slot = max(2 * self.bs * self.bk + 2 * 2 * self.bk * self.bf,
                        2 * self.bf * self.bf)
@@ -80,7 +91,8 @@ TILES = (FfnTile(8, 64, 64, 1, 2),
          FfnTile(32, 64, 32, 2, 4),
          FfnTile(64, 64, 32, 4, 4),
          FfnTile(64, 128, 64, 64, 128, "wgmma", BF16),
-         FfnTile(128, 128, 64, 64, 128, "wgmma", BF16))
+         FfnTile(128, 128, 64, 64, 128, "wgmma", BF16),
+         FfnTile(8, 64, 1024, 8, 8, "gemv", BF16))
 
 launches = 0
 launches_by_kind: Dict[str, int] = dict.fromkeys(KINDS, 0)
@@ -95,7 +107,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("block_fused_ffn")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.block_fused_ffn_f32, lib.block_fused_ffn_bf16):
-            fn.argtypes = [ptr] * 6 + [i32, i32, i32, i32, ptr]
+            fn.argtypes = [ptr] * 6 + [i32, i32, i32, i32, i32, ptr]
             fn.restype = i32
         lib.block_fused_ffn_tile.argtypes = [i32, ctypes.POINTER(i32)]
         lib.block_fused_ffn_tile.restype = i32
@@ -114,10 +126,28 @@ def block_fused_ffn_plain(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return torch.matmul(h.float(), wd.float()).to(x.dtype)
 
 
+def gemv_cluster(d: int, f: int, sms: int) -> int:
+    """Blocks of the ``gemv`` tile's cluster on each 64-wide d_ff tile
+    (d_model split among them): the fewest of 1, 2, 4, 8 that give the
+    ceil(f / 64) tiles two blocks per SM, with at least 64 d_model rows
+    a block (on an H100: yi-9b's d_ff 11008 and zamba2's 10240 take 2,
+    whisper-tiny's 1536 at d_model 384 takes 4; sizes 1 to 8 timed in
+    turns there, by chip_smoke.py's kernels phase).  A function of the
+    shapes and the SM count alone, so launches of one shape on one card
+    add their partials alike."""
+    bf = next(t.bf for t in TILES if t.kind == "gemv")
+    tiles, c = -(-f // bf), 1
+    while (c < GEMV_MAX_CLUSTER and tiles * c < 2 * sms
+           and 2 * c <= d // 64):
+        c *= 2
+    return c
+
+
 def partial_bytes(tile: FfnTile, s: int, d: int, f: int) -> int:
     """Bytes of the fp32 partial outputs one launch writes (and its second
-    pass reads): one [s, d] slab per bf-wide d_ff block (``simt``), or per
-    cluster of :data:`CLUSTER` such blocks (``wgmma``)."""
+    pass reads): one [s, d] slab per bf-wide d_ff block (``simt``, and
+    ``gemv``, whose cluster writes its tile's slab once), or per cluster
+    of :data:`CLUSTER` such blocks (``wgmma``)."""
     slabs = -(-f // tile.bf)
     if tile.kind == "wgmma":
         slabs = -(-slabs // CLUSTER)
@@ -130,8 +160,9 @@ def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     shape ``tile`` (one of :data:`TILES` compiled for x's dtype; the plain
     version ignores it).  x: [S, d]; wg/wu: [d, f]; wd: [f, d].  Ragged S,
     d_model and d_ff are masked in the kernel: no padding.  A ``wgmma``
-    tile needs d and f to be multiples of 8 (TMA's 16-byte row
-    strides).  No backward: raises under grad
+    or ``gemv`` tile needs d and f to be multiples of 8 (TMA's, or the
+    weight vectors', 16-byte rows), and a gemv tile at most its bs
+    rows.  No backward: raises under grad
     (``cache_matmul.no_backward``)."""
     no_backward("block_fused_ffn", x, wg, wu, wd)
     if x.dim() != 2 or wg.dim() != 2 or wu.shape != wg.shape \
@@ -156,11 +187,14 @@ def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if x.dtype not in tile.dtypes:
         raise TypeError(f"block_fused_ffn: tile {tile} is not compiled for "
                         f"{x.dtype}")
-    if tile.kind == "wgmma" and (d % 8 or f % 8
-                                 or any(w.data_ptr() % 16 for w in ws)):
-        raise ValueError(f"block_fused_ffn: the wgmma tile needs d_model and "
-                         f"d_ff multiples of 8 and 16-byte aligned operands "
-                         f"(d={d}, f={f})")
+    if tile.kind != "simt" and (d % 8 or f % 8
+                                or any(w.data_ptr() % 16 for w in ws)):
+        raise ValueError(f"block_fused_ffn: the {tile.kind} tile needs "
+                         f"d_model and d_ff multiples of 8 and 16-byte "
+                         f"aligned operands (d={d}, f={f})")
+    if tile.kind == "gemv" and s > tile.bs:
+        raise ValueError(f"block_fused_ffn: the gemv tile takes at most "
+                         f"{tile.bs} rows, not {s}")
     y = torch.empty((s, d), dtype=x.dtype, device=x.device)
     if s == 0 or d == 0:
         return y
@@ -169,9 +203,11 @@ def block_fused_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     lib = _library()
     fn = lib.block_fused_ffn_f32 if x.dtype == torch.float32 else lib.block_fused_ffn_bf16
     with torch.cuda.device(x.device):
+        cluster = (gemv_cluster(d, f, _sm_count(x.device))
+                   if tile.kind == "gemv" else 0)
         err = fn(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
                  partial.data_ptr(), y.data_ptr(), s, d, f, TILES.index(tile),
-                 torch.cuda.current_stream().cuda_stream)
+                 cluster, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_fused_ffn: launch failed with CUDA error "
                            f"{err} (S={s}, d={d}, f={f}, tile={tile})")

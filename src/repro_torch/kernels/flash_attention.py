@@ -18,11 +18,12 @@ prefill path's shape: operations).
   (the reference's ``attention_ref`` semantics and cast points).
 * :data:`TILES` is the menu of (hd, BQ, BKV) tiles the CUDA source
   compiles; ``kernels/ops.py::legalize_attn_tile`` picks one under a
-  plan's blocks.  The two ``wgmma`` tiles (bf16 q, hd 128) run
-  tensor-core kernels, one for native K/V and one for int8 / e4m3 K/V
-  (codes converted to bf16 on chip, scales folded into the scores and
-  into P); the ``simt`` tiles run the fp32-FMA one, for native and
-  quantized K/V.  :data:`launches_by_kind` and
+  plan's blocks.  The ``wgmma`` tiles (bf16 q) run tensor-core
+  kernels: native K/V at hd 128 and at hd 64 (one kernel templated on
+  the head dim and the q rows; at hd 64 a 128-row and a 64-row q tile),
+  and int8 / e4m3 K/V at hd 128 (codes converted to bf16 on chip, scales
+  folded into the scores and into P); the ``simt`` tiles run the
+  fp32-FMA one, for native and quantized K/V.  :data:`launches_by_kind` and
   :data:`launches_quantized_by_kind` split the native and the quantized
   launches by kind.
 
@@ -54,8 +55,8 @@ class AttnTile:
     block, for the K/V storage in ``kv`` ("native": q's dtype;
     "quantized": int8 / e4m3 codes with row scales).  ``simt``: a
     [tm, tn] register tile of it per thread, fp32 FMA (fp32 and bf16,
-    native or quantized K/V).  ``wgmma``: warpgroups of tm = 64 q rows
-    issuing wgmma of width tn (bf16 q)."""
+    native or quantized K/V).  ``wgmma``: bq / 64 warpgroups of tm = 64
+    q rows issuing wgmma of width tn (bf16 q)."""
     hd: int
     bq: int
     bkv: int
@@ -69,9 +70,10 @@ class AttnTile:
     def smem_bytes(self) -> int:
         tile = 2 * self.hd * self.bq        # bf16 q, or a bf16 K or V tile
         if self.kind == "wgmma" and self.kv == ("native",):
-            # alignment, q and a 2-stage K/V ring, a q barrier, full/empty
-            # per stage
-            return 1024 + tile * (1 + 2 * WGMMA_STAGES) + (1 + 2 * WGMMA_STAGES) * 8
+            # alignment, q, the K/V ring, a q barrier, full/empty per stage
+            st = wgmma_stages(self.hd)
+            return (1024 + tile + st * 2 * 2 * self.hd * self.bkv
+                    + (1 + 2 * st) * 8)
         if self.kind == "wgmma":
             # alignment, q, the converted K/V tiles of each buffer, one
             # stage of K/V codes, each buffer's K and V row scales, the q,
@@ -94,8 +96,14 @@ class AttnTile:
 
 
 KV_STORAGE = ("native", "quantized")   # the menu's K/V mask: bits 1, 2
-WGMMA_STAGES = 2      # csrc/flash_attention.cu::FlashWgmma::stages
 WGMMA_QUANT_BUFS = 2  # csrc/flash_attention.cu::FlashWgmmaQuant::bufs
+
+
+def wgmma_stages(hd: int) -> int:
+    """K/V ring depth of the native wgmma kernel at head dim ``hd``
+    (csrc/flash_attention.cu::FlashWgmma::stages): 2 at hd 128, 4 at hd
+    64, whose tiles are half the size."""
+    return 2 if hd == 128 else 4
 # Index i is tile i of csrc/flash_attention.cu (checked when it loads).
 TILES = (AttnTile(32, 64, 64, 4, 4),
          AttnTile(32, 128, 128, 8, 8),
@@ -106,7 +114,11 @@ TILES = (AttnTile(32, 64, 64, 4, 4),
          AttnTile(128, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
                   ("native",)),
          AttnTile(128, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
-                  ("quantized",)))
+                  ("quantized",)),
+         AttnTile(64, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
+                  ("native",)),
+         AttnTile(64, 64, 128, 64, 128, "wgmma", (torch.bfloat16,),
+                  ("native",)))
 
 launches = 0
 launches_by_kind: Dict[str, int] = {"simt": 0, "wgmma": 0}

@@ -13,10 +13,10 @@ plan's tile is kept as an upper bound and legalized: the kernel runs the
 compiled Hopper tile that fits under it and in shared memory, chosen for
 the operands' dtype and row count: fp32 keeps the fp32-FMA (``simt``)
 tiles; bf16 takes the tensor-core (``wgmma``) tiles of cache_matmul,
-cache_matmul_quant, block_fused_ffn and flash attention (native and
-quantized K/V) and ssd_chunk's wgmma kind, and for decode rows the
-``gemv`` tiles of the two matmuls (block_fused_ffn keeps its simt tile
-there).
+cache_matmul_quant, block_fused_ffn and flash attention (native K/V at
+head dims 64 and 128, quantized K/V at 128) and ssd_chunk's wgmma kind,
+and for decode rows the ``gemv`` tiles of the two matmuls and of
+block_fused_ffn.
 Where the reference pads operands to tile boundaries through HBM
 (``_pad_to``), the Hopper kernels mask their ragged edges instead.  CPU
 tensors take the kernels' plain versions.
@@ -46,6 +46,12 @@ def smem_limit(device: torch.device) -> Optional[int]:
     if device.type != "cuda":
         return None
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def sm_count(device: torch.device) -> Optional[int]:
+    """The device's SM count (the grids the kernels fill); None on the
+    CPU."""
+    return kmm._sm_count(device) if device.type == "cuda" else None
 
 
 def _pick(fits: Sequence[_T], rows: int, row_dim: str, area) -> _T:
@@ -150,14 +156,16 @@ def legalize_matmul_quant_tile(tile: TileConfig, m: int, limit: Optional[int],
 def ffn_kind(s: int, dtype: torch.dtype, d: Optional[int] = None,
              f: Optional[int] = None) -> str:
     """The tile kind a block_fused_ffn call of ``s`` rows runs: bf16 with
-    more than 8 rows -> ``wgmma``, unless d_model or d_ff is not a
-    multiple of 8 (TMA needs 16-byte row strides); fp32 and decode rows
-    (at most 8) -> ``simt``."""
-    if dtype != torch.bfloat16 or s <= 8:
+    at most 8 rows (decode) -> ``gemv``, more rows -> ``wgmma``, either
+    only where d_model and d_ff are multiples of 8 (16-byte weight
+    vectors, TMA's 16-byte row strides); fp32 and misaligned shapes ->
+    ``simt``."""
+    if dtype != torch.bfloat16:
         return "simt"
     if (d is not None and d % 8) or (f is not None and f % 8):
         return "simt"
-    return "wgmma"
+    return "gemv" if s <= max(t.bs for t in kffn.TILES
+                              if t.kind == "gemv") else "wgmma"
 
 
 def legalize_ffn_tile(block_s: int, block_f: int, s: int,
@@ -169,11 +177,12 @@ def legalize_ffn_tile(block_s: int, block_f: int, s: int,
     given, route misaligned rows): the [bs, bf] hidden tile no larger
     than the plan's [block_s, block_f] (the LBM working set the grant
     admitted), shared memory within ``limit``; a tile of
-    :func:`ffn_kind`'s kind where one fits (bf16 at 9 to 64 rows the
-    64-row wgmma tile, more rows the 128-row one), else a simt tile, the
-    smallest when none fits."""
-    if ffn_kind(s, dtype, d, f) == "wgmma":
-        fits = [t for t in kffn.TILES if t.kind == "wgmma"
+    :func:`ffn_kind`'s kind where one fits (bf16 decode rows the 8-row
+    gemv tile, 9 to 64 rows the 64-row wgmma tile, more rows the 128-row
+    one), else a simt tile, the smallest when none fits."""
+    kind = ffn_kind(s, dtype, d, f)
+    if kind != "simt":
+        fits = [t for t in kffn.TILES if t.kind == kind
                 and dtype in t.dtypes and t.bs <= block_s and t.bf <= block_f
                 and (limit is None or t.smem_bytes <= limit)]
         if fits:
@@ -189,15 +198,24 @@ def legalize_ffn_tile(block_s: int, block_f: int, s: int,
 
 def legalize_attn_tile(block_q: int, block_kv: int, hd: int, s: int,
                        limit: Optional[int], dtype: torch.dtype,
-                       quantized: bool = False) -> kfa.AttnTile:
+                       quantized: bool = False, heads: int = 0,
+                       sms: Optional[int] = None) -> kfa.AttnTile:
     """The compiled flash-attention tile for a plan's blocks: head dim
     ``hd``, [bq, bkv] no larger than the plan's [block_q, block_kv],
     shared memory within ``limit``.  bf16 q takes the ``wgmma`` tile of
     the head dim for its K/V storage (native, or int8 / e4m3 codes when
-    ``quantized``) where one fits; fp32 and head dims without one take
-    the ``simt`` tiles: the fewest wasted rows of the ``s`` query rows,
-    then the largest score tile, and the smallest tile of the head dim
-    when none fits.  Raises for a head dim with no compiled tile."""
+    ``quantized``) where one fits.  Where the head dim has wgmma tiles of
+    several q rows (hd 64: 128 and 64) and the grid is known, ``heads``
+    (batch x query heads) q tiles of each row block and the card's
+    ``sms``, the largest whose grid still gives every SM a block, else
+    the smallest: whisper-tiny's decoder prefill (2 x 6 heads, up to 448
+    rows) gives 128-row tiles at most 48 blocks for 132 SMs, so it takes
+    64 rows; a batch of 8 at 448 rows takes 128 (each measured faster on
+    an H100, chip_smoke.py's kernels phase).  fp32, head dims without a
+    wgmma tile and an unknown grid take the simt rule: the fewest wasted
+    rows of the ``s`` query rows, then the largest score tile, and the
+    smallest tile of the head dim when none fits.  Raises for a head dim
+    with no compiled tile."""
     own = [t for t in kfa.TILES if t.hd == hd]
     if not own:
         raise ValueError(f"flash_attention: head dim {hd} not compiled "
@@ -209,8 +227,13 @@ def legalize_attn_tile(block_q: int, block_kv: int, hd: int, s: int,
                 and kv in t.kv and t.bq <= block_q and t.bkv <= block_kv
                 and (limit is None or t.smem_bytes <= limit)]
 
-    if dtype == torch.bfloat16 and fits("wgmma"):
-        return _pick(fits("wgmma"), s, "bq", lambda t: t.bq * t.bkv)
+    wgmma = fits("wgmma") if dtype == torch.bfloat16 else []
+    if wgmma and heads and sms:
+        filled = [t for t in wgmma if heads * -(-s // t.bq) >= sms]
+        return max(filled, key=lambda t: t.bq) if filled else \
+            min(wgmma, key=lambda t: t.bq)
+    if wgmma:
+        return _pick(wgmma, s, "bq", lambda t: t.bq * t.bkv)
     simt = [t for t in own if t.kind == "simt"]
     return _pick(fits("simt") or
                  [min(simt, key=lambda t: (t.bq * t.bkv, t.smem_bytes))],
@@ -321,7 +344,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     tile = legalize_attn_tile(block_q, block_kv, q.shape[3], q.shape[2],
                               smem_limit(q.device), q.dtype,
-                              kv_dtype != "native")
+                              kv_dtype != "native", q.shape[0] * q.shape[1],
+                              sm_count(q.device))
     if kv_dtype != "native":
         kq, ks = kquant.quantize_rows(k, kv_dtype)
         vq, vs = kquant.quantize_rows(v, kv_dtype)

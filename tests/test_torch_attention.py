@@ -233,9 +233,11 @@ def test_compiled_attn_tiles_fit_hopper():
     assert {t.hd for t in kfa.TILES} == {32, 64, 128}
     for t in kfa.TILES:
         assert t.smem_bytes <= H100_SMEM_OPTIN
-        if t.kind == "wgmma":   # two warpgroups of 64 q rows, hd-wide P.V
-            assert t.dtypes == (torch.bfloat16,) and t.hd == 128
-            assert (t.bq, t.bkv, t.tm, t.tn) == (128, 128, 64, 128)
+        if t.kind == "wgmma":   # warpgroups of 64 q rows, hd-wide P.V
+            assert t.dtypes == (torch.bfloat16,) and t.hd in (64, 128)
+            assert (t.bkv, t.tm, t.tn) == (128, 64, 128)
+            assert t.bq == 128 or (t.hd, t.bq) == (64, 64)
+            assert t.hd == 128 or t.kv == ("native",)
             continue
         assert t.kind == "simt"
         ntx, nty = t.bkv // t.tn, t.bq // t.tm
@@ -248,6 +250,8 @@ FLASH_WGMMA = next(t for t in kfa.TILES
                    if t.kind == "wgmma" and "native" in t.kv)
 FLASH_WGMMA_QUANT = next(t for t in kfa.TILES
                          if t.kind == "wgmma" and "quantized" in t.kv)
+# hd 64's native wgmma tiles by q rows
+FLASH_HD64 = {t.bq: t for t in kfa.TILES if t.kind == "wgmma" and t.hd == 64}
 
 
 @pytest.mark.parametrize("pages", [9, 32, 60, 456])
@@ -258,8 +262,9 @@ def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
     """Plans lowered at full width (bf16) legalize to a compiled tile of
     the head dim, no larger than the plan's blocks, within shared
     memory: for bf16 q at hd 128 the wgmma tile of the K/V storage
-    (native or quantized), else the simt tile the simt-only rule picks
-    (fp32, hd 32 / 64)."""
+    (native or quantized), at hd 64 with native K/V its 128-row wgmma
+    tile (no grid given: the fewest wasted rows), else the simt tile the
+    simt-only rule picks (fp32, hd 32, quantized hd 64)."""
     plan = pplan.lower_attn(hd, 2, pages, kv_dtype,
                             1 if kv_dtype != "native" else 2)
     for s in (333, 1024):
@@ -272,6 +277,9 @@ def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
         if dtype == torch.bfloat16 and hd == 128:
             assert tile == (FLASH_WGMMA if kv_dtype == "native"
                             else FLASH_WGMMA_QUANT)
+            continue
+        if dtype == torch.bfloat16 and hd == 64 and kv_dtype == "native":
+            assert tile == FLASH_HD64[128]
             continue
         assert tile.kind == "simt"
         fits = [t for t in SIMT if t.hd == hd
@@ -321,16 +329,18 @@ def test_legalize_attn_tile_floor_and_unknown_head_dim():
 def test_flash_menu_mirrors_the_cuda_source():
     src = (Path(pplan.__file__).parents[1] / "csrc" /
            "flash_attention.cu").read_text()
-    menu = re.findall(r"using A(\d+) = (AttnTile<([\d, ]+)>|FlashWgmma"
-                      r"|FlashWgmmaQuant);", src)
+    menu = re.findall(r"using A(\d+) = (AttnTile<([\d, ]+)>"
+                      r"|FlashWgmma<(\d+), (\d+)>|FlashWgmmaQuant);", src)
     assert [int(i) for i, *_ in menu] == list(range(len(kfa.TILES)))
-    for (_, name, simt), t in zip(menu, kfa.TILES):
+    for (_, name, simt, hd, bq), t in zip(menu, kfa.TILES):
         if simt:
             assert (t.kind, t.hd, t.bq, t.bkv, t.tm, t.tn) == \
                 ("simt", *map(int, simt.split(",")))
+        elif hd:
+            assert (t.kind, t.hd, t.bq, t.kv) == ("wgmma", int(hd), int(bq),
+                                                  ("native",))
         else:
-            assert t == {"FlashWgmma": FLASH_WGMMA,
-                         "FlashWgmmaQuant": FLASH_WGMMA_QUANT}[name]
+            assert t == FLASH_WGMMA_QUANT and name == "FlashWgmmaQuant"
 
 
 def test_flash_wrappers_reject_malformed_operands():
@@ -363,17 +373,22 @@ def test_flash_wrappers_reject_malformed_operands():
 
 
 # ------------------------------------------- quantized wgmma flash tile --
-def _cu_struct(name):
+def _cu_struct(name, **params):
     """The ``static constexpr int`` members of struct ``name`` in
-    csrc/flash_attention.cu, evaluated in order (C++ integer division)."""
+    csrc/flash_attention.cu, evaluated in order (C++ integer division,
+    ``a ? b : c``) with the template parameters ``params`` (FlashWgmma's
+    HD and BQ)."""
     src = (Path(pplan.__file__).parents[1] / "csrc" /
            "flash_attention.cu").read_text()
     body = src.split(f"struct {name} {{", 1)[1].split("};", 1)[0]
-    env = {}
+    env = dict(params)
     for decl in re.findall(r"static constexpr int ([^;]+);", body):
         for item in re.split(r",\s*(?=\w+ =)", decl):
             key, expr = (x.strip() for x in item.split("=", 1))
-            env[key] = eval(re.sub(r"(?<!/)/(?!/)", "//", expr), {}, dict(env))
+            expr = re.sub(r"(?<!/)/(?!/)", "//", expr)
+            expr = re.sub(r"^(.+?) \? (.+?) : (.+)$", r"(\2) if (\1) else (\3)",
+                          expr)
+            env[key] = eval(expr, {}, dict(env))
     return env
 
 
@@ -382,7 +397,8 @@ def test_wgmma_flash_tiles_mirror_the_cuda_source(name):
     """Each wgmma menu entry's fields and shared memory are the .cu
     struct's, and fit in 232,448 bytes; the quantized one serves int8 /
     e4m3 K/V only, the native one native K/V only."""
-    cu = _cu_struct(name)
+    cu = (_cu_struct(name, HD=128, BQ=128) if name == "FlashWgmma"
+          else _cu_struct(name))
     tile = FLASH_WGMMA if name == "FlashWgmma" else FLASH_WGMMA_QUANT
     mask = tile.menu_fields()      # the fields flash_attention_tile writes
     assert mask[0] == cu["kind"] and mask[1] == cu["dtypes"]
@@ -391,6 +407,57 @@ def test_wgmma_flash_tiles_mirror_the_cuda_source(name):
     assert tile.smem_bytes == cu["smem"] <= H100_SMEM_OPTIN
     assert mask[7] == cu["kv"] and mask[8] == tile.smem_bytes
     assert tile.kv == (("native",) if name == "FlashWgmma" else ("quantized",))
+
+
+@pytest.mark.parametrize("bq", [128, 64])
+def test_hd64_wgmma_flash_tiles_mirror_the_cuda_source(bq):
+    """The hd-64 wgmma entries are csrc/flash_attention.cu's FlashWgmma<64,
+    bq>: 4 k-steps of 16 for S = Q K^T, a 4-stage K/V ring of one
+    128-byte box a tile (16 KB), one consumer warpgroup per 64 q rows;
+    their shared memory fits 232,448 bytes, and the hd-128 entry keeps
+    its 2-stage ring and its 164,904 bytes."""
+    cu = _cu_struct("FlashWgmma", HD=64, BQ=bq)
+    tile = FLASH_HD64[bq]
+    fields = tile.menu_fields()
+    assert (fields[0], fields[1], fields[7]) == (cu["kind"], cu["dtypes"],
+                                                 cu["kv"])
+    assert (tile.hd, tile.bq, tile.bkv, tile.tm, tile.tn) == \
+        (cu["hd"], cu["bq"], cu["bkv"], cu["tm"], cu["tn"])
+    assert (cu["stages"], cu["boxes"], cu["tile_bytes"]) == (4, 1, 16384)
+    assert cu["threads"] == 128 * (bq // 64) + 32
+    assert tile.smem_bytes == cu["smem"] == fields[8] <= H100_SMEM_OPTIN
+    hd128 = _cu_struct("FlashWgmma", HD=128, BQ=128)
+    assert (hd128["stages"], hd128["smem"]) == (2, 164904)
+    assert FLASH_WGMMA.smem_bytes == 164904
+
+
+@pytest.mark.parametrize("pages", [0, 1, 9, 32, 60, 200, 456, 1000])
+def test_bf16_native_hd64_takes_a_wgmma_flash_tile(pages):
+    """bf16 q with native K/V at hd 64 runs a wgmma tile under every
+    grant's attention blocks (at least 128 x 128).  With the grid known
+    (batch x heads, 132 SMs) it takes the largest q tile whose grid still
+    gives every SM a block, else 64 rows: whisper-tiny's 2 x 6 heads up
+    to 448 rows take 64, a batch of 8 or 1,500 rows 128; without it, the
+    fewest wasted rows (64 up to 64 rows, else 128).  Quantized K/V and
+    fp32 q keep the simt tiles."""
+    plan = pplan.lower_attn(64, 2, pages)
+    assert plan.block_q >= 128 and plan.block_kv >= 128
+    for heads, s, bq in ((12, 448, 64), (12, 333, 64), (12, 1, 64),
+                         (12, 1024, 64), (48, 448, 128), (48, 333, 128),
+                         (12, 1500, 128), (64, 1024, 128), (0, 40, 64),
+                         (0, 64, 64), (0, 65, 128), (0, 448, 128)):
+        assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 64, s,
+                                      H100_SMEM_OPTIN, torch.bfloat16, False,
+                                      heads, 132) == FLASH_HD64[bq], (heads, s)
+        for dtype, quantized in ((torch.bfloat16, True),
+                                 (torch.float32, False),
+                                 (torch.float32, True)):
+            assert ops.legalize_attn_tile(
+                plan.block_q, plan.block_kv, 64, s, H100_SMEM_OPTIN, dtype,
+                quantized, heads, 132).kind == "simt"
+    # hd 128 has one wgmma tile a K/V storage, grid or not
+    assert ops.legalize_attn_tile(128, 128, 128, 448, H100_SMEM_OPTIN,
+                                  torch.bfloat16, False, 12, 132) == FLASH_WGMMA
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])

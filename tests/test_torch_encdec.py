@@ -332,3 +332,57 @@ def test_prefix_seeding_refuses_encdec(whisper):
             None, rcfg, B, 16), 8)
     with pytest.raises(ValueError, match="encdec"):
         PT.seed_caches_from_prefix(pcfg, B, 16, snap, 8)
+
+
+# ----------------------------------------------------------- routing --
+H100_SMEM_OPTIN = 232448   # shared_memory_per_block_optin of an H100
+
+
+def _full_width_plan(cfg, kind, pages, seq_block, kv_dtype="native"):
+    sel = PSelection(PCandidate(kind=kind, p_need=pages, dram_bytes=0,
+                                flops=0, loops=(), cache_map=(),
+                                usage_limit_bytes=0), pages, 0.0)
+    plan = pplan.lower_selection(sel, pages, seq_block=seq_block,
+                                 d_model=cfg.d_model, d_ff=cfg.d_ff,
+                                 dtype_bytes=2, head_dim=cfg.hd,
+                                 kv_dtype=kv_dtype)
+    assert plan.kind == kind
+    return plan
+
+
+def test_full_width_whisper_plans_route_to_the_hopper_kinds():
+    """Full-width whisper-tiny in bf16 under the grants its paths get:
+    the decoder's prefill attention (hd 64, 448 positions, a batch of
+    2 x 6 heads on 132 SMs) takes the 64-row wgmma flash tile under the
+    smallest fused LBM grant and under LWM@32p (int8 K/V there keeps the
+    simt tile); the decode FFN (2
+    rows, d_model 384, d_ff 1536) under LBM@34p the fused FFN's gemv
+    tile, and its 896 prefill rows the wgmma tile; fp32 keeps simt."""
+    from repro_torch.core.vmem import LANE, fused_ffn_pages
+    from repro_torch.kernels import ops
+    cfg = pbase.get_arch(ARCH)
+    d, f, hd, S = cfg.d_model, cfg.d_ff, cfg.hd, 448
+    assert (d, f, hd) == (384, 1536, 64)
+    bf16 = torch.bfloat16
+    lbm = _full_width_plan(cfg, "LBM", fused_ffn_pages(S, d, f, 2), S)
+    for plan in (lbm, _full_width_plan(cfg, "LWM", 32, S)):
+        a = plan.attn
+        tile = ops.legalize_attn_tile(a.block_q, a.block_kv, hd, S,
+                                      H100_SMEM_OPTIN, bf16, False,
+                                      2 * cfg.num_heads, 132)
+        assert (tile.kind, tile.hd, tile.bq) == ("wgmma", 64, 64)
+        assert ops.legalize_attn_tile(a.block_q, a.block_kv, hd, S,
+                                      H100_SMEM_OPTIN, torch.float32
+                                      ).kind == "simt"
+    q8 = _full_width_plan(cfg, "LWM", 32, S, "int8").attn
+    assert ops.legalize_attn_tile(q8.block_q, q8.block_kv, hd, S,
+                                  H100_SMEM_OPTIN, bf16, True).kind == "simt"
+    dec = _full_width_plan(cfg, "LBM", 34, LANE).ffn
+    assert dec.fused
+    for rows, kind in ((2, "gemv"), (1, "gemv"), (896, "wgmma")):
+        blocks = (lbm.ffn.block_s, lbm.ffn.block_f) if rows > 8 else \
+            (dec.block_s, dec.block_f)
+        assert ops.legalize_ffn_tile(*blocks, rows, H100_SMEM_OPTIN, bf16, d,
+                                     f).kind == kind
+        assert ops.legalize_ffn_tile(*blocks, rows, H100_SMEM_OPTIN,
+                                     torch.float32, d, f).kind == "simt"

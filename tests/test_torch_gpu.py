@@ -42,10 +42,15 @@ MM_SHAPES = {"simt": ((37, 333, 1000),),
 
 # block_fused_ffn shapes (S, d_model, d_ff) per tile kind: ragged rows
 # (the wgmma tile is held at decode rows too, though the legalization
-# gives them the simt tile), d_model and d_ff off the tiles (d_ff not a
-# multiple of the wgmma tile's 128 x 8-block cluster); wgmma takes
-# d_model and d_ff multiples of 8 only
+# gives them the gemv tile), d_model and d_ff off the tiles (d_ff not a
+# multiple of the wgmma tile's 128 x 8-block cluster, nor of the gemv
+# tile's 64); wgmma and gemv take d_model and d_ff multiples of 8 only,
+# gemv at most 8 rows (clusters of 8, 4, 2 and 1 blocks among them on
+# an H100: kernels/block_fused_ffn.py::gemv_cluster)
 FFN_SHAPES = {"simt": ((37, 333, 1000),),
+              "gemv": ((1, 520, 1000), (2, 384, 1536), (3, 520, 1000),
+                       (7, 2560, 10240), (4, 128, 20000), (8, 64, 256),
+                       (8, 64, 33792), (5, 4104, 5512)),
               "wgmma": ((1, 520, 1000), (2, 520, 1000), (7, 520, 1000),
                         (9, 64, 256), (37, 520, 1000), (65, 520, 1000),
                         (300, 520, 1000), (300, 4096, 2056))}
@@ -64,8 +69,8 @@ QUANT_SHAPES = {"simt": ((37, 333, 1000), (2, 4096, 300), (130, 64, 97)),
 def test_cuda_kernels_match_plain_versions(dtype):
     """Each CUDA kernel against its plain version on the card, ragged
     shapes, every compiled tile of the dtype (cache_matmul's gemv and
-    wgmma tiles and block_fused_ffn's wgmma tiles in bf16, at their
-    kinds' shapes).  Count one launch per call, on the kind's counter
+    wgmma tiles and block_fused_ffn's gemv and wgmma tiles in bf16, at
+    their kinds' shapes).  Count one launch per call, on the kind's counter
     too; a gemv or wgmma tile's second launch is bitwise equal to its
     first."""
     if not torch.cuda.is_available():
@@ -149,8 +154,8 @@ def test_cuda_cache_matmul_quant_matches_plain_version(dtype, kv):
 def test_cuda_flash_attention_matches_plain_versions(dtype):
     """The CUDA kernels against their plain versions on the card, ragged
     shapes, every compiled tile of the dtype with the K/V storage it
-    takes, native and quantized (the wgmma tiles: bf16, hd 128, bitwise
-    on a repeat); the fp32 quantized path bitwise equal to the native one
+    takes, native and quantized (the wgmma tiles: bf16, hd 128 and 64,
+    bitwise on a repeat); the fp32 quantized path bitwise equal to the native one
     on dequantized K/V.  One launch per call on each counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -648,30 +653,73 @@ def _bf16_rand(gen, *shape, scale=1.0):
 def test_cuda_flash_hd64_encdec_shape_runs_simt():
     """whisper-tiny's decoder prefill under a plan: causal flash attention
     at hd 64 (B 2, 6 heads, 448 positions), bf16, which legalizes to the
-    simt tile (no wgmma tile at hd 64), against the plain version."""
+    64-row wgmma tile of hd 64 (48 blocks of 128 rows would leave most
+    SMs idle; the simt tile before hd 64 had a wgmma tile; fp32 keeps
+    simt), against the plain version, bitwise on a repeat."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(7)
     q = _bf16_rand(gen, 2, 6, 448, 64)
     k, v = _bf16_rand(gen, 2, 6, 448, 64), _bf16_rand(gen, 2, 6, 448, 64)
-    tile = ops.legalize_attn_tile(128, 128, 64, 448,
-                                  ops.smem_limit(q.device), q.dtype)
-    assert tile.kind == "simt" and tile.hd == 64
-    before = kfa.launches_by_kind["simt"]
+    limit = ops.smem_limit(q.device)
+    tile = ops.legalize_attn_tile(128, 128, 64, 448, limit, q.dtype, False,
+                                  12, ops.sm_count(q.device))
+    assert (tile.kind, tile.hd, tile.bq) == ("wgmma", 64, 64)
+    assert ops.legalize_attn_tile(128, 128, 64, 448, limit,
+                                  torch.float32).kind == "simt"
+    before = kfa.launches_by_kind["wgmma"]
     got = ops.attention(q, k, v, causal=True, block_q=128, block_kv=128)
-    assert kfa.launches_by_kind["simt"] == before + 1
+    assert kfa.launches_by_kind["wgmma"] == before + 1
     torch.testing.assert_close(got.float(),
                                kfa.flash_attention_plain(q, k, v,
                                                          True).float(),
                                **FLASH_TOL["bfloat16"])
+    assert torch.equal(got, ops.attention(q, k, v, causal=True, block_q=128,
+                                          block_kv=128))
+
+
+# hd-64 wgmma flash shapes (B, H, Hkv, S, Sk, causal): ragged S and Sk
+# against both q tiles, S != Sk, GQA, a prompt shorter than one KV tile
+FLASH_HD64_SHAPES = ((1, 8, 2, 333, 333, True), (1, 8, 2, 333, 333, False),
+                     (1, 8, 2, 200, 520, False), (2, 6, 6, 40, 40, True),
+                     (1, 4, 4, 1, 1, True), (2, 6, 6, 1500, 1500, False))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_hd64_wgmma_ragged_shapes():
+    """Both hd-64 wgmma tiles (128 and 64 q rows) at ragged shapes
+    against the plain version at the bf16 flash tolerance, bitwise on a
+    repeat; without the grid the legalization gives prompts of up to 64
+    rows the 64-row tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tiles = [t for t in kfa.TILES if t.kind == "wgmma" and t.hd == 64]
+    assert sorted(t.bq for t in tiles) == [64, 128]
+    limit = ops.smem_limit(torch.device("cuda"))
+    for b, h, hkv, s, sk, causal in FLASH_HD64_SHAPES:
+        q = _bf16_rand(gen, b, h, s, 64)
+        k, v = _bf16_rand(gen, b, hkv, sk, 64), _bf16_rand(gen, b, hkv, sk, 64)
+        want = kfa.flash_attention_plain(q, k, v, causal).float()
+        assert ops.legalize_attn_tile(128, 128, 64, s, limit, q.dtype).bq \
+            == (64 if s <= 64 else 128)
+        for tile in tiles:
+            before = kfa.launches_by_kind["wgmma"]
+            got = kfa.flash_attention(q, k, v, causal, tile)
+            assert kfa.launches_by_kind["wgmma"] == before + 1
+            torch.testing.assert_close(got.float(), want,
+                                       **FLASH_TOL["bfloat16"])
+            assert torch.equal(got, kfa.flash_attention(q, k, v, causal,
+                                                        tile))
 
 
 @pytest.mark.gpu
 def test_cuda_fused_ffn_encdec_decode_runs_simt():
     """whisper-tiny's decode FFN under its LBM grant: 2 rows, d_model 384,
-    d_ff 1536, bf16, on the 8-row simt decode tile, against the plain
-    version."""
+    d_ff 1536, bf16, on the gemv decode tile (the 8-row simt tile before;
+    fp32 keeps simt), against the plain version, bitwise on a repeat."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ops
@@ -681,15 +729,46 @@ def test_cuda_fused_ffn_encdec_decode_runs_simt():
     wg, wu = _bf16_rand(gen, d, f, scale=d ** -0.5), _bf16_rand(
         gen, d, f, scale=d ** -0.5)
     wd = _bf16_rand(gen, f, d, scale=f ** -0.5)
-    tile = ops.legalize_ffn_tile(128, 128, 2, ops.smem_limit(x.device),
-                                 x.dtype, d, f)
-    assert (tile.kind, tile.bs) == ("simt", 8)
-    before = kffn.launches_by_kind["simt"]
+    limit = ops.smem_limit(x.device)
+    tile = ops.legalize_ffn_tile(128, 128, 2, limit, x.dtype, d, f)
+    assert (tile.kind, tile.bs) == ("gemv", 8)
+    assert ops.legalize_ffn_tile(128, 128, 2, limit, torch.float32, d,
+                                 f).kind == "simt"
+    before = kffn.launches_by_kind["gemv"]
     got = ops.fused_ffn(x, wg, wu, wd, block_s=128, block_f=128)
-    assert kffn.launches_by_kind["simt"] == before + 1
+    assert kffn.launches_by_kind["gemv"] == before + 1
     torch.testing.assert_close(
         got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
         **MATMUL_TOL["bfloat16"])
+    assert torch.equal(got, ops.fused_ffn(x, wg, wu, wd, block_s=128,
+                                          block_f=128))
+
+
+@pytest.mark.gpu
+def test_cuda_fused_ffn_yi9b_decode_runs_gemv():
+    """yi-9b's decode FFN under an LBM grant: 2 rows, d_model 4096, d_ff
+    11008, bf16, on the gemv tile (clusters of 2 blocks on an H100),
+    against the plain version, bitwise on a repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    d, f = 4096, 11008
+    x = _bf16_rand(gen, 2, d)
+    wg, wu = _bf16_rand(gen, d, f, scale=d ** -0.5), _bf16_rand(
+        gen, d, f, scale=d ** -0.5)
+    wd = _bf16_rand(gen, f, d, scale=f ** -0.5)
+    tile = ops.legalize_ffn_tile(128, 128, 2, ops.smem_limit(x.device),
+                                 x.dtype, d, f)
+    assert tile.kind == "gemv"
+    before = kffn.launches_by_kind["gemv"]
+    got = ops.fused_ffn(x, wg, wu, wd, block_s=128, block_f=128)
+    assert kffn.launches_by_kind["gemv"] == before + 1
+    torch.testing.assert_close(
+        got.float(), kffn.block_fused_ffn_plain(x, wg, wu, wd).float(),
+        **MATMUL_TOL["bfloat16"])
+    assert torch.equal(got, ops.fused_ffn(x, wg, wu, wd, block_s=128,
+                                          block_f=128))
 
 
 @pytest.mark.gpu

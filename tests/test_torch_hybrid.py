@@ -501,7 +501,7 @@ def test_full_width_shapes_route_to_the_hopper_kinds():
     tile and its prefill GEMMs (2048 rows) the wgmma tile under the LWM
     grants; the fused FFN at 2048 rows takes block_fused_ffn's wgmma tile
     under every LBM grant up to the widest block (the 2-row decode its
-    simt tile); ssd_chunk at N 64, P 64 its wgmma kind (fp32: simt)."""
+    gemv tile); ssd_chunk at N 64, P 64 its wgmma kind (fp32: simt)."""
     cfg = pbase.get_arch(ARCH)
     d, f, bf16 = cfg.d_model, cfg.d_ff, torch.bfloat16
     assert (d, f, cfg.ssm_state, cfg.ssm_head_dim) == (2560, 10240, 64, 64)
@@ -519,7 +519,7 @@ def test_full_width_shapes_route_to_the_hopper_kinds():
                                      H100_SMEM, bf16, d, f)
         assert tile.kind == "wgmma" and tile.smem_bytes <= H100_SMEM
         assert ops.legalize_ffn_tile(lbm.block_s, lbm.block_f, 2, H100_SMEM,
-                                     bf16, d, f).kind == "simt"
+                                     bf16, d, f).kind == "gemv"
     assert pplan.lower_ffn(1024, d, f, 2, 1184, True).block_f == 1024
     assert ops.ssd_kind(bf16, cfg.ssm_state, cfg.ssm_head_dim) == "wgmma"
     assert ops.ssd_kind(torch.float32, cfg.ssm_state,

@@ -192,10 +192,13 @@ def test_compiled_tiles_fit_hopper_shared_memory():
     for t in kffn.TILES:
         assert t.smem_bytes <= H100_SMEM_OPTIN
         assert (t.bs // t.tm) * (t.bf // t.tn) <= 1024
-        assert t.kind in ("simt", "wgmma") and set(t.dtypes) <= set(kmm.DTYPES)
+        assert t.kind in kmm.KINDS and set(t.dtypes) <= set(kmm.DTYPES)
         if t.kind == "wgmma":          # warpgroups of 64 rows, 128-wide d_ff
             assert t.bs % 64 == 0 and t.tm == 64 and t.tn == t.bf == 128
             assert t.dtypes == (torch.bfloat16,) and t.bk == 64
+        if t.kind == "gemv":           # decode rows, 8 d_ff columns a thread
+            assert (t.bs, t.bf, t.tm, t.tn) == (8, 64, 8, 8)
+            assert t.dtypes == (torch.bfloat16,)
 
 
 @pytest.mark.parametrize("menu", ["cache_matmul", "cache_matmul_quant",
@@ -328,15 +331,17 @@ def test_menus_mirror_the_cuda_sources():
             assert t.kind == "gemv"
     src = (Path(pvmem.__file__).parents[1] / "csrc" /
            "block_fused_ffn.cu").read_text()
-    menu = re.findall(r"using F(\d+) = (FfnTile<([\d, ]+)>|FfnWgmma<(\d+)>);",
-                      src)
+    menu = re.findall(r"using F(\d+) = (FfnTile<([\d, ]+)>|FfnWgmma<(\d+)>"
+                      r"|FfnGemv);", src)
     assert [int(i) for i, *_ in menu] == list(range(len(kffn.TILES)))
-    for (_, _, simt, wbs), t in zip(menu, kffn.TILES):
+    for (_, name, simt, wbs), t in zip(menu, kffn.TILES):
         if simt:
             assert (t.kind, t.bs, t.bf, t.bk, t.tm, t.tn) == \
                 ("simt", *map(int, simt.split(",")))
-        else:
+        elif wbs:
             assert (t.kind, t.bs, t.bf) == ("wgmma", int(wbs), 128)
+        else:
+            assert name == "FfnGemv" and t.kind == "gemv"
         assert build.menu_fields(t) == t.menu_fields()
 
 
@@ -354,8 +359,8 @@ def test_legalized_ffn_tile_keeps_the_hidden_tile_under_the_plan(pages, s,
     assert hop.smem_bytes <= H100_SMEM_OPTIN
     assert hop.bs >= min(s, max(t.bs for t in kffn.TILES
                                 if t.kind == hop.kind))
-    assert hop.kind == ("wgmma" if dtype == torch.bfloat16 and s > 8
-                        else "simt")
+    assert hop.kind == ("simt" if dtype != torch.bfloat16
+                        else "wgmma" if s > 8 else "gemv")
 
 
 @pytest.mark.parametrize("seq,pages", [(1024, None), (1024, 600), (128, 324),
@@ -363,8 +368,8 @@ def test_legalized_ffn_tile_keeps_the_hidden_tile_under_the_plan(pages, s,
 def test_full_width_lbm_plans_legalize_ffn_to_wgmma(seq, pages):
     """bf16 prefill rows under full-width yi-9b LBM plans (the smallest
     fused grant at seq 1024 gives [256, 128]) take the 128-row wgmma tile,
-    never above the plan's [block_s, block_f]; decode rows stay on the
-    simt tile F0 (8 x 64)."""
+    never above the plan's [block_s, block_f]; decode rows take the gemv
+    tile F6 (8 x 64; the simt tile F0 before it)."""
     d, f = 4096, 11008
     pages = pages or pvmem.fused_ffn_pages(seq, d, f, 2)
     plan = pplan.lower_ffn(seq, d, f, 2, pages, want_fused=True)
@@ -372,7 +377,7 @@ def test_full_width_lbm_plans_legalize_ffn_to_wgmma(seq, pages):
     if seq == 1024 and pages == pvmem.fused_ffn_pages(seq, d, f, 2):
         assert (plan.block_s, plan.block_f) == (256, 128)
     for s, want in ((2048, (128, "wgmma")), (300, (128, "wgmma")),
-                    (37, (64, "wgmma")), (2, (8, "simt"))):
+                    (37, (64, "wgmma")), (2, (8, "gemv"))):
         hop = ops.legalize_ffn_tile(plan.block_s, plan.block_f, s,
                                     H100_SMEM_OPTIN, torch.bfloat16, d, f)
         assert (hop.bs, hop.kind) == want, s
@@ -382,9 +387,13 @@ def test_full_width_lbm_plans_legalize_ffn_to_wgmma(seq, pages):
 
 @pytest.mark.parametrize("s,d,f,kind", [
     (2048, 4096, 11008, "wgmma"), (37, 520, 1000, "wgmma"),
-    (8, 520, 1000, "simt"),        # decode rows stay on the simt tile
+    (8, 520, 1000, "gemv"),        # decode rows: the gemv tile
+    (2, 4096, 11008, "gemv"), (1, 384, 1536, "gemv"),
+    (9, 520, 1000, "wgmma"),
     (37, 333, 1000, "simt"),       # d_model % 8: x rows unaligned for TMA
-    (37, 520, 1002, "simt")])      # d_ff % 8
+    (37, 520, 1002, "simt"),       # d_ff % 8
+    (2, 333, 1000, "simt"),        # ... and for the gemv tile's vectors
+    (2, 520, 1002, "simt")])
 def test_ffn_legalization_routes_by_dtype_rows_and_alignment(s, d, f, kind):
     hop = ops.legalize_ffn_tile(256, 128, s, H100_SMEM_OPTIN, torch.bfloat16,
                                 d, f)
@@ -419,3 +428,103 @@ def test_legalization_floor_when_no_tile_fits():
             assert ops.legalize_ffn_tile(4, 4, s, H100_SMEM_OPTIN, dtype,
                                          4096, 11008) == \
                 min(kffn.TILES, key=lambda t: (t.bs * t.bf, t.smem_bytes))
+
+
+# ------------------------------------------- block_fused_ffn's gemv kind --
+def _cu_ints(src: str, names, env=None):
+    """The values of ``constexpr int name = expr;`` declarations in a CUDA
+    source, evaluated in order (C++ integer division)."""
+    env = dict(env or {})
+    for name in names:
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+        env[name] = eval(re.sub(r"(?<!/)/(?!/)", "//", expr), {}, env)
+    return env
+
+
+def test_ffn_gemv_menu_entry_mirrors_the_cuda_struct():
+    """The gemv menu entry (kind, dtypes, block, shared memory at its 8
+    rows) is csrc/block_fused_ffn.cu's FfnGemv, whose shared memory is
+    ffn_gemv_floats(8) floats, within 232,448 bytes."""
+    src = (Path(pvmem.__file__).parents[1] / "csrc" /
+           "block_fused_ffn.cu").read_text()
+    env = _cu_ints(src, ("FG_BF", "FG_BK", "FG_THREADS", "FG_MAX_S"))
+    body = src.split("constexpr int ffn_gemv_floats(int mt) {", 1)[1]
+    floats = re.search(r"return ([^;]+);", body).group(1)
+    smem = 4 * eval(floats.replace("mt", "FG_MAX_S"), {}, env)
+    tile = next(t for t in kffn.TILES if t.kind == "gemv")
+    assert tile.menu_fields() == (
+        kmm.KINDS.index("gemv"), 2, env["FG_MAX_S"], env["FG_BF"],
+        env["FG_BK"], env["FG_MAX_S"], 8, smem)
+    assert kffn.GEMV_THREADS == env["FG_THREADS"]
+    assert tile.smem_bytes == smem <= H100_SMEM_OPTIN
+    assert "struct FfnGemv" in src and "using F6 = FfnGemv;" in src
+
+
+@pytest.mark.parametrize("d,f,want", [(4096, 11008, 2), (384, 1536, 4),
+                                      (2560, 10240, 2), (4096, 5504, 4),
+                                      (520, 1000, 8), (64, 256, 1),
+                                      (128, 20000, 1), (4104, 5512, 4)])
+def test_gemv_cluster_fills_the_card(d, f, want):
+    """The gemv kind's cluster on an H100 (132 SMs): the fewest blocks a
+    64-wide d_ff tile that give two blocks an SM, at least 64 d_model
+    rows a block, at most 8; every block keeps a 16-byte vector of Wd's
+    columns (the source refuses a cluster above d / 8)."""
+    c = kffn.gemv_cluster(d, f, 132)
+    assert c == want and c in (1, 2, 4, 8) and c <= d // 8
+    tiles = -(-f // 64)
+    assert tiles * c >= 2 * 132 or c == 8 or 2 * c > d // 64
+    assert c == 1 or tiles * (c // 2) < 2 * 132
+
+
+def test_partial_bytes_of_the_gemv_tile():
+    """One fp32 [S, d] slab a 64-wide d_ff tile (its cluster writes it
+    once): yi-9b's decode, 2 x 4096 at d_ff 11008, 172 slabs, 5.6 MB
+    against 270 MB of weights; whisper-tiny's 24."""
+    gemv = ops.legalize_ffn_tile(128, 128, 2, H100_SMEM_OPTIN,
+                                 torch.bfloat16, 4096, 11008)
+    assert gemv.kind == "gemv"
+    assert kffn.partial_bytes(gemv, 2, 4096, 11008) == 4 * 172 * 2 * 4096
+    assert kffn.partial_bytes(gemv, 2, 384, 1536) == 4 * 24 * 2 * 384
+
+
+def _gemv_emulation(x, wg, wu, wd, cluster):
+    """The gemv kind's sum order and cast points in torch fp32: d_model
+    cut into ``cluster`` ranges [r d / C, (r + 1) d / C), the ranges' g
+    and u partials added in rank order, h = silu(g) * u rounded to x's
+    dtype, one fp32 [S, d] slab a 64-wide d_ff tile, the slabs added in
+    tile order and cast to x's dtype."""
+    s, d = x.shape
+    f = wg.shape[1]
+    xf, gf, uf, df = (t.float() for t in (x, wg, wu, wd))
+    g = u = torch.zeros(s, f)
+    for r in range(cluster):
+        kb, ke = r * d // cluster, (r + 1) * d // cluster
+        g = g + xf[:, kb:ke] @ gf[kb:ke]
+        u = u + xf[:, kb:ke] @ uf[kb:ke]
+    h = (g / (1 + torch.exp(-g)) * u).to(x.dtype).float()
+    y = torch.zeros(s, d)
+    for f0 in range(0, f, 64):
+        y = y + h[:, f0:f0 + 64] @ df[f0:f0 + 64]
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("s,d,f", [(2, 384, 1536), (1, 520, 1000),
+                                   (8, 64, 256), (5, 256, 200)])
+def test_gemv_emulation_matches_reference(s, d, f):
+    """The gemv kind, emulated at its own cluster (132 SMs) and at every
+    other size, against the reference's Pallas kernel (interpret mode)
+    and the plain version at the bf16 tolerance, on bf16 inputs; the
+    legalization gives these shapes the gemv tile."""
+    (xj, gj, uj, dj), (xt, gt, ut, dt) = _ffn_inputs(
+        np.random.default_rng(9), s, d, f, "bfloat16")
+    assert ops.legalize_ffn_tile(128, 128, s, H100_SMEM_OPTIN, torch.bfloat16,
+                                 d, f).kind == "gemv"
+    want = _np(ref_block_fused_ffn(xj, gj, uj, dj, block_s=s, block_f=f))
+    plain = _np(kffn.block_fused_ffn_plain(xt, gt, ut, dt))
+    clusters = {kffn.gemv_cluster(d, f, 132)} | {
+        c for c in (1, 2, 4, 8) if c <= d // 8}
+    for c in sorted(clusters):
+        got = _gemv_emulation(xt, gt, ut, dt, c)
+        assert got.dtype == torch.bfloat16 and got.shape == (s, d)
+        np.testing.assert_allclose(_np(got), want, **tol("bfloat16"))
+        np.testing.assert_allclose(_np(got), plain, **tol("bfloat16"))
