@@ -355,6 +355,18 @@ Phases, each printed as one JSON object with its seconds:
   with their report folder under ``build/chip_smoke/`` (the committed
   reports stay as they are); its argument bytes printed beside the
   reference's XLA figure.
+* ``paper``: the analytic simulator's figure drivers from the port
+  alone (``repro_torch.paper``: Figs. 2, 3, 7, 8, 9, Table III and the
+  arrival sweep, each ``main()`` once at the reference's sizes) and
+  ``python -m repro_torch.examples.quickstart``, on the card's host:
+  they price the paper's simulated NPU SoC and launch nothing.  Each
+  driver's CSV line and wall seconds are recorded, and the
+  reference's acceptance bands (:data:`PAPER_BANDS`, from
+  tests/test_sim.py and tests/test_codegen.py) are held: Fig. 7's
+  average speedup and memory reduction, the area model's Table III
+  shares, Fig. 3's reuse shares, and ``run_candidate``'s executed DRAM
+  bytes against the mapper's.  No module of JAX (``jax``, ``jaxlib``,
+  ``flax``) or of the JAX package (``repro``, ``benchmarks``) is loaded.
 
 Then it prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -659,6 +671,27 @@ DRYRUN = dict(prefill=dict(arch="yi-9b", batch=2, seq_len=2048),
               # the reference's XLA figure for the CLI's cell
               # (experiments/dryrun/whisper-tiny__decode_32k__2x16x16.json)
               xla_argument_bytes=109_250_324)
+
+
+# the paper phase: the figure drivers (repro_torch.paper) in the order
+# of the reference's benchmarks/run.py, and the reference's acceptance
+# bands as numbers: tests/test_sim.py:118-149 (Fig. 7), :152-166 (the
+# area model, (expected, relative or absolute tolerance)), :169-176
+# (Fig. 3), tests/test_codegen.py:72-82 (run_candidate within 2% of the
+# mapper's analytic DRAM bytes)
+PAPER = ("fig2_contention", "fig3_reuse", "fig7_speedup", "fig8_scaling",
+         "fig9_qos", "table3_area", "arrival_sweep")
+PAPER_BANDS = dict(
+    speedup_avg=(1.5, 2.4), speedup_max=3.0, mem_reduction=(0.25, 0.45),
+    npu={"NPU": (7905e3, "rel", 0.05), "Scratchpad": (0.797, "abs", 0.02),
+         "PE Array": (0.165, "abs", 0.02), "CPT": (0.009, "abs", 0.004)},
+    slice={"Cache Slice": (24676e3, "rel", 0.05),
+           "Data Array": (0.887, "abs", 0.02),
+           "Tag Array": (0.097, "abs", 0.02), "NEC": (0.003, "abs", 0.002)},
+    no_reuse=(55, 80), over_1mb=(45, 80),
+    codegen=((512, 1024, 2048, 0), (512, 1024, 2048, 12 * 2**20),
+             (100, 70, 3000, 2**20), (333, 129, 777, 2**20)),
+    codegen_rel=0.02)
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -5749,6 +5782,113 @@ def dryrun_main_path(dev, cells=None):
     return out
 
 
+def _paper_driver(name: str):
+    """``repro_torch.paper.<name>``: (its ``run(verbose=False)``, the
+    CSV line its ``main()`` emits over that result with the run's wall
+    time, and the wall seconds)."""
+    import contextlib
+    import importlib
+    import io
+    from repro_torch.paper import common
+    mod = importlib.import_module(f"repro_torch.paper.{name}")
+    t0 = time.perf_counter()
+    res = mod.run(verbose=False)
+    secs = time.perf_counter() - t0
+    run, mod.run = mod.run, lambda verbose=True: res
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            mod.main()
+    finally:
+        mod.run = run
+    return res, f"{name},{secs * 1e6:.0f},{common.RESULTS[name]['derived']}", secs
+
+
+def _in_band(value, band) -> bool:
+    want, kind, tol = band
+    return abs(value - want) <= (tol * abs(want) if kind == "rel" else tol)
+
+
+def paper_main_path():
+    """The paper's figures from the port alone: every driver of
+    :data:`PAPER` and the quickstart, then the reference's bands
+    (:data:`PAPER_BANDS`).  A broken band fails the phase."""
+    import os
+    from repro_torch.core.cache import CacheConfig, SharedCache
+    from repro_torch.core.codegen import run_candidate
+    from repro_torch.core.mapping import MapperConfig, map_layer_lwm
+    from repro_torch.core.nec import Nec
+    from repro_torch.core.types import GemmDims, LayerKind, LayerSpec
+    from repro_torch.sim.area import cache_slice_area, npu_area
+    B = PAPER_BANDS
+    out, results, broken = {"drivers": {}}, {}, []
+    for name in PAPER:
+        results[name], csv, secs = _paper_driver(name)
+        out["drivers"][name] = {"seconds": secs, "csv": csv}
+    t0 = time.perf_counter()
+    qs = subprocess.run([sys.executable, "-m",
+                         "repro_torch.examples.quickstart"],
+                        capture_output=True, text=True, timeout=300,
+                        env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=ROOT)
+    out["quickstart"] = {"seconds": time.perf_counter() - t0,
+                         "rc": qs.returncode, "lines": qs.stdout.splitlines()}
+    if (qs.returncode or not qs.stdout.splitlines()
+            or not qs.stdout.splitlines()[-1].startswith("Makespan")):
+        broken.append(f"quickstart rc {qs.returncode}: {qs.stderr[-2000:]}")
+
+    f7 = out["fig7"] = results["fig7_speedup"]
+    lo, hi = B["speedup_avg"]
+    if not (lo <= f7["avg_full"] <= hi and f7["max_full"] <= B["speedup_max"]):
+        broken.append(f"fig7 speedup avg {f7['avg_full']} max "
+                      f"{f7['max_full']}")
+    lo, hi = B["mem_reduction"]
+    if not lo <= f7["mem_reduction"] <= hi:
+        broken.append(f"fig7 memory reduction {f7['mem_reduction']}")
+    areas = {"npu": (npu_area(), "NPU"),
+             "slice": (cache_slice_area(), "Cache Slice")}
+    out["area"] = {}
+    for part, (a, whole) in areas.items():
+        for key, band in B[part].items():
+            v = a[key] if key == whole else a[key] / a[whole]
+            out["area"][f"{part}/{key}"] = v
+            if not _in_band(v, band):
+                broken.append(f"area {part}/{key} {v} outside {band}")
+    r = results["fig3_reuse"]
+    reuse = {"no_reuse": r.pct_no_reuse, "over_1mb": r.pct_distance_over(2**20),
+             "over_2mb": r.pct_distance_over(2 * 2**20)}
+    out["reuse"] = reuse
+    for key in ("no_reuse", "over_1mb"):
+        lo, hi = B[key]
+        if not lo <= reuse[key] <= hi:
+            broken.append(f"reuse {key} {reuse[key]} outside {B[key]}")
+    if reuse["over_2mb"] > reuse["over_1mb"]:
+        broken.append(f"reuse >2MB {reuse['over_2mb']} above >1MB")
+    out["codegen"] = []
+    for m, k, n, budget in B["codegen"]:
+        layer = LayerSpec("l", LayerKind.GEMM, (GemmDims(m, n, k),),
+                          input_bytes=m * k, output_bytes=m * n,
+                          weight_bytes=k * n, elem_bytes=1)
+        cand = map_layer_lwm(layer, budget, MapperConfig())
+        cache = SharedCache(CacheConfig())
+        executed = run_candidate(layer, cand, cache, Nec(cache), "t")
+        out["codegen"].append({"case": [m, k, n, budget],
+                               "executed": executed,
+                               "analytic": cand.dram_bytes})
+        if (abs(executed - cand.dram_bytes) > B["codegen_rel"]
+                * cand.dram_bytes
+                or cache.free_pages != cache.config.num_pages):
+            broken.append(f"codegen {m}x{k}x{n}@{budget}: executed "
+                          f"{executed} vs analytic {cand.dram_bytes}")
+    banned = ("jax", "jaxlib", "flax", "repro", "benchmarks")
+    loaded = sorted(n for n in sys.modules
+                    if n.split(".")[0] in banned)
+    if loaded:
+        broken.append(f"loaded {loaded}")
+    out["bands"] = {k: v for k, v in B.items() if k != "codegen"}
+    if broken:
+        raise AssertionError(f"paper: {broken}")
+    return out
+
+
 def _release():
     """Free what the last phase left before the next one starts: collect
     its reference cycles (a server and its tenants refer to each other),
@@ -5912,6 +6052,8 @@ def main() -> int:
                                  train_cli_counts)
     _release()
     report["dryrun"] = _phase("dryrun", dryrun_main_path, dev)
+    _release()
+    report["paper"] = _phase("paper", paper_main_path)
 
     timings = report["kernels"]["timings"]
     csrc = "src/repro_torch/csrc/"

@@ -1,9 +1,10 @@
 """CaMDN core, copied from the JAX package (framework-free scheduling:
 shared cache, cache-aware mapping, dynamic allocation, NEC, KernelPlan
-lowering).  ``codegen`` is not part of the serving path and is not
-copied."""
+lowering, and ``codegen``, which unrolls a mapping candidate into NEC
+commands for the simulator and the mapper's DRAM-model check)."""
 from repro_torch.core.allocator import DynamicCacheAllocator, Selection, TaskProfile
 from repro_torch.core.cache import CacheConfig, SharedCache
+from repro_torch.core.codegen import generate_gemm_program, run_candidate
 from repro_torch.core.cpt import CachePageTable, CptFault
 from repro_torch.core.lbm import LbmConfig, build_model_mapping, segment_blocks
 from repro_torch.core.mapping import MapperConfig, build_mct, map_layer_lwm
@@ -18,7 +19,8 @@ from repro_torch.core.runtime import TenantModel, TenantTask
 from repro_torch.core.types import GemmDims, LayerKind, LayerSpec, ModelGraph
 
 __all__ = [
-    "CacheConfig", "SharedCache", "CachePageTable", "CptFault", "Nec",
+    "CacheConfig", "SharedCache", "generate_gemm_program", "run_candidate",
+    "CachePageTable", "CptFault", "Nec",
     "NecError", "Traffic", "MapperConfig", "build_mct", "map_layer_lwm",
     "LbmConfig", "build_model_mapping", "segment_blocks", "MCT",
     "MappingCandidate", "ModelMapping", "LoopTable", "CacheMapEntry",

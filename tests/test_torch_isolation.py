@@ -41,8 +41,9 @@ def test_source_imports_neither_jax_nor_repro(path):
 def test_every_kernel_and_the_ssm_slice_are_covered():
     """The sources above include the SSM and MoE slices' modules, the
     serve features' (checkpoint, straggler detector, fault schedule), the
-    training slice's and the dry run's, and every CUDA source the build
-    compiles sits beside them."""
+    training slice's, the dry run's and the simulator's with the paper's
+    figure drivers, and every CUDA source the build compiles sits beside
+    them."""
     from repro_torch.kernels import build
     names = {p.relative_to(PORT).as_posix() for p in SOURCES
              if p.is_relative_to(PORT)}
@@ -54,7 +55,14 @@ def test_every_kernel_and_the_ssm_slice_are_covered():
             "examples/train_100m.py", "distributed/sharding.py",
             "distributed/tensor_parallel.py",
             "examples/multi_tenant_serve.py", "launch/dryrun.py",
-            "launch/cost_analysis.py", "launch/roofline.py"} <= names
+            "launch/cost_analysis.py", "launch/roofline.py",
+            "core/codegen.py", "sim/engine.py", "sim/schedulers.py",
+            "sim/workloads.py", "sim/reuse.py", "sim/area.py",
+            "sim/driver.py", "paper/common.py", "paper/fig2_contention.py",
+            "paper/fig3_reuse.py", "paper/fig7_speedup.py",
+            "paper/fig8_scaling.py", "paper/fig9_qos.py",
+            "paper/table3_area.py", "paper/arrival_sweep.py",
+            "examples/quickstart.py"} <= names
     assert {"ssd_chunk", "ssd_chunk_bwd"} <= set(build.SOURCES)
     for name in build.SOURCES:
         assert (PORT / "csrc" / f"{name}.cu").is_file(), name
