@@ -60,8 +60,10 @@ Phases, each printed as one JSON object with its seconds:
   graph pool bytes and program-cache counters.  Then three warm
   ``run()`` calls of the same server (the resident alone), each of which
   must build nothing (no capture, no LRU miss, ``epoch_compiles`` all
-  0), with their median tokens/s and spread; then one replayed decode
-  epoch is profiled for where the time goes.
+  0), with their median tokens/s and spread; then a decode item of the
+  resident is replayed against its eager run, bitwise (every serve
+  phase does so), and one replayed decode epoch is profiled for where
+  the time goes.
 * ``self``: serial (eager) against pipelined (graphs) serving on the
   card, token streams bitwise equal: full width (4 layers) in a starved
   pool, granted LWM, its two residents one bucket, and the reduced width
@@ -247,7 +249,8 @@ Phases, each printed as one JSON object with its seconds:
   (:data:`SELF_ENCDEC`).  The ``graphs`` phase holds whisper's items
   too, and the kernels phase holds flash attention at whisper's and
   llava's prefill shapes against the plain version and times the
-  kernels at both archs' shapes (``encdec_vlm_timings``).
+  kernels at both archs' shapes (``encdec_vlm_timings``).  Its LWM@32p
+  int8 plan runs the quantized flash kernel's wgmma tile at hd 64.
 * ``e2e_vlm``: the VLM slice, llava-next-mistral-7b cut to 4 layers
   (:data:`VLM_E2E`): ``make_prefill`` of 2 x (576 patch embeddings + 40
   tokens) under an LBM plan (native KV) and an LWM@32p int8 plan, every
@@ -258,8 +261,22 @@ Phases, each printed as one JSON object with its seconds:
   and against a plain-attention control); every launch wgmma; timed and
   profiled.
 * ``serve_vlm``: ``serve``'s function on full-depth llava-next
-  (:data:`SERVE_VLM`: a resident and a 256-token arrival, the pool the
+  (:data:`SERVE_QUOTE`: a resident and a 256-token arrival, the pool the
   arrival's quote and 324 pages): every decode launch of the gemv kind.
+
+* ``prefill_<arch>`` / ``serve_<arch>``: the four registered archs no
+  earlier phase runs, at their published widths (:data:`MORE_ARCHS`):
+  granite-3-8b (d_ff 12,800), mistral-nemo-12b (attention 4096 wide
+  beside a 5120-wide residual), starcoder2-15b (48:4 GQA, d_ff 24,576),
+  all 40 layers, and kimi-k2-1t-a32b cut to 1 layer of 61 (head dim
+  112, 384 experts, top 8; two layers' weights would leave too little
+  of the card).  ``prefill``'s function (kimi: ``moe_prefill_plans``;
+  its flash and quantized flash launches wgmma at hd 112, none simt),
+  then ``serve``'s (:data:`SERVE_QUOTE`, as serve_vlm, but resident and
+  arrival on one weight set: two starcoder2-15b sets would be 88 GB;
+  kimi's decode, like olmoe's, launches no kernel).  The kernels phase holds
+  flash attention at kimi's prefill shape (hd 112) and quantized at
+  whisper's (hd 64) and times both (``arch_timings``).
 
 * ``serve_fleet``: the fleet slice (:data:`SERVE_FLEET`).  The
   reference's ``fleet`` entry at full width: a ``FleetServer`` of 2
@@ -575,6 +592,7 @@ ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "llava-next-mistral-7b"
 # FFN's gemv tile; LWM@3p: cache_matmul's gemv)
 ENCDEC_E2E = dict(batch=2, prompt_len=448, lwm_pages=32, decode_lbm_pages=34,
                   decode_lwm_pages=3)
+# (the LWM@32p grant also with int8 KV: quantized flash at hd 64)
 # serve_encdec (serve_main_path's arguments but the pool): a resident and
 # a 64-token arrival at step 8, batch 2, max_len 448, in a pool of the
 # arrival's native quote and the decode FFN's LBM candidate (24 + 15
@@ -599,10 +617,21 @@ SELF_ENCDEC = dict(batch=2, max_len=448, steps=16, budget=8, arrival=(4.0, 64),
 # e2e_vlm: 4 layers, make_prefill of 2 x (576 patches + 40 tokens) under
 # an LBM plan (native KV) and an LWM@32p int8 plan
 VLM_E2E = dict(layers=4, batch=2, prompt_len=40, lwm_pages=32)
-# serve_vlm: serve's arguments, in a pool of the arrival's native quote
-# and the serve phase's 324 pages of headroom (no LBM candidate at full
-# width, as for yi-9b)
-SERVE_VLM = dict(batch=2, max_len=512, steps=32, arrival=ARRIVAL, headroom=324)
+# serve_vlm and serve_<arch>: serve's arguments, in a pool of the
+# arrival's native quote and the serve phase's 324 pages of headroom (no
+# LBM candidate at full width, as for yi-9b)
+SERVE_QUOTE = dict(batch=2, max_len=512, steps=32, arrival=ARRIVAL,
+                   headroom=324)
+# the four archs no earlier phase runs, at their published widths (label,
+# arch, layers kept: None for all).  kimi-k2's 61 layers are cut to one:
+# its weights are 0.6 GB a layer outside the experts and 33.8 GB of
+# experts (384 x 3 x 7168 x 2048 bf16), beside 4.7 GB of embedding and
+# unembedding, so two layers (~72.6 GB) would leave too little of 80 GB
+# for the activations, the decode expert gather and the graph pools
+MORE_ARCHS = (("granite", "granite-3-8b", None),
+              ("nemo", "mistral-nemo-12b", None),
+              ("starcoder2", "starcoder2-15b", None),
+              ("kimi", "kimi-k2-1t-a32b", 1))
 # the fleet slice.  serve_fleet: the reference's `fleet` benchmark entry
 # (benchmarks/run.py:279-292: identical prompt tenants arriving together,
 # batch 1, max_len 2048, epoch_len 8, 12 decode steps, 256-token
@@ -872,16 +901,17 @@ def kernel_cases(cfg, dev):
     return rows
 
 
-def flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg):
+def flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg, kimi_cfg):
     """flash_attention and flash_attention_quantized (int8, fp8) against
     their plain versions: the prefill path's shape, the MoE prefill's
     (olmoe: as many K/V heads as query heads), whisper's decoder prefill
-    (2 x 448 positions, 6 heads of 64) and llava's (2 x 1600 positions,
-    32 / 8 heads of 128), a non-causal one,
-    ragged S and Sk (also S != Sk), a short prompt and hd 32, with the
-    tiles that plans under several grants legalize to (bf16 at hd 128:
-    the wgmma kernels, native and quantized, bitwise on a repeat); bf16
-    and fp32.  In fp32 the quantized kernel must equal the native kernel
+    (2 x 448 positions, 6 heads of 64), llava's (2 x 1600 positions,
+    32 / 8 heads of 128) and kimi-k2's (2 x 1024, 64 / 8 heads of 112),
+    a non-causal one,
+    ragged S and Sk (also S != Sk, at hd 112 too), a short prompt and hd
+    32, with the tiles that plans under several grants legalize to (bf16
+    at hd 128, 112 and 64: the wgmma kernels, native and quantized,
+    bitwise on a repeat); bf16 and fp32.  In fp32 the quantized kernel must equal the native kernel
     on the dequantized K/V bitwise."""
     import torch
     from repro_torch.core.plan import lower_attn
@@ -903,6 +933,10 @@ def flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg):
               ("vlm path", B, vlm_cfg.num_heads, vlm_cfg.num_kv_heads,
                vlm_cfg.num_patches + S, vlm_cfg.hd, True,
                vlm_cfg.num_patches + S),
+              ("kimi path", B, kimi_cfg.num_heads, kimi_cfg.num_kv_heads, S,
+               kimi_cfg.hd, True, S),
+              ("ragged hd112", 1, 8, 1, 333, kimi_cfg.hd, True, 333),
+              ("ragged Sk hd112", 1, 8, 1, 200, kimi_cfg.hd, False, 520),
               ("non-causal", 1, H, Hkv, 512, hd, False, 512),
               ("ragged", 1, 8, 2, 333, 64, True, 333),
               ("ragged non-causal", 1, 8, 2, 333, 64, False, 333),
@@ -1811,6 +1845,45 @@ def encdec_vlm_timings(encdec_cfg, vlm_cfg, dev):
     return out
 
 
+def arch_timings(kimi_cfg, encdec_cfg, dev):
+    """Flash attention at the head dims its newest tiles serve (bf16):
+    kimi-k2's causal GQA prefill (2 x 1024 positions, 64 / 8 heads of
+    112) under prefill_kimi's LBM plan (native) and its LWM@32p plans
+    with int8 and fp8 K/V, against SDPA for native K/V; whisper-tiny's
+    decoder prefill (2 x 448, 6 heads of 64) under e2e_encdec's LWM@32p
+    int8 plan (the quantized wgmma tile of hd 64)."""
+    import torch
+    from repro_torch.kernels import ops
+    dt = torch.bfloat16
+    limit = ops.smem_limit(torch.device(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    out = {}
+    cfg, (B, S) = kimi_cfg, (PREFILL["batch"], PREFILL["prompt_len"])
+    plans = moe_prefill_plans(cfg)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = _randn(gen, (B, H, S, hd), dt)
+    k = _randn(gen, (B, Hkv, S, hd), dt)
+    v = _randn(gen, (B, Hkv, S, hd), dt)
+    out["flash_attention.kimi"] = _flash_timing(q, k, v,
+                                                plans["LBM/native"].attn, limit)
+    for kv in ("int8", "fp8_e4m3"):
+        plan = _plan(cfg, "LWM", PREFILL["lwm_pages"], S, kv)
+        out["flash_attention_quantized.kimi" + ("" if kv == "int8" else
+                                                f".{kv}")] = _flash_timing(
+            q, k, v, plan.attn, limit, kv)
+    del q, k, v
+    cfg, S = encdec_cfg, ENCDEC_E2E["prompt_len"]
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = _randn(gen, (B, H, S, hd), dt)
+    k = _randn(gen, (B, Hkv, S, hd), dt)
+    v = _randn(gen, (B, Hkv, S, hd), dt)
+    int8 = encdec_prefill_plans(cfg)["LWM/int8"]
+    out["flash_attention_quantized.encdec"] = _flash_timing(
+        q, k, v, int8.attn, limit, int8.kv_dtype)
+    return out
+
+
 def moe_timings(moe_cfg, dev):
     """cache_matmul and block_fused_ffn at olmoe-1b-7b's expert shapes:
     one expert's bucket of ``make_prefill`` at 2 x 1024 tokens (G*C = 328
@@ -1850,12 +1923,12 @@ def moe_timings(moe_cfg, dev):
 
 
 def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg,
-                  dev):
+                  kimi_cfg, dev):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = (kernel_cases(cfg, dev)
-            + flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg)
+            + flash_cases(cfg, moe_cfg, dev, encdec_cfg, vlm_cfg, kimi_cfg)
             + quant_cases(cfg, dev) + ssd_cases(ssm_cfg, dev)
             + ssd_bwd_cases(ssm_cfg, hybrid_cfg, dev))
     bad = [r for r in rows if not r["ok"]]
@@ -1866,6 +1939,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg,
     timings.update(moe_timings(moe_cfg, dev))
     timings.update(hybrid_timings(hybrid_cfg, dev))
     timings.update(encdec_vlm_timings(encdec_cfg, vlm_cfg, dev))
+    timings.update(arch_timings(kimi_cfg, encdec_cfg, dev))
     timings.update(tp_timings(cfg, dev))
     bad += [k for k, v in timings.items() if not v["ok"]]
     worst = {}
@@ -2248,7 +2322,7 @@ def serve_main_path(cfg, dev, counters, label: str = "serve",
                     batch: int = 2, max_len: int = 512,
                     pages: int = SERVE_PAGES, steps: int = SERVE_STEPS,
                     arrival=ARRIVAL, kernels: bool = True, shares=(),
-                    ffn=()):
+                    ffn=(), one_weight_set: bool = False):
     """Two full-width, full-depth tenants of ``cfg`` through the port's
     MultiTenantServer: a resident and an ``arrival`` (a prompt and a
     budget), whose native KV reservation the pool holds whole.
@@ -2260,17 +2334,23 @@ def serve_main_path(cfg, dev, counters, label: str = "serve",
     buckets in prompt chunks, as the reference's).  The plan kinds must
     be those the scheduler can grant; ``ffn`` names the block_fused_ffn
     kinds the path must launch (:func:`_gate_kinds`).  Then three warm
-    runs, and one replayed decode epoch of the resident profiled with
-    the named kernels' ``shares``."""
+    runs, a decode item of the resident replayed against its eager run,
+    which must be bitwise equal (:func:`_replay_vs_eager`), and one
+    replayed decode epoch of the resident profiled with the named
+    kernels' ``shares``.  With ``one_weight_set`` the arrival takes the
+    resident's weights (one set on the card)."""
     import torch
     from repro_torch.launch.serve import MultiTenantServer, _kv_reserve_pages
     from repro_torch.sim.driver import TenantSpec
     torch.cuda.reset_peak_memory_stats()
     quote = _kv_reserve_pages(cfg, batch, arrival["prompt_len"])
-    srv = MultiTenantServer([cfg.name], tenants=[TenantSpec(cfg.name,
-                                                            **arrival)],
-                            batch=batch, max_len=max_len, total_pages=pages,
-                            epoch_len=4, device=dev, reduced=False)
+    spec = TenantSpec(cfg.name, **arrival,
+                      **({"param_seed": 0} if one_weight_set else {}))
+    srv = MultiTenantServer([cfg.name], tenants=[spec], batch=batch,
+                            max_len=max_len, total_pages=pages, epoch_len=4,
+                            device=dev, reduced=False,
+                            params_fn=(_params_memo(dev) if one_weight_set
+                                       else None))
     _zero_counters()
     out = srv.run(steps=steps)
     counters.update(_counters())
@@ -2322,6 +2402,11 @@ def serve_main_path(cfg, dev, counters, label: str = "serve",
     res["warm"] = _warm_runs(srv, steps)
     res["graph_pool_bytes"] = _graph_pool_bytes(srv)
     res["peak_memory_bytes_after_warm"] = torch.cuda.max_memory_allocated()
+    t = srv.tenants[0]
+    rec = res["replay_vs_eager"] = _replay_vs_eager(
+        srv, ("single", t, srv._dec_plan(t, t.plans[-1]), 4))
+    if not rec["bitwise"]:
+        raise AssertionError(f"{label}: replay != eager: {rec}")
     res["profile"] = [_profile_replay(srv, srv.tenants[0], shares=shares)]
     return res
 
@@ -3821,6 +3906,7 @@ def _params_memo(dev, group=None):
     only as placed on that group (``shard_params``), which the servers of
     a group of the same devices take as it is.  ``params_fn.memo.clear()``
     lets them go."""
+    import torch
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import model as M
     memo = {}
@@ -3830,6 +3916,9 @@ def _params_memo(dev, group=None):
             params = M.init_params(c, pkey, dev)
             memo[(c.name, pkey)] = (params if group is None
                                     else tp.shard_params(params, group))
+            # the init's fp32 draws leave cached blocks of their sizes
+            # (22.5 GB a kimi-k2 expert tensor) that nothing later reuses
+            torch.cuda.empty_cache()
         return memo[(c.name, pkey)]
     params_fn.memo = memo
     return params_fn
@@ -4440,7 +4529,8 @@ def _lbm_pool(cfg, batch: int, prompt_len: int) -> int:
 
 def encdec_prefill_plans(cfg):
     """e2e_encdec's make_prefill settings at the decoder's 448 positions:
-    plain, the smallest LBM grant that lowers fused, and LWM@32p."""
+    plain, the smallest LBM grant that lowers fused, and LWM@32p with
+    native and with int8 KV (the quantized flash kernel at hd 64)."""
     from repro_torch.core.vmem import fused_ffn_pages
     e = ENCDEC_E2E
     s = e["prompt_len"]
@@ -4448,7 +4538,8 @@ def encdec_prefill_plans(cfg):
             "LBM/native": _plan(cfg, "LBM",
                                 fused_ffn_pages(s, cfg.d_model, cfg.d_ff, 2),
                                 s),
-            "LWM/native": _plan(cfg, "LWM", e["lwm_pages"], s)}
+            "LWM/native": _plan(cfg, "LWM", e["lwm_pages"], s),
+            "LWM/int8": _plan(cfg, "LWM", e["lwm_pages"], s, "int8")}
 
 
 def vlm_prefill_plans(cfg):
@@ -4480,8 +4571,9 @@ def check_e2e_encdec(cfg, dev):
     versions, on the same weights (in fp32 there: :func:`_fp32_reference`).
     ``make_prefill`` of 2 x (1500 frames + 448 decoder tokens) plain and
     under :func:`encdec_prefill_plans` (the decoder's self-attention
-    through flash attention at hd 64, its wgmma tile; the FFN at 896 rows
-    through block_fused_ffn's or cache_matmul's wgmma tile; the encoder
+    through flash attention at hd 64, its wgmma tile, native and, under
+    LWM@32p with int8 KV, quantized; the FFN at 896 rows through
+    block_fused_ffn's or cache_matmul's wgmma tile; the encoder
     and the cross-attention plain, as in the reference), then a prefill
     and two teacher-forced decode epochs over the encoder's output under
     the grants serve_encdec's decode gets (LBM@34p: the fused FFN's gemv
@@ -4527,7 +4619,7 @@ def check_e2e_encdec(cfg, dev):
                            f"e2e_encdec prefill {name}")
                for name in pf_plans}
     _gate_kinds(launches, "e2e_encdec", ("gemv", "wgmma"), flash=("wgmma",),
-                ffn=("wgmma", "gemv"))
+                ffn=("wgmma", "gemv"), flash_quantized=("wgmma",))
     return {"arch": cfg.name, "layers": cfg.num_layers,
             "enc_layers": cfg.enc_layers, "frames": cfg.enc_len,
             "prompt_len": S, "batch": B, "reference": "cpu fp32",
@@ -4642,21 +4734,51 @@ def check_e2e_vlm(cfg, dev):
             "prefill": gates, "launches": _kind_counts(launches)}
 
 
-def serve_vlm_main_path(cfg, dev, counters):
-    """The VLM slice's serving path: :func:`serve_main_path` on full-width,
-    full-depth llava-next with the serve phase's arguments
-    (:data:`SERVE_VLM`), in a pool of the arrival's native quote and 324
-    pages.  Its prompt serves through the dense decoder, as the
-    reference's; every decode launch is cache_matmul's gemv (no LBM
-    candidate at full width)."""
+def more_arch_config(arch: str, layers=None):
+    """The registered config of ``arch``, cut to ``layers`` (registered
+    under its own name, which the server looks up) where given."""
+    from repro_torch.models.base import get_arch, register
+    cfg = get_arch(arch)
+    if layers is None:
+        return cfg
+    return register(dataclasses.replace(cfg, name=f"{arch}-{layers}layer",
+                                        num_layers=layers))
+
+
+def prefill_arch_main_path(cfg, dev, counters, label: str):
+    """``prefill``'s function on one of :data:`MORE_ARCHS`: the dense
+    archs under :func:`prefill_plans`, kimi-k2 under
+    :func:`moe_prefill_plans`; every bf16 launch of the wgmma kind
+    (kimi's flash and quantized flash at hd 112)."""
+    if cfg.is_moe:
+        return prefill_main_path(cfg, dev, counters, label=label,
+                                 plans=moe_prefill_plans(cfg),
+                                 profiled=("LBM/native", "LWM/native",
+                                           "LWM/int8"))
+    return prefill_main_path(cfg, dev, counters, label=label)
+
+
+def serve_arch_main_path(cfg, dev, counters, label: str = "serve_vlm",
+                         one_weight_set: bool = False):
+    """``serve``'s function on llava-next (the VLM slice: its prompt
+    serves through the dense decoder, as the reference's) and on
+    :data:`MORE_ARCHS` (``one_weight_set``: both tenants on one set),
+    full width and depth (:data:`SERVE_QUOTE`): a pool of the arrival's
+    native quote and 324 pages.  The dense archs' decode launches only
+    cache_matmul of the gemv kind (no LBM candidate at full width);
+    kimi-k2's, like olmoe's, no kernel (its epoch profiled with the
+    expert gather's share)."""
     from repro_torch.launch.serve import _kv_reserve_pages
-    sv = SERVE_VLM
+    sv = SERVE_QUOTE
     arrival = sv["arrival"]
     pages = sv["headroom"] + _kv_reserve_pages(cfg, sv["batch"],
                                                arrival["prompt_len"])
-    return serve_main_path(cfg, dev, counters, label="serve_vlm",
-                           batch=sv["batch"], max_len=sv["max_len"],
-                           pages=pages, steps=sv["steps"], arrival=arrival)
+    return serve_main_path(cfg, dev, counters, label=label, batch=sv["batch"],
+                           max_len=sv["max_len"], pages=pages,
+                           steps=sv["steps"], arrival=arrival,
+                           kernels=not cfg.is_moe,
+                           shares=(GATHER_KERNEL,) if cfg.is_moe else (),
+                           one_weight_set=one_weight_set)
 
 
 # ------------------------------------------------------------- fleet --
@@ -5914,12 +6036,14 @@ def main() -> int:
     cfg, ssm_cfg = get_arch("yi-9b"), get_arch(SSM_ARCH)
     moe_cfg, hybrid_cfg = get_arch(MOE_ARCH), get_arch(HYBRID_ARCH)
     encdec_cfg, vlm_cfg = get_arch(ENCDEC_ARCH), get_arch(VLM_ARCH)
+    kimi_cfg = get_arch(dict((l, a) for l, a, _ in MORE_ARCHS)["kimi"])
     dev = "cuda"
     report = {}
     report["device"] = _phase("device", device_info)
     report["build"] = _phase("build", build_kernels)
     report["kernels"] = _phase("kernels", check_kernels, cfg, ssm_cfg,
-                               moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg, dev)
+                               moe_cfg, hybrid_cfg, encdec_cfg, vlm_cfg,
+                               kimi_cfg, dev)
     if report["kernels"]["failed"]:
         raise AssertionError(f"kernels disagree: {report['kernels']['failed']}")
     _release()
@@ -6022,9 +6146,21 @@ def main() -> int:
         prefix=vlm_cfg.num_patches,
         profiled=("plain", "LBM/native", "LWM/native", "LWM/int8"))
     _release()
-    report["serve_vlm"] = _phase("serve_vlm", serve_vlm_main_path, vlm_cfg,
+    report["serve_vlm"] = _phase("serve_vlm", serve_arch_main_path, vlm_cfg,
                                  dev, serve_vlm_counts)
     _release()
+    more_counts = {}       # label: (prefill counts, serve counts)
+    for label, arch, layers in MORE_ARCHS:
+        acfg = more_arch_config(arch, layers)
+        pc, sc = more_counts[label] = ({}, {})
+        report[f"prefill_{label}"] = _phase(
+            f"prefill_{label}", prefill_arch_main_path, acfg, dev, pc,
+            f"prefill_{label}")
+        _release()
+        report[f"serve_{label}"] = _phase(
+            f"serve_{label}", serve_arch_main_path, acfg, dev, sc,
+            f"serve_{label}", one_weight_set=True)
+        _release()
     serve_fleet_counts, fleet_failover_counts = {}, {}
     report["serve_fleet"] = _phase("serve_fleet", serve_fleet_main_path, dev,
                                    serve_fleet_counts)
@@ -6177,6 +6313,25 @@ def main() -> int:
         kernels[i][label] = {"launches": launches,
                              "max_abs_err": t["max_abs_err"],
                              **{k: t[k] for k in keys + ("kind", "simt_ms")}}
+    # the flash kernels at kimi-k2's hd 112 (prefill_kimi's launches) and
+    # the quantized one at whisper's hd 64 (e2e_encdec's LWM/int8 call);
+    # kimi's fp8 K/V timed only: its plans run none
+    kimi = more_counts["kimi"][0]
+    for i, label, timing, launches in (
+            (2, "kimi", "flash_attention.kimi",
+             kimi["flash_attention.wgmma"]),
+            (3, "kimi", "flash_attention_quantized.kimi",
+             kimi["flash_attention_quantized.wgmma"]),
+            (3, "encdec", "flash_attention_quantized.encdec",
+             e2e_encdec["flash_attention_quantized.wgmma"])):
+        t = timings[timing]
+        kernels[i][label] = {"launches": launches,
+                             "max_abs_err": t["max_abs_err"],
+                             **{k: t[k] for k in keys + ("kind", "simt_ms")}}
+    t = timings["flash_attention_quantized.kimi.fp8_e4m3"]
+    kernels[3]["kimi.fp8_e4m3"] = {
+        "max_abs_err": t["max_abs_err"],
+        **{k: t[k] for k in keys + ("kind", "simt_ms")}}
     # the training slice: ssd_chunk's backward beside its forward (the
     # train step's launches and shape), its prefill-shaped timing, and
     # the forward's launches in the train step

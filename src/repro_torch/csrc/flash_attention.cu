@@ -8,10 +8,10 @@
 //   * flash_attention (:85, pallas_call at :111): K/V in q's type;
 //   * flash_attention_quantized (:132, pallas_call at :173): K/V int8 or
 //     float8_e4m3 with one fp32 scale per row [B,Hkv,Sk], dequantized on
-//     chip.  In fp32 (and bf16 off hd 128) a template flag (QUANT) on
-//     the simt kernel: each K/V tile is dequantized to fp32 as it lands
-//     in shared memory; bf16 at hd 128 runs the quantized wgmma kernel
-//     below.  No dequantized copy ever reaches device memory.
+//     chip.  In fp32 (and bf16 at hd 32) a template flag (QUANT) on the
+//     simt kernel: each K/V tile is dequantized to fp32 as it lands in
+//     shared memory; bf16 at hd 128, 112 and 64 runs the quantized wgmma
+//     kernel below.  No dequantized copy ever reaches device memory.
 //
 // What it computes, as _flash_kernel does: fp32 scores times
 // sm_scale = hd^-0.5; masked entries set to -1e30 (not -inf); an online
@@ -50,34 +50,37 @@
 // byte, so it is bound by operations (0.017 ms at the bf16 tensor-core
 // peak).  Three kernels, one menu:
 //
-//  * simt (flash_kernel; fp32, head dim 32, bf16 quantized K/V off hd
-//    128, and bf16 where asked; native or quantized K/V): plain fp32 FMA
-//    from shared memory,
+//  * simt (flash_kernel; fp32, head dim 32, and bf16 where asked; native
+//    or quantized K/V): plain fp32 FMA from shared memory,
 //    as described above.  K/V cross device memory once per q tile at
 //    their stored width (1 byte a value when quantized), and the causal q
 //    tiles are launched longest first so the tail is short.
-//  * wgmma (flash_wgmma_kernel; bf16 q and native K/V at hd 128 and 64):
-//    one block per (b*H + h, q tile of 128 rows, or at hd 64 also 64),
-//    longest first.  A producer warp loads the q tile once and K/V tiles
-//    of 128 keys into a ring by TMA (128-byte swizzled, zero fill past S
-//    and Sk; 2 stages at hd 128, 4 at hd 64, whose tiles are half the
-//    size); the consumer warpgroups, one per 64 q rows, compute S = Q K^T
-//    with wgmma m64n128k16 from shared memory (K's [keys, hd] tile is
-//    K-major as it lies; 8 k-steps at hd 128, 4 at hd 64), run the online
+//  * wgmma (flash_wgmma_kernel; bf16 q and native K/V at hd 128, 112 and
+//    64): one block per (b*H + h, q tile of 128 rows, or at hd 64 also
+//    64), longest first.  A producer warp loads the q tile once and K/V
+//    tiles of 128 keys into a ring by TMA (128-byte swizzled, zero fill
+//    past S and Sk, and at hd 112 past the row: its 224-byte rows land in
+//    two 64-wide boxes whose last 16 columns are zeros; 2 stages at hd 128
+//    and 112, 4 at hd 64, whose tiles are half the size); the consumer
+//    warpgroups, one per 64 q rows, compute S = Q K^T with wgmma
+//    m64n128k16 from shared memory (K's [keys, hd] tile is K-major as it
+//    lies; hd / 16 k-steps: 8, 7 or 4), run the online
 //    softmax on the accumulator fragment in registers (row max and sum over
 //    the 4 threads of a row by shuffles, in fp32, on log2(e)-scaled scores
 //    with exp2f), round p to bf16 in registers as the reference's
 //    p.astype(v.dtype) does, and feed it as wgmma's register A operand for
 //    O += P V (V's [keys, hd] tile is MN-major: the transpose bit; m64n128
-//    at hd 128, m64n64 at hd 64).  The -1e30 mask, the l == 0 guard and
+//    at hd 128 and 112, whose 16 zero columns are not stored, m64n64 at
+//    hd 64).  The -1e30 mask, the l == 0 guard and
 //    the skipped tiles are the simt kernel's.  At whisper-tiny's decoder
 //    prefill (B 2, H 6, S 448, hd 64) the 128-row q tiles give 48 blocks
 //    for 132 SMs, the 64-row ones 96.
 //  * wgmma, quantized (flash_wgmma_quant_kernel; bf16 q with int8 or e4m3
-//    K/V at hd 128): the wgmma kernel fed codes.  The producer warp
-//    TMA-loads the q tile once and, per step, the [128 keys x 128] code
-//    tiles of K and V (16 KB each, unswizzled; rows of 128 bytes) into
-//    one stage.  The two consumer warpgroups convert the stage to bf16
+//    K/V at hd 128, 112 and 64): the wgmma kernel fed codes.  The
+//    producer warp TMA-loads the q tile once and, per step, the [128 keys
+//    x hd] code tiles of K and V (unswizzled; rows of hd bytes) into a
+//    stage (one at hd 128, two at 112 and 64, as shared memory allows).
+//    The two consumer warpgroups convert the stage to bf16
 //    (exact for both formats: hopper_async.cuh's Codes) into the
 //    128-byte-swizzled [keys, hd] layout the native kernel's TMA writes,
 //    double-buffered, and copy the step's 128 K and 128 V row scales
@@ -287,16 +290,18 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* ks, con
 }
 
 // ------------------------------------------------------------- wgmma --
-// HD 128 or 64; BQ q rows a block, 64 per consumer warpgroup (128 or 64).
+// HD 128, 112 or 64; BQ q rows a block, 64 per consumer warpgroup (128 or
+// 64).  A row is held in 64-wide boxes; at HD 112 the second box's last 16
+// columns lie past the row, and TMA fills them with zeros.
 template <int HD, int BQ>
 struct FlashWgmma {
   static constexpr int kind = 2, dtypes = 2;  // wgmma; bf16
   static constexpr int kv = 1;                // native K/V
   static constexpr int hd = HD, bq = BQ, bkv = 128, tm = 64, tn = 128;
-  static constexpr int stages = HD == 128 ? 2 : 4;      // K/V ring depth
+  static constexpr int stages = HD > 64 ? 2 : 4;        // K/V ring depth
   static constexpr int consumers = BQ / 64;             // warpgroups of 64 q rows
   static constexpr int threads = consumers * 128 + 32;  // and a producer warp
-  static constexpr int boxes = HD / 64;                 // 64-wide boxes of a row
+  static constexpr int boxes = (HD + 63) / 64;          // 64-wide boxes of a row
   static constexpr int q_box = BQ * 128;                // bytes of a box of the q tile
   static constexpr int kv_box = 128 * 128;              // bytes of a box of a K or V tile
   static constexpr int q_bytes = boxes * q_box;
@@ -318,9 +323,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // q [B*H, S, HD], k/v [B*Hkv, Sk, HD] as 3-D tensor maps (boxes of 64 x
 // BQ, or 64 x 128, rows x 1); O [B*H, S, HD] bf16.  scale_log2 =
-// hd^-0.5 * log2(e).  At HD 64 a tile row is one 128-byte box: S = Q K^T
-// takes 4 k-steps, and O += P V runs on wgmma m64n64k16 with 32
-// accumulators a thread.
+// hd^-0.5 * log2(e).  S = Q K^T takes HD / 16 k-steps (8, 7 or 4).  At HD
+// 64 a tile row is one 128-byte box, and O += P V runs on wgmma m64n64k16
+// with 32 accumulators a thread; at HD 128 and 112 on m64n128k16, and at
+// 112 the product's last 16 columns (V's zero-filled ones) are not
+// stored: 12.5% more P V work than the row needs.
 template <typename TL>
 __global__ void __launch_bounds__(TL::threads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
@@ -329,6 +336,7 @@ __global__ void __launch_bounds__(TL::threads, 1)
                        int H, int groups, int S, int Sk, int causal, float scale_log2) {
   constexpr int HD = TL::hd, NB = TL::boxes, QBOX = TL::q_box, KBOX = TL::kv_box;
   constexpr int TB = TL::tile_bytes, ST = TL::stages, NC = TL::consumers;
+  static_assert(HD % 16 == 0, "k-steps of 16 along hd");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Ks = Qs + TL::q_bytes;   // stage s at Ks + s * TB
@@ -377,9 +385,9 @@ __global__ void __launch_bounds__(TL::threads, 1)
 
   const int warp = tid / 32, lane = tid % 32;
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
-  float o[HD / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NB * 32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < NB * 32; ++i) o[i] = 0.f;
   mbar_wait(qbar, 0);
   const uint8_t* q = Qs + wg * 64 * 128;  // this warpgroup's 64 rows of each box
 
@@ -440,7 +448,7 @@ __global__ void __launch_bounds__(TL::threads, 1)
       l[h] = __fadd_rn(__fmul_rn(l[h], alpha), quad_sum(sum));
       m[h] = m_new;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < NB * 8; ++j) {
         o[4 * j + 2 * h] = __fmul_rn(o[4 * j + 2 * h], alpha);
         o[4 * j + 2 * h + 1] = __fmul_rn(o[4 * j + 2 * h + 1], alpha);
       }
@@ -456,7 +464,7 @@ __global__ void __launch_bounds__(TL::threads, 1)
                              pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
                              pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                              pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-      if constexpr (HD == 128) {
+      if constexpr (NB == 2) {
         wgmma_m64n128k16_rs<1>(o, a, desc_b128(v + 2048 * kk, KBOX, 1024));
       } else {
         wgmma_m64n64k16_rs<1>(o, a, desc_b128(v + 2048 * kk, KBOX, 1024));
@@ -509,46 +517,59 @@ cudaError_t run_wgmma(const void* q, const void* k, const void* v, void* o, int 
 }
 
 // ---------------------------------------------------- wgmma, quantized --
+// HD 128, 112 or 64.  The converted bf16 tiles are the native kernel's,
+// rows of 64-wide boxes; a code row is HD bytes.  At HD 112 the
+// conversion leaves the last 16 columns of the second box unwritten: Q K^T
+// stops at column HD, and V's columns there feed only the product's last
+// 16 columns, which are not stored (wgmma columns do not mix).  The code
+// stages are as many (1 or 2) as fit the card's 232,448 bytes: 2 at HD
+// 112 and 64, 1 at HD 128 (a second would be 40 bytes over).
+template <int HD>
 struct FlashWgmmaQuant {
   static constexpr int kind = 2, dtypes = 2;  // wgmma; bf16 q
   static constexpr int kv = 2;                // int8 / e4m3 K/V with row scales
-  static constexpr int hd = 128, bq = 128, bkv = 128, tm = 64, tn = 128;
+  static constexpr int hd = HD, bq = 128, bkv = 128, tm = 64, tn = 128;
   static constexpr int bufs = 2;                    // converted bf16 K/V tiles
   static constexpr int threads = 2 * 128 + 32;      // two consumer warpgroups, a producer warp
-  static constexpr int tile_bytes = 128 * 128 * 2;  // q, or a bf16 K or V tile: two boxes
-  static constexpr int box_bytes = tile_bytes / 2;
-  static constexpr int code_bytes = 128 * 128;      // a K or V code tile, 1 byte a value
+  static constexpr int boxes = (HD + 63) / 64;      // 64-wide boxes of a row
+  static constexpr int box_bytes = 128 * 128;       // 128 rows of one box
+  static constexpr int tile_bytes = boxes * box_bytes;  // q, or a bf16 K or V tile
+  static constexpr int code_bytes = 128 * HD;       // a K or V code tile, 1 byte a value
   static constexpr int scale_bytes = 2 * 128 * 4;   // the K and V scales of one step
+  static constexpr int smem_limit = 232448;         // an H100's opt-in shared memory
   // 1024 to align to the swizzle atom; q; the bf16 K and V tiles of each
-  // buffer; one code stage (K and V); the scales of each buffer; the q,
-  // full and empty barriers
-  static constexpr int smem =
-      1024 + tile_bytes * (1 + 2 * bufs) + 2 * code_bytes + bufs * scale_bytes + 3 * 8;
+  // buffer; the scales of each buffer; then the code stages (K and V) and
+  // the q barrier, a full and an empty barrier per stage
+  static constexpr int base = 1024 + tile_bytes * (1 + 2 * bufs) + bufs * scale_bytes;
+  static constexpr int stages = base + 2 * 2 * code_bytes + 5 * 8 <= smem_limit ? 2 : 1;
+  static constexpr int smem = base + stages * 2 * code_bytes + (1 + 2 * stages) * 8;
 };
 
-// q [B*H, S, 128] bf16 and the codes kc/vc [B*Hkv, Sk, 128] (1 byte a
+// q [B*H, S, HD] bf16 and the codes kc/vc [B*Hkv, Sk, HD] (1 byte a
 // value) as 3-D tensor maps; KS/VS [B*Hkv, Sk] fp32 row scales; O
-// [B*H, S, 128] bf16.  scale_log2 = hd^-0.5 * log2(e).
-template <typename Q>
-__global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
+// [B*H, S, HD] bf16.  scale_log2 = hd^-0.5 * log2(e).
+template <typename Q, typename TL>
+__global__ void __launch_bounds__(TL::threads, 1)
     flash_wgmma_quant_kernel(const __grid_constant__ CUtensorMap tmap_q,
                              const __grid_constant__ CUtensorMap tmap_kc,
                              const __grid_constant__ CUtensorMap tmap_vc,
                              const float* __restrict__ KS, const float* __restrict__ VS,
                              __nv_bfloat16* __restrict__ O, int H, int groups, int S, int Sk,
                              int causal, float scale_log2) {
-  using TL = FlashWgmmaQuant;
-  constexpr int TB = TL::tile_bytes, BOX = TL::box_bytes, CB = TL::code_bytes;
+  constexpr int HD = TL::hd, NB = TL::boxes, TB = TL::tile_bytes, BOX = TL::box_bytes;
+  constexpr int CB = TL::code_bytes, CS = TL::stages;
   constexpr int CT = 256;                   // consumer threads
   constexpr int IT = 2 * CB / 16 / CT;      // 16-code vectors a thread converts a step
+  constexpr int RV = HD / 16;               // 16-code vectors of a code row
+  static_assert(HD % 16 == 0 && (2 * CB / 16) % CT == 0, "whole code vectors a thread");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* KV = Qs + TB;                    // buffer b: K at KV + 2 b TB, V after it
-  uint8_t* Cs = KV + 2 * TL::bufs * TB;     // the code stage: K codes, then V codes
-  float* Sc = reinterpret_cast<float*>(Cs + 2 * CB);  // buffer b: 128 K, then 128 V scales
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(Sc + TL::bufs * 256);
+  float* Sc = reinterpret_cast<float*>(KV + 2 * TL::bufs * TB);  // buffer b: 128 K, 128 V scales
+  uint8_t* Cs = reinterpret_cast<uint8_t*>(Sc + TL::bufs * 256);  // stage s: K, V codes at s 2 CB
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Cs + CS * 2 * CB);
   uint64_t* full = qbar + 1;
-  uint64_t* empty = full + 1;
+  uint64_t* empty = full + CS;
   const int bh = blockIdx.y;  // b * H + h
   const int kvh = (bh / H) * (H / groups) + (bh % H) / groups;
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // longest first
@@ -559,8 +580,10 @@ __global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    mbar_init(full, 1);
-    mbar_init(empty, 1);
+    for (int s = 0; s < CS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
     mbar_fence_init();
   }
   __syncthreads();
@@ -568,13 +591,14 @@ __global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
   if (wg == 2) {  // the producer warp
     if (tid == 0) {
       mbar_expect_tx(qbar, TB);
-      tma_load_3d(Qs, &tmap_q, qbar, 0, q0, bh);
-      tma_load_3d(Qs + BOX, &tmap_q, qbar, 64, q0, bh);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) tma_load_3d(Qs + b * BOX, &tmap_q, qbar, 64 * b, q0, bh);
       for (int t = 0; t < n_kv; ++t) {
-        if (t > 0) mbar_wait(empty, (t - 1) & 1);
-        mbar_expect_tx(full, 2 * CB);
-        tma_load_3d(Cs, &tmap_kc, full, 0, t * TL::bkv, kvh);
-        tma_load_3d(Cs + CB, &tmap_vc, full, 0, t * TL::bkv, kvh);
+        const int s = t % CS;
+        if (t >= CS) mbar_wait(&empty[s], (t / CS - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * CB);
+        tma_load_3d(Cs + s * 2 * CB, &tmap_kc, &full[s], 0, t * TL::bkv, kvh);
+        tma_load_3d(Cs + s * 2 * CB + CB, &tmap_vc, &full[s], 0, t * TL::bkv, kvh);
       }
     }
     return;
@@ -584,13 +608,13 @@ __global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
   const int warp = tid / 32, lane = tid % 32;
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
   const float* scale_src = (ct < 128 ? KS : VS) + (size_t)kvh * Sk;
-  float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NB * 32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < NB * 32; ++i) o[i] = 0.f;
   const uint8_t* q = Qs + wg * 64 * 128;  // this warpgroup's 64 rows of each box
-
   for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * TL::bkv, b = t % TL::bufs;
+    const int k0 = t * TL::bkv, b = t % TL::bufs, s = t % CS;
+    const uint8_t* codes = Cs + s * 2 * CB;
     uint8_t* k = KV + 2 * b * TB;
     uint8_t* v = k + TB;
     const float* sc_k = Sc + b * 256;
@@ -599,22 +623,22 @@ __global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
     // past Sk; the load is in flight while the codes land
     const int key = k0 + ct % 128;
     const float scale = key < Sk ? __ldg(scale_src + key) : 0.f;
-    mbar_wait(full, t & 1);
-    // Convert the stage into buffer b, as TMA writes a bf16 [keys, hd]
-    // tile: two 64-wide boxes, 128-byte swizzled.  Buffer b was last read
+    mbar_wait(&full[s], (t / CS) & 1);
+    // Convert stage s into buffer b, as TMA writes a bf16 [keys, hd]
+    // tile: 64-wide boxes, 128-byte swizzled.  Buffer b was last read
     // by the products of step t - 2, which both warpgroups had waited for
     // before the barrier of step t - 1.  All of a thread's code vectors
     // are loaded before its first store.
     uint4 cv[IT];
 #pragma unroll
     for (int it = 0; it < IT; ++it)
-      cv[it] = *reinterpret_cast<const uint4*>(Cs + 16 * (it * CT + ct));
+      cv[it] = *reinterpret_cast<const uint4*>(codes + 16 * (it * CT + ct));
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
       const int i = it * CT + ct;          // 16-code vector i of the stage
       const int which = i / (CB / 16);     // 0: K, 1: V
-      const int r = (i % (CB / 16)) / 8;   // key row
-      const int g = i % 8;                 // codes 16 g .. 16 g + 15 of the row
+      const int r = (i % (CB / 16)) / RV;  // key row
+      const int g = i % RV;                // codes 16 g .. 16 g + 15 of the row
       uint4 lo, hi;
       codes16_to_bf16<Q>(cv[it], lo, hi);
       uint8_t* dst = which ? v : k;
@@ -627,17 +651,17 @@ __global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
     // is free for the next step's codes
     fence_proxy_async();
     named_bar_sync(1, CT);
-    if (ct == 0) mbar_arrive(empty);
+    if (ct == 0) mbar_arrive(&empty[s]);
     if (t == 0) mbar_wait(qbar, 0);
 
-    // S = Q codes_K^T: 8 steps of 16 along hd, 4 per 64-wide box
+    // S = Q codes_K^T: HD / 16 steps of 16 along hd, 4 per 64-wide box
     float sc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] = 0.f;
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
       const int off = (kk / 4) * BOX + 32 * (kk % 4);
       wgmma_m64n128k16_ss<0>(sc, desc_b128(q + off, 16, 1024), desc_b128(k + off, 16, 1024));
     }
@@ -683,7 +707,7 @@ __global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
       l[h] = __fadd_rn(__fmul_rn(l[h], alpha), quad_sum(sum));
       m[h] = m_new;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NB * 8; ++j) {
         o[4 * j + 2 * h] = __fmul_rn(o[4 * j + 2 * h], alpha);
         o[4 * j + 2 * h + 1] = __fmul_rn(o[4 * j + 2 * h + 1], alpha);
       }
@@ -699,35 +723,38 @@ __global__ void __launch_bounds__(FlashWgmmaQuant::threads, 1)
                              pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
                              pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                              pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-      wgmma_m64n128k16_rs<1>(o, a, desc_b128(v + 2048 * kk, BOX, 1024));
+      if constexpr (NB == 2) {
+        wgmma_m64n128k16_rs<1>(o, a, desc_b128(v + 2048 * kk, BOX, 1024));
+      } else {
+        wgmma_m64n64k16_rs<1>(o, a, desc_b128(v + 2048 * kk, BOX, 1024));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
   }
 
-  __nv_bfloat16* out = O + (size_t)bh * S * TL::hd;
+  __nv_bfloat16* out = O + (size_t)bh * S * HD;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 8 * h;
     if (r >= S) continue;
     const float inv = l[h] == 0.f ? 1.f : l[h];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * TL::hd + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * HD + col) =
           __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * h], inv),
                                 __fdiv_rn(o[4 * j + 2 * h + 1], inv));
     }
   }
 }
 
-template <typename Q>
+template <typename Q, typename TL>
 cudaError_t run_wgmma_quant(const void* q, const void* kc, const void* vc, const void* ks,
                             const void* vs, void* o, int B, int H, int Hkv, int S, int Sk,
                             int causal, float sm_scale, cudaStream_t stream) {
-  using TL = FlashWgmmaQuant;
-  // TMA: 16-byte aligned bases (the row strides, 256 and 128 bytes, are)
+  // TMA: 16-byte aligned bases (the row strides, 2 HD and HD bytes, are)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kc) |
        reinterpret_cast<uintptr_t>(vc)) % 16)
     return cudaErrorInvalidValue;
@@ -746,7 +773,7 @@ cudaError_t run_wgmma_quant(const void* q, const void* kc, const void* vc, const
     e = encode_tmap(&tv, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE, vc, 3, c_dims,
                     c_strides, c_box);
   if (e != cudaSuccess) return e;
-  auto kernel = flash_wgmma_quant_kernel<Q>;
+  auto kernel = flash_wgmma_quant_kernel<Q, TL>;
   e = set_smem(kernel, TL::smem);
   if (e != cudaSuccess) return e;
   dim3 grid((S + TL::bq - 1) / TL::bq, B * H);
@@ -763,10 +790,15 @@ using A2 = AttnTile<64, 64, 64, 4, 4>;
 using A3 = AttnTile<64, 128, 128, 8, 8>;
 using A4 = AttnTile<128, 64, 64, 4, 4>;
 using A5 = AttnTile<128, 128, 64, 8, 4>;
-using A6 = FlashWgmma<128, 128>;  // bf16, native K/V, hd 128
-using A7 = FlashWgmmaQuant;       // bf16, int8 / e4m3 K/V, hd 128
-using A8 = FlashWgmma<64, 128>;   // bf16, native K/V, hd 64
-using A9 = FlashWgmma<64, 64>;    // bf16, native K/V, hd 64, one warpgroup
+using A6 = FlashWgmma<128, 128>;    // bf16, native K/V, hd 128
+using A7 = FlashWgmmaQuant<128>;    // bf16, int8 / e4m3 K/V, hd 128
+using A8 = FlashWgmma<64, 128>;     // bf16, native K/V, hd 64
+using A9 = FlashWgmma<64, 64>;      // bf16, native K/V, hd 64, one warpgroup
+using A10 = AttnTile<112, 64, 64, 4, 4>;
+using A11 = AttnTile<112, 128, 64, 8, 4>;
+using A12 = FlashWgmma<112, 128>;   // bf16, native K/V, hd 112
+using A13 = FlashWgmmaQuant<112>;   // bf16, int8 / e4m3 K/V, hd 112
+using A14 = FlashWgmmaQuant<64>;    // bf16, int8 / e4m3 K/V, hd 64
 
 template <typename TQ, typename TKV, bool QUANT>
 int dispatch(int tile, const void* q, const void* k, const void* v, const void* ks,
@@ -779,6 +811,8 @@ int dispatch(int tile, const void* q, const void* k, const void* v, const void* 
     case 3: return run<TQ, TKV, QUANT, A3>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     case 4: return run<TQ, TKV, QUANT, A4>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     case 5: return run<TQ, TKV, QUANT, A5>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    case 10: return run<TQ, TKV, QUANT, A10>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    case 11: return run<TQ, TKV, QUANT, A11>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -791,6 +825,18 @@ int dispatch_kv(int kv_kind, int tile, const void* q, const void* k, const void*
     case 0: return dispatch<TQ, TQ, false>(tile, q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     case 1: return dispatch<TQ, int8_t, true>(tile, q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     case 2: return dispatch<TQ, __nv_fp8_e4m3, true>(tile, q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Q>
+int run_wgmma_quant_tile(int tile, const void* q, const void* kc, const void* vc,
+                         const void* ks, const void* vs, void* o, int B, int H, int Hkv, int S,
+                         int Sk, int causal, float sm_scale, cudaStream_t s) {
+  switch (tile) {
+    case 7: return run_wgmma_quant<Q, A7>(q, kc, vc, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    case 13: return run_wgmma_quant<Q, A13>(q, kc, vc, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    case 14: return run_wgmma_quant<Q, A14>(q, kc, vc, ks, vs, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -813,22 +859,24 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
                         const void* vs, void* o, int q_bf16, int kv_kind, int B, int H, int Hkv,
                         int S, int Sk, int causal, float sm_scale, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 6 || tile == 8 || tile == 9) {
+  if (tile == 6 || tile == 8 || tile == 9 || tile == 12) {
     if (!q_bf16 || kv_kind != 0) return cudaErrorInvalidValue;
     if (tile == 6)
       return repro::run_wgmma<repro::A6>(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     if (tile == 8)
       return repro::run_wgmma<repro::A8>(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
+    if (tile == 12)
+      return repro::run_wgmma<repro::A12>(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
     return repro::run_wgmma<repro::A9>(q, k, v, o, B, H, Hkv, S, Sk, causal, sm_scale, s);
   }
-  if (tile == 7) {
+  if (tile == 7 || tile == 13 || tile == 14) {
     if (!q_bf16) return cudaErrorInvalidValue;
     if (kv_kind == 1)
-      return repro::run_wgmma_quant<int8_t>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal,
-                                            sm_scale, s);
+      return repro::run_wgmma_quant_tile<int8_t>(tile, q, k, v, ks, vs, o, B, H, Hkv, S, Sk,
+                                                 causal, sm_scale, s);
     if (kv_kind == 2)
-      return repro::run_wgmma_quant<__nv_fp8_e4m3>(q, k, v, ks, vs, o, B, H, Hkv, S, Sk, causal,
-                                                   sm_scale, s);
+      return repro::run_wgmma_quant_tile<__nv_fp8_e4m3>(tile, q, k, v, ks, vs, o, B, H, Hkv, S,
+                                                        Sk, causal, sm_scale, s);
     return cudaErrorInvalidValue;
   }
   if (q_bf16)
@@ -853,9 +901,14 @@ int flash_attention_tile(int tile, int* out) {
     case 7: repro::describe<repro::A7>(out); break;
     case 8: repro::describe<repro::A8>(out); break;
     case 9: repro::describe<repro::A9>(out); break;
+    case 10: repro::describe<repro::A10>(out); break;
+    case 11: repro::describe<repro::A11>(out); break;
+    case 12: repro::describe<repro::A12>(out); break;
+    case 13: repro::describe<repro::A13>(out); break;
+    case 14: repro::describe<repro::A14>(out); break;
     default: break;
   }
-  return 10;
+  return 15;
 }
 
 }  // extern "C"

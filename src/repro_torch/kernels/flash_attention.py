@@ -19,10 +19,11 @@ prefill path's shape: operations).
 * :data:`TILES` is the menu of (hd, BQ, BKV) tiles the CUDA source
   compiles; ``kernels/ops.py::legalize_attn_tile`` picks one under a
   plan's blocks.  The ``wgmma`` tiles (bf16 q) run tensor-core
-  kernels: native K/V at hd 128 and at hd 64 (one kernel templated on
-  the head dim and the q rows; at hd 64 a 128-row and a 64-row q tile),
-  and int8 / e4m3 K/V at hd 128 (codes converted to bf16 on chip, scales
-  folded into the scores and into P); the ``simt`` tiles run the
+  kernels at hd 128, 112 and 64: native K/V (one kernel templated on
+  the head dim and the q rows; at hd 64 a 128-row and a 64-row q tile)
+  and int8 / e4m3 K/V (codes converted to bf16 on chip, scales folded
+  into the scores and into P); a row lies in 64-wide boxes, so hd 112
+  is carried as 128 with zero columns.  The ``simt`` tiles run the
   fp32-FMA one, for native and quantized K/V.  :data:`launches_by_kind` and
   :data:`launches_quantized_by_kind` split the native and the quantized
   launches by kind.
@@ -68,19 +69,17 @@ class AttnTile:
 
     @property
     def smem_bytes(self) -> int:
-        tile = 2 * self.hd * self.bq        # bf16 q, or a bf16 K or V tile
         if self.kind == "wgmma" and self.kv == ("native",):
             # alignment, q, the K/V ring, a q barrier, full/empty per stage
             st = wgmma_stages(self.hd)
-            return (1024 + tile + st * 2 * 2 * self.hd * self.bkv
+            return (1024 + 2 * _boxed(self.hd) * (self.bq + st * 2 * self.bkv)
                     + (1 + 2 * st) * 8)
         if self.kind == "wgmma":
-            # alignment, q, the converted K/V tiles of each buffer, one
-            # stage of K/V codes, each buffer's K and V row scales, the q,
-            # full and empty barriers
-            codes = self.hd * self.bkv
-            return (1024 + tile * (1 + 2 * WGMMA_QUANT_BUFS) + 2 * codes
-                    + WGMMA_QUANT_BUFS * 2 * 4 * self.bkv + 3 * 8)
+            # the quantized kernel's fixed part, then its code stages (K
+            # and V) and the q barrier, a full and an empty one per stage
+            st = wgmma_quant_stages(self.hd)
+            return (_quant_base(self.hd) + st * 2 * self.hd * self.bkv
+                    + (1 + 2 * st) * 8)
         q = self.hd * (self.bq + 1)
         k = self.hd * (self.bkv + 1)
         v = self.bkv * self.hd
@@ -97,13 +96,39 @@ class AttnTile:
 
 KV_STORAGE = ("native", "quantized")   # the menu's K/V mask: bits 1, 2
 WGMMA_QUANT_BUFS = 2  # csrc/flash_attention.cu::FlashWgmmaQuant::bufs
+SMEM_OPTIN = 232448   # FlashWgmmaQuant::smem_limit: an H100's opt-in bytes
+
+
+def _boxed(hd: int) -> int:
+    """The head dim as the wgmma kernels hold a row: whole 64-wide
+    (128-byte) boxes, 128 at hd 112."""
+    return -(-hd // 64) * 64
 
 
 def wgmma_stages(hd: int) -> int:
     """K/V ring depth of the native wgmma kernel at head dim ``hd``
-    (csrc/flash_attention.cu::FlashWgmma::stages): 2 at hd 128, 4 at hd
-    64, whose tiles are half the size."""
-    return 2 if hd == 128 else 4
+    (csrc/flash_attention.cu::FlashWgmma::stages): 2 at hd 128 and 112,
+    4 at hd 64, whose tiles are half the size."""
+    return 2 if hd > 64 else 4
+
+
+def _quant_base(hd: int) -> int:
+    """The quantized wgmma kernel's shared memory before its code
+    stages (128 q rows, 128 keys a step): alignment, q and each buffer's
+    converted K and V tiles, each buffer's K and V row scales
+    (FlashWgmmaQuant::base)."""
+    return (1024 + 2 * _boxed(hd) * 128 * (1 + 2 * WGMMA_QUANT_BUFS)
+            + WGMMA_QUANT_BUFS * 2 * 4 * 128)
+
+
+def wgmma_quant_stages(hd: int) -> int:
+    """Code stages of the quantized wgmma kernel at head dim ``hd``
+    (FlashWgmmaQuant::stages): two where they fit the card's opt-in
+    shared memory (hd 112 and 64), else one (hd 128, 40 bytes short)."""
+    return 2 if (_quant_base(hd) + 2 * 2 * hd * 128 + 5 * 8
+                 <= SMEM_OPTIN) else 1
+
+
 # Index i is tile i of csrc/flash_attention.cu (checked when it loads).
 TILES = (AttnTile(32, 64, 64, 4, 4),
          AttnTile(32, 128, 128, 8, 8),
@@ -118,7 +143,15 @@ TILES = (AttnTile(32, 64, 64, 4, 4),
          AttnTile(64, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
                   ("native",)),
          AttnTile(64, 64, 128, 64, 128, "wgmma", (torch.bfloat16,),
-                  ("native",)))
+                  ("native",)),
+         AttnTile(112, 64, 64, 4, 4),
+         AttnTile(112, 128, 64, 8, 4),
+         AttnTile(112, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
+                  ("native",)),
+         AttnTile(112, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
+                  ("quantized",)),
+         AttnTile(64, 128, 128, 64, 128, "wgmma", (torch.bfloat16,),
+                  ("quantized",)))
 
 launches = 0
 launches_by_kind: Dict[str, int] = {"simt": 0, "wgmma": 0}

@@ -35,7 +35,7 @@ def _normal(gen: torch.Generator, shape, scale: float,
             dtype: torch.dtype) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,

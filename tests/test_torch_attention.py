@@ -230,14 +230,20 @@ def test_quant_names_match_reference():
 
 # --------------------------------------------------------- the menu ---
 def test_compiled_attn_tiles_fit_hopper():
-    assert {t.hd for t in kfa.TILES} == {32, 64, 128}
+    """Head dims 32, 64, 112 (kimi-k2) and 128; wgmma tiles of 128 q rows
+    at hd 128, 112 and 64 for native and for quantized K/V, and of 64
+    rows at hd 64 for native K/V; simt tiles at every head dim."""
+    assert {t.hd for t in kfa.TILES} == {32, 64, 112, 128}
+    wgmma = sorted((t.hd, t.bq, t.kv) for t in kfa.TILES
+                   if t.kind == "wgmma")
+    assert wgmma == sorted([(hd, 128, kv) for hd in (64, 112, 128)
+                            for kv in (("native",), ("quantized",))]
+                           + [(64, 64, ("native",))])
     for t in kfa.TILES:
         assert t.smem_bytes <= H100_SMEM_OPTIN
         if t.kind == "wgmma":   # warpgroups of 64 q rows, hd-wide P.V
-            assert t.dtypes == (torch.bfloat16,) and t.hd in (64, 128)
+            assert t.dtypes == (torch.bfloat16,)
             assert (t.bkv, t.tm, t.tn) == (128, 64, 128)
-            assert t.bq == 128 or (t.hd, t.bq) == (64, 64)
-            assert t.hd == 128 or t.kv == ("native",)
             continue
         assert t.kind == "simt"
         ntx, nty = t.bkv // t.tn, t.bq // t.tm
@@ -251,20 +257,24 @@ FLASH_WGMMA = next(t for t in kfa.TILES
 FLASH_WGMMA_QUANT = next(t for t in kfa.TILES
                          if t.kind == "wgmma" and "quantized" in t.kv)
 # hd 64's native wgmma tiles by q rows
-FLASH_HD64 = {t.bq: t for t in kfa.TILES if t.kind == "wgmma" and t.hd == 64}
+FLASH_HD64 = {t.bq: t for t in kfa.TILES if t.kind == "wgmma" and t.hd == 64
+              and t.kv == ("native",)}
+# the 128-row wgmma tiles by (head dim, K/V storage)
+FLASH_WGMMA_BY = {(t.hd, t.kv[0]): t for t in kfa.TILES
+                  if t.kind == "wgmma" and t.bq == 128}
 
 
 @pytest.mark.parametrize("pages", [9, 32, 60, 456])
 @pytest.mark.parametrize("kv_dtype", ["native", "int8"])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
     """Plans lowered at full width (bf16) legalize to a compiled tile of
     the head dim, no larger than the plan's blocks, within shared
-    memory: for bf16 q at hd 128 the wgmma tile of the K/V storage
-    (native or quantized), at hd 64 with native K/V its 128-row wgmma
-    tile (no grid given: the fewest wasted rows), else the simt tile the
-    simt-only rule picks (fp32, hd 32, quantized hd 64)."""
+    memory: for bf16 q at hd 128, 112 and 64 the 128-row wgmma tile of
+    the K/V storage (native or quantized; no grid given: the fewest
+    wasted rows), else the simt tile the simt-only rule picks (fp32, hd
+    32)."""
     plan = pplan.lower_attn(hd, 2, pages, kv_dtype,
                             1 if kv_dtype != "native" else 2)
     for s in (333, 1024):
@@ -274,12 +284,14 @@ def test_legalized_attn_tile_stays_under_the_plan(pages, kv_dtype, hd, dtype):
         assert tile in kfa.TILES and tile.hd == hd and dtype in tile.dtypes
         assert tile.bq <= plan.block_q and tile.bkv <= plan.block_kv
         assert tile.smem_bytes <= H100_SMEM_OPTIN
-        if dtype == torch.bfloat16 and hd == 128:
-            assert tile == (FLASH_WGMMA if kv_dtype == "native"
-                            else FLASH_WGMMA_QUANT)
-            continue
-        if dtype == torch.bfloat16 and hd == 64 and kv_dtype == "native":
-            assert tile == FLASH_HD64[128]
+        if dtype == torch.bfloat16 and hd != 32:
+            kv = "native" if kv_dtype == "native" else "quantized"
+            assert tile == FLASH_WGMMA_BY[(hd, kv)]
+            if hd == 128:
+                assert tile == (FLASH_WGMMA if kv == "native"
+                                else FLASH_WGMMA_QUANT)
+            if (hd, kv) == (64, "native"):
+                assert tile == FLASH_HD64[128]
             continue
         assert tile.kind == "simt"
         fits = [t for t in SIMT if t.hd == hd
@@ -330,9 +342,10 @@ def test_flash_menu_mirrors_the_cuda_source():
     src = (Path(pplan.__file__).parents[1] / "csrc" /
            "flash_attention.cu").read_text()
     menu = re.findall(r"using A(\d+) = (AttnTile<([\d, ]+)>"
-                      r"|FlashWgmma<(\d+), (\d+)>|FlashWgmmaQuant);", src)
+                      r"|FlashWgmma<(\d+), (\d+)>|FlashWgmmaQuant<(\d+)>);",
+                      src)
     assert [int(i) for i, *_ in menu] == list(range(len(kfa.TILES)))
-    for (_, name, simt, hd, bq), t in zip(menu, kfa.TILES):
+    for (_, name, simt, hd, bq, qhd), t in zip(menu, kfa.TILES):
         if simt:
             assert (t.kind, t.hd, t.bq, t.bkv, t.tm, t.tn) == \
                 ("simt", *map(int, simt.split(",")))
@@ -340,7 +353,9 @@ def test_flash_menu_mirrors_the_cuda_source():
             assert (t.kind, t.hd, t.bq, t.kv) == ("wgmma", int(hd), int(bq),
                                                   ("native",))
         else:
-            assert t == FLASH_WGMMA_QUANT and name == "FlashWgmmaQuant"
+            assert t == FLASH_WGMMA_BY[(int(qhd), "quantized")]
+            assert name == f"FlashWgmmaQuant<{t.hd}>"
+    assert FLASH_WGMMA_QUANT == FLASH_WGMMA_BY[(128, "quantized")]
 
 
 def test_flash_wrappers_reject_malformed_operands():
@@ -394,19 +409,29 @@ def _cu_struct(name, **params):
 
 @pytest.mark.parametrize("name", ["FlashWgmma", "FlashWgmmaQuant"])
 def test_wgmma_flash_tiles_mirror_the_cuda_source(name):
-    """Each wgmma menu entry's fields and shared memory are the .cu
-    struct's, and fit in 232,448 bytes; the quantized one serves int8 /
-    e4m3 K/V only, the native one native K/V only."""
-    cu = (_cu_struct(name, HD=128, BQ=128) if name == "FlashWgmma"
-          else _cu_struct(name))
-    tile = FLASH_WGMMA if name == "FlashWgmma" else FLASH_WGMMA_QUANT
-    mask = tile.menu_fields()      # the fields flash_attention_tile writes
-    assert mask[0] == cu["kind"] and mask[1] == cu["dtypes"]
-    assert (tile.hd, tile.bq, tile.bkv, tile.tm, tile.tn) == \
-        (cu["hd"], cu["bq"], cu["bkv"], cu["tm"], cu["tn"])
-    assert tile.smem_bytes == cu["smem"] <= H100_SMEM_OPTIN
-    assert mask[7] == cu["kv"] and mask[8] == tile.smem_bytes
-    assert tile.kv == (("native",) if name == "FlashWgmma" else ("quantized",))
+    """Each 128-row wgmma menu entry's fields and shared memory (hd 128,
+    112 and 64) are the .cu struct's, and fit in 232,448 bytes; the
+    quantized ones serve int8 / e4m3 K/V only, the native ones native
+    K/V only.  The quantized kernel holds two code stages where they fit
+    (hd 112 and 64), one at hd 128."""
+    kv = "native" if name == "FlashWgmma" else "quantized"
+    for hd in (128, 112, 64):
+        cu = _cu_struct(name, HD=hd, BQ=128)
+        tile = FLASH_WGMMA_BY[(hd, kv)]
+        mask = tile.menu_fields()  # the fields flash_attention_tile writes
+        assert mask[0] == cu["kind"] and mask[1] == cu["dtypes"]
+        assert (tile.hd, tile.bq, tile.bkv, tile.tm, tile.tn) == \
+            (cu["hd"], cu["bq"], cu["bkv"], cu["tm"], cu["tn"])
+        assert tile.smem_bytes == cu["smem"] <= H100_SMEM_OPTIN
+        assert mask[7] == cu["kv"] and mask[8] == tile.smem_bytes
+        assert tile.kv == (kv,)
+        assert cu["boxes"] == (1 if hd == 64 else 2)
+        if kv == "quantized":
+            assert cu["stages"] == kfa.wgmma_quant_stages(hd) == \
+                (1 if hd == 128 else 2)
+            assert cu["smem_limit"] == H100_SMEM_OPTIN
+    assert FLASH_WGMMA == FLASH_WGMMA_BY[(128, "native")]
+    assert FLASH_WGMMA_QUANT == FLASH_WGMMA_BY[(128, "quantized")]
 
 
 @pytest.mark.parametrize("bq", [128, 64])
@@ -429,6 +454,9 @@ def test_hd64_wgmma_flash_tiles_mirror_the_cuda_source(bq):
     hd128 = _cu_struct("FlashWgmma", HD=128, BQ=128)
     assert (hd128["stages"], hd128["smem"]) == (2, 164904)
     assert FLASH_WGMMA.smem_bytes == 164904
+    # hd 112 is carried in the hd-128 tile's boxes: its ring and bytes
+    hd112 = _cu_struct("FlashWgmma", HD=112, BQ=128)
+    assert (hd112["stages"], hd112["boxes"], hd112["smem"]) == (2, 2, 164904)
 
 
 @pytest.mark.parametrize("pages", [0, 1, 9, 32, 60, 200, 456, 1000])
@@ -438,8 +466,9 @@ def test_bf16_native_hd64_takes_a_wgmma_flash_tile(pages):
     (batch x heads, 132 SMs) it takes the largest q tile whose grid still
     gives every SM a block, else 64 rows: whisper-tiny's 2 x 6 heads up
     to 448 rows take 64, a batch of 8 or 1,500 rows 128; without it, the
-    fewest wasted rows (64 up to 64 rows, else 128).  Quantized K/V and
-    fp32 q keep the simt tiles."""
+    fewest wasted rows (64 up to 64 rows, else 128).  Quantized K/V runs
+    the quantized wgmma tile of hd 64 (128 rows, its only one); fp32 q
+    keeps the simt tiles."""
     plan = pplan.lower_attn(64, 2, pages)
     assert plan.block_q >= 128 and plan.block_kv >= 128
     for heads, s, bq in ((12, 448, 64), (12, 333, 64), (12, 1, 64),
@@ -449,12 +478,14 @@ def test_bf16_native_hd64_takes_a_wgmma_flash_tile(pages):
         assert ops.legalize_attn_tile(plan.block_q, plan.block_kv, 64, s,
                                       H100_SMEM_OPTIN, torch.bfloat16, False,
                                       heads, 132) == FLASH_HD64[bq], (heads, s)
-        for dtype, quantized in ((torch.bfloat16, True),
-                                 (torch.float32, False),
-                                 (torch.float32, True)):
+        assert ops.legalize_attn_tile(
+            plan.block_q, plan.block_kv, 64, s, H100_SMEM_OPTIN,
+            torch.bfloat16, True, heads, 132) == FLASH_WGMMA_BY[(64,
+                                                                 "quantized")]
+        for quantized in (False, True):
             assert ops.legalize_attn_tile(
-                plan.block_q, plan.block_kv, 64, s, H100_SMEM_OPTIN, dtype,
-                quantized, heads, 132).kind == "simt"
+                plan.block_q, plan.block_kv, 64, s, H100_SMEM_OPTIN,
+                torch.float32, quantized, heads, 132).kind == "simt"
     # hd 128 has one wgmma tile a K/V storage, grid or not
     assert ops.legalize_attn_tile(128, 128, 128, 448, H100_SMEM_OPTIN,
                                   torch.bfloat16, False, 12, 132) == FLASH_WGMMA
@@ -475,14 +506,15 @@ def test_bf16_quantized_hd128_takes_the_quantized_wgmma_tile(kv_dtype, pages):
                                       True) == FLASH_WGMMA_QUANT
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 def test_quantized_fp32_and_other_head_dims_keep_simt(hd):
-    """fp32 q (any head dim) and bf16 q at hd 32 / 64 keep the simt
-    tiles with quantized K/V; below 128 x 128 blocks hd 128 does too."""
+    """fp32 q (any head dim) and bf16 q at hd 32 keep the simt tiles
+    with quantized K/V; bf16 at hd 64, 112 and 128 takes the quantized
+    wgmma tile; below 128 x 128 blocks hd 128 keeps simt."""
     for dtype in (torch.float32, torch.bfloat16):
         tile = ops.legalize_attn_tile(512, 512, hd, 1024, H100_SMEM_OPTIN,
                                       dtype, True)
-        want_wgmma = dtype == torch.bfloat16 and hd == 128
+        want_wgmma = dtype == torch.bfloat16 and hd != 32
         assert tile.kind == ("wgmma" if want_wgmma else "simt")
         assert "quantized" in tile.kv
     assert ops.legalize_attn_tile(64, 128, 128, 1024, H100_SMEM_OPTIN,
@@ -567,3 +599,117 @@ def test_folded_scales_emulation_matches_pallas(kv_dtype, causal):
     np.testing.assert_allclose(
         _np(got), _np(kfa.flash_attention_quantized_plain(qt, kt, vt, kst, vst,
                                                           causal)), **tol)
+
+
+# ------------------------------------------ head dim 112 (kimi-k2) ---
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("S", [64, 50])
+def test_ops_attention_hd112_matches_pallas(kv_dtype, S):
+    """kimi-k2's head dim: ops.attention at hd 112, GQA 8:1, causal, S 64
+    and a ragged 50, against the reference's ops.attention (its Pallas
+    kernels in interpret mode) in fp32, and in bf16 for native K/V, at
+    the existing tolerances; with quantized K/V in bf16 the port's
+    wrapper with its hd-112 tile against the reference's dequant-fused
+    Pallas kernel on the same codes (the reference's jitted ops.attention
+    quantizes bf16 rows with a scale one ulp off its eager quantize_rows,
+    which the port matches, and so moves a few e4m3 codes).  Before hd
+    112 had a tile the port's legalization raised here."""
+    B, H, Hkv, hd = 1, 8, 1, 112
+    q, k, v = _arrays(10, (B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))
+    for dtype in ("float32", "bfloat16"):
+        (qj, qt), (kj, kt), (vj, vt) = (_jt(x, dtype) for x in (q, k, v))
+        if dtype == "bfloat16" and kv_dtype != "native":
+            kq, ks = rquant.quantize_rows(kj, kv_dtype)
+            vq, vs = rquant.quantize_rows(vj, kv_dtype)
+            want = ref_flash_quantized(qj, kq, vq, ks[..., 0], vs[..., 0],
+                                       causal=True, block_q=S, block_kv=S)
+            tile = ops.legalize_attn_tile(128, 128, hd, S, H100_SMEM_OPTIN,
+                                          qt.dtype, True)
+            assert (tile.kind, tile.hd) == ("wgmma", hd)
+            got = kfa.flash_attention_quantized(
+                qt, _to_torch(kq), _to_torch(vq), _to_torch(ks[..., 0]),
+                _to_torch(vs[..., 0]), True, tile)
+        else:
+            want = rops.attention(qj, kj, vj, block_q=32, block_kv=32,
+                                  kv_dtype=kv_dtype, interpret=True)
+            got = ops.attention(qt, kt, vt, block_q=128, block_kv=128,
+                                kv_dtype=kv_dtype)
+        assert got.shape == (B, H, S, hd) and got.dtype == qt.dtype
+        np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("hd", [112, 64])
+def test_folded_scales_emulation_at_new_head_dims(kv_dtype, hd):
+    """The quantized wgmma kernel's cast points (``_folded_scales_flash``)
+    at the head dims its new instantiations serve, hd 112 (its rows
+    carried as 128 with zero columns, which add nothing to the products)
+    and hd 64, against the reference's dequant-fused Pallas kernel (interpret
+    mode) and the port's plain version at 2e-2, GQA 8:1 and 1:1, causal,
+    a ragged S."""
+    B, S = 1, 200
+    H, Hkv = (8, 1) if hd == 112 else (6, 6)
+    q, k, v = _arrays(11, (B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))
+    kq, ks = rquant.quantize_rows(jnp.asarray(k), kv_dtype)
+    vq, vs = rquant.quantize_rows(jnp.asarray(v), kv_dtype)
+    qj, qt = _jt(q, "bfloat16")
+    want = rops.attention(qj, jnp.asarray(k), jnp.asarray(v), block_q=128,
+                          block_kv=128, kv_dtype=kv_dtype, interpret=True)
+    kt, vt = _to_torch(kq), _to_torch(vq)
+    kst, vst = _to_torch(ks[..., 0]), _to_torch(vs[..., 0])
+    got = _folded_scales_flash(qt, kt, vt, kst, vst, True)
+    tol = dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(kfa.flash_attention_quantized_plain(qt, kt, vt, kst, vst,
+                                                          True)), **tol)
+
+
+def _reaches_flash(cfg) -> bool:
+    """Whether a plan-lowered prefill of ``cfg`` runs flash attention:
+    an attention layer without a sliding window (models/attention.py)."""
+    return cfg.family != "ssm" and cfg.sliding_window == 0
+
+
+def test_every_registered_head_dim_on_the_flash_path_legalizes():
+    """Each registered arch whose attention reaches the flash path
+    legalizes its full-width head dim under full-width grants, with the
+    grid of a 2-prompt prefill on 132 SMs: bf16 to the wgmma tile of the
+    head dim, native and quantized K/V; fp32 to a simt tile of the head
+    dim.  zamba2 (hd 80) is off the flash path by its sliding window,
+    and mamba2 has no attention."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.base import get_arch
+    on = {}
+    for arch in ARCH_IDS:
+        cfg = get_arch(arch)
+        if not _reaches_flash(cfg):
+            continue
+        on[arch] = cfg.hd
+        for pages in (1, 32, 456):
+            for kv in ("native", "int8", "fp8_e4m3"):
+                plan = pplan.lower_attn(cfg.hd, 2, pages, kv,
+                                        1 if kv != "native" else 2)
+                quantized = kv != "native"
+                for s in (40, 1024):
+                    tile = ops.legalize_attn_tile(
+                        plan.block_q, plan.block_kv, cfg.hd, s,
+                        H100_SMEM_OPTIN, torch.bfloat16, quantized,
+                        2 * cfg.num_heads, 132)
+                    assert (tile.kind, tile.hd) == ("wgmma", cfg.hd), arch
+                    assert tile.kv == (("quantized",) if quantized
+                                       else ("native",))
+                    simt = ops.legalize_attn_tile(
+                        plan.block_q, plan.block_kv, cfg.hd, s,
+                        H100_SMEM_OPTIN, torch.float32, quantized)
+                    assert (simt.kind, simt.hd) == ("simt", cfg.hd), arch
+    assert on == {"mistral-nemo-12b": 128, "yi-9b": 128, "starcoder2-15b": 128,
+                  "granite-3-8b": 128, "whisper-tiny": 64,
+                  "llava-next-mistral-7b": 128, "kimi-k2-1t-a32b": 112,
+                  "olmoe-1b-7b": 128}
+    zamba2 = get_arch("zamba2-2.7b")
+    assert zamba2.sliding_window > 0 and not _reaches_flash(zamba2)
+    assert zamba2.hd not in {t.hd for t in kfa.TILES}
+    with pytest.raises(ValueError, match="head dim 80 not compiled"):
+        ops.legalize_attn_tile(128, 128, zamba2.hd, 64, H100_SMEM_OPTIN,
+                               torch.bfloat16)

@@ -354,8 +354,8 @@ def test_full_width_whisper_plans_route_to_the_hopper_kinds():
     """Full-width whisper-tiny in bf16 under the grants its paths get:
     the decoder's prefill attention (hd 64, 448 positions, a batch of
     2 x 6 heads on 132 SMs) takes the 64-row wgmma flash tile under the
-    smallest fused LBM grant and under LWM@32p (int8 K/V there keeps the
-    simt tile); the decode FFN (2
+    smallest fused LBM grant and under LWM@32p (int8 K/V there takes the
+    quantized wgmma tile of hd 64); the decode FFN (2
     rows, d_model 384, d_ff 1536) under LBM@34p the fused FFN's gemv
     tile, and its 896 prefill rows the wgmma tile; fp32 keeps simt."""
     from repro_torch.core.vmem import LANE, fused_ffn_pages
@@ -375,8 +375,11 @@ def test_full_width_whisper_plans_route_to_the_hopper_kinds():
                                       H100_SMEM_OPTIN, torch.float32
                                       ).kind == "simt"
     q8 = _full_width_plan(cfg, "LWM", 32, S, "int8").attn
-    assert ops.legalize_attn_tile(q8.block_q, q8.block_kv, hd, S,
-                                  H100_SMEM_OPTIN, bf16, True).kind == "simt"
+    tile = ops.legalize_attn_tile(q8.block_q, q8.block_kv, hd, S,
+                                  H100_SMEM_OPTIN, bf16, True,
+                                  2 * cfg.num_heads, 132)
+    assert (tile.kind, tile.hd, tile.bq, tile.kv) == ("wgmma", 64, 128,
+                                                      ("quantized",))
     dec = _full_width_plan(cfg, "LBM", 34, LANE).ffn
     assert dec.fused
     for rows, kind in ((2, "gemv"), (1, "gemv"), (896, "wgmma")):

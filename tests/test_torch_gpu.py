@@ -696,7 +696,8 @@ def test_cuda_flash_hd64_wgmma_ragged_shapes():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(11)
-    tiles = [t for t in kfa.TILES if t.kind == "wgmma" and t.hd == 64]
+    tiles = [t for t in kfa.TILES if t.kind == "wgmma" and t.hd == 64
+             and t.kv == ("native",)]
     assert sorted(t.bq for t in tiles) == [64, 128]
     limit = ops.smem_limit(torch.device("cuda"))
     for b, h, hkv, s, sk, causal in FLASH_HD64_SHAPES:
@@ -713,6 +714,98 @@ def test_cuda_flash_hd64_wgmma_ragged_shapes():
                                        **FLASH_TOL["bfloat16"])
             assert torch.equal(got, kfa.flash_attention(q, k, v, causal,
                                                         tile))
+
+
+# wgmma flash shapes (B, H, Hkv, S, Sk, causal) at hd 112 (kimi-k2's
+# prefill: 64 / 8 heads) and, quantized, at hd 64 (whisper-tiny's
+# decoder prefill: 6 / 6 heads): each path's shape, ragged S and Sk
+# causal and not, S != Sk, prompts shorter than one KV tile
+FLASH_NEW_SHAPES = {112: ((2, 64, 8, 1024, 1024, True), (1, 8, 1, 333, 333, True),
+                          (1, 8, 1, 333, 333, False), (1, 8, 1, 200, 520, False),
+                          (1, 8, 1, 40, 40, True)),
+                    64: ((2, 6, 6, 448, 448, True), (1, 8, 2, 333, 333, True),
+                         (1, 8, 2, 333, 333, False), (1, 8, 2, 200, 520, False),
+                         (1, 4, 4, 1, 1, True))}
+
+
+def _with_poisoned_tail(t):
+    """``t`` copied to the front of a buffer whose bytes past it are
+    0xFF (NaN in bf16 and e4m3), contiguous: a kernel that reads past
+    its operand's rows reads NaN patterns."""
+    n = t.numel() * t.element_size()
+    raw = torch.full((n + 4096,), 255, dtype=torch.uint8, device=t.device)
+    out = raw[:n].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd, kv", [(112, "native"), (112, "int8"),
+                                    (112, "fp8_e4m3"), (64, "int8"),
+                                    (64, "fp8_e4m3")])
+def test_cuda_flash_hd112_and_quantized_hd64_run_wgmma(hd, kv):
+    """bf16 flash attention at hd 112 (native and int8 / e4m3 K/V) and
+    quantized at hd 64 legalizes to the wgmma tile of its head dim and
+    K/V storage at every shape, and matches the plain version (native
+    at the bf16 flash tolerance, quantized at 2e-2), bitwise on a
+    repeat, one wgmma launch a call, no NaN: K/V lie at the front of
+    buffers whose bytes past them are 0xFF, so a read past their rows
+    shows.  fp32 at hd 112 runs a simt tile against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    dev = torch.device("cuda")
+    limit, sms = ops.smem_limit(dev), ops.sm_count(dev)
+    quantized = kv != "native"
+    counter = (kfa.launches_quantized_by_kind if quantized
+               else kfa.launches_by_kind)
+    for b, h, hkv, s, sk, causal in FLASH_NEW_SHAPES[hd]:
+        q = _bf16_rand(gen, b, h, s, hd)
+        k, v = _bf16_rand(gen, b, hkv, sk, hd), _bf16_rand(gen, b, hkv, sk, hd)
+        tile = ops.legalize_attn_tile(128, 128, hd, s, limit, q.dtype,
+                                      quantized, b * h, sms)
+        assert (tile.kind, tile.hd, tile.kv) == (
+            "wgmma", hd, ("quantized",) if quantized else ("native",))
+        if quantized:
+            kq, ks = pquant.quantize_rows(k, kv)
+            vq, vs = pquant.quantize_rows(v, kv)
+            args = (_with_poisoned_tail(kq), _with_poisoned_tail(vq),
+                    ks[..., 0], vs[..., 0])
+
+            def run(tl, q=q, args=args, causal=causal):
+                return kfa.flash_attention_quantized(q, *args, causal, tl)
+            want = kfa.flash_attention_quantized_plain(q, kq, vq, ks[..., 0],
+                                                       vs[..., 0], causal)
+            tol = MATMUL_TOL["bfloat16"]
+        else:
+            args = (_with_poisoned_tail(k), _with_poisoned_tail(v))
+
+            def run(tl, q=q, args=args, causal=causal):
+                return kfa.flash_attention(q, *args, causal, tl)
+            want = kfa.flash_attention_plain(q, k, v, causal)
+            tol = FLASH_TOL["bfloat16"]
+        before = counter["wgmma"]
+        got = run(tile)
+        assert counter["wgmma"] == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(got, run(tile))
+        if hd == 112:
+            simt = ops.legalize_attn_tile(128, 128, hd, s, limit,
+                                          torch.float32, quantized)
+            assert simt.kind == "simt" and simt.hd == 112
+            q32 = q.float()
+            if quantized:
+                got32 = kfa.flash_attention_quantized(q32, *args, causal, simt)
+                want32 = kfa.flash_attention_quantized_plain(
+                    q32, kq, vq, ks[..., 0], vs[..., 0], causal)
+            else:
+                k32, v32 = k.float(), v.float()
+                got32 = kfa.flash_attention(q32, k32, v32, causal, simt)
+                want32 = kfa.flash_attention_plain(q32, k32, v32, causal)
+            torch.testing.assert_close(got32, want32, **FLASH_TOL["float32"])
 
 
 @pytest.mark.gpu
