@@ -3893,7 +3893,7 @@ def serve_mix_main_path(dev, counters):
             "tokens_per_s": out["tokens_per_s"],
             "p95_ttft_s": out["p95_ttft_s"], "launches": dict(counters),
             "host": {k: out["host"][k] for k in (
-                "epochs", "sched_wall_s", "device_wall_s", "captures",
+                "epochs", "sched_wall_s", "dispatch_wall_s", "captures",
                 "capture_s", "epoch_compiles")},
             "tenants": tenants}
 

@@ -116,6 +116,19 @@ the card nothing falls back to eager dispatch.  Nothing reads the
 device back to the host except the TTFT stamp of a tenant's first
 token, and the log once after the run.
 
+Counters and spans.  ``counters()`` snapshots the server's counters,
+always kept and each since construction: captures and the host seconds
+of their warm-ups, recordings and first replays, epochs and the host
+seconds of their planning and dispatch, and admission's; ``run()``'s
+``host`` reports each run's share of the epoch ones.  ``tracer``
+(:mod:`repro_torch.launch.spans`), off until ``tracer.start()``, keeps
+spans of admission (``serve.admit``), each prompt chunk
+(``serve.prefill_chunk``) and each program's call (``serve.replay``),
+each with the ids of the tenants it serves, and for every capture a
+crossing record: a device mark as the capture begins and one before its
+program's first replay, with the capture's warm-up, recording and
+first-replay spans (``serve.capture.*``) between them.
+
 Serve features (the reference's, decision for decision): prefix-hash
 KV dedup (``prefix_dedup``: session prompts register their caches in
 the pool's ``PrefixIndex`` and later arrivals attach), predictive grant
@@ -229,6 +242,7 @@ from repro_torch.core.vmem import (LANE, PAGE_BYTES, VMEM_PAGES,
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.fault_tolerance import StragglerPolicy
 from repro_torch.kernels import counters as kcount
+from repro_torch.launch import spans
 from repro_torch.launch.mesh import (ServingMesh, make_serving_mesh,
                                      replica_submeshes)
 from repro_torch.models import model as M
@@ -419,17 +433,21 @@ class _CompiledEntry:
     recorded (``launches``, added to the counters at every replay), or,
     where the server captures nothing (the CPU, the serial loop), the
     eager closure itself.  ``aot`` marks an entry ``warm_aot`` built
-    ahead of its first use; ``aot_hits`` counts its dispatches."""
+    ahead of its first use; ``aot_hits`` counts its dispatches.
+    ``first`` launches a graph's first replay (the server times it), then
+    is dropped."""
 
-    __slots__ = ("fn", "graph", "launches", "aot", "aot_hits")
+    __slots__ = ("fn", "graph", "launches", "aot", "aot_hits", "first")
 
     def __init__(self, fn: Callable[[], None], graph: Any = None,
-                 launches: Optional[Dict[str, int]] = None):
+                 launches: Optional[Dict[str, int]] = None,
+                 first: Optional[Callable[[Any], None]] = None):
         self.fn = fn
         self.graph = graph
         self.launches = launches or {}
         self.aot = False
         self.aot_hits = 0
+        self.first = first
 
     def __call__(self) -> None:
         if self.aot:
@@ -437,7 +455,11 @@ class _CompiledEntry:
         if self.graph is None:
             self.fn()
         else:
-            self.graph.replay()
+            if self.first is not None:
+                first, self.first = self.first, None
+                first(self.graph)
+            else:
+                self.graph.replay()
             kcount.add(self.launches)
 
 
@@ -619,10 +641,15 @@ class MultiTenantServer:
         self._anchor = None
         self._graph_pool = None
         self._warm_sigs: set = set()
+        # counters since construction (``counters()``): captures and the
+        # host seconds inside them, of their warm-ups and recordings, and
+        # of their programs' first replays
         self._captures = 0
         self._capture_s = 0.0
         self._warmups = 0
         self._warmup_s = 0.0
+        self._record_s = 0.0
+        self._first_replay_s = 0.0
         self._depart_evictions = 0
         self._preempt_evictions = 0
         self._snapshot_bytes = 0      # prefix snapshots cloned on the device
@@ -630,13 +657,17 @@ class MultiTenantServer:
         self._aot_compiled = 0
         self._run_steps = 0
         self._lookahead_adjusted = 0
-        # host-path instrumentation: per-epoch scheduling wall and
-        # dispatch wall, and admission (param / cache materialization)
-        self._sched_walls: List[float] = []
-        self._device_walls: List[float] = []
-        self._admit_walls: List[float] = []
+        # host-path counters since construction: epochs, their scheduling
+        # and dispatch walls, and admission (param / cache
+        # materialization); run() reports each run's share
+        self._epochs = 0
+        self._sched_wall = 0.0
+        self._dispatch_wall = 0.0
         self._admit_wall = 0.0
+        self._run_base = self.counters()
         self._epoch_compiles: List[int] = []
+        # spans and device marks, off until tracer.start()
+        self.tracer = spans.Tracer(self.device)
         self._batched_runs = 0
         self._oracle_runs = 0
         # fault tolerance: a logical-clock fault schedule consumed at
@@ -742,6 +773,15 @@ class MultiTenantServer:
         aid = spec.model if isinstance(spec.model, str) else spec.model.name
         i = spec.seed if spec.seed is not None else self._n_admitted
         self._n_admitted += 1
+        tid = f"t{i}:{aid}"
+        tr = self.tracer
+        with tr.span("serve.admit", (tid,)) if tr.on else spans.OFF:
+            return self._materialise(spec, due_wall, aid, i, tid)
+
+    def _materialise(self, spec: TenantSpec, due_wall: Optional[float],
+                     aid: str, i: int, tid: str) -> Tenant:
+        """The body of :meth:`_admit_spec`: the tenant's params, tasks,
+        reservation, buffers and caches."""
         cfg = self._cfg(aid)
         pkey = spec.param_seed if spec.param_seed is not None else i
         params = (self._params_fn(cfg, pkey) if self._params_fn is not None
@@ -750,7 +790,6 @@ class MultiTenantServer:
             params = tp.shard_params(params, self.mesh)
         if cfg.name not in self._step_fns:
             self._step_fns[cfg.name] = M.make_decode_step(cfg)
-        tid = f"t{i}:{aid}"
         tm = _tenant_model(_ffn_graph(aid, cfg, seq_block=self.batch),
                            self.mapper)
         self._align_lbm_to_vmem(tm, cfg, max(self.batch, LANE))
@@ -1304,7 +1343,8 @@ class MultiTenantServer:
         if self._straggler_left > 0:
             self._straggler_left -= 1
             dt = self._straggler_factor
-        if self.straggler.observe(len(self._device_walls), dt):
+        if self.straggler.observe(self._epochs - self._run_base["epochs"],
+                                  dt):
             self.straggler.strikes = 0
             v = self._select_victim()
             self.fault_log.record(self._clock, "straggler_trip",
@@ -1763,9 +1803,31 @@ class MultiTenantServer:
             with self._on_device():
                 return self._plan_epoch_inner(now, steps)
         finally:
-            adm = self._admit_wall - a0
-            self._sched_walls.append(time.perf_counter() - t0 - adm)
-            self._admit_walls.append(adm)
+            self._sched_wall += time.perf_counter() - t0 - (self._admit_wall
+                                                             - a0)
+
+    @property
+    def _sched_walls(self) -> Tuple[float]:
+        """The scheduling wall since construction as a one-element tuple
+        (``perfbench/harness.py`` sums it)."""
+        return (self._sched_wall,)
+
+    def counters(self) -> Dict[str, float]:
+        """A snapshot of the server's counters, each since construction:
+        programs captured (``captures``) and the host seconds inside the
+        captures (``capture_s``), of their eager warm-ups (``warmups``,
+        ``warmup_s``), of their graph recordings (``record_s``) and of
+        their programs' first replays (``first_replay_s``); epochs
+        dispatched (``epochs``), their host planning (``sched_wall_s``,
+        admission apart) and dispatch (``dispatch_wall_s``) seconds, and
+        admission's (``admit_wall_s``)."""
+        return {"captures": self._captures, "capture_s": self._capture_s,
+                "warmups": self._warmups, "warmup_s": self._warmup_s,
+                "record_s": self._record_s,
+                "first_replay_s": self._first_replay_s,
+                "epochs": self._epochs, "sched_wall_s": self._sched_wall,
+                "dispatch_wall_s": self._dispatch_wall,
+                "admit_wall_s": self._admit_wall}
 
     def _plan_epoch_inner(self, now: float, steps: int) -> List[Tuple]:
         """Host-side scheduling for one epoch: admit due arrivals, retire
@@ -1914,12 +1976,18 @@ class MultiTenantServer:
         """Queue one prefill chunk on the device (one replay).  Returns
         the tenant when this was its prompt's final chunk."""
         _, t, _, chunk = item
-        self._prefill_fn(t, chunk, self._kv_len(t.pf_pos + chunk))()
-        t.pf_pos += chunk
-        t.pf_computed += chunk
-        if not t.prefilling:
-            self._finish_prefill(t)
-            return t
+        tr = self.tracer
+        with (tr.span("serve.prefill_chunk", (t.tid,), "prefill") if tr.on
+              else spans.OFF):
+            entry = self._prefill_fn(t, chunk, self._kv_len(t.pf_pos + chunk))
+            with (tr.span("serve.replay", (t.tid,), "prefill") if tr.on
+                  else spans.OFF):
+                entry()
+            t.pf_pos += chunk
+            t.pf_computed += chunk
+            if not t.prefilling:
+                self._finish_prefill(t)
+                return t
         return None
 
     # --------------------------------------------------- decode programs --
@@ -2038,6 +2106,11 @@ class MultiTenantServer:
         if not self._capture_graphs:
             return _CompiledEntry(fn)
         t0 = time.perf_counter()
+        tr = self.tracer
+        # traced: the crossing's first device mark, on the serving stream
+        # before the capture stream joins it
+        rec = (tr.crossing(sig[0], tuple(t.tid for t in tenants)) if tr.on
+               else None)
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
@@ -2048,28 +2121,48 @@ class MultiTenantServer:
                 self._anchor = self._anchor_graph()
             if sig not in self._warm_sigs:
                 w0 = time.perf_counter()
-                self._warm_up(fn, tenants, advance)
+                with (tr.span(spans.WARMUP, crossing=rec) if rec is not None
+                      else spans.OFF):
+                    self._warm_up(fn, tenants, advance)
                 self._warm_sigs.add(sig)
                 self._warmups += 1
                 self._warmup_s += time.perf_counter() - w0
             graph = torch.cuda.CUDAGraph()
             before = kcount.snapshot()
-            graph.capture_begin(pool=self._graph_pool)
-            try:
-                fn()
-            except BaseException:
+            r0 = time.perf_counter()
+            with (tr.span(spans.RECORD, crossing=rec) if rec is not None
+                  else spans.OFF):
+                graph.capture_begin(pool=self._graph_pool)
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass   # the capture is invalid already; report fn's error
-                raise
-            graph.capture_end()
+                    fn()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        # the capture is invalid already; report fn's error
+                        pass
+                    raise
+                graph.capture_end()
+            self._record_s += time.perf_counter() - r0
             launches = kcount.delta(before)
             kcount.add(launches, -1)
         main.wait_stream(stream)
         self._captures += 1
         self._capture_s += time.perf_counter() - t0
-        return _CompiledEntry(fn, graph, launches)
+        return _CompiledEntry(fn, graph, launches,
+                              first=lambda g: self._first_replay(g, rec))
+
+    def _first_replay(self, graph: Any, rec: Optional[spans.Crossing]) -> None:
+        """A program's first replay (its graph's upload), timed; traced,
+        after the crossing's second device mark, on the serving stream."""
+        t0 = time.perf_counter()
+        if rec is None:
+            graph.replay()
+        else:
+            rec.d1 = self.tracer.event()
+            with self.tracer.span(spans.FIRST_REPLAY, crossing=rec):
+                graph.replay()
+        self._first_replay_s += time.perf_counter() - t0
 
     def _anchor_graph(self) -> Tuple[Any, torch.Tensor]:
         """A one-kernel graph the server keeps for its lifetime, captured
@@ -2224,7 +2317,8 @@ class MultiTenantServer:
             with self._on_device():
                 self._dispatch_epoch_inner(work)
         finally:
-            self._device_walls.append(time.perf_counter() - t0)
+            self._dispatch_wall += time.perf_counter() - t0
+            self._epochs += 1
             self._epoch_compiles.append(self.compile_misses() - m0)
             self._observe_epoch()
 
@@ -2239,12 +2333,17 @@ class MultiTenantServer:
                 done = self._dispatch_prefill(item)
                 if done is not None:
                     finished.append(done)
+        tr = self.tracer
         for item in work:
             if item[0] == "prefill":
                 continue
-            self._fused_epoch_fn(item)()
+            entry = self._fused_epoch_fn(item)
             kind, who, _, k = item
-            for t in (who if kind == "bucket" else [who]):
+            group = who if kind == "bucket" else [who]
+            with (tr.span("serve.replay", tuple(t.tid for t in group), kind)
+                  if tr.on else spans.OFF):
+                entry()
+            for t in group:
                 self._advance(t, k)
         for t in finished:
             self._stamp_ttft(t)
@@ -2287,10 +2386,7 @@ class MultiTenantServer:
     # ------------------------------------------------------------ run --
     def _begin_run(self, steps: int) -> None:
         self._run_t0 = time.time()
-        self._sched_walls = []
-        self._device_walls = []
-        self._admit_walls = []
-        self._admit_wall = 0.0
+        self._run_base = self.counters()
         self._epoch_compiles = []
         self._lookahead_adjusted = 0
         self._batched_runs = 0
@@ -2353,8 +2449,9 @@ class MultiTenantServer:
         ttfts = [t.ttft for t in self.tenants
                  if t.ttft is not None and t.admitted_wall is not None
                  and t.admitted_wall >= t0]
-        sched = float(sum(self._sched_walls))
-        device = float(sum(self._device_walls))
+        now, base = self.counters(), self._run_base
+        sched = now["sched_wall_s"] - base["sched_wall_s"]
+        dispatch = now["dispatch_wall_s"] - base["dispatch_wall_s"]
         return {
             "tenants": {
                 t.tid: {"tokens": t.tokens_served,
@@ -2401,14 +2498,14 @@ class MultiTenantServer:
                 # serial loop and over distinct cards)
                 "tp": len(self.group),
                 "captured": self._capture_graphs,
-                "epochs": len(self._device_walls),
+                # this run's epochs, and the host seconds of their
+                # planning, dispatch (queueing their device work) and
+                # admissions
+                "epochs": now["epochs"] - base["epochs"],
                 "sched_wall_s": sched,
-                "device_wall_s": device,
-                "admit_wall_s": float(sum(self._admit_walls)),
-                "sched_frac": sched / device if device > 0 else 0.0,
-                "epoch_sched_walls": [round(x, 6) for x in self._sched_walls],
-                "epoch_device_walls": [round(x, 6)
-                                       for x in self._device_walls],
+                "dispatch_wall_s": dispatch,
+                "admit_wall_s": now["admit_wall_s"] - base["admit_wall_s"],
+                "sched_frac": sched / dispatch if dispatch > 0 else 0.0,
                 "epoch_compiles": list(self._epoch_compiles),
                 "batched_runs": self._batched_runs,
                 "oracle_runs": self._oracle_runs,
@@ -2953,7 +3050,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     host = out.get("host") or {}
     if host.get("epochs"):
         print(f"[serve] host: sched {host['sched_wall_s'] * 1e3:.1f}ms vs "
-              f"device {host['device_wall_s'] * 1e3:.1f}ms "
+              f"dispatch {host['dispatch_wall_s'] * 1e3:.1f}ms "
               f"({host['sched_frac'] * 100:.1f}%), "
               f"{host['batched_runs']} batched / {host['oracle_runs']} "
               f"oracle runs, compiles/epoch {host['epoch_compiles']}, "

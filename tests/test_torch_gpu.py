@@ -29,6 +29,9 @@ MATMUL_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
               "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+# the server tracer's clock error: the host's wake-up after a waited-for
+# event plus the host and device clocks' drift over a run
+CLOCK_ERROR_NS = 1_000_000
 
 
 # cache_matmul shapes (M, K, N) per tile kind: ragged rows, N and K not
@@ -381,6 +384,40 @@ def test_graph_replay_adds_its_capture_launches():
     entry()
     torch.cuda.synchronize()
     assert kcount.delta(before) == entry.launches
+
+
+@pytest.mark.gpu
+def test_kv_window_crossing_leaves_one_crossing_record():
+    """Two residents decoding as one bucket cross a 128-token kv window
+    with the server's tracer on: the one capture leaves one crossing
+    record, its marks in order on the host clock, the host's warm-up and
+    recording inside its gap no longer than the gap, and each mark after
+    the host work that precedes it on the device (within the tracer's
+    clock error, ``CLOCK_ERROR_NS``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import spans
+    from repro_torch.launch.serve import MultiTenantServer
+    cfg = _bf16("yi-9b", "yi-9b-graphs")
+    srv = MultiTenantServer([cfg.name, cfg.name], batch=2, max_len=256,
+                            epoch_len=4, device="cuda", reduced=False)
+    srv.run(120)                       # positions 0-119: kv window 128
+    captures = srv._captures
+    srv.tracer.start()
+    srv.run(16)                        # 120-135: one crossing, at 128
+    assert srv._captures == captures + 1
+    (rec,) = srv.tracer.crossings()
+    assert rec["kind"] == "bucket" and len(rec["tids"]) == 2
+    assert rec["d0_ns"] <= rec["d1_ns"]
+    assert rec["warmup_s"] > 0 and rec["record_s"] > 0
+    assert rec["warmup_in_s"] + rec["record_in_s"] <= rec["gap_s"]
+    assert rec["compile_ns"] <= rec["d0_ns"] + CLOCK_ERROR_NS
+    (recording,) = [s for s in srv.tracer.spans() if s["name"] == spans.RECORD]
+    assert recording["tids"] == rec["tids"]
+    assert recording["end_ns"] <= rec["d1_ns"] + CLOCK_ERROR_NS
+    names = {s["name"] for s in srv.tracer.spans()}
+    assert {spans.WARMUP, spans.RECORD, spans.FIRST_REPLAY,
+            "serve.replay"} <= names
 
 
 # ---------------------------------------------------------------- MoE --
