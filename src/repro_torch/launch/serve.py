@@ -102,14 +102,20 @@ alive when every program in it is evicted.  A departure evicts every
 entry that names the tenant before its buffers are freed; these
 evictions are counted apart from the LRU's.
 
-Capture on the card.  The first capture of a signature (a key without
-its tenant ids) follows one eager run of the same function on the
-capture stream, which loads the kernels' libraries, sets their
-attributes and warms cuBLAS on that stream.  It runs on the tenants'
-own buffers with their feedback tokens, positions and SSM states copied
-aside and put back; the KV rows and log entries it writes lie at or
-past the position, where the replay writes them again before anything
-reads them.  Neither the warm-up's launches nor the capture's are
+Capture on the card.  The first capture of a warm-up key
+(``_warmup_key``: a program key without its kv window and tenant ids,
+so a decode item's kind, arch, plan, k, bucket size and KV dtype, a
+prompt chunk's arch, KV dtype and length) follows one eager run of the
+same function on the capture stream, which loads the kernels' libraries,
+sets their attributes and warms cuBLAS on that stream.  It runs on the
+tenants' own buffers with their feedback tokens, positions and SSM
+states copied aside and put back; the KV rows and log entries it writes
+lie at or past the position, where the replay writes them again before
+anything reads them.  A later kv window of the same key runs the same
+operations over a longer K/V read and is recorded without a warm-up:
+the recording submits nothing, so it runs while the device still drains
+the epochs queued before it, where a warm-up's eager launches would
+wait behind them.  Neither the warm-up's launches nor the capture's are
 counted: each replay adds the launch counts its capture recorded
 (``kernels/counters.py``).  A capture or replay that fails raises; on
 the card nothing falls back to eager dispatch.  Nothing reads the
@@ -381,6 +387,20 @@ def _params_key(spec: TenantSpec, kv_dtype: str) -> str:
     return key
 
 
+def _warmup_key(key: Tuple, group: List[Tenant]) -> Tuple:
+    """The key a program's eager warm-up is kept under (``_compile``): its
+    program key without the kv window and the tenant ids.  A decode
+    item's (kind, arch, plan, k, kv window, tids) gives (kind, arch,
+    plan, k, bucket size, KV dtype); a prompt chunk's (tid, chunk, kv
+    window) gives ("prefill", arch, KV dtype, chunk).  What is kept
+    chooses the kernels and their tiles; a later kv window runs the same
+    operations over a longer K/V read."""
+    t = group[0]
+    if len(key) == 3:
+        return ("prefill", t.cfg.name, t.kv_dtype, key[1])
+    kind, arch, plan, k = key[:4]
+    return (kind, arch, plan, k, len(group), t.kv_dtype)
+
 
 class _LruCache:
     """Bounded LRU map for the server's program caches (the reference's
@@ -640,7 +660,7 @@ class MultiTenantServer:
         # the server keeps (see _anchor_graph)
         self._anchor = None
         self._graph_pool = None
-        self._warm_sigs: set = set()
+        self._warm_sigs: set = set()      # warm-up keys run so far
         # counters since construction (``counters()``): captures and the
         # host seconds inside them, of their warm-ups and recordings, and
         # of their programs' first replays
@@ -1816,7 +1836,9 @@ class MultiTenantServer:
         """A snapshot of the server's counters, each since construction:
         programs captured (``captures``) and the host seconds inside the
         captures (``capture_s``), of their eager warm-ups (``warmups``,
-        ``warmup_s``), of their graph recordings (``record_s``) and of
+        ``warmup_s``: one per warm-up key, ``_warmup_key``, so
+        ``captures - warmups`` counts the captures that reused an earlier
+        warm-up), of their graph recordings (``record_s``) and of
         their programs' first replays (``first_replay_s``); epochs
         dispatched (``epochs``), their host planning (``sched_wall_s``,
         admission apart) and dispatch (``dispatch_wall_s``) seconds, and
@@ -1966,9 +1988,8 @@ class MultiTenantServer:
         key = (t.tid, chunk, kv)
         entry = self._prefill_jits.get(key)
         if entry is None:
-            entry = self._compile(
-                lambda: self._prefill_body(t, chunk, kv),
-                ("prefill", t.cfg.name, t.kv_dtype, chunk, kv), [t], chunk)
+            entry = self._compile(lambda: self._prefill_body(t, chunk, kv),
+                                  _warmup_key(key, [t]), [t], chunk)
             self._prefill_jits[key] = entry
         return entry
 
@@ -2044,8 +2065,8 @@ class MultiTenantServer:
     def _build_entry(self, key: Tuple) -> _CompiledEntry:
         live = {t.tid: t for t in self.tenants if not t.departed}
         group = [live[tid] for tid in key[5]]
-        sig = key[:5] + (len(group), group[0].kv_dtype)
-        return self._compile(self._decode_fn(key), sig, group, key[3])
+        return self._compile(self._decode_fn(key), _warmup_key(key, group),
+                             group, key[3])
 
     def _fused_epoch_fn(self, item: Tuple) -> _CompiledEntry:
         """The program of one decode item (single tenant or bucket), from
@@ -2096,20 +2117,23 @@ class MultiTenantServer:
         for b, v in zip(bufs, saved):
             b.copy_(v)
 
-    def _compile(self, fn: Callable[[], None], sig: Tuple,
+    def _compile(self, fn: Callable[[], None], warm: Tuple,
                  tenants: List[Tenant], advance: int) -> _CompiledEntry:
         """One program: the eager closure where the server captures
         nothing, else ``fn`` captured into a CUDA graph on the server's
-        capture stream and memory pool, after a warm-up where ``sig`` has
-        none yet.  The launches the capture counted are taken back and
-        kept for the replays.  A failure raises."""
+        capture stream and memory pool, after an eager warm-up where the
+        warm-up key ``warm`` (``_warmup_key``: the program key without its
+        kv window and tenant ids) has had none yet.  A later kv window of
+        the same key is recorded at once, while the device still runs the
+        epochs queued before it.  The launches the capture counted are
+        taken back and kept for the replays.  A failure raises."""
         if not self._capture_graphs:
             return _CompiledEntry(fn)
         t0 = time.perf_counter()
         tr = self.tracer
         # traced: the crossing's first device mark, on the serving stream
         # before the capture stream joins it
-        rec = (tr.crossing(sig[0], tuple(t.tid for t in tenants)) if tr.on
+        rec = (tr.crossing(warm[0], tuple(t.tid for t in tenants)) if tr.on
                else None)
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
@@ -2119,12 +2143,12 @@ class MultiTenantServer:
         with torch.cuda.stream(stream):
             if self._anchor is None:
                 self._anchor = self._anchor_graph()
-            if sig not in self._warm_sigs:
+            if warm not in self._warm_sigs:
                 w0 = time.perf_counter()
                 with (tr.span(spans.WARMUP, crossing=rec) if rec is not None
                       else spans.OFF):
                     self._warm_up(fn, tenants, advance)
-                self._warm_sigs.add(sig)
+                self._warm_sigs.add(warm)
                 self._warmups += 1
                 self._warmup_s += time.perf_counter() - w0
             graph = torch.cuda.CUDAGraph()

@@ -390,10 +390,11 @@ def test_graph_replay_adds_its_capture_launches():
 def test_kv_window_crossing_leaves_one_crossing_record():
     """Two residents decoding as one bucket cross a 128-token kv window
     with the server's tracer on: the one capture leaves one crossing
-    record, its marks in order on the host clock, the host's warm-up and
-    recording inside its gap no longer than the gap, and each mark after
-    the host work that precedes it on the device (within the tracer's
-    clock error, ``CLOCK_ERROR_NS``)."""
+    record, its marks in order on the host clock, no warm-up (the first
+    window warmed its warm-up key) and the host's recording inside its
+    gap no longer than the gap, and each mark after the host work that
+    precedes it on the device (within the tracer's clock error,
+    ``CLOCK_ERROR_NS``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.launch import spans
@@ -402,22 +403,55 @@ def test_kv_window_crossing_leaves_one_crossing_record():
     srv = MultiTenantServer([cfg.name, cfg.name], batch=2, max_len=256,
                             epoch_len=4, device="cuda", reduced=False)
     srv.run(120)                       # positions 0-119: kv window 128
-    captures = srv._captures
+    captures, warmups = srv._captures, srv._warmups
     srv.tracer.start()
     srv.run(16)                        # 120-135: one crossing, at 128
-    assert srv._captures == captures + 1
+    assert srv._captures == captures + 1 and srv._warmups == warmups
     (rec,) = srv.tracer.crossings()
     assert rec["kind"] == "bucket" and len(rec["tids"]) == 2
     assert rec["d0_ns"] <= rec["d1_ns"]
-    assert rec["warmup_s"] > 0 and rec["record_s"] > 0
-    assert rec["warmup_in_s"] + rec["record_in_s"] <= rec["gap_s"]
+    assert rec["warmup_s"] == rec["warmup_in_s"] == 0
+    assert rec["record_s"] > 0
+    assert rec["record_in_s"] <= rec["gap_s"]
     assert rec["compile_ns"] <= rec["d0_ns"] + CLOCK_ERROR_NS
     (recording,) = [s for s in srv.tracer.spans() if s["name"] == spans.RECORD]
     assert recording["tids"] == rec["tids"]
     assert recording["end_ns"] <= rec["d1_ns"] + CLOCK_ERROR_NS
     names = {s["name"] for s in srv.tracer.spans()}
-    assert {spans.WARMUP, spans.RECORD, spans.FIRST_REPLAY,
-            "serve.replay"} <= names
+    assert {spans.RECORD, spans.FIRST_REPLAY, "serve.replay"} <= names
+    assert spans.WARMUP not in names
+
+
+@pytest.mark.gpu
+def test_later_kv_windows_record_without_a_warmup():
+    """A graph-capturing server serves two residents as one bucket
+    through four kv windows (positions 0-499), and an arrival whose
+    prompt runs in chunks of 256, 256 and 188 tokens (kv windows 256, 512
+    and 768): one eager warm-up per warm-up key, every later window's
+    capture recorded without one, and the tokens of the serial eager
+    loop (``pipeline=False``), bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from repro_torch.launch.serve import MultiTenantServer
+    from repro_torch.sim.driver import TenantSpec
+    cfg = _bf16("yi-9b", "yi-9b-graphs")
+    kw = dict(batch=2, max_len=1024, epoch_len=4, device="cuda",
+              reduced=False, tenants=[TenantSpec(cfg.name, arrive_at=200.0,
+                                                 prompt_len=700,
+                                                 n_inferences=60)])
+    srv = MultiTenantServer([cfg.name, cfg.name], **kw)
+    got = srv.run(500)
+    assert srv.tenants[2].chunks == [256, 256, 188]
+    kvs = {key[4] for key in srv._fused_jits.keys() if key[0] == "bucket"}
+    assert kvs == {128, 256, 384, 512}
+    assert srv._warmups == len(srv._warm_sigs) < srv._captures
+    assert srv._captures - srv._warmups >= len(kvs) - 1
+    serial = MultiTenantServer([cfg.name, cfg.name], pipeline=False, **kw)
+    want = serial.run(500)
+    assert got["tenants"].keys() == want["tenants"].keys()
+    for tid, o in want["tenants"].items():
+        assert np.array_equal(got["tenants"][tid]["output"], o["output"]), tid
 
 
 # ---------------------------------------------------------------- MoE --
