@@ -29,13 +29,15 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from perfbench import families
 from perfbench import metrics as readers
-from perfbench import roofline, trace, weights
+from perfbench import trace
 from perfbench.reference import compare
 from perfbench.traffic import generator as gen
 
@@ -57,7 +59,7 @@ def forbidden_modules() -> List[str]:
 
 def load_cell(name: str, bench_path: Path) -> Dict[str, Any]:
     """The workload ``name`` of ``BENCHMARK.json`` with its config file,
-    its mix and the metrics it reports."""
+    the model family it names, its mix and the metrics it reports."""
     bench = json.loads(bench_path.read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -70,9 +72,9 @@ def load_cell(name: str, bench_path: Path) -> Dict[str, Any]:
     per_layer = [m for m in bench["per_layer"]
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
-    return {"name": name, "chips": cell["chips"],
-            "config": json.loads((bench_path.parent / conf["file"]).read_text()),
-            "mix": gen.load(cell["traffic"]),
+    config = json.loads((bench_path.parent / conf["file"]).read_text())
+    return {"name": name, "chips": cell["chips"], "config": config,
+            "family": families.load(config), "mix": gen.load(cell["traffic"]),
             "end_to_end": e2e, "per_layer": per_layer}
 
 
@@ -429,16 +431,18 @@ def _wrap_spans(server) -> None:
             setattr(server, name, wrap(name, fn))
 
 
-def _window_flops(arch: Dict[str, Any], w: Window, batch: int) -> float:
+def _window_flops(family: ModuleType, arch: Dict[str, Any], w: Window,
+                  batch: int) -> float:
     """Model operations of the prompt and decode tokens done between the
-    window's open and close, every row of every tenant."""
+    window's open and close, every row of every tenant, counted by the
+    cell's family."""
     total = 0
     for tid, c in w.close["tenants"].items():
         o = w.open["tenants"].get(tid, {"index": 0, "pf_pos": 0})
         P = w.requests[req_index(tid)].prompt_len
-        total += roofline.span_flops(arch, o["pf_pos"], c["pf_pos"])
+        total += family.span_flops(arch, o["pf_pos"], c["pf_pos"])
         if c["fed"]:
-            total += roofline.span_flops(arch, max(o["index"], P), c["index"])
+            total += family.span_flops(arch, max(o["index"], P), c["index"])
     return float(total * batch)
 
 
@@ -534,10 +538,11 @@ def _sample(w: Window, server_out: Dict[str, Any], seed: int,
 
 
 def check(samples: List[Dict[str, Any]], traffic: gen.Traffic,
-          weight_sets: Dict[int, Any], arch: Dict[str, Any], device,
+          weight_sets: Dict[int, Any], family: ModuleType,
+          arch: Dict[str, Any], device,
           control: bool = False) -> Dict[str, Any]:
-    """Every sampled row against the reference: the widest gap (and the
-    control's, when asked), with the tokens compared."""
+    """Every sampled row against the family's reference: the widest gap
+    (and the control's, when asked), with the tokens compared."""
     results = []
     for s in samples:
         r, served = s["request"], s["served"]
@@ -550,8 +555,8 @@ def check(samples: List[Dict[str, Any]], traffic: gen.Traffic,
                             "where": "served token outside the vocabulary"})
             continue
         rows = [(prompt[i], served[i]) for i in s["rows"]]
-        res = compare.gaps(weight_sets[r.instance], arch, rows, device,
-                           control=control)
+        res = compare.gaps(family, weight_sets[r.instance], arch, rows,
+                           device, control=control)
         res.update(request=r.index, kind=r.kind, prompt_len=r.prompt_len,
                    served=int(served.shape[1]))
         results.append(res)
@@ -568,7 +573,7 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace_on: bool,
     """Set up, serve, measure, drain, compare.  Returns the result line
     (and, with ``control``, the control's reading beside it)."""
     device = torch.device(device)
-    config, mix = cell["config"], cell["mix"]
+    config, mix, family = cell["config"], cell["mix"], cell["family"]
     arch = config["arch"]
     cfg = register_arch(config)
     # the config sizes the server for its decode mix; a mix with longer
@@ -583,7 +588,7 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace_on: bool,
             print(f"[perfbench] built {sorted(built)}", file=sys.stderr)
     marks = {"imported": time.perf_counter() - t_process}
     instances = int(config["instances"])
-    weight_sets = {i: weights.make(arch, seed, i, device)
+    weight_sets = {i: family.make(arch, seed, i, device)
                    for i in range(instances)}
     _sync(device)
     marks["weights"] = time.perf_counter() - t_process
@@ -637,7 +642,7 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace_on: bool,
     w = {"seconds": window_s - window.profiler_s,
          "tokens": window.close["tokens"] - window.open["tokens"],
          "arrivals": window.next_arrival,
-         "flops": _window_flops(arch, window, batch),
+         "flops": _window_flops(family, arch, window, batch),
          "tenant_steps": _decode_steps(window, window.open, window.close),
          **{k: window.close[k] - window.open[k]
             for k in ("capture_s", "captures", "sched_s", "admit_s")},
@@ -668,7 +673,8 @@ def run_cell(cell: Dict[str, Any], seed: int, seconds: float, trace_on: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = check(samples, traffic, weight_sets, arch, device, control=control)
+    ref = check(samples, traffic, weight_sets, family, arch, device,
+                control=control)
     # each number compared, with its limit: at most, or at least (``min``)
     checks = {k: {"value": ref["readings"][k], "limit": float(v)}
               for k, v in config["limits"].items()}

@@ -9,7 +9,8 @@ and the harness leaves the metric out of the result line.
   mix and rows per request;
 * ``window``: the measured window's ``seconds``, output ``tokens``,
   ``arrivals`` sent, decode ``tenant_steps``, model ``flops`` (from
-  shapes, ``roofline.py``), and the server's counters' change across it:
+  shapes, the cell family's ``span_flops``), and the server's counters'
+  change across it:
   ``capture_s``, ``captures``, ``sched_s``, ``admit_s`` (the harness's
   own time inside the server's planning, ``hook_s``, taken out of
   ``sched_s``; the profiler's own start and stop, ``profiler_s``, out of

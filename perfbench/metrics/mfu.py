@@ -1,6 +1,6 @@
 """The whole step's share of the card's peak: model operations of the
-prompt and decode tokens done in the window (from shapes,
-``roofline.span_flops``) over the window's seconds times the dense bf16
+prompt and decode tokens done in the window (from shapes, the cell's
+family's ``span_flops``) over the window's seconds times the dense bf16
 peak."""
 from perfbench import roofline
 

@@ -10,19 +10,28 @@ run's numbers are the widest gap over every compared token and the
 share of compared tokens that are not the reference's argmax.
 
 The control (``control=True``) reads the same for the token that the
-fp8 reference (``model.hidden(..., quant="fp8")``) puts first at each of
+fp8 reference (``family.hidden(..., quant="fp8")``) puts first at each of
 the same positions.
+
+The reference is the cell's family module (``perfbench/families/``): its
+``hidden`` and ``logits``, in float32 with TF32 off.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from perfbench.reference import model as ref
-
 BLOCK = 256     # positions whose logits are held at once
+
+
+def no_tf32() -> None:
+    """float32 products in float32: no TF32 on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def _row_tokens(prompt: np.ndarray, served: np.ndarray) -> np.ndarray:
@@ -32,14 +41,15 @@ def _row_tokens(prompt: np.ndarray, served: np.ndarray) -> np.ndarray:
 
 
 @torch.inference_mode()
-def gaps(weights: Dict[str, Any], arch: Dict[str, Any],
+def gaps(family: ModuleType, weights: Dict[str, Any], arch: Dict[str, Any],
          rows: Sequence[Tuple[np.ndarray, np.ndarray]], device: Any,
          control: bool = False) -> Dict[str, Any]:
     """``rows``: (prompt [P], served [n]) pairs of one weight set, every
-    row of one length.  Returns the widest gap of the served tokens
-    (``gap``), with ``control_gap`` (the fp8 reference's first choice) when
-    asked, the number of tokens compared and where the widest gap lies."""
-    ref.no_tf32()
+    row of one length, held to ``family``'s reference.  Returns the widest
+    gap of the served tokens (``gap``), with ``control_gap`` (the fp8
+    reference's first choice) when asked, the number of tokens compared
+    and where the widest gap lies."""
+    no_tf32()
     prompt_len = {len(p) for p, _ in rows}
     served_len = {len(s) for _, s in rows}
     if len(prompt_len) != 1 or len(served_len) != 1:
@@ -49,13 +59,13 @@ def gaps(weights: Dict[str, Any], arch: Dict[str, Any],
                            device=device)
     served = torch.as_tensor(np.stack([s for _, s in rows]).astype(np.int64),
                              device=device)
-    h = ref.hidden(weights, arch, toks)[:, P - 1:]           # [r, n, d]
-    h8 = ref.hidden(weights, arch, toks, quant="fp8")[:, P - 1:] \
+    h = family.hidden(weights, arch, toks)[:, P - 1:]           # [r, n, d]
+    h8 = family.hidden(weights, arch, toks, quant="fp8")[:, P - 1:] \
         if control else None
     widest, ctrl, where = 0.0, 0.0, None
     missed, ctrl_missed = 0, 0
     for b in range(0, n, BLOCK):
-        lg = ref.logits(weights, arch, h[:, b:b + BLOCK])
+        lg = family.logits(weights, arch, h[:, b:b + BLOCK])
         best = lg.max(-1).values
         got = lg.gather(-1, served[:, b:b + BLOCK, None])[..., 0]
         gap = best - got
@@ -66,8 +76,8 @@ def gaps(weights: Dict[str, Any], arch: Dict[str, Any],
             i = int(gap.argmax())
             where = {"row": i // gap.shape[1], "served_index": b + i % gap.shape[1]}
         if control:
-            first = ref.logits(weights, arch, h8[:, b:b + BLOCK],
-                               quant="fp8").argmax(-1)
+            first = family.logits(weights, arch, h8[:, b:b + BLOCK],
+                                  quant="fp8").argmax(-1)
             cgap = best - lg.gather(-1, first[..., None])[..., 0]
             ctrl = max(ctrl, float(cgap.max()))
             ctrl_missed += int((cgap > 0).sum())

@@ -15,8 +15,10 @@ for p in (str(ROOT / "src"), str(ROOT)):
 
 def tiny_cell(config: str, mix: str):
     """A cell dict as ``harness.load_cell`` gives it, from the test data."""
-    return {"name": f"{config}.{mix}", "chips": 1,
-            "config": json.loads((DATA / f"{config}.json").read_text()),
+    from perfbench import families
+    conf = json.loads((DATA / f"{config}.json").read_text())
+    return {"name": f"{config}.{mix}", "chips": 1, "config": conf,
+            "family": families.load(conf),
             "mix": json.loads((DATA / f"{mix}.json").read_text()),
             "end_to_end": [{"name": "setup_s", "unit": "s"},
                            {"name": "tokens_per_s", "unit": "tokens/s"},

@@ -1,5 +1,5 @@
-"""The roofline, mfu and trace arithmetic, on synthetic numbers and a
-synthetic trace."""
+"""The FLOP count (the gqa_swiglu family's), roofline, mfu and trace
+arithmetic, on synthetic numbers and a synthetic trace."""
 import math
 import types
 
@@ -7,27 +7,28 @@ import pytest
 
 from perfbench import metrics as readers
 from perfbench import roofline, trace
+from perfbench.families import gqa_swiglu
 
 ARCH = {"num_layers": 2, "d_model": 64, "num_heads": 4, "num_kv_heads": 2,
         "d_ff": 96, "vocab_size": 100, "num_experts": 0}
 
 
 def test_span_flops_sums_its_tokens():
-    per_token = roofline.matmul_flops_per_token(ARCH)
+    per_token = gqa_swiglu.matmul_flops_per_token(ARCH)
     d, hd = 64, 16
     attn = 2 * (d * 4 * hd + 2 * d * 2 * hd + 4 * hd * d)
     assert per_token == 2 * 2 * (attn // 2 + 3 * d * 96) + 2 * d * 100
     want = sum(per_token + 4 * 2 * 4 * hd * (p + 1) for p in range(5, 17))
-    assert roofline.span_flops(ARCH, 5, 17) == want
-    assert roofline.span_flops(ARCH, 7, 7) == 0
+    assert gqa_swiglu.span_flops(ARCH, 5, 17) == want
+    assert gqa_swiglu.span_flops(ARCH, 7, 7) == 0
 
 
 def test_moe_counts_routed_experts_only():
     moe = dict(ARCH, num_experts=8, experts_per_token=2, d_ff=32)
     dense = dict(ARCH, d_ff=2 * 32)
     extra = 2 * 2 * 64 * 8           # the router, both layers
-    assert roofline.matmul_flops_per_token(moe) == \
-        roofline.matmul_flops_per_token(dense) + extra
+    assert gqa_swiglu.matmul_flops_per_token(moe) == \
+        gqa_swiglu.matmul_flops_per_token(dense) + extra
 
 
 def test_gemv_bytes_and_roofline_reader():

@@ -1,10 +1,11 @@
-"""Configs, mixes and metric readers are found by name: a file dropped
-in is read without any edit to the harness."""
+"""Configs, mixes, model families and metric readers are found by name:
+a file dropped in is read without any edit to the harness."""
 import json
+import time
 
 import pytest
 
-from perfbench import harness
+from perfbench import families, harness
 from perfbench import metrics as readers
 from perfbench.traffic import generator as gen
 
@@ -52,3 +53,66 @@ def test_every_benchmark_metric_has_a_reader():
     for w in bench["workloads"]:
         cell = harness.load_cell(w["name"], harness.ROOT / "BENCHMARK.json")
         assert cell["config"]["name"] == w["config"]
+
+
+# appended to the toy family: each call the harness makes is recorded
+_RECORD_CALLS = """
+
+CALLS = []
+
+
+def _recorded(fn):
+    def call(*a, **k):
+        CALLS.append(fn.__name__)
+        return fn(*a, **k)
+    return call
+
+
+make, hidden, logits, span_flops = (_recorded(make), _recorded(hidden),
+                                    _recorded(logits), _recorded(span_flops))
+"""
+
+
+def _toy_bench(tmp_path, monkeypatch, family):
+    fams, mixes = tmp_path / "families", tmp_path / "traffic"
+    fams.mkdir()
+    mixes.mkdir()
+    (fams / "toy.py").write_text(
+        families.family_path("gqa_swiglu").read_text() + _RECORD_CALLS)
+    (mixes / "toy-mix.json").write_text(
+        (DATA / "tiny-decode.json").read_text())
+    config = dict(json.loads((DATA / "tiny-dense.json").read_text()),
+                  name="toy-config", family=family)
+    (tmp_path / "toy-config.json").write_text(json.dumps(config))
+    bench = {"configs": [{"name": "toy-config", "file": "toy-config.json"}],
+             "workloads": [{"name": "toy-config.toy-mix",
+                            "config": "toy-config", "traffic": "toy-mix",
+                            "chips": 1}],
+             "end_to_end": [{"name": "setup_s", "unit": "s"}],
+             "per_layer": [{"name": "mfu", "unit": "%", "moves": "setup_s"}]}
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    monkeypatch.setattr(families, "HERE", fams)
+    monkeypatch.setattr(gen, "HERE", mixes)
+    return tmp_path / "BENCHMARK.json"
+
+
+def test_a_new_family_is_found_and_run(tmp_path, monkeypatch):
+    bench = _toy_bench(tmp_path, monkeypatch, "toy")
+    cell = harness.load_cell("toy-config.toy-mix", bench)
+    toy = cell["family"]
+    assert toy.__file__ == str(tmp_path / "families" / "toy.py")
+    out = harness.run_cell(cell, 5, 1.5, True, "cpu", time.perf_counter())
+    assert out["result"]["correct"], out["result"]["checks"]
+    assert out["info"]["tokens_compared"] > 0
+    # weights, the reference and the FLOP count all came from the toy
+    assert {"make", "hidden", "logits", "span_flops"} <= set(toy.CALLS)
+    assert out["info"]["window"]["flops"] > 0
+    assert out["result"]["metrics"]["mfu"]["value"] > 0
+
+
+def test_a_missing_family_names_the_config(tmp_path, monkeypatch):
+    bench = _toy_bench(tmp_path, monkeypatch, "no_such_family")
+    with pytest.raises(FileNotFoundError, match="toy-config"):
+        harness.load_cell("toy-config.toy-mix", bench)
+    with pytest.raises(KeyError, match="toy-config"):
+        families.load({"name": "toy-config"})

@@ -1,10 +1,14 @@
 """Nothing the benchmark runs loads JAX or the JAX package, compared by
-whole top-level names (``repro_torch`` begins with ``repro``), and a run
-without a card prints no result."""
+whole top-level names (``repro_torch`` begins with ``repro``), a model
+family imports nothing of the program, and a run without a card prints
+no result."""
+import ast
 import subprocess
 import sys
 
-from perfbench import harness
+import pytest
+
+from perfbench import families, harness
 
 from conftest import ROOT
 
@@ -47,3 +51,19 @@ def test_no_card_no_result(tmp_path):
                          env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
     assert out.returncode != 0
     assert "correct" not in out.stdout
+
+
+FAMILY_IMPORTS = {"torch", "numpy", "math"} | set(sys.stdlib_module_names)
+
+
+@pytest.mark.parametrize("path", sorted(families.HERE.glob("*.py")),
+                         ids=lambda p: p.name)
+def test_a_family_imports_torch_numpy_and_the_standard_library(path):
+    tops = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path.name}: a relative import"
+            tops.add(node.module.split(".")[0])
+    assert tops <= FAMILY_IMPORTS, (path.name, tops - FAMILY_IMPORTS)
